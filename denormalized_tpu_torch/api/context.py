@@ -1,0 +1,86 @@
+"""Session context — the framework entry point.
+
+Counterpart of ``denormalized_tpu/api/context.py``: builds the session,
+registers sources as named tables and hands out :class:`DataStream`
+builders.  :class:`EngineConfig` carries the knobs the ported window path
+reads, plus an explicit ``device``: the device rule of the whole package.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from denormalized_tpu_torch.common.errors import PlanError
+from denormalized_tpu_torch.logical import plan as lp
+from denormalized_tpu_torch.sources.base import Source
+
+
+@dataclass
+class EngineConfig:
+    """Engine tuning knobs (the ported subset of the JAX package's
+    EngineConfig)."""
+
+    # where the window ring and its kernels run.  "cuda" (the default)
+    # needs a CUDA device: without one Context() raises rather than carry
+    # on on the CPU.  "cpu" runs the same programs with the kernels' plain
+    # PyTorch versions (the tests use it); "cuda:N" picks a card.
+    device: str = "cuda"
+    # per-batch device step:
+    #   'scatter'       — ship rows, scatter them into the window ring
+    #   'pallas_dense'  — ship rows, the dense low-cardinality kernel
+    #                     (ops/dense_window.py; name kept from the JAX
+    #                     package), falling back per batch to scatter when
+    #                     G or the batch's window span exceeds its limits
+    #   'auto'          — the same as 'pallas_dense' here, on the card and
+    #                     on the CPU (the JAX package's rule for a
+    #                     co-located GPU)
+    #   'partial_merge' — not yet ported (raises)
+    device_strategy: str = "auto"
+    min_batch_bucket: int = 256
+    min_group_capacity: int = 128
+    min_window_slots: int = 16
+    # on-device finalization: emission ships the FINAL output columns
+    # (count/sum/min/max/avg) plus the active-group mask instead of the raw
+    # component planes
+    device_finalize: bool = True
+
+    def resolved_device(self) -> torch.device:
+        """The device the engine runs on; raises when CUDA is asked for and
+        absent (the package never falls back to the CPU on its own)."""
+        dev = torch.device(self.device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise PlanError(
+                f"EngineConfig.device={self.device!r} but no CUDA device is "
+                "available (torch.cuda.is_available() is False); pass "
+                "EngineConfig(device='cpu') to run on the CPU"
+            )
+        if dev.type not in ("cuda", "cpu"):
+            raise PlanError(f"unsupported device {self.device!r}")
+        return dev
+
+
+class Context:
+    """Session factory: registers sources, builds streams."""
+
+    def __init__(self, config: EngineConfig | None = None) -> None:
+        self.config = config or EngineConfig()
+        self.device = self.config.resolved_device()
+        self._tables: dict[str, Source] = {}
+
+    def __repr__(self) -> str:
+        return (
+            f"Context(tables=[{', '.join(sorted(self._tables))}], "
+            f"device={self.device})"
+        )
+
+    def register_source(self, name: str, source: Source) -> None:
+        self._tables[name] = source
+
+    def from_source(self, source: Source, name: str | None = None):
+        from denormalized_tpu_torch.api.data_stream import DataStream
+
+        name = name or source.name
+        self.register_source(name, source)
+        return DataStream(lp.Scan(name, source, source.schema), self)

@@ -1,0 +1,401 @@
+"""Device-resident windowed segment aggregation — the ring buffer programs.
+
+Counterpart of ``denormalized_tpu/ops/segment_agg.py`` in PyTorch.  One set
+of ``(num_window_slots, group_capacity)`` accumulator tensors, one per
+primitive component, lives on the device for *all* open windows:
+
+- window slots form a ring over the window index (slide index), so sliding
+  windows fan out on-device without duplicating row data;
+- group keys arrive as dense int32 ids from the host interner
+  (:mod:`denormalized_tpu_torch.ops.interner`);
+- nulls are neutralized per aggregate kind (0 for sum, ±inf for min/max)
+  with ``torch.where`` — select, never multiply, so a NaN behind a null
+  mask cannot reach a sum;
+- where the JAX package donates buffers, these functions update the ring
+  tensors IN PLACE (``index_add_``, ``scatter_reduce_``, slice assignment);
+- late rows (window < first_open), ring overflow and padding rows are
+  dropped.  torch has no ``mode="drop"``, so they are masked out BEFORE
+  indexing: an out-of-range flat index would raise or land in another cell.
+
+Every function except :func:`finalize` runs on the ring's device.  Counts
+are int32 and sums/min/max ``accum_dtype`` (float32), as in the JAX package;
+nothing widens silently.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+from denormalized_tpu_torch.common.errors import PlanError
+
+
+@dataclass(frozen=True)
+class AggComponent:
+    """One primitive accumulator buffer.  Composite aggregates decompose:
+    avg = sum + count (exactly as DataFusion's AvgGroupsAccumulator does)."""
+
+    kind: str  # 'count' | 'sum' | 'min' | 'max'
+    col: int | None  # value-column index; None = row count (count(*))
+
+    @property
+    def label(self) -> str:
+        return f"{self.kind}_{'star' if self.col is None else self.col}"
+
+
+# presence counter: always first so emission knows which groups are active
+ROW_COUNT = AggComponent("count", None)
+
+
+def components_for(aggs: list[tuple]) -> list[AggComponent]:
+    """Decompose aggregate specs ``(kind, value_col)`` into deduped
+    primitive components (``avg`` → sum + count)."""
+    comps: list[AggComponent] = [ROW_COUNT]
+    for spec in aggs:
+        kind, col = spec[0], spec[1]
+        if kind == "count":
+            wanted = [AggComponent("count", col)]
+        elif kind == "avg":
+            wanted = [AggComponent("sum", col), AggComponent("count", col)]
+        elif kind in ("sum", "min", "max"):
+            wanted = [AggComponent(kind, col)]
+        else:
+            raise PlanError(
+                f"aggregate kind {kind!r} not yet ported to "
+                "denormalized_tpu_torch"
+            )
+        for c in wanted:
+            if c not in comps:
+                comps.append(c)
+    return comps
+
+
+def read_sum(rows: dict[str, np.ndarray], col: int) -> np.ndarray:
+    """A column's total from an emitted row set."""
+    return rows[AggComponent("sum", col).label].astype(np.float64)
+
+
+@dataclass(frozen=True)
+class WindowKernelSpec:
+    """Static configuration of one window ring.
+
+    Window indexing: windows are identified by their *slide index* ``j``,
+    covering ``[j*slide_ms, j*slide_ms + length_ms)`` in epoch milliseconds.
+    The host rebases indices to ``win_rel = j - first_open`` so the device
+    works in small int32s; ring slots use the *absolute* index mod W via
+    ``base_mod``."""
+
+    components: tuple[AggComponent, ...]
+    num_value_cols: int
+    window_slots: int  # W — ring size over open window indices
+    group_capacity: int  # G — padded group-id capacity (multiple of 128)
+    length_ms: int
+    slide_ms: int
+    accum_dtype: Any = torch.float32
+
+    @property
+    def length_units(self) -> int:
+        """k = number of windows each row fans out to."""
+        return -(-self.length_ms // self.slide_ms)
+
+    def init_dtype(self, comp: AggComponent) -> torch.dtype:
+        return torch.int32 if comp.kind == "count" else self.accum_dtype
+
+    def init_value(self, comp: AggComponent) -> float:
+        if comp.kind in ("count", "sum"):
+            return 0
+        if comp.kind == "min":
+            return float("inf")
+        if comp.kind == "max":
+            return float("-inf")
+        raise ValueError(comp.kind)
+
+
+def init_state(
+    spec: WindowKernelSpec, device: torch.device | str
+) -> dict[str, torch.Tensor]:
+    """Allocate the device-resident accumulator buffers: one (W, G) tensor
+    per primitive component."""
+    shape = (spec.window_slots, spec.group_capacity)
+    return {
+        c.label: torch.full(
+            shape, spec.init_value(c), dtype=spec.init_dtype(c), device=device
+        )
+        for c in spec.components
+    }
+
+
+def _apply_component(
+    comp: AggComponent,
+    flat: torch.Tensor,  # (W*G,) view of the component's ring
+    idx: torch.Tensor,  # (n,) int64 flat cell index of the kept rows
+    values: torch.Tensor,  # (n, V) accum dtype, kept rows only
+    colvalid: torch.Tensor,  # (n, V) bool, kept rows only
+) -> None:
+    if comp.kind == "count":
+        if comp.col is None:
+            inc = torch.ones(idx.shape, dtype=flat.dtype, device=flat.device)
+        else:
+            inc = colvalid[:, comp.col].to(flat.dtype)
+        flat.index_add_(0, idx, inc)
+        return
+    v = values[:, comp.col]
+    ok = colvalid[:, comp.col]
+    if comp.kind == "sum":
+        flat.index_add_(0, idx, torch.where(ok, v, torch.zeros_like(v)))
+    elif comp.kind == "min":
+        flat.scatter_reduce_(
+            0, idx, torch.where(ok, v, torch.full_like(v, float("inf"))),
+            reduce="amin",
+        )
+    elif comp.kind == "max":
+        flat.scatter_reduce_(
+            0, idx, torch.where(ok, v, torch.full_like(v, float("-inf"))),
+            reduce="amax",
+        )
+    else:
+        raise ValueError(comp.kind)
+
+
+def update_state(
+    spec: WindowKernelSpec,
+    state: dict[str, torch.Tensor],
+    values: torch.Tensor,  # (B, V)
+    colvalid: torch.Tensor,  # (B, V) bool
+    win_rel: torch.Tensor,  # (B,) int32: slide-index of row minus first_open
+    rem_ms: torch.Tensor,  # (B,) int32: ts - slide_index*slide (in [0, S))
+    gid: torch.Tensor,  # (B,) int32 dense group ids from the host interner
+    row_valid: torch.Tensor,  # (B,) bool (padding rows false)
+    base_mod: int,  # first_open % W (ring phase)
+) -> dict[str, torch.Tensor]:
+    """The scatter path: scatter the batch into every window frame it
+    belongs to, updating ``state`` in place.  A row with slide-index ``t``
+    belongs to windows ``t-k+1 .. t`` (k = length_units)."""
+    W = spec.window_slots
+    G = spec.group_capacity
+    values = values.to(spec.accum_dtype)
+    gid64 = gid.long()
+    for i in range(spec.length_units):
+        wr = win_rel - i  # rebased index of the i-th window this row feeds
+        # membership: window covers the row iff i*S + rem < L; late rows
+        # (wr < 0) and ring overflow (wr >= W) are masked out
+        ok = row_valid & (wr >= 0) & (wr < W)
+        if spec.length_ms - i * spec.slide_ms < spec.slide_ms:
+            ok = ok & (rem_ms < spec.length_ms - i * spec.slide_ms)
+        ok = ok & (gid64 >= 0) & (gid64 < G)
+        keep = torch.nonzero(ok).squeeze(1)
+        slot = (wr[keep].long() + base_mod) % W
+        idx = slot * G + gid64[keep]
+        vals_k = values[keep]
+        valid_k = colvalid[keep]
+        for comp in spec.components:
+            _apply_component(
+                comp, state[comp.label].view(-1), idx, vals_k, valid_k
+            )
+    return state
+
+
+def lean_skippable(c: AggComponent) -> bool:
+    """Whether ``c``'s plane is omitted from the LEAN gather layout and
+    aliased to the row-count plane (a null-free stream's per-column counts
+    equal its row counts cell for cell)."""
+    return c.kind == "count" and c.col is not None
+
+
+def lean_possible(spec: WindowKernelSpec) -> bool:
+    """Whether the lean layout differs from the full one for this spec."""
+    return any(lean_skippable(c) for c in spec.components)
+
+
+def _read_and_reset_slots(
+    spec: WindowKernelSpec,
+    n: int,
+    g_bucket: int,
+    state: dict[str, torch.Tensor],
+    first_slot: int,
+):
+    """Copy of ``n`` consecutive ring slots (``:g_bucket`` group prefix) of
+    EVERY component, and re-initialization of those slots in place — the
+    shared read+reset core of both emission paths."""
+    W = spec.window_slots
+    any_state = next(iter(state.values()))
+    slots = (
+        first_slot + torch.arange(n, dtype=torch.long, device=any_state.device)
+    ) % W
+    comp = {}
+    for c in spec.components:
+        buf = state[c.label]
+        comp[c.label] = buf[slots, :g_bucket]  # advanced index: a copy
+        # only the transferred prefix needs resetting: cells beyond the
+        # live-group prefix were never written
+        buf[slots, :g_bucket] = spec.init_value(c)
+    return comp
+
+
+def _gather_and_reset(
+    spec: WindowKernelSpec,
+    n: int,
+    g_bucket: int,
+    state: dict[str, torch.Tensor],
+    first_slot: int,
+    lean: bool = False,
+) -> dict[str, torch.Tensor]:
+    """Read ``n`` consecutive ring slots AND reset them.  ``lean`` omits
+    per-column count planes (the host aliases them back to the row
+    count)."""
+    comp = _read_and_reset_slots(spec, n, g_bucket, state, first_slot)
+    return {
+        c.label: comp[c.label]
+        for c in spec.components
+        if not (lean and lean_skippable(c))
+    }
+
+
+# aggregate kinds whose final value is cheap elementwise math over the
+# component planes — eligible for on-device finalization at emission
+BASIC_FINAL_KINDS = ("count", "sum", "min", "max", "avg")
+
+# key of the active-group mask in a finals emission block.  The JAX package
+# packs it big-endian with jnp.packbits; torch has no packbits, so the port
+# ships the (n, g_bucket) bool mask itself — emission reads it as the
+# unpacked bits, so the emitted rows are the same.
+ACTIVE_MASK = "__active__"
+
+
+def finals_possible(agg_specs: tuple) -> bool:
+    """True when every output aggregate can be finalized on device."""
+    return all(s[0] in BASIC_FINAL_KINDS for s in agg_specs)
+
+
+def _finals_and_reset(
+    spec: WindowKernelSpec,
+    agg_specs: tuple,
+    n: int,
+    g_bucket: int,
+    state: dict[str, torch.Tensor],
+    first_slot: int,
+) -> dict[str, torch.Tensor]:
+    """Emission with on-device finalization: read ``n`` ring slots, compute
+    the FINAL output columns (count/sum/min/max/avg) and the active-group
+    mask on device, reset the slots, and return only the finals."""
+    comp = _read_and_reset_slots(spec, n, g_bucket, state, first_slot)
+    rc = comp[ROW_COUNT.label]
+    out = {ACTIVE_MASK: rc > 0}
+
+    def cnt_of(col):
+        lbl = AggComponent("count", col).label
+        return comp[lbl] if lbl in comp else rc
+
+    def sum_of(col):
+        return comp[AggComponent("sum", col).label]
+
+    nan = torch.tensor(float("nan"), dtype=spec.accum_dtype, device=rc.device)
+    for i, s in enumerate(agg_specs):
+        kind, col = s[0], s[1]
+        if kind == "count":
+            f = cnt_of(col)
+        elif kind == "sum":
+            f = sum_of(col)
+        elif kind == "avg":
+            c = cnt_of(col)
+            # int32 count / f32 sum → f32, as jnp's promotion does
+            f = torch.where(
+                c > 0, sum_of(col) / torch.clamp(c, min=1).to(spec.accum_dtype),
+                nan,
+            )
+        elif kind == "min":
+            v = comp[AggComponent("min", col).label]
+            f = torch.where(torch.isposinf(v), nan, v)
+        elif kind == "max":
+            v = comp[AggComponent("max", col).label]
+            f = torch.where(torch.isneginf(v), nan, v)
+        else:  # pragma: no cover — guarded by finals_possible
+            raise ValueError(kind)
+        out[f"__final_{i}__"] = f
+    return out
+
+
+def reset_slot(
+    spec: WindowKernelSpec, state: dict[str, torch.Tensor], slot: int
+) -> dict[str, torch.Tensor]:
+    """Re-initialize one ring slot after its window was emitted."""
+    for comp in spec.components:
+        state[comp.label][slot] = spec.init_value(comp)
+    return state
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` — always a copy, also on the CPU, where
+    ``.cpu().numpy()`` would alias ring memory the next in-place update or
+    reset overwrites."""
+    return t.to("cpu", copy=True).numpy()
+
+
+def read_slot(
+    spec: WindowKernelSpec, state: dict[str, torch.Tensor], slot: int
+) -> dict[str, np.ndarray]:
+    """Fetch one window's accumulator rows to host (G-sized vectors only —
+    results, never raw rows)."""
+    return {c.label: to_host(state[c.label][slot]) for c in spec.components}
+
+
+def export_state(state: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """Full device→host snapshot: ``(W, G)`` numpy planes keyed by
+    component label — the layout both packages export."""
+    return {k: to_host(v) for k, v in state.items()}
+
+
+def import_state(
+    spec: WindowKernelSpec,
+    host_state: dict[str, np.ndarray],
+    device: torch.device | str,
+) -> dict[str, torch.Tensor]:
+    """Rebuild device state from a host snapshot (this package's or the JAX
+    package's ``export_state``), padding up to the spec's (possibly larger)
+    capacity — used on G/W growth and to carry a JAX ring into the port."""
+    state = init_state(spec, "cpu")
+    for comp in spec.components:
+        buf = state[comp.label]
+        src = host_state.get(comp.label)
+        if src is not None:
+            w = min(src.shape[0], buf.shape[0])
+            g = min(src.shape[1], buf.shape[1])
+            # np.array copies: a host snapshot may be a read-only view
+            buf[:w, :g] = torch.from_numpy(
+                np.array(src[:w, :g], dtype=buf.numpy().dtype)
+            )
+    return {k: v.to(device) for k, v in state.items()}
+
+
+def finalize(
+    agg_specs: list[tuple],
+    rows: dict[str, np.ndarray],
+    active: np.ndarray,
+) -> list[np.ndarray]:
+    """Host-side final evaluation of one emitted window from its primitive
+    component rows.  ``active`` is the boolean mask of live group slots."""
+    outs: list[np.ndarray] = []
+    for spec in agg_specs:
+        kind, col = spec[0], spec[1]
+        if kind == "count":
+            label = AggComponent("count", col).label
+            outs.append(rows[label][active].astype(np.int64))
+        elif kind == "sum":
+            outs.append(read_sum(rows, col)[active])
+        elif kind == "avg":
+            s = read_sum(rows, col)[active]
+            c = rows[AggComponent("count", col).label][active].astype(np.float64)
+            with np.errstate(invalid="ignore", divide="ignore"):
+                outs.append(np.where(c > 0, s / np.maximum(c, 1), np.nan))
+        elif kind == "min":
+            v = rows[AggComponent("min", col).label][active].astype(np.float64)
+            outs.append(np.where(np.isposinf(v), np.nan, v))
+        elif kind == "max":
+            v = rows[AggComponent("max", col).label][active].astype(np.float64)
+            outs.append(np.where(np.isneginf(v), np.nan, v))
+        else:
+            raise ValueError(kind)
+    return outs

@@ -1,0 +1,228 @@
+"""Window-state backends — counterpart of
+``denormalized_tpu/parallel/sharded_state.py``, single device only.
+
+:class:`SingleDeviceWindowState` holds the ring on one explicit ``device``
+(``cuda`` or, for the tests, ``cpu``) and ships rows to it every batch.  Per
+batch it runs the dense kernel (``ops/dense_window.py``) where the spec and
+the batch allow it, else the scatter program (``ops/segment_agg.py``) — the
+JAX package's per-batch rule, counted in ``dense_updates`` and
+``scatter_updates``.
+
+The sharded layouts (key-sharded, partial/final, two-level) and the
+host-partial ``partial_merge`` backend are not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from denormalized_tpu_torch.common.errors import PlanError
+from denormalized_tpu_torch.ops import dense_window as dw
+from denormalized_tpu_torch.ops import segment_agg as sa
+
+
+class WindowStateBackend:
+    """Interface the window operator drives."""
+
+    spec: sa.WindowKernelSpec
+    # link-traffic accounting (numpy-payload bytes handed to/from the
+    # device)
+    bytes_h2d: int = 0
+    bytes_d2h: int = 0
+
+    @property
+    def strategy_name(self) -> str:
+        """What actually executes."""
+        return type(self).__name__
+
+    @property
+    def group_capacity(self) -> int:
+        """Total group-id capacity visible to the host interner."""
+        raise NotImplementedError
+
+    def update(
+        self, values, colvalid, win_rel, rem, gid, row_valid, base_mod,
+        min_win_rel: int | None = None, max_win_rel: int | None = None,
+    ):
+        raise NotImplementedError
+
+    def read_reset_block(
+        self, first_slot: int, n: int, live_groups=None, lean=False
+    ) -> dict[str, np.ndarray]:
+        """Read and reset n consecutive ring slots (component planes)."""
+        raise NotImplementedError
+
+    def prepare_finals(self, agg_specs: tuple) -> None:
+        """Announce the output aggregate specs for on-device
+        finalization."""
+
+    def read_reset_block_finals(self, first_slot: int, n: int, live_groups=None):
+        """Finals emission (final output planes + active mask, see
+        segment_agg._finals_and_reset) for n ring slots — or None when
+        finals were not prepared (caller takes the component path)."""
+        return None
+
+    def read_slot(self, slot: int) -> dict[str, np.ndarray]:
+        raise NotImplementedError
+
+    def reset_slot(self, slot: int) -> None:
+        raise NotImplementedError
+
+    def export(self) -> dict[str, np.ndarray]:
+        """(W, G) host snapshot for growth and for carrying state across."""
+        raise NotImplementedError
+
+    def import_(self, host_state: dict[str, np.ndarray]) -> None:
+        raise NotImplementedError
+
+
+class SingleDeviceWindowState(WindowStateBackend):
+    def __init__(
+        self,
+        spec: sa.WindowKernelSpec,
+        device: torch.device | str,
+        device_strategy: str = "scatter",
+    ):
+        self.spec = spec
+        self.device = torch.device(device)
+        self._state = sa.init_state(spec, self.device)
+        self.device_strategy = device_strategy
+        self._finals_specs: tuple | None = None
+        # actual dispatch counts: 'pallas_dense'/'auto' fall back to the
+        # scatter program per batch when the kernel doesn't support the
+        # spec or the batch shape — strategy_name reports what RAN
+        self.dense_updates = 0
+        self.scatter_updates = 0
+
+    @property
+    def strategy_name(self) -> str:
+        if self.device_strategy == "scatter":
+            return "row_shipping:scatter"
+        if self.dense_updates and self.scatter_updates:
+            return "row_shipping:dense+scatter"
+        if self.dense_updates:
+            return "row_shipping:dense"
+        if self.scatter_updates:
+            return "row_shipping:scatter"
+        return f"row_shipping:{self.device_strategy} (no batches yet)"
+
+    @property
+    def group_capacity(self) -> int:
+        return self.spec.group_capacity
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def update(
+        self, values, colvalid, win_rel, rem, gid, row_valid, base_mod,
+        min_win_rel: int | None = None, max_win_rel: int | None = None,
+    ):
+        host = (values, colvalid, win_rel, rem, gid, row_valid)
+        self.bytes_h2d += sum(int(np.asarray(a).nbytes) for a in host)
+        values, colvalid, win_rel, rem, gid, row_valid = (
+            self._to_device(a) for a in host
+        )
+        # 'auto' runs the dense kernel wherever it fits, on the card and on
+        # the CPU alike (the JAX package's rule for a co-located GPU)
+        try_dense = self.device_strategy in ("pallas_dense", "auto")
+        if try_dense and min_win_rel is not None:
+            lo = max(min_win_rel - (self.spec.length_units - 1), 0)
+            span_ok = (
+                max_win_rel is not None and max_win_rel - lo < dw.K_ACTIVE
+            )
+            tile_ok = values.shape[0] % dw.TILE == 0
+            if dw.dense_supported(self.spec) and span_ok and tile_ok:
+                self.dense_updates += 1
+                dw.dense_update(
+                    self.spec, self._state, values, colvalid, win_rel, rem,
+                    gid, row_valid, int(base_mod), min_win_rel=lo,
+                )
+                return
+        self.scatter_updates += 1
+        sa.update_state(
+            self.spec, self._state, values, colvalid, win_rel, rem, gid,
+            row_valid, int(base_mod),
+        )
+
+    def read_slot(self, slot: int) -> dict[str, np.ndarray]:
+        out = sa.read_slot(self.spec, self._state, slot)
+        self.bytes_d2h += sum(int(a.nbytes) for a in out.values())
+        return out
+
+    def reset_slot(self, slot: int) -> None:
+        sa.reset_slot(self.spec, self._state, slot)
+
+    def _host(self, out: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+        host = {k: sa.to_host(v) for k, v in out.items()}
+        self.bytes_d2h += sum(int(a.nbytes) for a in host.values())
+        return host
+
+    def read_reset_block(
+        self, first_slot: int, n: int, live_groups=None, lean=False
+    ) -> dict[str, np.ndarray]:
+        """Fused gather+reset of n ring slots, limited to the live-group
+        bucket (see :meth:`_live_bucket`)."""
+        if n > self.spec.window_slots:  # slots must be distinct
+            raise ValueError(f"{n} slots from a {self.spec.window_slots}-slot ring")
+        return self._host(
+            sa._gather_and_reset(
+                self.spec, n, self._live_bucket(live_groups), self._state,
+                first_slot, lean,
+            )
+        )
+
+    def prepare_finals(self, agg_specs: tuple) -> None:
+        self._finals_specs = tuple(agg_specs)
+
+    def _live_bucket(self, live_groups) -> int:
+        """Transferred group width: pow2 of the interner's live size
+        (floor 1024), capped at capacity — gids are interner-dense, so
+        every cell at index ≥ live_groups is still at its init value."""
+        g_bucket = self.group_capacity
+        if live_groups is not None:
+            g_bucket = min(
+                g_bucket,
+                max(1024, 1 << max(0, int(live_groups) - 1).bit_length()),
+            )
+        return g_bucket
+
+    def read_reset_block_finals(self, first_slot: int, n: int, live_groups=None):
+        if self._finals_specs is None:
+            return None
+        if n > self.spec.window_slots:
+            raise ValueError(f"{n} slots from a {self.spec.window_slots}-slot ring")
+        return self._host(
+            sa._finals_and_reset(
+                self.spec, self._finals_specs, n,
+                self._live_bucket(live_groups), self._state, first_slot,
+            )
+        )
+
+    def export(self) -> dict[str, np.ndarray]:
+        return sa.export_state(self._state)
+
+    def import_(self, host_state: dict[str, np.ndarray]) -> None:
+        self._state = sa.import_state(self.spec, host_state, self.device)
+
+
+def make_sharded_state(
+    spec: sa.WindowKernelSpec,
+    device: torch.device | str,
+    device_strategy: str = "auto",
+) -> WindowStateBackend:
+    """The single-device branch of the JAX package's factory: row shipping
+    for 'scatter', 'pallas_dense' and 'auto' ('auto' = dense where
+    supported, as on a co-located GPU)."""
+    if device_strategy == "partial_merge":
+        raise PlanError(
+            "device_strategy='partial_merge' not yet ported to "
+            "denormalized_tpu_torch (host partials need "
+            "native/partial_agg.cpp)"
+        )
+    if device_strategy not in ("scatter", "pallas_dense", "auto"):
+        raise ValueError(
+            f"unknown device strategy {device_strategy!r} (expected "
+            "'scatter', 'pallas_dense' or 'auto')"
+        )
+    return SingleDeviceWindowState(spec, device, device_strategy)

@@ -1,0 +1,62 @@
+"""Physical planner: logical plan → executable operator tree.
+
+Counterpart of ``denormalized_tpu/planner/planner.py`` with the scan,
+project, filter, window and sink routes.  The window route threads the
+engine config's explicit ``device`` and kernel strategy into
+:class:`StreamingWindowExec`; sessions, UDAF windows, the slice path,
+meshes and joins are not ported yet.
+"""
+
+from __future__ import annotations
+
+from denormalized_tpu_torch.common.errors import PlanError
+from denormalized_tpu_torch.logical import plan as lp
+from denormalized_tpu_torch.physical.base import ExecOperator
+from denormalized_tpu_torch.physical.simple_execs import (
+    FilterExec,
+    ProjectExec,
+    SinkExec,
+    SourceExec,
+)
+from denormalized_tpu_torch.physical.window_exec import StreamingWindowExec
+
+
+class Planner:
+    def __init__(self, config) -> None:
+        # config: api.context.EngineConfig (device already resolved)
+        self.config = config
+
+    def create_physical_plan(self, node: lp.LogicalPlan) -> ExecOperator:
+        if isinstance(node, lp.Scan):
+            return SourceExec(node.source)
+        if isinstance(node, lp.Project):
+            return ProjectExec(
+                self.create_physical_plan(node.input), node.exprs, node.schema
+            )
+        if isinstance(node, lp.Filter):
+            return FilterExec(
+                self.create_physical_plan(node.input), node.predicate
+            )
+        if isinstance(node, lp.StreamingWindow):
+            if node.window_type is lp.WindowType.SESSION:
+                raise PlanError(
+                    "session windows not yet ported to denormalized_tpu_torch"
+                )
+            c = self.config
+            return StreamingWindowExec(
+                self.create_physical_plan(node.input),
+                node.group_exprs,
+                node.aggr_exprs,
+                node.window_type,
+                node.length_ms,
+                node.slide_ms,
+                device=c.device,
+                device_finalize=c.device_finalize,
+                min_group_capacity=c.min_group_capacity,
+                min_window_slots=c.min_window_slots,
+                min_batch_bucket=c.min_batch_bucket,
+                device_strategy=c.device_strategy,
+            )
+        if isinstance(node, lp.Sink):
+            return SinkExec(self.create_physical_plan(node.input), node.sink)
+        raise PlanError(f"no physical rule for {type(node).__name__}")
