@@ -1,9 +1,9 @@
 """The port's dense window update (``ops/dense_window.py``) against the JAX
 package's Pallas kernel (``ops/pallas_window.py``, interpret mode on the
-CPU): the partials of ``dense_partials`` and the ring after
-``dense_update`` + ``merge_partials``.  On the CPU the wrapper runs its
-plain version; ``chip_smoke.py`` holds the CUDA kernel against that plain
-version on the card.
+CPU): the partials of ``dense_partials_reference`` and the ring after
+``dense_update`` (on CPU tensors) and ``dense_update_reference``.  On the
+CPU the wrapper runs its plain version; ``chip_smoke.py`` holds the fused
+CUDA kernel against that plain version on the card.
 
 Tolerances: counts, min and max exact (NaN where NaN); sums to rtol=1e-5,
 the repo's own dense-vs-scatter tolerance (tests/test_pallas_dense.py) —
@@ -70,7 +70,7 @@ def test_dense_partials_match_pallas(B, G, V, KREL):
         jnp.asarray(values), jnp.asarray(colvalid), jnp.asarray(rel),
         jnp.asarray(gid), G=G, V=V, KREL=KREL, interpret=True,
     )
-    got = dw.dense_partials(
+    got = dw.dense_partials_reference(
         torch.from_numpy(values), torch.from_numpy(colvalid),
         torch.from_numpy(rel), torch.from_numpy(gid), G,
     )
@@ -115,40 +115,58 @@ def _seeded_ring(spec, rng):
     return host
 
 
-@pytest.mark.parametrize(
-    "length_ms, slide_ms", [(1000, 1000), (1000, 200), (1000, 300)],
-    ids=["tumbling", "k5", "L_mod_S"],
-)
-def test_dense_update_and_merge_match_pallas(length_ms, slide_ms):
-    jspec, tspec = _specs(length_ms, slide_ms)
-    rng = np.random.default_rng(length_ms + slide_ms)
-    host = _seeded_ring(jspec, rng)
-    B, k = 512, jspec.length_units
-    win_rel = rng.integers(0, 4, B).astype(np.int32)
-    win_rel[:5] = -1  # late rows
+# Cases of the fused update: (length_ms, slide_ms, W, base_mod, min_win_rel).
+# Every case has nulls, NaN behind the null mask, a valid NaN, NaNs already
+# in the ring, late rows, padding rows, rows below min_win_rel or K_ACTIVE
+# slots past it, and gids at G - 1.
+FUSED_CASES = {
+    "tumbling": (1000, 1000, 16, 13, 0),
+    "k5": (1000, 200, 16, 9, 2),
+    "L_mod_S": (1000, 300, 16, 11, 1),
+    "ring_wraps": (1000, 1000, 16, 15, 3),
+    "W_lt_K": (1000, 1000, 4, 3, 0),
+}
+
+
+def _fused_batch(rng, W, slide_ms, lo, G, B=512):
+    win_rel = rng.integers(-1, min(W, lo + K + 2) + 1, B)
+    win_rel = np.clip(win_rel, -1, W).astype(np.int32)  # as window_exec does
     rem = rng.integers(0, slide_ms, B).astype(np.int32)
-    gid = rng.integers(0, 100, B).astype(np.int32)
+    gid = rng.integers(0, G, B).astype(np.int32)
+    gid[::7] = G - 1
     row_valid = np.ones(B, bool)
     row_valid[-40:] = False  # padding
     values = rng.normal(50, 10, (B, 1)).astype(np.float32)
     colvalid = rng.random((B, 1)) > 0.1
     values[~colvalid[:, 0] & (rng.random(B) < 0.5), 0] = np.nan
-    base_mod, lo = 13, max(0 - (k - 1), 0)
+    # a valid NaN on a row that lands in the ring
+    win_rel[5], row_valid[5], values[5, 0], colvalid[5, 0] = lo, True, np.nan, True
+    return values, colvalid, win_rel, rem, gid, row_valid
 
-    jstate = {lbl: jnp.asarray(a) for lbl, a in host.items()}
+
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_dense_update_and_merge_match_pallas(case):
+    """``dense_update`` on CPU tensors (its plain version,
+    ``dense_update_reference``) against the JAX ``pw.dense_update``."""
+    length_ms, slide_ms, W, base_mod, lo = FUSED_CASES[case]
+    jspec, tspec = _specs(length_ms, slide_ms, W=W)
+    rng = np.random.default_rng(sum(map(ord, case)))
+    host = _seeded_ring(jspec, rng)
+    for label in ("min_0", "max_0"):  # NaNs already in the ring stay
+        host[label][(base_mod + lo) % W, :3] = np.nan
+    batch = _fused_batch(rng, W, slide_ms, lo, jspec.group_capacity)
     jout = pw.dense_update(
-        jspec, jstate, jnp.asarray(values), jnp.asarray(colvalid),
-        jnp.asarray(win_rel), jnp.asarray(rem), jnp.asarray(gid),
-        jnp.asarray(row_valid), jnp.asarray(base_mod, jnp.int32),
+        jspec, {lbl: jnp.asarray(a) for lbl, a in host.items()},
+        *(jnp.asarray(a) for a in batch), jnp.asarray(base_mod, jnp.int32),
         min_win_rel=lo, interpret=True,
     )
     tstate = tsa.import_state(tspec, host, "cpu")
     tout = dw.dense_update(
-        tspec, tstate, *(torch.from_numpy(a) for a in (
-            values, colvalid, win_rel, rem, gid, row_valid)),
-        base_mod, min_win_rel=lo,
+        tspec, tstate, *(torch.from_numpy(a) for a in batch), base_mod,
+        min_win_rel=lo,
     )
     assert tout is tstate  # updated in place
+    assert np.isnan(tout["min_0"].numpy()).any()  # the valid NaN landed
     for c in jspec.components:
         a, b = tout[c.label].numpy(), np.asarray(jout[c.label])
         assert a.dtype == b.dtype, (c.label, a.dtype, b.dtype)
@@ -171,3 +189,15 @@ def test_dense_supported_limits_match_the_jax_package(G, length_ms, slide_ms):
     assert dw.dense_supported(tspec) == pw.dense_supported(jspec)
     tile = dw.group_tile(G, 2)
     assert 4 * K * tile * (1 + 4 * 2) <= dw.SMEM_BUDGET_BYTES
+
+
+@pytest.mark.parametrize("V", [dw.MAX_DENSE_COLUMNS, dw.MAX_DENSE_COLUMNS + 1])
+def test_dense_supported_caps_value_columns(V):
+    """The kernel's plane table holds MAX_DENSE_COLUMNS value columns; a
+    wider query takes the scatter path."""
+    spec = tsa.WindowKernelSpec(
+        components=tuple(tsa.components_for([("min", v) for v in range(V)])),
+        num_value_cols=V, window_slots=16, group_capacity=128,
+        length_ms=1000, slide_ms=1000,
+    )
+    assert dw.dense_supported(spec) == (V <= dw.MAX_DENSE_COLUMNS)

@@ -17,6 +17,7 @@ import denormalized_tpu_torch as tt
 from denormalized_tpu_torch.common.errors import PlanError
 from denormalized_tpu_torch.ops import cuda_build
 from denormalized_tpu_torch.ops import dense_window as dw
+from denormalized_tpu_torch.ops import segment_agg as sa
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "denormalized_tpu_torch"
@@ -80,16 +81,31 @@ def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
     def refuse(*a, **kw):
         raise AssertionError("plain version called for a non-CPU tensor")
 
-    monkeypatch.setattr(dw, "dense_partials_reference", refuse)
-    B, G = 256, 128
-    args = (
-        torch.zeros((B, 1), dtype=torch.float32, device="meta"),
-        torch.ones((B, 1), dtype=torch.float32, device="meta"),
-        torch.zeros((B, 1), dtype=torch.int32, device="meta"),
-        torch.zeros((B,), dtype=torch.int32, device="meta"),
-    )
+    monkeypatch.setattr(dw, "dense_update_reference", refuse)
+    spec, state, args = _dense_args("meta")
     with pytest.raises(ValueError, match="no dense window kernel"):
-        dw.dense_partials(*args, G)
+        dw.dense_update(spec, state, *args, 0, min_win_rel=0)
+
+
+def _dense_args(device, **bad):
+    """A one-column tumbling spec, its ring and a 256-row batch on
+    ``device``; ``bad`` replaces batch arrays by name."""
+    spec = sa.WindowKernelSpec(
+        components=tuple(sa.components_for([("min", 0), ("avg", 0)])),
+        num_value_cols=1, window_slots=16, group_capacity=128,
+        length_ms=1000, slide_ms=1000,
+    )
+    ins = dict(
+        values=np.zeros((256, 1), np.float32),
+        colvalid=np.ones((256, 1), bool),
+        win_rel=np.zeros(256, np.int32),
+        rem=np.zeros(256, np.int32),
+        gid=np.zeros(256, np.int32),
+        row_valid=np.ones(256, bool),
+    )
+    ins.update(bad)
+    args = tuple(torch.from_numpy(a).to(device) for a in ins.values())
+    return spec, sa.init_state(spec, device), args
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):
@@ -107,18 +123,11 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     "bad, match",
     [
         (dict(values=np.zeros((256, 1), np.float64)), "values must be"),
-        (dict(rel=np.zeros((255, 1), np.int32)), "rel"),
+        (dict(win_rel=np.zeros(255, np.int32)), "rel"),
         (dict(gid=np.zeros((256, 1), np.int32)), "gid"),
     ],
 )
 def test_wrapper_checks_dtype_and_shape(bad, match):
-    ins = dict(
-        values=np.zeros((256, 1), np.float32),
-        colvalid=np.ones((256, 1), np.float32),
-        rel=np.zeros((256, 1), np.int32),
-        gid=np.zeros(256, np.int32),
-    )
-    ins.update(bad)
-    t = {k: torch.from_numpy(v) for k, v in ins.items()}
+    spec, state, args = _dense_args("cpu", **bad)
     with pytest.raises((TypeError, ValueError), match=match):
-        dw.dense_partials(t["values"], t["colvalid"], t["rel"], t["gid"], 128)
+        dw.dense_update(spec, state, *args, 0, min_win_rel=0)
