@@ -8,7 +8,9 @@ Phases:
 1. the card's name and power limit (nvidia-smi) and the torch/CUDA
    versions;
 2. the build of every CUDA kernel of ``denormalized_tpu_torch/csrc/`` from
-   the sources in the checkout (one nvcc per source, all started together);
+   the sources in the checkout (one nvcc per source, all started together)
+   and, meanwhile, of the two native host libraries (``native/``, g++): the
+   partial-aggregation reducer and the interner, whose lane it prints;
 3. the fused dense window kernel (``dense_update``) against its plain
    PyTorch version (``dense_update_reference``) on two copies of one seeded
    ring that wraps past W, at B = 131,072: ``main_hot`` (the main path's
@@ -17,9 +19,11 @@ Phases:
    the last three with nulls, NaN behind the null mask, valid NaNs,
    dropped and late rows and out-of-range slots: counts, min and max
    exact, sums to rtol=1e-5.  Each case gives the kernel's device time
-   (torch.profiler by kernel name; the run fails if the profiler records
-   no dense kernel), the wrapper's time a call (``host_ms``), the plain
-   version's time and the bound from the case's own data;
+   (torch.profiler by kernel name; where the card's tracer misses the
+   launches in three sessions, CUDA event pairs around launches queued
+   behind a device spin, and the line says which), the wrapper's time a
+   call (``host_ms``), the plain version's time and the bound from the
+   case's own data;
 4. the main path end to end: the emit_measurements stream (8M rows,
    131,072-row batches, 10 keys, event time at 1M events/s, made from
    --seed with numpy) through Context(EngineConfig(device="cuda",
@@ -27,18 +31,41 @@ Phases:
    sensor_name, checked against a numpy float64 oracle, with every batch
    on the dense kernel; then the same job again with torch.profiler over
    batches 10-29: the device's busy and idle share, the top device and
-   host ops, and kernel launches per batch (one dense kernel a batch);
+   host ops, and kernel launches per batch (one dense kernel a batch; the
+   stretch is run again, up to three times, where the tracer misses
+   launches);
 5. the sliding job (1 s window, 200 ms slide, count+avg, filter avg > 45)
    over ~2M rows, the same way;
 6. the scatter path (``segment_agg.update_state``) on the card against the
-   CPU on one batch with valid NaNs in several cells.
+   CPU on one batch with valid NaNs in several cells;
+7. the stripe-fold kernel (``merge_partials``) against its plain version
+   (``merge_partials_reference``) on seeded rings and seeded stripes packed
+   by the port's own ``HostPartialStripe``: ``cfg1_dense`` (the config-1
+   stripe: G = 128, 10 live groups, 1-2 units, dense, lean), ``sliding_k5``
+   (1 s / 200 ms, valid NaNs, NaNs already in the ring), ``ragged_compact``
+   (500 ms / 200 ms: SUB = 2, k = 3; the compact layout with nulls,
+   compensated), ``cfg3_compact`` (100K live groups over 2 units at config
+   3's G, where the stripe packs compact) and ``cfg3_dense`` (the same
+   groups in a 131,072-wide ring, where it packs dense): counts, min and
+   max exact, sums to rtol=1e-5; device time (as in phase 3), wrapper
+   time, plain time and bound;
+8. config 1 (the phase-4 stream) through ``device_strategy="partial_merge"``
+   against the numpy oracle: rows/s, host prep, merges, kernel launches
+   (equal to the merges), bytes to the card, and the native reducer's and
+   interner's counters (no batch on the numpy reducer);
+9. config 2 (the phase-5 stream) through ``partial_merge`` the same way;
+10. config 3 (bench.py ``highcard``: 100K keys, sum and avg, 524,288-row
+    batches, 8M rows) through ``partial_merge`` and through ``auto`` (row
+    shipping, the scatter path at this G) on the same seeded stream, both
+    against the numpy oracle, with their rows/s side by side.
 
-Then one JSON line with each kernel's launches on the main path, its
-largest error against the plain version, its device time, the wrapper's
-time, the plain version's time and the least time the card could take,
-and as the last line ``{"ok": true, "device": {...}}``.  Any failure ends
-the run with a non-zero exit and no result.  Without CUDA it exits 1 at
-once.
+Then one JSON line with each kernel's launches on its main path (phase 4
+for the dense kernel, phase 8 for the merge kernel, each counted from 0
+just before the run), its largest error against the plain version, its
+device time, the wrapper's time, the plain version's time and the least
+time the card could take, and as the last line ``{"ok": true, "device":
+{...}}``.  Any failure ends the run with a non-zero exit and no result.
+Without CUDA it exits 1 at once.
 """
 
 from __future__ import annotations
@@ -62,6 +89,9 @@ TOTAL_ROWS = 8_000_000
 BATCH_ROWS = 131_072
 NUM_KEYS = 10
 SLIDING_ROWS = 2_000_000
+# config 3 (bench.py highcard)
+HIGHCARD_KEYS = 100_000
+HIGHCARD_BATCH_ROWS = 524_288
 
 
 def log(msg: str) -> None:
@@ -173,24 +203,83 @@ def profile(fn):
     return prof
 
 
-def kernel_device_ms(fn, n: int = 50) -> float:
-    """Device time of the one dense window kernel ``fn()`` launches, apart
-    from the wrapper's host cost: the profiler's mean over ``n`` launches
-    by kernel name.  Raises if the profiler records none of them."""
-    fn()
-    torch.cuda.synchronize()
+PROFILER_TRIES = 3
+
+
+def profiled_launches(fn, kernel: str, n: int, warm: int):
+    """The device events of ``kernel`` that the profiler records over
+    ``warm + n`` calls of ``fn()``, in launch order.  Raises if it records
+    more than ``warm + n`` (a call launched the kernel more than once)."""
 
     def run():
+        for _ in range(warm):
+            fn()
+        torch.cuda.synchronize()
         for _ in range(n):
             fn()
 
-    evts = [e for e in device_events(profile(run))
-            if DENSE_KERNEL in e.name]
-    if len(evts) != n:
+    evts = sorted((e for e in device_events(profile(run)) if kernel in e.name),
+                  key=lambda e: e.time_range.start)
+    if len(evts) > warm + n:
         raise AssertionError(
-            f"the profiler recorded {len(evts)} {DENSE_KERNEL} launches of {n}"
+            f"the profiler recorded {len(evts)} {kernel} launches for "
+            f"{warm + n} calls: a call launched the kernel more than once"
         )
-    return sum(e.time_range.elapsed_us() for e in evts) / n / 1e3
+    return evts
+
+
+def queued_event_ms(fn, n: int) -> float:
+    """Device time of one call of ``fn()`` by CUDA events, apart from the
+    host's cost: ``n`` calls between two events, queued behind a device
+    spin that outlasts their enqueue so that the card runs them back to
+    back → the events' time over ``n``.  Raises if the host was still
+    enqueueing when the spin ended."""
+    spin = 1 << 20
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(spin)
+    ev[1].record()
+    torch.cuda.synchronize()
+    spin_ms_per_cycle = ev[0].elapsed_time(ev[1]) / spin
+    enqueue_ms = 1.0
+    for _ in range(2):  # the first pass sizes the spin for the second
+        t0 = time.perf_counter()
+        ev[0].record()
+        torch.cuda._sleep(int(4 * enqueue_ms / spin_ms_per_cycle))
+        ev[1].record()
+        for _ in range(n):
+            fn()
+        ev[2].record()
+        enqueue_ms = max((time.perf_counter() - t0) * 1e3, 1.0)
+        torch.cuda.synchronize()
+    spun_ms = ev[0].elapsed_time(ev[1])
+    if enqueue_ms >= spun_ms:
+        raise AssertionError(
+            f"the {n} calls took {enqueue_ms:.3f} ms to enqueue, longer than "
+            f"the {spun_ms:.3f} ms spin before them: their time would hold "
+            f"the host's cost"
+        )
+    return ev[1].elapsed_time(ev[2]) / n
+
+
+def kernel_device_ms(fn, kernel: str, n: int = 50, warm: int = 5):
+    """Device time of the one ``kernel`` launch ``fn()`` makes, apart from
+    the wrapper's host cost → (ms, how).  By the profiler: its mean over
+    the last ``n`` of ``warm + n`` profiled launches by kernel name (the
+    tracer may miss a launch as it starts).  The card's tracer sometimes
+    records none of a session's launches; after ``PROFILER_TRIES`` sessions
+    short of ``n`` the time is taken by ``queued_event_ms`` instead, and
+    ``how`` says which."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILER_TRIES):
+        evts = profiled_launches(fn, kernel, n, warm)
+        if len(evts) >= n:
+            ms = sum(e.time_range.elapsed_us() for e in evts[-n:]) / n / 1e3
+            return ms, "profiler"
+        log(f"the profiler recorded {len(evts)} {kernel} launches of "
+            f"{warm + n}, fewer than the {n} timed")
+    return queued_event_ms(fn, n), "CUDA events"
 
 
 # -- phase 3: the dense window kernel against its plain version ----------------
@@ -214,6 +303,8 @@ def seeded_ring(spec, rng):
         elif c.kind == "sum":
             host[c.label] = (counts * rng.normal(50, 10, (W, G))).astype(
                 np.float32)
+        elif c.kind == "sumc":  # the low half of a compensated sum
+            host[c.label] = rng.normal(0, 1e-4, (W, G)).astype(np.float32)
         else:
             fill = np.inf if c.kind == "min" else -np.inf
             host[c.label] = np.where(
@@ -280,11 +371,19 @@ def dense_case(name: str, seed: int):
 
 def compare_rings(spec, got, want, what: str) -> float:
     """Counts, min and max exact (NaN where NaN); sums to rtol=1e-5 (float
-    atomics reorder them).  → largest absolute error over finite sums."""
+    atomics reorder them), a compensated sum as hi + lo.  → largest
+    absolute error over finite sums."""
     worst = 0.0
+    labels = {c.label for c in spec.components}
     for c in spec.components:
+        if c.kind == "sumc":
+            continue  # compared with its hi below
         a = got[c.label].cpu().numpy()
         b = want[c.label].cpu().numpy()
+        lo = f"sumc_{c.col}"
+        if c.kind == "sum" and lo in labels:
+            a = a.astype(np.float64) + got[lo].cpu().numpy()
+            b = b.astype(np.float64) + want[lo].cpu().numpy()
         if c.kind == "sum":
             np.testing.assert_allclose(a, b, rtol=1e-5,
                                        err_msg=f"{what}: {c.label}")
@@ -363,18 +462,18 @@ def phase_kernels(device, seed: int):
             dw.dense_update_reference(spec, scratch, *args, base_mod,
                                       min_win_rel=lo)
 
-        ms = kernel_device_ms(kernel)
+        ms, ms_by = kernel_device_ms(kernel, DENSE_KERNEL)
         host_ms = time_ms(kernel, device, iters=200)
         plain_ms = time_ms(plain, device)
         bound_ms, bound_by = fused_bound(spec, batch, lo)
-        out[name] = dict(ms=ms, host_ms=host_ms, plain_ms=plain_ms,
-                         max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by)
+        out[name] = dict(ms=ms, ms_by=ms_by, host_ms=host_ms,
+                         plain_ms=plain_ms, max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by)
         g_tile = dw.group_tile(spec.group_capacity, V)
         resident = dw._resident_blocks(device.index, V, g_tile)
         log(f"phase 3 kernel {name} B={B} G={spec.group_capacity} V={V} "
             f"k={spec.length_units} (group tile {g_tile}, {resident} blocks "
             f"resident on the card): ring matches the plain version "
-            f"(max_abs_err={err:.3g}), device {ms:.5f} ms (profiler), "
+            f"(max_abs_err={err:.3g}), device {ms:.5f} ms ({ms_by}), "
             f"host_ms {host_ms:.4f}, plain {plain_ms:.4f} ms, bound "
             f"{bound_ms:.6f} ms ({bound_by}), launches {launched}")
     return out
@@ -416,14 +515,16 @@ def oracle(ts, kid, val, length_ms, slide_ms, num_keys):
     return out
 
 
-def run_job(device, batches, sliding: bool, on_read=None):
-    """The tumbling or sliding job over ``batches`` → (ctx, result, wall s).
+def run_job(device, batches, job: str, on_read=None, strategy="auto", **cfg):
+    """The ``tumbling``, ``sliding`` or ``highcard`` job over ``batches``
+    through ``device_strategy=strategy`` → (ctx, result, wall s).
     ``on_read(ctx, i)``, where given, runs before batch i is read."""
     import denormalized_tpu_torch as tt
     from denormalized_tpu_torch.api import functions as F
     from denormalized_tpu_torch.sources.memory import MemorySource
 
-    ctx = tt.Context(tt.EngineConfig(device=str(device), device_strategy="auto"))
+    ctx = tt.Context(tt.EngineConfig(device=str(device),
+                                     device_strategy=strategy, **cfg))
     if on_read is None:
         source = MemorySource.from_batches(
             batches, timestamp_column="occurred_at_ms")
@@ -431,7 +532,14 @@ def run_job(device, batches, sliding: bool, on_read=None):
         source = hooked_source(batches, lambda i: on_read(ctx, i))
     src = ctx.from_source(source)
     col = tt.col
-    if sliding:
+    if job == "highcard":
+        ds = src.window(
+            ["sensor_name"],
+            [F.sum(col("reading")).alias("sum"),
+             F.avg(col("reading")).alias("avg")],
+            1000,
+        )
+    elif job == "sliding":
         ds = src.window(
             ["sensor_name"],
             [F.count(col("reading")).alias("cnt"),
@@ -515,31 +623,101 @@ def check_sliding(res, exp, num_keys):
     return len(got)
 
 
-def phase_job(device, seed, total_rows, batch_rows, num_keys, sliding, card):
-    from denormalized_tpu_torch.ops import dense_window as dw
+def check_highcard(res, exp, num_keys):
+    """Config 3's rows: the same row set as the oracle, sum and avg to
+    rtol=1e-4 (f32 sums on the card)."""
+    got = {}
+    for ws, name, sm, a in zip(
+        res.column("window_start_time").tolist(),
+        res.column("sensor_name").tolist(),
+        res.column("sum").tolist(), res.column("avg").tolist(),
+    ):
+        got[(ws, int(name[7:]))] = (sm, a)  # "sensor_<i>"
+    if set(got) != set(exp):
+        raise AssertionError(
+            f"row sets differ: {len(got)} emitted vs {len(exp)} expected"
+        )
+    for k, (c, _mn, _mx, a) in exp.items():
+        gs, ga = got[k]
+        if not (np.isclose(gs, a * c, rtol=1e-4, atol=0)
+                and np.isclose(ga, a, rtol=1e-4, atol=0)):
+            raise AssertionError(f"{k}: got {got[k]}, expected {(a * c, a)}")
+    return len(got)
 
+
+JOB_NAMES = {"tumbling": "tumbling 1s", "sliding": "sliding 1s/200ms",
+             "highcard": "highcard 1s, 100K keys"}
+
+
+def run_checked(device, phase, job, strategy, batches, stream, num_keys,
+                card, **cfg):
+    """Run one job with every kernel count set to 0 just before it, check
+    it against the numpy oracle and how it dispatched → {rows_per_s, wall,
+    launches: {kernel: n}}."""
+    from denormalized_tpu_torch.ops import dense_window as dw
+    from denormalized_tpu_torch.ops import merge_partials as mp
+
+    ts, kid, val = stream
+    name = f"{JOB_NAMES[job]} via {strategy}"
+    dw.dense_window_launches = 0
+    mp.merge_partials_launches = 0
+    ctx, res, wall = run_job(device, batches, job, strategy=strategy, **cfg)
+    launches = {"dense_window": dw.dense_window_launches,
+                "merge_partials": mp.merge_partials_launches}
+    op = window_exec_of(ctx)
+    backend = op.backend
+    m = op.metrics()
+    if strategy == "partial_merge":
+        stripe = backend.stripe
+        if launches["merge_partials"] != backend.merges or backend.merges == 0:
+            raise AssertionError(
+                f"{name}: {launches['merge_partials']} merge kernel launches "
+                f"for {backend.merges} merges")
+        if stripe.numpy_batches != 0 or stripe.native_batches == 0:
+            raise AssertionError(
+                f"{name}: native_batches={stripe.native_batches}, "
+                f"numpy_batches={stripe.numpy_batches}")
+        dispatch = (f"merges={backend.merges} merge kernel launches="
+                    f"{launches['merge_partials']}, native reducer batches "
+                    f"{stripe.native_batches}, numpy reducer batches "
+                    f"{stripe.numpy_batches}, host reduce "
+                    f"{stripe.reduce_s:.3f} s, stripe packing "
+                    f"{stripe.pack_s:.3f} s")
+    elif job == "highcard":
+        if backend.scatter_updates != len(batches) or backend.dense_updates:
+            raise AssertionError(
+                f"{name}: dense_updates={backend.dense_updates}, "
+                f"scatter_updates={backend.scatter_updates}")
+        dispatch = f"scatter_updates={backend.scatter_updates} dense_updates=0"
+    else:
+        check_dispatch(ctx, len(batches), name)
+        if launches["dense_window"] == 0:
+            raise AssertionError(f"{name}: the dense kernel never launched")
+        dispatch = (f"dense_updates={len(batches)} scatter_updates=0 "
+                    f"kernel launches={launches['dense_window']}")
+    exp = oracle(ts, kid, val, 1000, 200 if job == "sliding" else 1000,
+                 num_keys)
+    check = {"tumbling": check_tumbling, "sliding": check_sliding,
+             "highcard": check_highcard}[job]
+    rows_out = check(res, exp, num_keys)
+    interner = op._interner
+    log(f"phase {phase} {name}: {len(ts)} rows in {len(batches)} batches, "
+        f"{rows_out} window rows match the oracle, {dispatch}, wall "
+        f"{wall:.3f} s, {len(ts) / wall:.0f} rows/s, window host prep "
+        f"{m['host_prep_s']:.3f} s, {m['bytes_h2d']} B to and "
+        f"{m['bytes_d2h']} B from the card, interner lane "
+        f"{interner.lanes[0]} ({interner.native_calls} native calls), "
+        f"strategy {m['strategy_resolved']} ({card})")
+    return {"rows_per_s": len(ts) / wall, "wall": wall, "launches": launches}
+
+
+def phase_job(device, seed, total_rows, batch_rows, num_keys, job, strategy,
+              phase, card):
     ts, kid, val = gen_stream(total_rows, batch_rows, num_keys, seed)
     batches = to_batches(ts, kid, val, batch_rows, num_keys)
-    dw.dense_window_launches = 0
-    ctx, res, wall = run_job(device, batches, sliding)
-    launches = dw.dense_window_launches
-    name = "sliding 1s/200ms" if sliding else "tumbling 1s"
-    check_dispatch(ctx, len(batches), name)
-    if device.type == "cuda" and launches == 0:
-        raise AssertionError(f"{name}: the dense kernel never launched")
-    exp = oracle(ts, kid, val, 1000, 200 if sliding else 1000, num_keys)
-    rows_out = (check_sliding if sliding else check_tumbling)(
-        res, exp, num_keys
-    )
-    m = window_exec_of(ctx).metrics()
-    log(f"phase {5 if sliding else 4} {name}: {len(ts)} rows in "
-        f"{len(batches)} batches, {rows_out} window rows match the oracle, "
-        f"dense_updates={len(batches)} scatter_updates=0 "
-        f"kernel launches={launches}, wall {wall:.3f} s, "
-        f"{len(ts) / wall:.0f} rows/s, window host prep "
-        f"{m['host_prep_s']:.3f} s, {m['bytes_h2d']} B to and "
-        f"{m['bytes_d2h']} B from the card ({card})")
-    return launches, len(ts) / wall, wall, batches
+    out = run_checked(device, phase, job, strategy, batches, (ts, kid, val),
+                      num_keys, card)
+    return out, batches, (ts, kid, val)
 
 
 # -- phase 4: where the tumbling wall goes ---------------------------------
@@ -609,7 +787,7 @@ def run_stretch(device, batches, begin, end):
                       launches=dw.dense_window_launches - st["n0"])
             end()
 
-    run_job(device, batches, False, on_read)
+    run_job(device, batches, "tumbling", on_read)
     n = PROFILE_END - PROFILE_FIRST
     if "wall_s" not in st:
         raise AssertionError("the profiled stretch did not complete")
@@ -630,23 +808,36 @@ def phase_profile(device, batches, card) -> None:
     from torch.profiler import profile as prof_ctx
 
     n = PROFILE_END - PROFILE_FIRST
-    prof = prof_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    st = run_stretch(device, batches, prof.start, prof.stop)
+    for _ in range(PROFILER_TRIES):
+        prof = prof_ctx(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])
+        st = run_stretch(device, batches, prof.start, prof.stop)
+        dev = device_events(prof)
+        dense = [e for e in dev if DENSE_KERNEL in e.name]
+        if len(dense) > n:
+            raise AssertionError(
+                f"profiler: {len(dense)} dense kernels for {n} dense batches"
+            )
+        if len(dense) == n:
+            break
+        log(f"phase 4 profile: the profiler recorded {len(dense)} dense "
+            f"kernels of {n} and {len(dev)} device events")
+    else:
+        # the launches were counted by run_stretch; only the split is lost
+        log(f"phase 4 profile: device split not measured (the profiler "
+            f"missed launches in {PROFILER_TRIES} runs)")
+        return
     wall_ms = st["wall_s"] * 1e3
     log(f"phase 4 profile batches {PROFILE_FIRST}-{PROFILE_END - 1}: "
         f"{wall_ms:.3f} ms wall under the profiler ({wall_ms / n:.4f} ms a "
         f"batch), window host prep {st['prep_s'] * 1e3 / n:.4f} ms a batch, "
         f"dense launches {st['launches']} for {n} batches ({card})")
-    dev = device_events(prof)
-    if not dev:
-        raise AssertionError("phase 4 profile: no device events recorded")
 
     def ms(evts):
         return sum(e.time_range.elapsed_us() for e in evts) / 1e3
 
     busy_ms = union_us((e.time_range.start, e.time_range.end) for e in dev) / 1e3
     kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
-    dense = [e for e in kernels if DENSE_KERNEL in e.name]
     h2d = [e for e in dev if e.name.startswith("Memcpy HtoD")]
     log(f"phase 4 profile device: busy {busy_ms:.3f} ms of {wall_ms:.3f} ms "
         f"({100 * busy_ms / wall_ms:.2f}% busy, "
@@ -667,10 +858,6 @@ def phase_profile(device, batches, card) -> None:
     for a in cpu_top:
         log(f"phase 4 profile top host op: {a.self_cpu_time_total / 1e3:.4f}"
             f" ms self in {a.count} calls: {a.key[:100]}")
-    if len(dense) != n:
-        raise AssertionError(
-            f"profiler: {len(dense)} dense kernels for {n} dense batches"
-        )
 
 
 # -- phase 6: the scatter path keeps a valid NaN -------------------------------
@@ -727,6 +914,186 @@ def phase_scatter_nan(device, seed: int):
         f"CPU's ({nan_cells} NaN min cells)")
 
 
+# -- phase 7: the merge kernel against its plain version ----------------------
+
+MERGE_KERNEL = "merge_partials_kernel"
+HIGHCARD_AGGS = [("sum", 0), ("avg", 0)]
+# case: (length, slide, G, live groups, first unit, units, rows, nulls,
+#        valid NaNs, compensated, aggregates)
+MERGE_CASES = {
+    "cfg1_dense": (1000, 1000, 128, 10, 3, 2, BATCH_ROWS, False, False,
+                   False, MAIN_AGGS),
+    "sliding_k5": (1000, 200, 128, 10, 2, 4, BATCH_ROWS, False, True, False,
+                   MAIN_AGGS),
+    "ragged_compact": (500, 200, 8192, 50, 4, 3, BATCH_ROWS, True, False,
+                       True, MAIN_AGGS),
+    # config 3's own stripe: at its G (2 x 100K keys, rounded up to 128)
+    # the 100K live groups fill half the span, so it packs compact
+    "cfg3_compact": (1000, 1000, 2 * HIGHCARD_KEYS + 64, HIGHCARD_KEYS, 5, 2,
+                     2 * HIGHCARD_BATCH_ROWS, False, False, False,
+                     HIGHCARD_AGGS),
+    # the same 100K live groups in a 131,072-wide ring pack dense
+    "cfg3_dense": (1000, 1000, 131_072, HIGHCARD_KEYS, 5, 2,
+                   2 * HIGHCARD_BATCH_ROWS, False, False, False,
+                   HIGHCARD_AGGS),
+}
+
+
+def merge_case(name: str, seed: int):
+    """One phase-7 case → (spec, host ring, SUB, (packed, a_pad, u_base,
+    lean, dense)): seeded rows in time order folded into the port's own
+    HostPartialStripe and packed by it, and a seeded ring (W = 16) whose
+    sums are sums of positive readings.  ``cfg3_compact``'s G is config
+    3's (min_group_capacity = 2 × 100K keys, rounded up to 128)."""
+    from denormalized_tpu_torch.ops import segment_agg as sa
+    from denormalized_tpu_torch.ops.host_partial import HostPartialStripe
+
+    (L, S, G, keys, u0, span, B, nulls, nans, compensated,
+     aggs) = MERGE_CASES[name]
+    rng = np.random.default_rng(seed)
+    comps = sa.components_for(aggs)
+    if compensated:
+        comps = sa.with_compensation(comps)
+    spec = sa.WindowKernelSpec(
+        components=tuple(comps), num_value_cols=1, window_slots=16,
+        group_capacity=G, length_ms=L, slide_ms=S, compensated=compensated,
+    )
+    ms = np.sort(rng.integers(0, span * S, B))
+    units = (u0 + ms // S).astype(np.int64)
+    rem = (ms % S).astype(np.int32)
+    gid = rng.integers(0, keys, B).astype(np.int32)
+    vals = rng.normal(50.0, 10.0, (B, 1))
+    colvalid = None
+    if nulls:
+        colvalid = rng.random((B, 1)) > 0.1
+        vals[~colvalid & (rng.random((B, 1)) < 0.5)] = np.nan
+    if nans:
+        vals[rng.integers(0, B, 4), 0] = np.nan  # valid NaNs
+    stripe = HostPartialStripe(spec, G)
+    stripe.add_batch(units, rem, gid, vals, colvalid, None)
+    base_mod = int(rng.integers(0, 16))
+    taken = stripe.take_packed(base_mod)
+    if taken[4] != name.endswith(("dense", "k5")):
+        raise AssertionError(f"{name}: the stripe packed in the other layout")
+    host = seeded_ring(spec, rng)
+    if nans:
+        # NaNs already in the ring, in rows the stripe folds into
+        for label in ("min_0", "max_0"):
+            host[label][(base_mod + u0 + rng.integers(0, span, 8)) % 16,
+                        rng.integers(0, keys, 8)] = np.nan
+    return spec, host, stripe.SUB, taken
+
+
+def merge_bound(spec, SUB: int, packed: np.ndarray, a_pad: int, dense: bool):
+    """Least time for one merge on this stripe's data: the bytes over the
+    HBM rate or the updates over the f32 rate, whichever is longer.  Bytes:
+    the row-count plane of every cell (it tells a live cell from an empty
+    one or padding) and the two header slots; for each live cell, its other
+    value planes and, in the compact layout, its index; plus every
+    component of each ring cell the live cells land in, read and written
+    once (8 B).  An empty or padding cell holds only fold identities, so
+    its other planes need not be read.  Updates: one a ring plane per (live
+    cell, fan-out) that lands.  → (ms, what bounds it, ring cells
+    touched)."""
+    W, G, k = spec.window_slots, spec.group_capacity, spec.length_units
+    planes = packed if dense else packed[1:]
+    flat = np.arange(a_pad) if dense else packed[0, :a_pad].astype(np.int64)
+    live = (planes[0, :a_pad] != 0) & (flat >= 0)
+    n_live = int(live.sum())
+    stripe_bytes = 4 * a_pad + 8 + 4 * n_live * (
+        planes.shape[0] - 1 + (0 if dense else 1))
+    flat = flat[live]
+    g, us = flat % G, flat // G
+    s, u = us % SUB, us // SUB
+    u_base_rel, base_mod = int(packed[0, a_pad]), int(packed[0, a_pad + 1])
+    cells, updates = [], 0
+    n_planes = len(spec.components)
+    for f in range(k):
+        w = u_base_rel + u - f
+        ok = (w >= 0) & (w < W)
+        if SUB == 2 and f == k - 1:
+            ok &= s == 0
+        cells.append(((base_mod + w[ok]) % W) * G + g[ok])
+        updates += int(ok.sum()) * n_planes
+    n_cells = len(np.unique(np.concatenate(cells)))
+    nbytes = stripe_bytes + 8 * n_cells * n_planes
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = updates / F32_OPS_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", n_cells
+    return t_ops, "operations", n_cells
+
+
+def phase_merge_kernel(device, seed: int, card: str):
+    """→ {case: {ms, host_ms, plain_ms, max_abs_err, bound_ms, bound_by}}."""
+    from denormalized_tpu_torch.ops import merge_partials as mp
+    from denormalized_tpu_torch.ops import segment_agg as sa
+
+    out = {}
+    for i, name in enumerate(MERGE_CASES):
+        spec, host, SUB, (packed_np, a_pad, _u, lean, dense) = merge_case(
+            name, seed + i)
+        packed = torch.from_numpy(packed_np).to(device)
+        got = sa.import_state(spec, host, device)
+        want = sa.import_state(spec, host, device)
+        before = mp.merge_partials_launches
+        mp.merge_partials(spec, SUB, a_pad, lean, dense, got, packed)
+        torch.cuda.synchronize(device)
+        if mp.merge_partials_launches - before != 1:
+            raise AssertionError(f"{name}: the merge kernel did not launch once")
+        sa.merge_partials_reference(spec, SUB, a_pad, lean, dense, want,
+                                    packed)
+        err = compare_rings(spec, got, want, name)
+
+        scratch = sa.import_state(spec, host, device)
+
+        def kernel():
+            mp.merge_partials(spec, SUB, a_pad, lean, dense, scratch, packed)
+
+        def plain():
+            sa.merge_partials_reference(spec, SUB, a_pad, lean, dense,
+                                        scratch, packed)
+
+        ms, ms_by = kernel_device_ms(kernel, MERGE_KERNEL)
+        host_ms = time_ms(kernel, device, iters=200)
+        plain_ms = time_ms(plain, device)
+        bound_ms, bound_by, n_cells = merge_bound(spec, SUB, packed_np, a_pad,
+                                                  dense)
+        out[name] = dict(ms=ms, ms_by=ms_by, host_ms=host_ms,
+                         plain_ms=plain_ms, max_abs_err=err, bound_ms=bound_ms,
+                         bound_by=bound_by)
+        log(f"phase 7 merge {name}: {'dense' if dense else 'compact'} "
+            f"{'lean' if lean else 'full'} stripe {tuple(packed.shape)} int32 "
+            f"(a_pad {a_pad}), SUB={SUB} k={spec.length_units} "
+            f"G={spec.group_capacity} compensated={spec.compensated}, "
+            f"{n_cells} ring cells touched: ring matches the plain version "
+            f"(max_abs_err={err:.3g}), device {ms:.5f} ms ({ms_by}), "
+            f"host_ms {host_ms:.4f}, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.6f} ms ({bound_by}) ({card})")
+    return out
+
+
+# -- phase 10: config 3, partial_merge against row shipping -------------------
+
+
+def phase_highcard(device, seed: int, card: str):
+    """Config 3 through partial_merge and through auto (row shipping) on
+    the same seeded stream, both checked against the oracle."""
+    stream = gen_stream(TOTAL_ROWS, HIGHCARD_BATCH_ROWS, HIGHCARD_KEYS, seed)
+    batches = to_batches(*stream, HIGHCARD_BATCH_ROWS, HIGHCARD_KEYS)
+    # bench.py highcard's capacity: G covers every key from the first batch
+    cfg = dict(min_group_capacity=2 * HIGHCARD_KEYS)
+    rates = {}
+    for strategy in ("partial_merge", "auto"):
+        rates[strategy] = run_checked(
+            device, 10, "highcard", strategy, batches, stream,
+            HIGHCARD_KEYS, card, **cfg)["rows_per_s"]
+    log(f"phase 10 config 3 rows/s side by side: partial_merge "
+        f"{rates['partial_merge']:.0f}, row shipping (auto) "
+        f"{rates['auto']:.0f} ({card})")
+    return rates
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -743,11 +1110,23 @@ def main(argv=None) -> int:
     log(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda} "
         f"on {torch.cuda.get_device_name(0)}")
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    from denormalized_tpu_torch.native.build import load as load_native
     from denormalized_tpu_torch.ops import cuda_build
+    from denormalized_tpu_torch.ops.interner import native_interner
 
     t0 = time.perf_counter()
-    reports = cuda_build.build_all()
-    log(f"phase 2: built {', '.join(sorted(reports))} in "
+    with ThreadPoolExecutor(1) as pool:
+        # the host libraries build with g++ while nvcc runs
+        host = pool.submit(lambda: (load_native("partial_agg"),
+                                    native_interner()))
+        reports = cuda_build.build_all()
+        _, interner = host.result()
+    if interner is None:
+        raise AssertionError("the native interner did not build")
+    log(f"phase 2: built {', '.join(sorted(reports))} and the host "
+        f"libraries partial_agg and interner (lane {interner.lane}) in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in reports.items():
         for line in text.splitlines():
@@ -755,25 +1134,38 @@ def main(argv=None) -> int:
                 log(f"  nvcc {name}: {line.strip()}")
 
     kern = phase_kernels(device, args.seed)
-    launches, rows_per_s, wall, batches = phase_job(
-        device, args.seed, TOTAL_ROWS, BATCH_ROWS, NUM_KEYS, False, card
+    tumbling, batches, stream = phase_job(
+        device, args.seed, TOTAL_ROWS, BATCH_ROWS, NUM_KEYS, "tumbling",
+        "auto", 4, card,
     )
     phase_profile(device, batches, card)
-    phase_job(
-        device, args.seed + 1, SLIDING_ROWS, BATCH_ROWS, NUM_KEYS, True, card
+    _, sliding_batches, sliding_stream = phase_job(
+        device, args.seed + 1, SLIDING_ROWS, BATCH_ROWS, NUM_KEYS, "sliding",
+        "auto", 5, card,
     )
     phase_scatter_nan(device, args.seed + 2)
+    merge = phase_merge_kernel(device, args.seed + 3, card)
+    cfg1_pm = run_checked(device, 8, "tumbling", "partial_merge", batches,
+                          stream, NUM_KEYS, card)
+    log(f"phase 8 config 1 rows/s side by side: partial_merge "
+        f"{cfg1_pm['rows_per_s']:.0f}, row shipping (auto, phase 4) "
+        f"{tumbling['rows_per_s']:.0f} ({card})")
+    run_checked(device, 9, "sliding", "partial_merge", sliding_batches,
+                sliding_stream, NUM_KEYS, card)
+    phase_highcard(device, args.seed + 4, card)
 
     hot = kern["main_hot"]
+    m1 = merge["cfg1_dense"]
     print(json.dumps({"kernels": [{
         "name": "dense_window",
         "route": "cuda",
         "source": "denormalized_tpu_torch/csrc/dense_window.cu",
         "replaces": "denormalized_tpu/ops/pallas_window.py:42",
-        "launches": launches,
+        "launches": tumbling["launches"]["dense_window"],
         "max_abs_err": max(k["max_abs_err"] for k in kern.values()),
         # device time of one launch at main_hot, apart from the wrapper
         "ms": hot["ms"],
+        "ms_by": hot["ms_by"],
         "plain_ms": hot["plain_ms"],
         "bound_ms": hot["bound_ms"],
         "bound_by": hot["bound_by"],
@@ -782,6 +1174,24 @@ def main(argv=None) -> int:
         "host_ms": hot["host_ms"],
         "main_ms": kern["main"]["ms"],
         "main_host_ms": kern["main"]["host_ms"],
+    }, {
+        "name": "merge_partials",
+        "route": "cuda",
+        "source": "denormalized_tpu_torch/csrc/merge_partials.cu",
+        "replaces": "denormalized_tpu/ops/segment_agg.py:365",
+        # launches on config 1 through partial_merge (phase 8)
+        "launches": cfg1_pm["launches"]["merge_partials"],
+        "max_abs_err": max(k["max_abs_err"] for k in merge.values()),
+        # device time of one launch at cfg1_dense, apart from the wrapper
+        "ms": m1["ms"],
+        "ms_by": m1["ms_by"],
+        "plain_ms": m1["plain_ms"],
+        "bound_ms": m1["bound_ms"],
+        "bound_by": m1["bound_by"],
+        "library_ms": None,
+        "host_ms": m1["host_ms"],
+        "cfg3_ms": merge["cfg3_compact"]["ms"],
+        "cfg3_bound_ms": merge["cfg3_compact"]["bound_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

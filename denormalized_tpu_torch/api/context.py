@@ -36,8 +36,21 @@ class EngineConfig:
     #   'auto'          — the same as 'pallas_dense' here, on the card and
     #                     on the CPU (the JAX package's rule for a
     #                     co-located GPU)
-    #   'partial_merge' — not yet ported (raises)
+    #   'partial_merge' — reduce each batch on the host (native
+    #                     partial_agg.cpp, f64) into a stripe of partials
+    #                     and fold the stripe into the ring with one launch
+    #                     of the merge kernel (ops/merge_partials.py)
     device_strategy: str = "auto"
+    # partial_merge pacing: merge the host stripe after this many rows even
+    # if no window closed, and defer emission up to emit_lag_ms after a
+    # window becomes closable, so replay-speed runs close several windows
+    # per merge.  None = 0 on the CPU, 200 ms on the card
+    partial_merge_rows: int = 4_000_000
+    emit_lag_ms: int | None = None
+    # compensated (hi, lo) f32 sums: each batch (scatter path) or each
+    # merge (partial_merge) folds into the pair by an exact TwoSum; the
+    # dense kernel does not take such a spec (it falls back to scatter)
+    compensated_sums: bool = False
     min_batch_bucket: int = 256
     min_group_capacity: int = 128
     min_window_slots: int = 16

@@ -1,0 +1,76 @@
+// NaN-safe extremum folds into float ring cells, shared by the kernels of
+// csrc/ (dense_window.cu, merge_partials.cu).
+//
+// An extremum travels as an order-preserving int key of the float: its
+// bits for x >= 0, bits ^ 0x7fffffff for x < 0, so keys compare like the
+// floats and reduce with the hardware's integer min/max.  A valid NaN takes
+// the key below every number for min (INT_MIN) and above every number for
+// max (INT_MAX); both keys decode to NaN.
+
+#pragma once
+
+#include <climits>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace ring_fold {
+
+__device__ __forceinline__ int order_key(float x) {
+  const int b = __float_as_int(x);
+  return b >= 0 ? b : b ^ 0x7fffffff;
+}
+
+// Inverse of order_key; INT_MIN and INT_MAX decode to NaN.
+__device__ __forceinline__ float key_value(int k) {
+  return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
+}
+
+__device__ __forceinline__ int min_key(float x) {
+  return x != x ? INT_MIN : order_key(x);
+}
+
+__device__ __forceinline__ int max_key(float x) {
+  return x != x ? INT_MAX : order_key(x);
+}
+
+// Fold an extremum, given as its key, into a float ring cell with
+// fire-and-forget integer atomics: a float with its sign bit clear orders
+// like its bits as a signed int, one with the sign bit set orders in
+// reverse like its bits as an unsigned int, so
+//   min: sign clear -> atomicMin(int), sign set -> atomicMax(unsigned)
+//   max: sign clear -> atomicMax(int), sign set -> atomicMin(unsigned)
+// keep min/max over every non-NaN pair of stored and new value.  A NaN is
+// stored as the one pattern both of its atomics leave in place: all ones
+// for min (-1 as int, the largest unsigned), 0x7fffffff for max (the
+// largest int, below every negative float as unsigned).  A NaN that was
+// already in the ring before the launch may have another pattern, so the
+// cell is read first (past L1) and left alone when it holds a NaN.
+__device__ __forceinline__ void fold_min(float* addr, int key) {
+  if (isnan(__ldcg(addr))) return;
+  if (key == INT_MIN) {
+    atomicMax(reinterpret_cast<unsigned*>(addr), 0xffffffffu);
+    return;
+  }
+  const int bits = __float_as_int(key_value(key));
+  if (bits >= 0) {
+    atomicMin(reinterpret_cast<int*>(addr), bits);
+  } else {
+    atomicMax(reinterpret_cast<unsigned*>(addr), static_cast<unsigned>(bits));
+  }
+}
+
+__device__ __forceinline__ void fold_max(float* addr, int key) {
+  if (isnan(__ldcg(addr))) return;
+  if (key == INT_MAX) {
+    atomicMax(reinterpret_cast<int*>(addr), 0x7fffffff);
+    return;
+  }
+  const int bits = __float_as_int(key_value(key));
+  if (bits >= 0) {
+    atomicMax(reinterpret_cast<int*>(addr), bits);
+  } else {
+    atomicMin(reinterpret_cast<unsigned*>(addr), static_cast<unsigned>(bits));
+  }
+}
+
+}  // namespace ring_fold

@@ -4,10 +4,11 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into a shared library with a
 plain C interface, loaded through ``ctypes`` — no PyTorch headers, so a
 build takes seconds.  Libraries land in ``denormalized_tpu_torch/_build/``
-under a name keyed by the hash of the source and flags, so an edited source
-rebuilds and an unchanged one loads at once.  The build runs on first use,
-from the sources in the checkout only; :func:`build_all` compiles every
-source at once with one ``nvcc`` process per file.
+under a name keyed by the hash of the source, its local includes and the
+flags, so an edited source or header rebuilds and an unchanged one loads at
+once.  The build runs on first use, from the sources in the checkout only;
+:func:`build_all` compiles every source at once with one ``nvcc`` process
+per file.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
@@ -17,11 +18,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+
+from denormalized_tpu_torch.native.build import source_hash
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
@@ -53,9 +55,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    """The library's path, keyed by the source, its local includes (so an
+    edit to a shared ``csrc/*.cuh`` rebuilds every library using it) and
+    the flags."""
+    h = source_hash(SRC_DIR / f"{name}.cu", NVCC_FLAGS)
+    return BUILD_DIR / f"lib{name}-{h}.so"
 
 
 def _start(name: str):

@@ -55,15 +55,16 @@ dense_window_launches = 0
 def dense_supported(spec: sa.WindowKernelSpec) -> bool:
     """Whether the spec fits the dense path.  G ≤ 2048,
     length_units ≤ K_ACTIVE = 8, at most MAX_DENSE_COLUMNS value columns,
-    f32 accumulators.  On the card the kernel tiles groups so any G within
-    that limit fits shared memory: one tile's planes take
-    ``4·K_ACTIVE·(1 + 4V)`` bytes a group (160 B at V=1), and a tile holds
-    at most ``SMEM_BUDGET_BYTES`` of them."""
+    f32 accumulators, no compensated sums.  On the card the kernel tiles
+    groups so any G within that limit fits shared memory: one tile's planes
+    take ``4·K_ACTIVE·(1 + 4V)`` bytes a group (160 B at V=1), and a tile
+    holds at most ``SMEM_BUDGET_BYTES`` of them."""
     return (
         spec.group_capacity <= MAX_DENSE_GROUPS
         and spec.length_units <= K_ACTIVE
         and spec.num_value_cols <= MAX_DENSE_COLUMNS
         and spec.accum_dtype == torch.float32
+        and not spec.compensated
     )
 
 

@@ -38,7 +38,7 @@ class AggComponent:
     """One primitive accumulator buffer.  Composite aggregates decompose:
     avg = sum + count (exactly as DataFusion's AvgGroupsAccumulator does)."""
 
-    kind: str  # 'count' | 'sum' | 'min' | 'max'
+    kind: str  # 'count' | 'sum' | 'sumc' | 'min' | 'max'
     col: int | None  # value-column index; None = row count (count(*))
 
     @property
@@ -73,9 +73,22 @@ def components_for(aggs: list[tuple]) -> list[AggComponent]:
     return comps
 
 
+def with_compensation(comps: list[AggComponent]) -> list[AggComponent]:
+    """Add a low-order ('sumc') companion for every 'sum' component —
+    storage for compensated accumulation (see :func:`update_state`)."""
+    out = list(comps)
+    for c in comps:
+        if c.kind == "sum":
+            out.append(AggComponent("sumc", c.col))
+    return out
+
+
 def read_sum(rows: dict[str, np.ndarray], col: int) -> np.ndarray:
-    """A column's total from an emitted row set."""
-    return rows[AggComponent("sum", col).label].astype(np.float64)
+    """A column's total from an emitted row set: hi + lo when compensated
+    (lo absent → plain)."""
+    hi = rows[AggComponent("sum", col).label].astype(np.float64)
+    lo = rows.get(AggComponent("sumc", col).label)
+    return hi if lo is None else hi + lo.astype(np.float64)
 
 
 @dataclass(frozen=True)
@@ -95,6 +108,11 @@ class WindowKernelSpec:
     length_ms: int
     slide_ms: int
     accum_dtype: Any = torch.float32
+    # compensated summation: each batch's contribution is scattered into a
+    # fresh per-batch partial, then folded into the running (hi, lo) pair
+    # ('sum', 'sumc') with an exact TwoSum — cross-batch rounding vanishes,
+    # leaving only intra-batch scatter rounding
+    compensated: bool = False
 
     @property
     def length_units(self) -> int:
@@ -105,7 +123,7 @@ class WindowKernelSpec:
         return torch.int32 if comp.kind == "count" else self.accum_dtype
 
     def init_value(self, comp: AggComponent) -> float:
-        if comp.kind in ("count", "sum"):
+        if comp.kind in ("count", "sum", "sumc"):
             return 0
         if comp.kind == "min":
             return float("inf")
@@ -173,11 +191,22 @@ def update_state(
 ) -> dict[str, torch.Tensor]:
     """The scatter path: scatter the batch into every window frame it
     belongs to, updating ``state`` in place.  A row with slide-index ``t``
-    belongs to windows ``t-k+1 .. t`` (k = length_units)."""
+    belongs to windows ``t-k+1 .. t`` (k = length_units).
+
+    Compensated mode scatters the 'sum' components into fresh per-batch
+    partials and folds each into its (hi, lo) = ('sum', 'sumc') pair once
+    at the end by Knuth's TwoSum, written as separate ops in the reference
+    order (nothing reassociates them)."""
     W = spec.window_slots
     G = spec.group_capacity
     values = values.to(spec.accum_dtype)
     gid64 = gid.long()
+    # compensated mode: the sum components scatter into these partials
+    targets = dict(state)
+    if spec.compensated:
+        for comp in spec.components:
+            if comp.kind == "sum":
+                targets[comp.label] = torch.zeros_like(state[comp.label])
     for i in range(spec.length_units):
         wr = win_rel - i  # rebased index of the i-th window this row feeds
         # membership: window covers the row iff i*S + rem < L; late rows
@@ -192,9 +221,23 @@ def update_state(
         vals_k = values[keep]
         valid_k = colvalid[keep]
         for comp in spec.components:
+            if comp.kind == "sumc":
+                continue  # written only by the TwoSum fold below
             _apply_component(
-                comp, state[comp.label].view(-1), idx, vals_k, valid_k
+                comp, targets[comp.label].view(-1), idx, vals_k, valid_k
             )
+    if spec.compensated:
+        for comp in spec.components:
+            if comp.kind != "sum":
+                continue
+            lo_label = AggComponent("sumc", comp.col).label
+            hi, lo, p = state[comp.label], state[lo_label], targets[comp.label]
+            # Knuth TwoSum: s + e == hi + p exactly
+            s = hi + p
+            t = s - hi
+            e = (hi - (s - t)) + (p - t)
+            hi.copy_(s)
+            lo.add_(e)
     return state
 
 
@@ -208,6 +251,95 @@ def lean_skippable(c: AggComponent) -> bool:
 def lean_possible(spec: WindowKernelSpec) -> bool:
     """Whether the lean layout differs from the full one for this spec."""
     return any(lean_skippable(c) for c in spec.components)
+
+
+def merge_partials_reference(
+    spec: WindowKernelSpec,
+    SUB: int,
+    a_pad: int,
+    lean: bool,
+    dense: bool,
+    state: dict[str, torch.Tensor],
+    packed: torch.Tensor,  # int32, (P+1, a_pad+2) compact / (P, a_pad+2) dense
+) -> dict[str, torch.Tensor]:
+    """Fold a packed host stripe (``ops/host_partial.py``) into the ring in
+    place — the plain PyTorch version of the kernel
+    ``csrc/merge_partials.cu`` (wrapper
+    :func:`denormalized_tpu_torch.ops.merge_partials.merge_partials`), and
+    what the JAX package's ``merge_partials_body`` computes on one device
+    (``G_total = G``, ``g_shift = 0``).
+
+    ``packed`` is an int32 carrier: ``u_base_rel`` (stripe unit 0 relative
+    to first_open) and ``base_mod`` (first_open % W) sit in row 0's two
+    tail slots.  The compact layout's row 0 holds flat cell indices
+    ``((u*SUB)+s)*G + g`` (−1 = padding) and its value planes start at row
+    1; the dense layout has no index row (cell i is flat index i, padding
+    fold-neutral) and its planes start at row 0.  Value planes are f32
+    bitcasts: one per count/min/max component (counts go to the int32
+    rings), two per sum (hi, lo) — both added to 'sum', or lo to 'sumc' in
+    compensated mode.  ``lean`` aliases every per-column count to the
+    row-count plane.  Unit u's partial feeds windows u-k+1..u; with SUB = 2
+    sub-bucket 1 is left out of the oldest.  A window outside [0, W) is
+    dropped, never clamped."""
+    W, G = spec.window_slots, spec.group_capacity
+    u_base_rel = int(packed[0, a_pad])
+    base_mod = int(packed[0, a_pad + 1])
+    dev = packed.device
+    if dense:
+        flat = torch.arange(a_pad, dtype=torch.long, device=dev)
+        valid = torch.ones(a_pad, dtype=torch.bool, device=dev)
+    else:
+        idx = packed[0, :a_pad].long()
+        valid = idx >= 0
+        flat = torch.clamp(idx, min=0)
+    g = flat % G
+    us = flat // G
+    s = us % SUB
+    u = us // SUB
+    plane0 = 0 if dense else 1
+
+    def f32_plane(pi: int) -> torch.Tensor:
+        return packed[plane0 + pi, :a_pad].contiguous().view(torch.float32)
+
+    for i in range(spec.length_units):
+        ok = valid
+        if SUB == 2 and i == spec.length_units - 1:
+            ok = ok & (s == 0)
+        w_rel = u_base_rel + u - i
+        ok = ok & (w_rel >= 0) & (w_rel < W)
+        keep = torch.nonzero(ok).squeeze(1)
+        cell = ((base_mod + w_rel[keep]) % W) * G + g[keep]
+        pi = 0
+        for comp in spec.components:
+            if comp.kind == "sumc":
+                continue
+            buf = state[comp.label].view(-1)
+            if comp.kind == "sum":
+                hi = f32_plane(pi)[keep].to(buf.dtype)
+                lo = f32_plane(pi + 1)[keep].to(buf.dtype)
+                buf.index_add_(0, cell, hi)
+                if spec.compensated:
+                    lo_buf = state[AggComponent("sumc", comp.col).label]
+                    lo_buf.view(-1).index_add_(0, cell, lo)
+                else:
+                    # two adds keep most of the host f64 precision even in
+                    # an f32 ring
+                    buf.index_add_(0, cell, lo)
+                pi += 2
+                continue
+            if lean and lean_skippable(comp):
+                pv = f32_plane(0)[keep]  # alias the row-count plane
+            else:
+                pv = f32_plane(pi)[keep]
+                pi += 1
+            if comp.kind == "count":
+                buf.index_add_(0, cell, pv.to(buf.dtype))
+            else:
+                buf.scatter_reduce_(
+                    0, cell, pv.to(buf.dtype),
+                    reduce="amin" if comp.kind == "min" else "amax",
+                )
+    return state
 
 
 def _read_and_reset_slots(
@@ -290,7 +422,9 @@ def _finals_and_reset(
         return comp[lbl] if lbl in comp else rc
 
     def sum_of(col):
-        return comp[AggComponent("sum", col).label]
+        hi = comp[AggComponent("sum", col).label]
+        lo = comp.get(AggComponent("sumc", col).label)
+        return hi if lo is None else hi + lo
 
     nan = torch.tensor(float("nan"), dtype=spec.accum_dtype, device=rc.device)
     for i, s in enumerate(agg_specs):

@@ -8,8 +8,14 @@ the batch allow it, else the scatter program (``ops/segment_agg.py``) — the
 JAX package's per-batch rule, counted in ``dense_updates`` and
 ``scatter_updates``.
 
-The sharded layouts (key-sharded, partial/final, two-level) and the
-host-partial ``partial_merge`` backend are not ported yet.
+:class:`PartialMergeWindowState` (``device_strategy='partial_merge'``)
+reduces each batch on the host into a stripe of per-(slide unit, sub,
+group) partials (``ops/host_partial.py``) and folds the packed stripe into
+the same ring with one launch of the merge kernel
+(``ops/merge_partials.py``) a merge, counted in ``merges``.
+
+The sharded layouts (key-sharded, partial/final, two-level) are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -17,9 +23,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from denormalized_tpu_torch.common.errors import PlanError
 from denormalized_tpu_torch.ops import dense_window as dw
 from denormalized_tpu_torch.ops import segment_agg as sa
+from denormalized_tpu_torch.ops.host_partial import HostPartialStripe
+from denormalized_tpu_torch.ops.merge_partials import merge_partials
 
 
 class WindowStateBackend:
@@ -30,6 +37,9 @@ class WindowStateBackend:
     # device)
     bytes_h2d: int = 0
     bytes_d2h: int = 0
+    # True for backends that take host partials through accumulate()
+    # instead of rows through update()
+    accumulates_host = False
 
     @property
     def strategy_name(self) -> str:
@@ -46,6 +56,10 @@ class WindowStateBackend:
         min_win_rel: int | None = None, max_win_rel: int | None = None,
     ):
         raise NotImplementedError
+
+    def flush_pending(self) -> None:
+        """Fold pending host partials into the ring (row shipping holds
+        none)."""
 
     def read_reset_block(
         self, first_slot: int, n: int, live_groups=None, lean=False
@@ -206,6 +220,132 @@ class SingleDeviceWindowState(WindowStateBackend):
         self._state = sa.import_state(self.spec, host_state, self.device)
 
 
+class _HostPartialMixin:
+    """Host-stripe machinery of the partial_merge backend: batch chunk
+    folding and flush orchestration.  The concrete class provides
+    ``_merge(packed, a_pad, lean, dense)``; ``PartialMergeWindowState`` is
+    its one user until the key-sharded layout is ported."""
+
+    accumulates_host = True
+
+    def _init_host_partial(self, stripe_group_capacity: int) -> None:
+        self._stripe = HostPartialStripe(self.spec, stripe_group_capacity)
+        self._pending_base_mod = 0
+        self.merges = 0
+
+    @property
+    def stripe(self) -> HostPartialStripe:
+        return self._stripe
+
+    @property
+    def pending_rows(self) -> int:
+        return self._stripe.rows
+
+    def update(self, *a, **k):
+        raise RuntimeError(
+            "partial_merge backend consumes host partials via accumulate(); "
+            "the operator must not ship rows to it"
+        )
+
+    def accumulate(
+        self, units_rel, rem, gid, values64, colvalid, keep, base_mod
+    ) -> None:
+        """Fold one batch into the host stripe, flushing and chunking so no
+        row is ever dropped: a batch spanning more slide units than a
+        stripe can hold is folded in unit-range chunks with a merge between
+        them."""
+        units_rel = np.asarray(units_rel, np.int64)
+        stripe = self._stripe
+        # units a stripe may span: both the U_MAX ring and the transfer
+        # cell cap (at least one unit)
+        span_u = max(
+            1,
+            min(
+                stripe.U_MAX,
+                stripe.MAX_STRIPE_CELLS // max(1, stripe.G * stripe.SUB),
+            ),
+        )
+        if keep is None and len(units_rel):
+            # steady state: no keep mask and the whole batch fits the
+            # current stripe — one fold, no boolean scans.  Anything that
+            # needs a flush falls through to the chunk loop below
+            u_min = int(units_rel.min())
+            u_max = int(units_rel.max())
+            base = stripe.u_base if not stripe.is_empty() else u_min
+            if (
+                u_min >= base
+                and u_max <= base + span_u - 1
+                and (
+                    stripe.is_empty()
+                    or stripe.rows + len(units_rel) <= stripe.MAX_STRIPE_ROWS
+                )
+            ):
+                if stripe.is_empty():
+                    self._pending_base_mod = int(base_mod)
+                stripe.add_batch(units_rel, rem, gid, values64, colvalid, None)
+                return
+        remaining = (
+            np.ones(len(units_rel), bool) if keep is None else keep.copy()
+        )
+        while remaining.any():
+            u0 = int(units_rel[remaining].min())
+            if not stripe.is_empty() and (
+                u0 < stripe.u_base or stripe.rows >= stripe.MAX_STRIPE_ROWS
+            ):
+                self.flush_pending()
+            base = stripe.u_base if not stripe.is_empty() else u0
+            chunk = (
+                remaining
+                & (units_rel >= base)
+                & (units_rel <= base + span_u - 1)
+            )
+            n_chunk = int(chunk.sum())
+            if n_chunk == 0 or (
+                not stripe.is_empty()
+                and stripe.rows + n_chunk > stripe.MAX_STRIPE_ROWS
+            ):
+                self.flush_pending()
+                continue
+            if stripe.is_empty():
+                self._pending_base_mod = int(base_mod)
+            stripe.add_batch(units_rel, rem, gid, values64, colvalid, chunk)
+            remaining &= ~chunk
+
+    def flush_pending(self) -> None:
+        """Pack the stripe and fold it into the ring (one merge)."""
+        taken = self._stripe.take_packed(self._pending_base_mod)
+        if taken is None:
+            return
+        packed, a_pad, _u_base, lean, dense = taken
+        self.bytes_h2d += int(packed.nbytes)
+        self._merge(packed, a_pad, lean, dense)
+        self.merges += 1
+
+
+class PartialMergeWindowState(_HostPartialMixin, SingleDeviceWindowState):
+    """Host edge-reduction + device merge (the ``partial_merge``
+    strategy): rows are reduced on the host into per-(slide unit, sub,
+    group) partials (native C++ single pass, ``ops/host_partial.py``) and
+    the device folds each stripe into the ring with ONE transfer and ONE
+    kernel launch.  Emission, growth and export are the scatter path's."""
+
+    def __init__(self, spec: sa.WindowKernelSpec, device: torch.device | str):
+        super().__init__(spec, device, "scatter")
+        self._init_host_partial(spec.group_capacity)
+
+    @property
+    def strategy_name(self) -> str:
+        return "partial_merge"
+
+    def _merge(
+        self, packed: np.ndarray, a_pad: int, lean: bool, dense: bool
+    ) -> None:
+        merge_partials(
+            self.spec, self._stripe.SUB, a_pad, lean, dense, self._state,
+            torch.from_numpy(packed).to(self.device),
+        )
+
+
 def make_sharded_state(
     spec: sa.WindowKernelSpec,
     device: torch.device | str,
@@ -213,16 +353,13 @@ def make_sharded_state(
 ) -> WindowStateBackend:
     """The single-device branch of the JAX package's factory: row shipping
     for 'scatter', 'pallas_dense' and 'auto' ('auto' = dense where
-    supported, as on a co-located GPU)."""
+    supported, the JAX package's rule for a co-located GPU, on the card and
+    on the CPU alike); host partials for 'partial_merge'."""
     if device_strategy == "partial_merge":
-        raise PlanError(
-            "device_strategy='partial_merge' not yet ported to "
-            "denormalized_tpu_torch (host partials need "
-            "native/partial_agg.cpp)"
-        )
+        return PartialMergeWindowState(spec, device)
     if device_strategy not in ("scatter", "pallas_dense", "auto"):
         raise ValueError(
             f"unknown device strategy {device_strategy!r} (expected "
-            "'scatter', 'pallas_dense' or 'auto')"
+            "'scatter', 'pallas_dense', 'partial_merge' or 'auto')"
         )
     return SingleDeviceWindowState(spec, device, device_strategy)

@@ -7,18 +7,23 @@ degenerate case).  Per input batch (host side, all vectorized):
 2. intern keys → dense int32 group ids (:class:`GroupInterner`);
 3. compute each row's slide-index and rebase against ``first_open``;
    rows of already-emitted windows are late and dropped;
-4. pad to a power-of-two bucket and run the device step on the ring
-   (the dense kernel or the scatter program, see
+4. row shipping: pad to a power-of-two bucket and run the device step on
+   the ring (the dense kernel or the scatter program); ``partial_merge``:
+   fold the batch (f64) into the backend's host stripe, dropping rows
+   behind the watermark, and merge the stripe into the ring before any
+   emission, growth or end of stream (see
    :mod:`denormalized_tpu_torch.parallel.sharded_state`);
 5. advance the watermark (monotonic max of batch min-timestamps) and emit
    every window whose end ≤ watermark, synchronously: read and reset that
    block of ring slots on the device, finalize, and build the output batch.
+   Under ``partial_merge`` emission waits up to ``emit_lag_ms`` so a
+   replay-speed feed closes several windows per merge.
 
 Capacity is elastic: group capacity G and ring size W double when the
 interner or the event-time skew outgrow them (export, re-lay out, import).
 
-Not ported yet: the cold tier, checkpointing, the host pipeline and the
-partial-merge branches, emission compaction, watermark hints, and the
+Not ported yet: the cold tier, checkpointing, the host pipeline thread,
+emission compaction, watermark hints, asynchronous emission and the
 variance aggregates.
 """
 
@@ -45,6 +50,7 @@ from denormalized_tpu_torch.logical.expr import (
 )
 from denormalized_tpu_torch.logical.plan import WindowType
 from denormalized_tpu_torch.ops import segment_agg as sa
+from denormalized_tpu_torch.ops.host_partial import HostPartialStripe
 from denormalized_tpu_torch.ops.interner import GroupInterner
 from denormalized_tpu_torch.parallel.sharded_state import make_sharded_state
 from denormalized_tpu_torch.physical.base import (
@@ -85,6 +91,9 @@ class StreamingWindowExec(ExecOperator):
         min_window_slots: int = 16,
         min_batch_bucket: int = 256,
         device_strategy: str = "auto",
+        compensated_sums: bool = False,
+        partial_merge_rows: int = 4_000_000,
+        emit_lag_ms: int | None = None,
     ) -> None:
         if window_type is WindowType.SESSION:
             raise PlanError(
@@ -117,7 +126,10 @@ class StreamingWindowExec(ExecOperator):
                 self._agg_specs.append((a.kind, None))
             else:
                 self._agg_specs.append((a.kind, value_idx(a.arg)))
-        components = tuple(sa.components_for(self._agg_specs))
+        comps = sa.components_for(self._agg_specs)
+        if compensated_sums:
+            comps = sa.with_compensation(comps)
+        components = tuple(comps)
 
         self._grouped = len(self.group_exprs) > 0
         self._interner = (
@@ -133,6 +145,7 @@ class StreamingWindowExec(ExecOperator):
             ),
             length_ms=self.length_ms,
             slide_ms=self.slide_ms,
+            compensated=compensated_sums,
         )
         self._backend = make_sharded_state(
             self._spec, self._device, device_strategy
@@ -157,6 +170,19 @@ class StreamingWindowExec(ExecOperator):
         ]
         self.schema = Schema(fields)
 
+        # partial_merge pacing: emission waits up to emit_lag_s after a
+        # window becomes closable, so a replay-speed feed closes several
+        # windows per merge; a real-time feed's stripe is older than the
+        # lag when its window closes and emits at once.  None = the JAX
+        # package's rule per backend: 0 on the CPU (merges cost a memcpy,
+        # and deferral would hold a paused stream's last windows until the
+        # next batch), 200 ms on an accelerator
+        if emit_lag_ms is None:
+            emit_lag_ms = 0 if self._device.type == "cpu" else 200
+        self._emit_lag_s = emit_lag_ms / 1000.0
+        self._merge_rows = partial_merge_rows
+        self._stripe_wall: float | None = None
+
         # streaming state
         self._first_open: int | None = None  # lowest non-emitted slide index
         self._max_win_seen: int = -1
@@ -171,6 +197,7 @@ class StreamingWindowExec(ExecOperator):
             "late_rows": 0,
             "windows_emitted": 0,
             "device_steps": 0,
+            "partial_merges": 0,
             "grow_events": 0,
             "host_prep_s": 0.0,
         }
@@ -187,6 +214,11 @@ class StreamingWindowExec(ExecOperator):
 
     def metrics(self):
         m = dict(self._metrics)
+        if self._backend.accumulates_host:
+            # merges also happen inside accumulate() (stripe-span
+            # overflow): read them off the backend
+            m["partial_merges"] = self._backend.merges
+            m["device_steps"] = self._backend.merges
         m["bytes_h2d"] = self._backend.bytes_h2d
         m["bytes_d2h"] = self._backend.bytes_d2h
         m["strategy_resolved"] = self._backend.strategy_name
@@ -214,6 +246,8 @@ class StreamingWindowExec(ExecOperator):
             group_capacity=_round_capacity(max(int(G), self._spec.group_capacity)),
             length_ms=self.length_ms,
             slide_ms=self.slide_ms,
+            accum_dtype=self._spec.accum_dtype,
+            compensated=self._spec.compensated,
         )
         self._replace_backend()
         self._backend.import_(host_state)
@@ -235,11 +269,21 @@ class StreamingWindowExec(ExecOperator):
         self._backend.bytes_d2h += old.bytes_d2h
         self._backend.dense_updates += old.dense_updates
         self._backend.scatter_updates += old.scatter_updates
+        if self._backend.accumulates_host:
+            self._backend.merges += old.merges
+            new, prev = self._backend.stripe, old.stripe
+            new.native_batches += prev.native_batches
+            new.numpy_batches += prev.numpy_batches
+            new.reduce_s += prev.reduce_s
+            new.pack_s += prev.pack_s
         if self._finals_specs is not None:
             self._backend.prepare_finals(self._finals_specs)
 
     # -- capacity management --------------------------------------------
     def _grow(self, *, window_slots: int | None = None, group_capacity: int | None = None):
+        # host partials are laid out for the old G/W: merge them into the
+        # ring before exporting it
+        self._backend.flush_pending()
         host = self._backend.export()
         old = self._spec
         self._spec = sa.WindowKernelSpec(
@@ -250,6 +294,7 @@ class StreamingWindowExec(ExecOperator):
             length_ms=old.length_ms,
             slide_ms=old.slide_ms,
             accum_dtype=old.accum_dtype,
+            compensated=old.compensated,
         )
         if window_slots and self._first_open is not None:
             # ring phase changes with W: re-lay out slots by absolute window
@@ -316,18 +361,43 @@ class StreamingWindowExec(ExecOperator):
             gid = np.zeros(n, dtype=np.int32)
         self._ensure_capacity(int(win_rel64.max()))
 
-        # value matrix (f32, what the ring accumulates) + per-column validity
+        # value matrix + per-column validity: f64 when the backend
+        # accumulates on the host (the stripe keeps f64), else f32 (what
+        # the ring accumulates)
         V = self._spec.num_value_cols
-        values = np.zeros((n, max(V, 1)), dtype=np.float32)
+        host_dtype = (
+            np.float64 if self._backend.accumulates_host else np.float32
+        )
+        values = np.zeros((n, max(V, 1)), dtype=host_dtype)
         colvalid = np.ones((n, max(V, 1)), dtype=bool)
+        any_invalid = False
         for j, e in enumerate(self._value_exprs):
             values[:, j] = e.eval(batch)
             m = column_validity(e, batch)
             if m is not None:
                 colvalid[:, j] = m
-                if not m.all():
-                    self._any_nulls_seen = True
+                any_invalid = any_invalid or not m.all()
+        if any_invalid:
+            self._any_nulls_seen = True
 
+        if self._backend.accumulates_host:
+            yield from self._accumulate(
+                t0, units, win_rel64, late, rem, gid, values,
+                colvalid if any_invalid else None,
+            )
+        else:
+            self._ship_rows(t0, n, first, win_rel64, rem, gid, values,
+                            colvalid)
+
+        # watermark: monotonic max of batch min-ts (reference semantics)
+        bmin = int(ts.min())
+        if self._watermark_ms is None or bmin > self._watermark_ms:
+            self._watermark_ms = bmin
+        yield from self._trigger()
+
+    def _ship_rows(self, t0, n, first, win_rel64, rem, gid, values, colvalid):
+        """Row shipping: pad the batch to a pow2 bucket and run one device
+        step on it."""
         win_rel = np.clip(win_rel64, -1, self._spec.window_slots).astype(np.int32)
         # pad to a pow2 bucket: padding rows are invalid (row_valid False)
         Bp = max(self._min_batch_bucket, _next_pow2(n))
@@ -358,11 +428,45 @@ class StreamingWindowExec(ExecOperator):
         )
         self._metrics["device_steps"] += 1
 
-        # watermark: monotonic max of batch min-ts (reference semantics)
-        bmin = int(ts.min())
-        if self._watermark_ms is None or bmin > self._watermark_ms:
-            self._watermark_ms = bmin
-        yield from self._trigger()
+    def _accumulate(self, t0, units, win_rel64, late, rem, gid, values64,
+                    colvalid) -> Iterator[RecordBatch]:
+        """partial_merge: fold the batch into the host stripe; the device
+        sees it at the next merge.  Rows are dropped against the
+        WATERMARK (windows already closable), not first_open, so emission
+        deferral cannot make drop semantics depend on the wall clock —
+        this is where the row-shipping path's first_open would sit, since
+        it emits every closable window at once."""
+        first = self._first_open
+        keep = None
+        closable_pre = self._closable()
+        if late or closable_pre:
+            keep = win_rel64 >= closable_pre
+            if closable_pre and self._spec.length_units > 1:
+                # a kept row's unit partial feeds EVERY window holding that
+                # unit, closable (deferred) ones included, and the stripe
+                # cannot take it back per window: freeze-then-accumulate —
+                # emit every closable window now, then rebase against the
+                # advanced first_open.  Only rows behind the watermark can
+                # straddle, so a sorted feed never takes this path
+                lows = win_rel64 - (self._spec.length_units - 1)
+                if bool((keep & (lows < closable_pre)).any()):
+                    yield from self._trigger(force=True)
+                    first = self._first_open
+                    win_rel64 = units - first
+                    closable_pre = self._closable()  # 0 after emission
+                    keep = win_rel64 >= closable_pre
+            n_drop = int((~keep).sum())
+            if n_drop:
+                self._metrics["late_rows"] += n_drop - late
+            else:
+                keep = None
+        if self._backend.pending_rows == 0:
+            self._stripe_wall = time.perf_counter()
+        self._backend.accumulate(
+            win_rel64, rem, gid, values64, colvalid, keep,
+            first % self._spec.window_slots,
+        )
+        self._metrics["host_prep_s"] += time.perf_counter() - t0
 
     # -- emission --------------------------------------------------------
     def _closable(self) -> int:
@@ -373,10 +477,31 @@ class StreamingWindowExec(ExecOperator):
         )
         return max(0, int(wm_win) - self._first_open)
 
-    def _trigger(self) -> Iterator[RecordBatch]:
+    def _trigger(self, force: bool = False) -> Iterator[RecordBatch]:
         """Emit every window whose end ≤ watermark (trigger_windows,
-        grouped_window_agg_stream.rs:220-253), synchronously."""
+        grouped_window_agg_stream.rs:220-253), synchronously.
+
+        With a host-accumulating backend the stripe is merged first, and
+        emission waits up to ``emit_lag_ms`` after the stripe began, while
+        it stays under ``partial_merge_rows`` and can take another slide
+        unit.  ``force`` skips the wait: ingest uses it to freeze closable
+        windows before a batch whose rows would otherwise leak into
+        them."""
         n_close = self._closable()
+        if self._backend.accumulates_host:
+            if n_close == 0:
+                if self._backend.pending_rows >= self._merge_rows:
+                    self._backend.flush_pending()
+                return
+            age = time.perf_counter() - (self._stripe_wall or 0.0)
+            if (
+                not force
+                and age < self._emit_lag_s
+                and self._backend.pending_rows < self._merge_rows
+                and self._stripe_fits_more()
+            ):
+                return
+            self._backend.flush_pending()
         while n_close > 0:
             # pow2 block sizes, as in the JAX package's program ladder
             n = 1 << min(3, (n_close).bit_length() - 1)
@@ -399,6 +524,12 @@ class StreamingWindowExec(ExecOperator):
                 yield from self._emit_component_block(self._first_open, n, block)
             self._first_open += n
             n_close -= n
+
+    def _stripe_fits_more(self) -> bool:
+        """Can the stripe still take the next slide unit without
+        overflowing its span?  (Else wait no longer: merge and emit.)"""
+        span_now = self._max_win_seen - self._first_open + 1
+        return span_now + 1 < HostPartialStripe.U_MAX
 
     def _emit_finals_block(self, j0: int, n: int, block) -> Iterator[RecordBatch]:
         """Finals block: one plane per output aggregate + the active mask;
@@ -479,8 +610,9 @@ class StreamingWindowExec(ExecOperator):
             if isinstance(item, RecordBatch):
                 yield from list(self._process_batch(item))
             elif isinstance(item, EndOfStream):
-                # bounded input: flush every open window
+                # bounded input: merge the stripe, flush every open window
                 if self._first_open is not None:
+                    self._backend.flush_pending()
                     for j in range(self._first_open, self._max_win_seen + 1):
                         b = self._emit_window(j)
                         if b is not None:

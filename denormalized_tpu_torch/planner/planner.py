@@ -56,6 +56,9 @@ class Planner:
                 min_window_slots=c.min_window_slots,
                 min_batch_bucket=c.min_batch_bucket,
                 device_strategy=c.device_strategy,
+                compensated_sums=c.compensated_sums,
+                partial_merge_rows=c.partial_merge_rows,
+                emit_lag_ms=c.emit_lag_ms,
             )
         if isinstance(node, lp.Sink):
             return SinkExec(self.create_physical_plan(node.input), node.sink)

@@ -1,7 +1,9 @@
 """The PyTorch/CUDA port stands alone: it imports neither jax nor anything
 of denormalized_tpu, and it never hides the device or the kernel — no CUDA
-without device="cpu" raises, a non-CPU tensor never reaches the plain
-version, and a failed kernel build raises."""
+without device="cpu" raises, a non-CPU tensor never reaches a plain
+version, and a failed kernel build raises.  A failed build of the native
+HOST code is different: the numpy reducer and the dict interner take over,
+logged and counted."""
 
 import ast
 import os
@@ -16,11 +18,25 @@ import torch
 import denormalized_tpu_torch as tt
 from denormalized_tpu_torch.common.errors import PlanError
 from denormalized_tpu_torch.ops import cuda_build
+from denormalized_tpu_torch.native import build as native_build
 from denormalized_tpu_torch.ops import dense_window as dw
+from denormalized_tpu_torch.ops import host_partial as hp
+from denormalized_tpu_torch.ops import interner as ti
+from denormalized_tpu_torch.ops import merge_partials as mp
 from denormalized_tpu_torch.ops import segment_agg as sa
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "denormalized_tpu_torch"
+
+
+# modules of the partial_merge slice, named so a rename cannot drop them
+# from the blocked-import check unseen
+NEW_MODULES = (
+    "denormalized_tpu_torch.native.build",
+    "denormalized_tpu_torch.ops.host_partial",
+    "denormalized_tpu_torch.ops.merge_partials",
+    "denormalized_tpu_torch.ops.interner",
+)
 
 
 def _port_files():
@@ -36,6 +52,22 @@ def test_port_imports_with_jax_and_reference_blocked():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        f"for name in {NEW_MODULES!r}:\n"
+        "    assert name in sys.modules, name\n"
+        # the native host code builds and runs with nothing of jax around
+        "import numpy as np\n"
+        "from denormalized_tpu_torch.ops import host_partial as hp\n"
+        "from denormalized_tpu_torch.ops import segment_agg as sa\n"
+        "from denormalized_tpu_torch.ops.interner import GroupInterner\n"
+        "spec = sa.WindowKernelSpec(tuple(sa.components_for([('sum', 0)])),"
+        " 1, 16, 128, 1000, 1000)\n"
+        "st = hp.HostPartialStripe(spec, 128)\n"
+        "st.add_batch(np.zeros(4, np.int64), np.zeros(4, np.int32),"
+        " np.arange(4, dtype=np.int32), np.ones((4, 1)), None, None)\n"
+        "assert st.native_batches == 1, 'native reducer did not run'\n"
+        "g = GroupInterner(1)\n"
+        "g.intern([np.array(['a', 'b', 'a'], dtype=object)])\n"
+        "assert g.lanes[0].startswith('native'), g.lanes\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'denormalized_tpu' or m.startswith('denormalized_tpu.')]\n"
         "assert all(sys.modules[m] is None for m in bad), bad\n"
@@ -131,3 +163,80 @@ def test_wrapper_checks_dtype_and_shape(bad, match):
     spec, state, args = _dense_args("cpu", **bad)
     with pytest.raises((TypeError, ValueError), match=match):
         dw.dense_update(spec, state, *args, 0, min_win_rel=0)
+
+
+def _merge_args(device, **bad):
+    """A tumbling spec, its ring and a dense lean packed stripe on
+    ``device``; ``bad`` replaces the packed matrix or the ring's sum."""
+    spec = sa.WindowKernelSpec(
+        components=tuple(sa.components_for([("min", 0), ("avg", 0)])),
+        num_value_cols=1, window_slots=16, group_capacity=128,
+        length_ms=1000, slide_ms=1000,
+    )
+    state = sa.init_state(spec, device)
+    packed = bad.get("packed", torch.zeros((4, 1026), dtype=torch.int32))
+    if "sum" in bad:
+        state["sum_0"] = bad["sum"]
+    return spec, state, packed.to(device)
+
+
+def test_merge_wrapper_never_takes_the_plain_version_off_cpu(monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("plain version called for a non-CPU tensor")
+
+    monkeypatch.setattr(sa, "merge_partials_reference", refuse)
+    spec, state, packed = _merge_args("meta")
+    before = mp.merge_partials_launches
+    with pytest.raises(ValueError, match="no merge kernel"):
+        mp.merge_partials(spec, 1, 1024, True, True, state, packed)
+    assert mp.merge_partials_launches == before
+
+
+@pytest.mark.parametrize(
+    "bad, match",
+    [
+        (dict(packed=torch.zeros((4, 1026), dtype=torch.int64)), "int32"),
+        (dict(packed=torch.zeros((4, 1025), dtype=torch.int32)), "a_pad"),
+        (dict(packed=torch.zeros((5, 1026), dtype=torch.int32)), "rows"),
+        (dict(sum=torch.zeros((16, 64))), "sum_0"),
+    ],
+)
+def test_merge_wrapper_checks_inputs(bad, match):
+    spec, state, packed = _merge_args("cpu", **bad)
+    with pytest.raises((TypeError, ValueError), match=match):
+        mp.merge_partials(spec, 1, 1024, True, True, state, packed)
+
+
+def test_failed_native_build_falls_back_logged(monkeypatch, tmp_path, caplog):
+    """No g++: the stripe folds on the numpy lane and the interner on the
+    dict lane, each with a warning, and the stripe counts the batch."""
+    monkeypatch.setattr(native_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native_build, "_CACHE", {})
+
+    def no_compiler(cmd, **kw):
+        raise FileNotFoundError("g++")
+
+    monkeypatch.setattr(native_build.subprocess, "run", no_compiler)
+    hp._native.cache_clear()
+    ti.native_interner.cache_clear()
+    try:
+        with pytest.raises(native_build.NativeBuildError, match="g\\+\\+"):
+            native_build.load("partial_agg")
+        caplog.set_level("WARNING")
+        spec = sa.WindowKernelSpec(
+            components=tuple(sa.components_for([("sum", 0)])),
+            num_value_cols=1, window_slots=16, group_capacity=128,
+            length_ms=1000, slide_ms=1000,
+        )
+        st = hp.HostPartialStripe(spec, 128)
+        st.add_batch(np.zeros(4, np.int64), np.zeros(4, np.int32),
+                     np.arange(4, dtype=np.int32), np.ones((4, 1)), None, None)
+        assert (st.native_batches, st.numpy_batches) == (0, 1)
+        col = ti.ColumnInterner()
+        col.intern_array(np.array(["a", "b"], dtype=object))
+        assert col.lane == "dict"
+        text = caplog.text
+        assert "numpy path" in text and "dict-based interning" in text
+    finally:
+        hp._native.cache_clear()
+        ti.native_interner.cache_clear()

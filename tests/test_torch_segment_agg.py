@@ -89,6 +89,52 @@ def test_update_state_matches_jax(length_ms, slide_ms):
     _assert_planes(tspec, tsa.export_state(got), jsa.export_state(want))
 
 
+@pytest.mark.parametrize(
+    "length_ms, slide_ms", [(1000, 1000), (1000, 200), (1000, 300)],
+    ids=["tumbling", "k5", "L_mod_S"],
+)
+def test_compensated_update_matches_jax(length_ms, slide_ms):
+    """Compensated sums: the batch scatters into fresh partials, folded
+    into (hi, lo) = ('sum', 'sumc') by TwoSum.  Counts and extrema exact;
+    hi and hi + lo to rtol=1e-5."""
+    kw = dict(num_value_cols=2, window_slots=16, group_capacity=128,
+              length_ms=length_ms, slide_ms=slide_ms, compensated=True)
+    jspec = jsa.WindowKernelSpec(
+        components=tuple(jsa.with_compensation(jsa.components_for(AGGS))),
+        **kw)
+    tspec = tsa.WindowKernelSpec(
+        components=tuple(tsa.with_compensation(tsa.components_for(AGGS))),
+        **kw)
+    assert [c.label for c in tspec.components] == [
+        c.label for c in jspec.components]
+    rng = np.random.default_rng(slide_ms + 1)
+    host = _ring(jspec, rng)
+    for c in jspec.components:
+        if c.kind == "sumc":
+            host[c.label] = rng.normal(0, 1e-4, (16, 128)).astype(np.float32)
+    batch = _batch(rng, 16, slide_ms)
+    want = jsa.export_state(jsa.update_state(
+        jspec, {k: jnp.asarray(v) for k, v in host.items()},
+        *(jnp.asarray(a) for a in batch), jnp.asarray(5, jnp.int32),
+    ))
+    got = tsa.export_state(tsa.update_state(
+        tspec, tsa.import_state(tspec, host, "cpu"),
+        *(torch.from_numpy(a) for a in batch), 5,
+    ))
+    for c in tspec.components:
+        a, b = got[c.label], np.asarray(want[c.label])
+        assert a.dtype == b.dtype, c.label
+        if c.kind == "sum":
+            np.testing.assert_allclose(a, b, rtol=1e-5, err_msg=c.label)
+            lo = tsa.AggComponent("sumc", c.col).label
+            np.testing.assert_allclose(
+                a.astype(np.float64) + got[lo], b.astype(np.float64) + want[lo],
+                rtol=1e-5, err_msg=lo)
+            assert np.any(got[lo] != host[lo])  # the fold wrote lo
+        elif c.kind != "sumc":
+            np.testing.assert_array_equal(a, b, err_msg=c.label)
+
+
 @pytest.mark.parametrize("lean", [False, True], ids=["full", "lean"])
 @pytest.mark.parametrize("n, first_slot, g_bucket", [(1, 3, 128), (4, 14, 64)])
 def test_gather_and_reset_matches_jax(lean, n, first_slot, g_bucket):

@@ -148,3 +148,67 @@ def test_jax_ring_carried_into_the_port(slide, cut, port_slots):
         np.testing.assert_array_equal(got[2:4], want[2:4], err_msg=str(k))
         np.testing.assert_allclose([got[1], got[4]], [want[1], want[4]],
                                    rtol=1e-5, err_msg=str(k))
+
+
+# -- the group interner's lanes --------------------------------------------
+
+_KEY_BATCHES = [
+    ["a", "b", None, "a\x00\x00", "ü", 7, "7", float("nan"), "nan", "b"],
+    ["c", None, "a", 3.5, "None", "\x00", "", "ü", "c\x00", "d"],
+    ["d", "e", "a", None, "z" * 40, 7, "e", "", "f", "a"],
+]
+_NUMERIC_BATCHES = [
+    np.array([3.0, np.nan, 1.5, 3.0]), np.array([np.nan, 2.0, 1.5, -0.0]),
+]
+
+
+def _port_interner(lane, monkeypatch):
+    from denormalized_tpu_torch.ops import interner as ti
+
+    if lane == "native-bytes":
+        # the byte-key lane of the same library (what a machine without the
+        # Python headers builds)
+        nat = ti.native_interner()
+        monkeypatch.setattr(
+            ti, "native_interner", lambda: ti._NativeInterner(nat.lib, None)
+        )
+    elif lane == "dict":
+        # the lane a failed native build leaves
+        monkeypatch.setattr(ti, "native_interner", lambda: None)
+    return ti.ColumnInterner()
+
+
+@pytest.mark.parametrize("lane", ["native-pyobject", "native-bytes", "dict"])
+def test_interner_lanes_match_jax(lane, monkeypatch):
+    """Strings, ints, None, NaN and trailing NULs in an object column, a
+    numeric column with NaNs, and a JAX interner's values carried in with
+    load_values: the port's ids and values equal the JAX package's (native
+    interner) on every lane."""
+    from denormalized_tpu.ops.interner import ColumnInterner as JColumn
+
+    jcol_, tcol_ = JColumn(), _port_interner(lane, monkeypatch)
+    for keys in _KEY_BATCHES:
+        arr = np.array(keys, dtype=object)
+        assert tcol_.intern_array(arr).tolist() == (
+            jcol_.intern_array(arr).tolist())
+    assert tcol_.lane == lane
+    assert tcol_.native_calls == (0 if lane == "dict" else 3)
+    assert len(tcol_) == len(jcol_)
+    assert tcol_.all_values() == jcol_.all_values()
+    ids = np.arange(len(jcol_))
+    assert tcol_.value_of(ids).tolist() == jcol_.value_of(ids).tolist()
+
+    # carried in: a fresh port interner continues the JAX ids
+    carried = _port_interner(lane, monkeypatch)
+    carried.load_values(jcol_.all_values())
+    assert carried.lane == lane
+    more = np.array(["new", None, "a", "zz\x00", 9], dtype=object)
+    assert carried.intern_array(more).tolist() == (
+        jcol_.intern_array(more).tolist())
+    assert carried.all_values() == jcol_.all_values()
+
+    jnum, tnum = JColumn(), _port_interner(lane, monkeypatch)
+    for arr in _NUMERIC_BATCHES:
+        assert tnum.intern_array(arr).tolist() == jnum.intern_array(arr).tolist()
+    assert tnum.lane == "dict"
+    assert len(tnum) == len(jnum) == 5  # all NaNs one key
