@@ -57,24 +57,46 @@ Phases:
 10. config 3 (bench.py ``highcard``: 100K keys, sum and avg, 524,288-row
     batches, 8M rows) through ``partial_merge`` and through ``auto`` (row
     shipping, the scatter path at this G) on the same seeded stream, both
-    against the numpy oracle, with their rows/s side by side.
+    against the numpy oracle, with their rows/s side by side;
+11. config 5 (checkpoint and restore) on config 1's stream: this script
+    re-invoked as a child (private ``--ckpt-*`` flags) runs the phase-4
+    job checkpointed to a fresh store with a barrier every 8 batches,
+    commits two epochs and is SIGKILLed with more than a third of the
+    stream unread; a second child restores on the same store (the ring
+    onto the card) and runs to the end.  The union of both children's
+    rows against the oracle; the restart's reads, its dense launches on
+    the restored ring and its time to recover; then one uninterrupted
+    checkpointed run beside phase 4's rows/s;
+12. config 5 at config 3's state size (100K keys, ``partial_merge``): a
+    crash after a committed epoch and a restore onto the card, held
+    against the oracle, with each step of a snapshot timed (clone, copy to
+    the host, host wait, pack, frame + CRC + put, fsync, commit, restore)
+    and a profile showing the copy to the host on a stream other than the
+    kernels';
+13. the snapshot race: 50 rounds of ``export_start`` on a seeded ring, 20
+    dense updates and 20 merge folds queued at once, ``export_finish`` —
+    every snapshot bit-identical to the synchronous export before it.
 
 Then one JSON line with each kernel's launches on its main path (phase 4
 for the dense kernel, phase 8 for the merge kernel, each counted from 0
-just before the run), its largest error against the plain version, its
-device time, the wrapper's time, the plain version's time and the least
-time the card could take, and as the last line ``{"ok": true, "device":
-{...}}``.  Any failure ends the run with a non-zero exit and no result.
-Without CUDA it exits 1 at once.
+just before the run; for the dense kernel also its launches on phase 11's
+restored ring), its largest error against the plain version, its device
+time, the wrapper's time, the plain version's time and the least time the
+card could take, and as the last line ``{"ok": true, "device": {...}}``.
+Any failure ends the run with a non-zero exit and no result.  Without CUDA
+it exits 1 at once.
 """
 
 from __future__ import annotations
+
+import time
+
+T_START = time.time()  # phase 11 times a child's restart from here
 
 import argparse
 import json
 import subprocess
 import sys
-import time
 
 import numpy as np
 import torch
@@ -515,9 +537,10 @@ def oracle(ts, kid, val, length_ms, slide_ms, num_keys):
     return out
 
 
-def run_job(device, batches, job: str, on_read=None, strategy="auto", **cfg):
+def job_stream(device, batches, job: str, on_read=None, strategy="auto",
+               **cfg):
     """The ``tumbling``, ``sliding`` or ``highcard`` job over ``batches``
-    through ``device_strategy=strategy`` → (ctx, result, wall s).
+    through ``device_strategy=strategy``, not yet run → (ctx, DataStream).
     ``on_read(ctx, i)``, where given, runs before batch i is read."""
     import denormalized_tpu_torch as tt
     from denormalized_tpu_torch.api import functions as F
@@ -555,6 +578,12 @@ def run_job(device, batches, job: str, on_read=None, strategy="auto", **cfg):
              F.avg(col("reading")).alias("average")],
             1000,
         )
+    return ctx, ds
+
+
+def run_job(device, batches, job: str, on_read=None, strategy="auto", **cfg):
+    """Run :func:`job_stream`'s job to its end → (ctx, result, wall s)."""
+    ctx, ds = job_stream(device, batches, job, on_read, strategy, **cfg)
     t0 = time.perf_counter()
     res = ds.collect()
     if device.type == "cuda":
@@ -572,16 +601,27 @@ def check_dispatch(ctx, n_batches: int, what: str):
         )
 
 
+def tumbling_rows(res) -> dict:
+    """{(window_start, key index): (count, min, max, avg)} of the
+    tumbling job's emitted rows."""
+    return {
+        (ws, int(name[7:])): (c, mn, mx, a)  # "sensor_<i>"
+        for ws, name, c, mn, mx, a in zip(
+            res.column("window_start_time").tolist(),
+            res.column("sensor_name").tolist(),
+            res.column("count").tolist(), res.column("min").tolist(),
+            res.column("max").tolist(), res.column("average").tolist(),
+        )
+    }
+
+
 def check_tumbling(res, exp, num_keys):
-    keys = {f"sensor_{i}": i for i in range(num_keys)}
-    got = {}
-    for ws, name, c, mn, mx, a in zip(
-        res.column("window_start_time").tolist(),
-        res.column("sensor_name").tolist(),
-        res.column("count").tolist(), res.column("min").tolist(),
-        res.column("max").tolist(), res.column("average").tolist(),
-    ):
-        got[(ws, keys[name])] = (c, mn, mx, a)
+    return check_tumbling_rows(tumbling_rows(res), exp)
+
+
+def check_tumbling_rows(got, exp):
+    """The same row set as the oracle; counts, min and max exact, avg to
+    rtol=1e-4."""
     if set(got) != set(exp):
         raise AssertionError(
             f"row sets differ: {len(got)} emitted vs {len(exp)} expected"
@@ -623,16 +663,25 @@ def check_sliding(res, exp, num_keys):
     return len(got)
 
 
+def highcard_rows(res) -> dict:
+    """{(window_start, key index): (sum, avg)} of config 3's rows."""
+    return {
+        (ws, int(name[7:])): (sm, a)  # "sensor_<i>"
+        for ws, name, sm, a in zip(
+            res.column("window_start_time").tolist(),
+            res.column("sensor_name").tolist(),
+            res.column("sum").tolist(), res.column("avg").tolist(),
+        )
+    }
+
+
 def check_highcard(res, exp, num_keys):
+    return check_highcard_rows(highcard_rows(res), exp)
+
+
+def check_highcard_rows(got, exp):
     """Config 3's rows: the same row set as the oracle, sum and avg to
     rtol=1e-4 (f32 sums on the card)."""
-    got = {}
-    for ws, name, sm, a in zip(
-        res.column("window_start_time").tolist(),
-        res.column("sensor_name").tolist(),
-        res.column("sum").tolist(), res.column("avg").tolist(),
-    ):
-        got[(ws, int(name[7:]))] = (sm, a)  # "sensor_<i>"
     if set(got) != set(exp):
         raise AssertionError(
             f"row sets differ: {len(got)} emitted vs {len(exp)} expected"
@@ -728,7 +777,8 @@ PROFILE_FIRST, PROFILE_END = 10, 30  # batches 10..29 are profiled
 class HookedReader:
     """A partition reader that calls ``on_read(i)`` before handing out batch
     i — by then batch i - 1 has been through the whole plan, its emission
-    included."""
+    included.  Its offsets are the wrapped reader's (checkpoints persist
+    and restore them)."""
 
     def __init__(self, reader, on_read):
         self._reader, self._on_read, self._n = reader, on_read, 0
@@ -737,6 +787,12 @@ class HookedReader:
         self._on_read(self._n)
         self._n += 1
         return self._reader.read(timeout_s)
+
+    def offset_snapshot(self):
+        return self._reader.offset_snapshot()
+
+    def offset_restore(self, snap):
+        self._reader.offset_restore(snap)
 
 
 def hooked_source(batches, on_read):
@@ -1078,7 +1134,8 @@ def phase_merge_kernel(device, seed: int, card: str):
 
 def phase_highcard(device, seed: int, card: str):
     """Config 3 through partial_merge and through auto (row shipping) on
-    the same seeded stream, both checked against the oracle."""
+    the same seeded stream, both checked against the oracle → (rows/s by
+    strategy, batches, stream)."""
     stream = gen_stream(TOTAL_ROWS, HIGHCARD_BATCH_ROWS, HIGHCARD_KEYS, seed)
     batches = to_batches(*stream, HIGHCARD_BATCH_ROWS, HIGHCARD_KEYS)
     # bench.py highcard's capacity: G covers every key from the first batch
@@ -1091,13 +1148,607 @@ def phase_highcard(device, seed: int, card: str):
     log(f"phase 10 config 3 rows/s side by side: partial_merge "
         f"{rates['partial_merge']:.0f}, row shipping (auto) "
         f"{rates['auto']:.0f} ({card})")
-    return rates
+    return rates, batches, stream
+
+
+# -- phases 11-13: checkpoint and restore (config 5) --------------------------
+
+CKPT_EVERY = 8  # reads between forced barriers (phases 11 and 12)
+CKPT_PAUSE_READS = 2  # reads the killed child makes after its 2nd commit
+
+
+def ckpt_config(path: str) -> dict:
+    """EngineConfig knobs of a checkpointed run on a fresh store; barriers
+    are forced from a source hook, not by the orchestrator's clock."""
+    return dict(checkpoint=True, checkpoint_interval_s=1e9,
+                state_backend_path=path)
+
+
+def read_jsonl(path) -> list:
+    out = []
+    try:
+        with open(path) as f:
+            for raw in f:
+                try:
+                    out.append(json.loads(raw))
+                except json.JSONDecodeError:
+                    pass  # a line torn by the kill
+    except FileNotFoundError:
+        pass
+    return out
+
+
+def sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def ring_nbytes(backend) -> int:
+    return sum(t.numel() * t.element_size() for t in backend._state.values())
+
+
+def ckpt_child(args) -> int:
+    """Phase 11's child: the tumbling job over phase 4's stream (made from
+    --seed) through ``auto``, checkpointed to ``--ckpt-child`` with a
+    barrier every CKPT_EVERY reads.  One flushed JSON line per emitted
+    window row, per committed epoch, and for the restore; with
+    ``--ckpt-pause-after N`` it stops reading CKPT_PAUSE_READS reads after
+    its N-th commit and waits for its SIGKILL."""
+    from denormalized_tpu_torch.ops import dense_window as dw
+    from denormalized_tpu_torch.state import checkpoint as ck
+
+    t_main = time.time()  # the script's imports are done
+    device = torch.device(args.ckpt_device)
+    ts, kid, val = gen_stream(TOTAL_ROWS, BATCH_ROWS, NUM_KEYS, args.seed)
+    batches = to_batches(ts, kid, val, BATCH_ROWS, NUM_KEYS)
+    t_data = time.time()
+    out = open(args.ckpt_out, "a", buffering=1)
+
+    def line(**kw):
+        out.write(json.dumps(kw) + "\n")
+
+    st = {"restored": False, "commits": [], "after": 0}
+
+    def on_read(ctx, i):
+        coord = ctx.last_checkpointing()[0]
+        if not st["restored"]:
+            st["restored"] = True
+            root = ctx._last_physical
+            ids = ck.assign_node_ids(root)
+            src = next(ids[id(op)] for op in ck.walk(root) if not op.children)
+            offsets = ck.get_json(coord, f"offsets_{src}")
+            devices = {t.device.type for t in
+                       window_exec_of(ctx).backend._state.values()}
+            line(event="restored", t=time.time(), t_start=T_START,
+                 t_main=t_main, t_data=t_data,
+                 epoch=coord.restored_epoch, ring_devices=sorted(devices),
+                 pos=offsets["partitions"][0]["pos"] if offsets else 0)
+        e = coord.committed_epoch
+        if e is not None and e != coord.restored_epoch and (
+                e not in st["commits"]):
+            st["commits"].append(e)
+            line(event="commit", epoch=e, read=i)
+        if args.ckpt_pause_after and len(st["commits"]) >= args.ckpt_pause_after:
+            st["after"] += 1
+            if st["after"] > CKPT_PAUSE_READS:
+                line(event="paused", read=i)
+                while True:  # until the parent's SIGKILL
+                    time.sleep(1)
+        if i % CKPT_EVERY == CKPT_EVERY - 1:
+            ctx.last_checkpointing()[1].trigger_now()
+
+    ctx, ds = job_stream(device, batches, "tumbling", on_read, "auto",
+                         **ckpt_config(args.ckpt_child))
+    dw.dense_window_launches = 0
+    first = True
+    for b in ds.stream():
+        rows = tumbling_rows(b)
+        if first and rows:
+            first = False
+            line(event="first_row", t=time.time())
+        for (ws, k), (c, mn, mx, a) in rows.items():
+            line(event="row", ws=ws, k=k, c=c, mn=mn, mx=mx, a=a)
+    sync(device)
+    op = window_exec_of(ctx)
+    m = op.metrics()
+    line(event="done", batches=m["batches_in"], launches=dw.dense_window_launches,
+         dense_updates=op.backend.dense_updates,
+         scatter_updates=op.backend.scatter_updates, snapshots=m["snapshots"])
+    return 0
+
+
+def phase_ckpt_sigkill(device, seed: int, batches, stream, tumbling, card):
+    """Phase 11: config 5 on config 1's stream.  A child commits two epochs
+    and is SIGKILLed with more than a third of the stream unread; a second
+    child restores on the same store and runs to the end.  The union of
+    their rows against the oracle; the restart's reads, dense launches and
+    time to recover; then one uninterrupted checkpointed run in this
+    process against phase 4's rows/s → the restart's dense launches."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    from denormalized_tpu_torch.state.lsm import close_global_state_backend
+
+    n_batches = len(batches)
+    exp = oracle(*stream, 1000, 1000, NUM_KEYS)
+    work = tempfile.mkdtemp(prefix="dnz_ckpt_")
+    state = os.path.join(work, "state")
+    procs = []
+
+    def spawn(name, *extra):
+        out = os.path.join(work, f"{name}.jsonl")
+        err = open(os.path.join(work, f"{name}.err"), "w")
+        t = time.time()
+        p = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             "--ckpt-device", str(device), "--ckpt-child", state,
+             "--ckpt-out", out, *extra],
+            stdout=subprocess.DEVNULL, stderr=err,
+        )
+        procs.append(p)
+        return p, out, t
+
+    def tail(name):
+        with open(os.path.join(work, f"{name}.err")) as f:
+            return f.read()[-3000:]
+
+    try:
+        pa, out_a, _ = spawn("a", "--ckpt-pause-after", "2")
+        deadline = time.time() + 300
+        while not any(d["event"] == "paused" for d in read_jsonl(out_a)):
+            if pa.poll() is not None:
+                raise AssertionError(
+                    f"phase 11: child A exited ({pa.returncode}) before its "
+                    f"second commit: {tail('a')}")
+            if time.time() > deadline:
+                raise AssertionError("phase 11: child A never paused")
+            time.sleep(0.05)
+        os.kill(pa.pid, signal.SIGKILL)
+        pa.wait(60)
+        a = read_jsonl(out_a)
+        commits = [d for d in a if d["event"] == "commit"]
+        unread = n_batches - a[-1]["read"]  # paused before that read
+        if pa.returncode != -signal.SIGKILL or len(commits) != 2 or (
+                unread < n_batches / 3):
+            raise AssertionError(
+                f"phase 11: child A rc {pa.returncode}, {len(commits)} "
+                f"commits, {unread} of {n_batches} batches unread")
+        pb, out_b, t_spawn = spawn("b")
+        if pb.wait(600) != 0:
+            raise AssertionError(f"phase 11: child B failed: {tail('b')}")
+        b = read_jsonl(out_b)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(60)
+        shutil.rmtree(work, ignore_errors=True)
+
+    restored, done = b[0], b[-1]
+    first = next(d for d in b if d["event"] == "first_row")
+
+    def rows(lines):
+        return {(d["ws"], d["k"]): (d["c"], d["mn"], d["mx"], d["a"])
+                for d in lines if d["event"] == "row"}
+
+    rows_a, rows_b = rows(a), rows(b)
+    union = dict(rows_a)
+    union.update(rows_b)
+    check_tumbling_rows(union, exp)
+    if restored["epoch"] != commits[-1]["epoch"]:
+        raise AssertionError(f"phase 11: restored epoch {restored['epoch']},"
+                             f" last commit {commits[-1]['epoch']}")
+    if restored["ring_devices"] != [device.type]:
+        raise AssertionError(f"phase 11: restored ring on "
+                             f"{restored['ring_devices']}")
+    if not len(rows_b) < len(exp):
+        raise AssertionError("phase 11: the restart emitted every window")
+    if not (done["batches"] == n_batches - restored["pos"]
+            == done["launches"] == done["dense_updates"]
+            and done["scatter_updates"] == 0 and restored["pos"] > 0):
+        raise AssertionError(f"phase 11: restart read from {restored['pos']}"
+                             f": {done}")
+    log(f"phase 11 config 5 (config 1 stream, auto, barrier every "
+        f"{CKPT_EVERY} batches): child A committed epochs "
+        f"{[d['epoch'] for d in commits]} and was SIGKILLed with {unread} of "
+        f"{n_batches} batches unread, {len(rows_a)} rows emitted; child B "
+        f"restored epoch {restored['epoch']} at batch {restored['pos']} onto "
+        f"the card, read {done['batches']} batches with {done['launches']} "
+        f"dense kernel launches on the restored ring, took "
+        f"{done['snapshots']} snapshots, emitted {len(rows_b)} rows; the "
+        f"union matches the oracle ({len(exp)} rows); time to "
+        f"recover: {restored['t'] - t_spawn:.3f} s from spawn to restore "
+        f"done ({restored['t_start'] - t_spawn:.3f} s to the script's first "
+        f"line, {restored['t_main'] - restored['t_start']:.3f} s of imports, "
+        f"{restored['t_data'] - restored['t_main']:.3f} s making the stream, "
+        f"{restored['t'] - restored['t_data']:.3f} s of CUDA start, kernel "
+        f"loads and the restore), {first['t'] - t_spawn:.3f} s to the first "
+        f"emission ({card})")
+
+    from denormalized_tpu_torch import obs
+
+    path = tempfile.mkdtemp(prefix="dnz_ckpt1_")
+    commit_ms = obs.histogram("dnz_checkpoint_commit_ms")
+    c0, s0 = commit_ms.count, commit_ms.sum
+    try:
+        def on_read(ctx, i):
+            if i % CKPT_EVERY == CKPT_EVERY - 1:
+                ctx.last_checkpointing()[1].trigger_now()
+
+        ctx, res, wall = run_job(device, batches, "tumbling", on_read,
+                                 "auto", **ckpt_config(path))
+        check_tumbling(res, exp, NUM_KEYS)
+        m = window_exec_of(ctx).metrics()
+        close_global_state_backend()
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    commits, commit_s = commit_ms.count - c0, commit_ms.sum - s0
+    if m["snapshots"] == 0:
+        raise AssertionError("phase 11: the checkpointed run took no snapshot")
+    n = m["snapshots"]
+    log(f"phase 11 uninterrupted checkpointed run: {len(stream[0]) / wall:.0f}"
+        f" rows/s against phase 4's {tumbling['rows_per_s']:.0f} (wall "
+        f"{wall:.3f} s), {n} snapshots of {m['snapshot_bytes'] / n:.0f} B, a "
+        f"snapshot's host wait {m['snapshot_wait_s'] / n * 1e3:.3f} ms, pack "
+        f"{m['snapshot_pack_s'] / n * 1e3:.3f} ms, frame+CRC+put "
+        f"{m['snapshot_put_s'] / n * 1e3:.3f} ms, {commits} commits of "
+        f"{commit_s / max(commits, 1):.3f} ms (manifest, fsync, record, "
+        f"fsync) ({card})")
+    return done["launches"]
+
+
+def chrome_gpu_events(prof, path):
+    """GPU events of a profile from its Chrome trace → [(category, name,
+    stream, start µs, dur µs)]."""
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    out = []
+    for e in trace.get("traceEvents", []):
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            stream = e.get("args", {}).get("stream", e.get("tid"))
+            out.append((e["cat"], e["name"], stream, e["ts"], e["dur"]))
+    return out
+
+
+def snapshot_streams(device, op, work: str, seed: int):
+    """Profile one snapshot of ``op`` with merge kernels queued behind its
+    clone → the streams and device times of the copy to the host, the clone
+    and the kernels, or None where the profiler missed them.  Raises if the
+    export has no side stream or its copy shares the kernels' stream."""
+    import os
+
+    from denormalized_tpu_torch.ops import merge_partials as mp
+    from denormalized_tpu_torch.ops import segment_agg as sa
+
+    mspec, mhost, SUB, (packed_np, a_pad, _u, lean, dense) = merge_case(
+        "cfg1_dense", seed)
+    scratch = sa.import_state(mspec, mhost, device)
+    packed = torch.from_numpy(packed_np).to(device)
+
+    epochs = iter(range(100, 200))
+
+    def snapshot_under_kernels():
+        op._snapshot(next(epochs))
+        for _ in range(5):
+            mp.merge_partials(mspec, SUB, a_pad, lean, dense, scratch, packed)
+        list(op._release_snapshot())
+
+    snapshot_under_kernels()  # warm, and the backend makes its side stream
+    side = op.backend._side
+    main = torch.cuda.current_stream(device)
+    if side is None or side.cuda_stream == main.cuda_stream:
+        raise AssertionError("phase 12: the export has no side stream")
+    for _ in range(PROFILER_TRIES):
+        evts = chrome_gpu_events(profile(snapshot_under_kernels),
+                                 os.path.join(work, "trace.json"))
+        d2h = [e for e in evts if "DtoH" in e[1]]
+        clone = [e for e in evts if "DtoD" in e[1]]
+        kern = [e for e in evts if MERGE_KERNEL in e[1]]
+        if d2h and clone and kern:
+            streams = dict(
+                d2h={e[2] for e in d2h}, clone={e[2] for e in clone},
+                kernels={e[2] for e in kern},
+                d2h_ms=sum(e[4] for e in d2h) / 1e3,
+                clone_ms=sum(e[4] for e in clone) / 1e3,
+                overlap=any(k[3] < d[3] + d[4] and d[3] < k[3] + k[4]
+                            for k in kern for d in d2h))
+            if streams["d2h"] & (streams["kernels"] | streams["clone"]):
+                raise AssertionError(f"phase 12: the copy to the host shares "
+                                     f"a stream with the kernels: {streams}")
+            return streams
+        log(f"phase 12 profile: the profiler recorded {len(d2h)} copies to "
+            f"the host, {len(clone)} clone copies and {len(kern)} merge "
+            f"kernels")
+    log(f"phase 12 profile: streams not measured (the profiler missed "
+        f"events in {PROFILER_TRIES} runs); the side stream "
+        f"{side.cuda_stream:#x} is not the kernels' {main.cuda_stream:#x}")
+    return None
+
+
+def ckpt_steps(device, op, work: str, seed: int, card: str) -> dict:
+    """Each step of a snapshot of ``op``'s live state (the crashed run's
+    ring, interner and stripe), on a fresh store: the clone's device time;
+    the snapshot path itself three times (start, host wait, pack,
+    frame+CRC+put), the fsync and the commit; the restore (read and verify,
+    unpack, import onto the card); and a profile showing which stream the
+    copy to the host runs on."""
+    import os
+    import zlib
+
+    from denormalized_tpu_torch.ops import segment_agg as sa
+    from denormalized_tpu_torch.state import checkpoint as ck
+    from denormalized_tpu_torch.state.lsm import LsmStore
+    from denormalized_tpu_torch.state.serialization import unpack_snapshot
+
+    backend = op.backend
+    clone_ms = queued_event_ms(lambda: sa.clone_state(backend._state), 20)
+    store = LsmStore(os.path.join(work, "steps"))
+    if not store.is_native:
+        raise AssertionError("phase 12: the native LSM store did not build")
+    coord = ck.CheckpointCoordinator(store)
+    key = "window_steps"
+    op._ckpt = (coord, key)
+    steps = {k: [] for k in ("start", "wait", "pack", "put", "crc", "fsync",
+                             "commit")}
+    for epoch in (1, 2, 3):
+        m0 = dict(op.metrics())
+        t0 = time.perf_counter()
+        op._snapshot(epoch)
+        steps["start"].append(time.perf_counter() - t0)
+        list(op._release_snapshot())
+        m1 = op.metrics()
+        for k in ("wait", "pack", "put"):
+            steps[k].append(m1[f"snapshot_{k}_s"] - m0[f"snapshot_{k}_s"])
+        blob_bytes = m1["snapshot_bytes"] - m0["snapshot_bytes"]
+        framed = store.get(f"{key}@{epoch}")
+        t0 = time.perf_counter()
+        zlib.crc32(framed)
+        steps["crc"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        store.flush()
+        steps["fsync"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        coord.commit(epoch)
+        steps["commit"].append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    raw = coord.get_snapshot(key)
+    t1 = time.perf_counter()
+    meta, arrays = unpack_snapshot(raw)
+    t2 = time.perf_counter()
+    op.load_state(arrays, meta["interner"], meta["first_open"],
+                  meta["max_win_seen"], meta["watermark_ms"],
+                  meta["any_nulls_seen"])
+    sync(device)
+    t3 = time.perf_counter()
+    restore = {"read": t1 - t0, "unpack": t2 - t1, "import": t3 - t2}
+    if {t.device.type for t in op.backend._state.values()} != {device.type}:
+        raise AssertionError("phase 12: the imported ring is not on the card")
+
+    streams = snapshot_streams(device, op, work, seed)
+    store.close()
+    ms = {k: 1e3 * sum(v) / len(v) for k, v in steps.items()}
+    nbytes = ring_nbytes(op.backend)
+    log(f"phase 12 snapshot steps ({len(op.backend._state)} ring planes of "
+        f"{op._spec.window_slots} x {op.backend.group_capacity} = {nbytes} B, "
+        f"{len(op._interner)} interned keys, snapshot blob {blob_bytes} B; "
+        f"mean of 3): clone {clone_ms:.4f} ms on the device; start "
+        f"{ms['start']:.3f} ms (stripe merge, meta and interner capture, "
+        f"clone and side-stream copy queued); host wait in export_finish "
+        f"{ms['wait']:.3f} ms; pack {ms['pack']:.3f} ms; frame+CRC+LSM put "
+        f"{ms['put']:.3f} ms (CRC alone {ms['crc']:.3f} ms); fsync "
+        f"{ms['fsync']:.3f} ms; commit {ms['commit']:.3f} ms; restore: read "
+        f"and verify {restore['read'] * 1e3:.3f} ms, unpack "
+        f"{restore['unpack'] * 1e3:.3f} ms, import onto the card "
+        f"{restore['import'] * 1e3:.3f} ms ({card})")
+    if streams is not None:
+        log(f"phase 12 profile: copy to the host on stream(s) "
+            f"{sorted(streams['d2h'])} ({streams['d2h_ms']:.4f} ms on the "
+            f"device, {nbytes / streams['d2h_ms'] / 1e6:.2f} GB/s), the clone "
+            f"on {sorted(streams['clone'])} ({streams['clone_ms']:.4f} ms), the "
+            f"merge kernels on {sorted(streams['kernels'])}; a kernel ran "
+            f"during the copy: {streams['overlap']} ({card})")
+    return dict(ms, clone_ms=clone_ms, restore=restore, streams=streams)
+
+
+def phase_ckpt_highcard(device, seed: int, batches, stream, card):
+    """Phase 12: config 5 at config 3's state size, in this process: a
+    barrier before read 6, a crash (the iterator closed) right after its
+    commit, the step timing on the crashed operator's state, then a restore
+    on the same store onto the card through ``partial_merge``, held with
+    the crashed run's rows against the oracle."""
+    import os
+    import shutil
+    import tempfile
+
+    from denormalized_tpu_torch.common.record_batch import RecordBatch
+    from denormalized_tpu_torch.logical import plan as lp
+    from denormalized_tpu_torch.ops import merge_partials as mp
+    from denormalized_tpu_torch.physical.base import Marker
+    from denormalized_tpu_torch.physical.simple_execs import CollectSink
+    from denormalized_tpu_torch.runtime import executor
+    from denormalized_tpu_torch.state import checkpoint as ck
+    from denormalized_tpu_torch.state.lsm import close_global_state_backend
+    from denormalized_tpu_torch.state.orchestrator import Orchestrator
+
+    exp = oracle(*stream, 1000, 1000, HIGHCARD_KEYS)
+    work = tempfile.mkdtemp(prefix="dnz_ckpt3_")
+    cfg = dict(min_group_capacity=2 * HIGHCARD_KEYS,
+               **ckpt_config(os.path.join(work, "state")))
+
+    def build(on_read=None):
+        ctx, ds = job_stream(device, batches, "highcard", on_read,
+                             "partial_merge", **cfg)
+        root = executor.build_physical(lp.Sink(ds._plan, CollectSink()), ctx)
+        orch = Orchestrator(interval_s=1e9)
+        t0 = time.perf_counter()
+        coord = ck.wire_checkpointing(root, ctx, orch)
+        return root, orch, coord, time.perf_counter() - t0
+
+    try:
+        hold = {}
+        root, orch, coord, _ = build(
+            lambda ctx, i: i == 6 and hold["orch"].trigger_now())
+        hold["orch"] = orch
+        rows_a, epoch = {}, None
+        it = root.run()
+        for item in it:
+            if isinstance(item, RecordBatch):
+                rows_a.update(highcard_rows(item))
+            if isinstance(item, Marker):
+                coord.commit(item.epoch)
+                epoch = item.epoch
+                break
+        if epoch is None:
+            raise AssertionError("phase 12: no epoch committed")
+        op = root.input_op
+        snap = op.metrics()
+        steps = ckpt_steps(device, op, work, seed, card)
+        it.close()  # the crash
+        orch.stop()
+        close_global_state_backend()
+
+        mp.merge_partials_launches = 0
+        root, orch, coord, restore_s = build()
+        op = root.input_op
+        devices = {t.device.type for t in op.backend._state.values()}
+        if coord.restored_epoch != epoch or devices != {device.type} or (
+                op.backend.strategy_name != "partial_merge"):
+            raise AssertionError(
+                f"phase 12: restored epoch {coord.restored_epoch} of {epoch},"
+                f" ring on {devices}, {op.backend.strategy_name}")
+        rows_b = {}
+        t0 = time.perf_counter()
+        for item in root.run():
+            if isinstance(item, RecordBatch):
+                rows_b.update(highcard_rows(item))
+        sync(device)
+        wall = time.perf_counter() - t0
+        orch.stop()
+        close_global_state_backend()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    union = dict(rows_a)
+    union.update(rows_b)
+    check_highcard_rows(union, exp)
+    m = op.metrics()
+    if not len(rows_b) < len(exp) or m["batches_in"] >= len(batches):
+        raise AssertionError("phase 12: the restart reprocessed the stream")
+    if op.backend.merges == 0 or mp.merge_partials_launches != op.backend.merges:
+        raise AssertionError(
+            f"phase 12: {mp.merge_partials_launches} merge launches for "
+            f"{op.backend.merges} merges")
+    log(f"phase 12 config 5 at config 3's size ({HIGHCARD_KEYS} keys, "
+        f"partial_merge): "
+        f"crashed after committing epoch {epoch} ({snap['batches_in']} "
+        f"batches in, {snap['snapshots']} snapshot of "
+        f"{snap['snapshot_bytes']} B); the restart restored it onto the card "
+        f"in {restore_s * 1e3:.3f} ms (verify, read, unpack, import), read "
+        f"{m['batches_in']} batches with {op.backend.merges} merges (= merge "
+        f"kernel launches) in {wall:.3f} s (window host prep "
+        f"{m['host_prep_s']:.3f} s, host reduce "
+        f"{op.backend.stripe.reduce_s:.3f} s, stripe packing "
+        f"{op.backend.stripe.pack_s:.3f} s), emitted {len(rows_b)} rows in "
+        f"{m['windows_emitted']} windows; the union matches the oracle "
+        f"({len(exp)} rows) ({card})")
+    return dict(steps, restore_s=restore_s)
+
+
+def race_case(seed: int):
+    """Phase 13's ring and updates → (spec, host ring, dense batch,
+    base_mod, min_win_rel, SUB, packed stripe, a_pad, lean, dense): a
+    W = 512, G = 2048 ring (20 MB in 5 planes, so its copy to the host
+    outlasts the updates queued behind it), a 131,072-row batch over 2
+    slots and every group, and a stripe of the same rows over 2 units."""
+    from denormalized_tpu_torch.ops import segment_agg as sa
+    from denormalized_tpu_torch.ops.host_partial import HostPartialStripe
+
+    rng = np.random.default_rng(seed)
+    W, G, B = 512, 2048, BATCH_ROWS
+    spec = sa.WindowKernelSpec(
+        components=tuple(sa.components_for(MAIN_AGGS)), num_value_cols=1,
+        window_slots=W, group_capacity=G, length_ms=1000, slide_ms=1000,
+    )
+    ms = np.sort(rng.integers(0, 2000, B))
+    units = (3 + ms // 1000).astype(np.int64)
+    rem = (ms % 1000).astype(np.int32)
+    gid = rng.integers(0, G, B).astype(np.int32)
+    vals = rng.normal(50.0, 10.0, (B, 1))
+    batch = (vals.astype(np.float32), np.ones((B, 1), bool),
+             units.astype(np.int32), rem, gid, np.ones(B, bool))
+    base_mod = 500  # the ring wraps: slots 503 and 504, then 0 and 1
+    stripe = HostPartialStripe(spec, G)
+    stripe.add_batch(units, rem, gid, vals, None, None)
+    packed, a_pad, _u, lean, dense = stripe.take_packed(base_mod + 9)
+    return (spec, seeded_ring(spec, rng), batch, base_mod, 3, stripe.SUB,
+            packed, a_pad, lean, dense)
+
+
+def phase_snapshot_race(device, seed: int, card, rounds: int = 50):
+    """Phase 13: export_start on a seeded ring, then at once, with no
+    synchronisation, 20 dense updates and 20 merge folds of the live ring;
+    export_finish must return, bit for bit, the synchronous export taken
+    just before export_start.  Each round builds a fresh ring (the previous
+    one freed) and allocates ring-sized tensors while the copy is in
+    flight, so the caching allocator reuses memory."""
+    from denormalized_tpu_torch.ops import dense_window as dw
+    from denormalized_tpu_torch.ops import merge_partials as mp
+    from denormalized_tpu_torch.parallel.sharded_state import (
+        SingleDeviceWindowState,
+    )
+
+    (spec, host, batch, base_mod, lo, SUB, packed_np, a_pad, lean,
+     dense) = race_case(seed)
+    args = [torch.from_numpy(a).to(device) for a in batch]
+    packed = torch.from_numpy(packed_np).to(device)
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    for r in range(rounds):
+        backend = SingleDeviceWindowState(spec, device, "auto")
+        backend.import_(host if r == 0 else seeded_ring(spec, rng))
+        want = backend.export()
+        handle = backend.export_start()
+        junk = [torch.full_like(t, -1) for t in backend._state.values()]
+        for _ in range(20):
+            dw.dense_update(spec, backend._state, *args, base_mod,
+                            min_win_rel=lo)
+            mp.merge_partials(spec, SUB, a_pad, lean, dense, backend._state,
+                              packed)
+        got = backend.export_finish(handle)
+        after = backend.export()
+        for label, w in want.items():
+            if got[label].tobytes() != w.tobytes():
+                raise AssertionError(
+                    f"phase 13 round {r}: the snapshot's {label} differs "
+                    f"from the export before export_start")
+            if np.array_equal(after[label], w):
+                raise AssertionError(
+                    f"phase 13 round {r}: the updates left {label} unchanged")
+        del junk, handle, got
+    wall = time.perf_counter() - t0
+    nbytes = sum(a.nbytes for a in host.values())
+    log(f"phase 13 snapshot race: {rounds} rounds of export_start on a "
+        f"{spec.window_slots} x {spec.group_capacity} ring ({nbytes} B in "
+        f"{len(host)} planes), 20 dense updates and 20 merge folds queued at "
+        f"once, export_finish: every snapshot bit-identical to the export "
+        f"before export_start, every plane changed by the updates ({wall:.3f}"
+        f" s) ({card})")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    # phase 11's child process (the script re-invoked on a state path)
+    ap.add_argument("--ckpt-child", help=argparse.SUPPRESS)
+    ap.add_argument("--ckpt-out", help=argparse.SUPPRESS)
+    ap.add_argument("--ckpt-pause-after", type=int, default=0,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--ckpt-device", default="cuda:0", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.ckpt_child:
+        return ckpt_child(args)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -1120,14 +1771,14 @@ def main(argv=None) -> int:
     with ThreadPoolExecutor(1) as pool:
         # the host libraries build with g++ while nvcc runs
         host = pool.submit(lambda: (load_native("partial_agg"),
-                                    native_interner()))
+                                    native_interner(), load_native("lsmkv")))
         reports = cuda_build.build_all()
-        _, interner = host.result()
+        _, interner, _ = host.result()
     if interner is None:
         raise AssertionError("the native interner did not build")
     log(f"phase 2: built {', '.join(sorted(reports))} and the host "
-        f"libraries partial_agg and interner (lane {interner.lane}) in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"libraries partial_agg, interner (lane {interner.lane}) and lsmkv "
+        f"in {time.perf_counter() - t0:.1f} s")
     for name, text in reports.items():
         for line in text.splitlines():
             if "registers" in line or "smem" in line:
@@ -1152,7 +1803,13 @@ def main(argv=None) -> int:
         f"{tumbling['rows_per_s']:.0f} ({card})")
     run_checked(device, 9, "sliding", "partial_merge", sliding_batches,
                 sliding_stream, NUM_KEYS, card)
-    phase_highcard(device, args.seed + 4, card)
+    _, highcard_batches, highcard_stream = phase_highcard(
+        device, args.seed + 4, card)
+    restored_launches = phase_ckpt_sigkill(device, args.seed, batches, stream,
+                                           tumbling, card)
+    phase_ckpt_highcard(device, args.seed + 4, highcard_batches,
+                        highcard_stream, card)
+    phase_snapshot_race(device, args.seed + 5, card)
 
     hot = kern["main_hot"]
     m1 = merge["cfg1_dense"]
@@ -1174,6 +1831,8 @@ def main(argv=None) -> int:
         "host_ms": hot["host_ms"],
         "main_ms": kern["main"]["ms"],
         "main_host_ms": kern["main"]["host_ms"],
+        # launches on the restored ring by phase 11's restarted child
+        "restored_launches": restored_launches,
     }, {
         "name": "merge_partials",
         "route": "cuda",

@@ -3,7 +3,9 @@
 Counterpart of ``denormalized_tpu/api/context.py``: builds the session,
 registers sources as named tables and hands out :class:`DataStream`
 builders.  :class:`EngineConfig` carries the knobs the ported window path
-reads, plus an explicit ``device``: the device rule of the whole package.
+reads, plus an explicit ``device``: the device rule of the whole package,
+and the checkpoint knobs (``checkpoint``, ``checkpoint_interval_s``,
+``state_backend_path``, or :meth:`Context.with_state_backend`).
 """
 
 from __future__ import annotations
@@ -27,6 +29,12 @@ class EngineConfig:
     # on on the CPU.  "cpu" runs the same programs with the kernels' plain
     # PyTorch versions (the tests use it); "cuda:N" picks a card.
     device: str = "cuda"
+    # checkpointing (denormalized_config.checkpoint): barriers every
+    # checkpoint_interval_s (orchestrator.rs:58), snapshots in the LSM
+    # store at state_backend_path
+    checkpoint: bool = False
+    checkpoint_interval_s: float = 10.0
+    state_backend_path: str | None = None
     # per-batch device step:
     #   'scatter'       — ship rows, scatter them into the window ring
     #   'pallas_dense'  — ship rows, the dense low-cardinality kernel
@@ -81,12 +89,29 @@ class Context:
         self.config = config or EngineConfig()
         self.device = self.config.resolved_device()
         self._tables: dict[str, Source] = {}
+        # set by the executor when a job starts
+        self._checkpointing: tuple = (None, None)
 
     def __repr__(self) -> str:
         return (
             f"Context(tables=[{', '.join(sorted(self._tables))}], "
             f"device={self.device})"
         )
+
+    def with_state_backend(self, path: str) -> "Context":
+        """Checkpoint to the LSM store at ``path`` (turns checkpointing
+        on; a restart on the same path restores the committed epoch)."""
+        self.config.state_backend_path = path
+        self.config.checkpoint = True
+        return self
+
+    def last_checkpointing(self) -> tuple:
+        """The checkpoint coordinator and barrier orchestrator of the last
+        job this context started → ``(coordinator, orchestrator)``, both
+        None when checkpointing was off.  ``coordinator.committed_epoch``
+        and ``coordinator.restored_epoch`` read its epochs;
+        ``orchestrator.trigger_now()`` forces a barrier while it runs."""
+        return self._checkpointing
 
     def register_source(self, name: str, source: Source) -> None:
         self._tables[name] = source

@@ -1,0 +1,226 @@
+"""Logical plan optimizer — counterpart of
+``denormalized_tpu/logical/optimizer.py`` over the port's plan algebra
+(scan, project, filter, window, sink) and expressions (column, literal,
+binary, alias).
+
+The rules are the JAX package's, so both packages build the same physical
+plan for a query — the DFS node ids that key its checkpoints included:
+
+- :class:`ProjectionPruning` — narrow every Project to the outputs read
+  above it, and put a narrow Project above each Scan (the JAX package's
+  decode pushdown serves its Kafka source, which is not ported);
+- :class:`FilterPushdown` — evaluate a filter below the projection above
+  it, and fuse adjacent filters into one conjunction;
+- :class:`MergeProjects` — collapse stacked projections where that
+  duplicates no work.
+
+Rules run to a bounded fixpoint.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+from denormalized_tpu_torch.common.constants import CANONICAL_TIMESTAMP_COLUMN
+from denormalized_tpu_torch.logical import plan as lp
+from denormalized_tpu_torch.logical.expr import (
+    AliasExpr,
+    BinaryExpr,
+    Column,
+    Expr,
+)
+
+
+def map_children(
+    node: lp.LogicalPlan, fn: Callable[[lp.LogicalPlan], lp.LogicalPlan]
+) -> lp.LogicalPlan:
+    """Rebuild ``node`` with ``fn`` applied to each child."""
+    if isinstance(node, lp.Sink):
+        return lp.Sink(fn(node.input), node.sink)
+    if isinstance(node, lp.Project):
+        return lp.Project(fn(node.input), node.exprs)
+    if isinstance(node, lp.Filter):
+        return lp.Filter(fn(node.input), node.predicate)
+    if isinstance(node, lp.StreamingWindow):
+        return lp.StreamingWindow(
+            fn(node.input),
+            node.group_exprs,
+            node.aggr_exprs,
+            node.window_type,
+            node.length_ms,
+            node.slide_ms,
+        )
+    return node
+
+
+def substitute_columns(e: Expr, mapping: dict[str, Expr]) -> Expr:
+    """``e`` with every Column reference replaced by its mapped
+    expression; untouched subtrees are reused."""
+    if isinstance(e, Column):
+        return mapping.get(e.name, e)
+    if isinstance(e, BinaryExpr):
+        return BinaryExpr(
+            e.op,
+            substitute_columns(e.left, mapping),
+            substitute_columns(e.right, mapping),
+        )
+    if isinstance(e, AliasExpr):
+        return AliasExpr(substitute_columns(e.inner, mapping), e._name)
+    return e
+
+
+def _expr_nodes(e: Expr):
+    """Yield every node of an expression tree."""
+    yield e
+    if isinstance(e, BinaryExpr):
+        yield from _expr_nodes(e.left)
+        yield from _expr_nodes(e.right)
+    elif isinstance(e, AliasExpr):
+        yield from _expr_nodes(e.inner)
+
+
+class ProjectionPruning:
+    """Narrow every projection to the columns the plan actually reads."""
+
+    def rewrite(self, plan: lp.LogicalPlan) -> lp.LogicalPlan:
+        return self._walk(plan, None)
+
+    def _walk(
+        self, node: lp.LogicalPlan, required: set[str] | None
+    ) -> lp.LogicalPlan:
+        # required=None means "every column" (top of plan / sinks)
+        if isinstance(node, lp.Sink):
+            return lp.Sink(self._walk(node.input, None), node.sink)
+        if isinstance(node, lp.Project):
+            exprs = node.exprs
+            if required is not None:
+                kept = [
+                    e
+                    for e in exprs
+                    if e.name in required
+                    or e.name == CANONICAL_TIMESTAMP_COLUMN
+                ]
+                if kept:
+                    exprs = kept
+            need: set[str] = set()
+            for e in exprs:
+                need |= e.columns_referenced()
+            return lp.Project(self._walk(node.input, need), exprs)
+        if isinstance(node, lp.Filter):
+            if required is None:
+                return lp.Filter(self._walk(node.input, None), node.predicate)
+            need = set(node.predicate.columns_referenced())
+            return lp.Filter(
+                self._walk(node.input, need | required), node.predicate
+            )
+        if isinstance(node, lp.StreamingWindow):
+            need = set()
+            for g in node.group_exprs:
+                need |= g.columns_referenced()
+            for a in node.aggr_exprs:
+                if a.arg is not None:
+                    need |= a.arg.columns_referenced()
+            return lp.StreamingWindow(
+                self._walk(node.input, need),
+                node.group_exprs,
+                node.aggr_exprs,
+                node.window_type,
+                node.length_ms,
+                node.slide_ms,
+            )
+        if isinstance(node, lp.Scan):
+            if required is None:
+                return node
+            keep = [
+                f.name
+                for f in node.schema
+                if f.name in required or f.name == CANONICAL_TIMESTAMP_COLUMN
+            ]
+            if len(keep) == len(node.schema):
+                return node  # nothing to prune
+            return lp.Project(node, [Column(n) for n in keep])
+        return map_children(node, lambda c: self._walk(c, None))
+
+
+class MergeProjects:
+    """Project(Project(x)) → Project(x) when the merged projection is at
+    most ``_GROWTH_BOUND`` times the size of the two it replaces."""
+
+    _GROWTH_BOUND = 2.0
+
+    def rewrite(self, plan: lp.LogicalPlan) -> lp.LogicalPlan:
+        node = map_children(plan, self.rewrite)
+        if isinstance(node, lp.Project) and isinstance(node.input, lp.Project):
+            inner = node.input
+            mapping = self._mapping(inner)
+            merged = [
+                self._realias(substitute_columns(e, mapping), e)
+                for e in node.exprs
+            ]
+            before = self._size(node.exprs) + self._size(inner.exprs)
+            if self._size(merged) > self._GROWTH_BOUND * before:
+                return node
+            return self.rewrite(lp.Project(inner.input, merged))
+        return node
+
+    @staticmethod
+    def _mapping(p: lp.Project) -> dict[str, Expr]:
+        return {f.name: e for f, e in zip(p.schema, p.exprs)}
+
+    @staticmethod
+    def _size(exprs) -> int:
+        return sum(sum(1 for _ in _expr_nodes(e)) for e in exprs)
+
+    @staticmethod
+    def _realias(sub: Expr, original: Expr) -> Expr:
+        # keep the outer projection's output names stable
+        want = original.name
+        return sub if sub.name == want else AliasExpr(sub, want)
+
+
+class FilterPushdown:
+    """Filter(Project(x)) → Project(Filter'(x)); Filter(Filter(x)) → one
+    conjunctive Filter."""
+
+    def rewrite(self, plan: lp.LogicalPlan) -> lp.LogicalPlan:
+        node = map_children(plan, self.rewrite)
+        if isinstance(node, lp.Filter):
+            child = node.input
+            if isinstance(child, lp.Filter):
+                return self.rewrite(
+                    lp.Filter(
+                        child.input,
+                        BinaryExpr("and", child.predicate, node.predicate),
+                    )
+                )
+            if isinstance(child, lp.Project):
+                mapping = MergeProjects._mapping(child)
+                refs = node.predicate.columns_referenced()
+                if not all(
+                    n in mapping or child.input.schema.has(n) for n in refs
+                ):
+                    return node
+                pred = substitute_columns(node.predicate, mapping)
+                return self.rewrite(
+                    lp.Project(lp.Filter(child.input, pred), child.exprs)
+                )
+        return node
+
+
+# MergeProjects runs last, so each pass ends with stacked projections
+# collapsed (ProjectionPruning re-wraps scans every pass)
+DEFAULT_RULES = (ProjectionPruning(), FilterPushdown(), MergeProjects())
+_MAX_PASSES = 5
+
+
+def optimize(plan: lp.LogicalPlan) -> lp.LogicalPlan:
+    """Run the rules to a bounded fixpoint."""
+    prev = None
+    for _ in range(_MAX_PASSES):
+        for rule in DEFAULT_RULES:
+            plan = rule.rewrite(plan)
+        shape = plan.display()
+        if shape == prev:
+            break
+        prev = shape
+    return plan

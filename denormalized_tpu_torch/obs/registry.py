@@ -1,0 +1,159 @@
+"""Typed metric instruments, their catalog, and the registry that owns them.
+
+Counterpart of ``denormalized_tpu/obs/registry.py``, cut to what the
+checkpoint path reads: counters, gauges and histograms that keep a sum and
+a count, bound once by name and labels and then updated with one attribute
+write.  Instruments carry no locks: each bound handle has one writer.  The
+JAX package's buckets, quantiles, pull gauges and exporters (Prometheus,
+JSONL, spans) are not ported.
+"""
+
+from __future__ import annotations
+
+import threading
+
+#: every instrument the port binds: name → (kind, help); the names and
+#: kinds are the JAX package's
+INSTRUMENTS: dict[str, tuple[str, str]] = {
+    "dnz_lsm_op_ms": (
+        "histogram",
+        "latency of one LSM state-backend operation, labeled "
+        "op=put|get|flush",
+    ),
+    "dnz_lsm_replay_truncated_total": (
+        "counter",
+        "torn segment tails dropped by LSM startup replay (pure-Python "
+        "engine only)",
+    ),
+    "dnz_checkpoint_commit_ms": (
+        "histogram",
+        "duration of a checkpoint commit (manifest + fsync + commit "
+        "record + fsync + GC)",
+    ),
+    "dnz_checkpoint_snapshot_bytes": (
+        "histogram",
+        "size of one operator snapshot blob as persisted (framed)",
+    ),
+    "dnz_checkpoint_committed_epoch": (
+        "gauge",
+        "the last durably committed checkpoint epoch",
+    ),
+    "dnz_checkpoint_commit_retries_total": (
+        "counter",
+        "transient StateErrors absorbed by the bounded commit retry",
+    ),
+    "dnz_checkpoint_last_snapshot_bytes": (
+        "gauge",
+        "size of the most recent snapshot blob persisted under one state "
+        "key (framed bytes), labeled key=<node-scoped state key>",
+    ),
+}
+
+
+class Counter:
+    """Monotone counter.  One writer per bound handle."""
+
+    __slots__ = ("name", "labels", "value")
+    kind = "counter"
+
+    def __init__(self, name: str, labels: tuple):
+        self.name = name
+        self.labels = labels
+        self.value = 0
+
+    def add(self, n: int = 1) -> None:
+        self.value += n
+
+
+class Gauge:
+    """Last-written value.  One writer per bound handle."""
+
+    __slots__ = ("name", "labels", "value")
+    kind = "gauge"
+
+    def __init__(self, name: str, labels: tuple):
+        self.name = name
+        self.labels = labels
+        self.value = 0.0
+
+    def set(self, v) -> None:
+        self.value = v
+
+
+class Histogram:
+    """Sum and count of the observed values."""
+
+    __slots__ = ("name", "labels", "sum", "count")
+    kind = "histogram"
+
+    def __init__(self, name: str, labels: tuple):
+        self.name = name
+        self.labels = labels
+        self.sum = 0.0
+        self.count = 0
+
+    def observe(self, v: float) -> None:
+        self.sum += v
+        self.count += 1
+
+
+_CLASSES = {"counter": Counter, "gauge": Gauge, "histogram": Histogram}
+
+
+def series_name(name: str, labels: tuple) -> str:
+    if not labels:
+        return name
+    body = ",".join(f'{k}="{v}"' for k, v in labels)
+    return f"{name}{{{body}}}"
+
+
+class MetricsRegistry:
+    """Owns every bound instrument.  Binding is keyed ``(name, sorted
+    labels)``: re-binding a series returns the same instrument."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._instruments: dict[tuple, object] = {}
+
+    def _bind(self, want_kind: str, name: str, labels: dict):
+        entry = INSTRUMENTS.get(name)
+        if entry is None:
+            raise KeyError(
+                f"instrument {name!r} is not declared in "
+                "denormalized_tpu_torch/obs/registry.py INSTRUMENTS"
+            )
+        if entry[0] != want_kind:
+            raise TypeError(
+                f"instrument {name!r} is declared as a {entry[0]}, bound "
+                f"as a {want_kind}"
+            )
+        key = (name, tuple(sorted((str(k), str(v)) for k, v in labels.items())))
+        with self._lock:
+            inst = self._instruments.get(key)
+            if inst is None:
+                inst = _CLASSES[want_kind](name, key[1])
+                self._instruments[key] = inst
+            return inst
+
+    def counter(self, name: str, **labels) -> Counter:
+        return self._bind("counter", name, labels)
+
+    def gauge(self, name: str, **labels) -> Gauge:
+        return self._bind("gauge", name, labels)
+
+    def histogram(self, name: str, **labels) -> Histogram:
+        return self._bind("histogram", name, labels)
+
+    def snapshot(self) -> dict:
+        """Series name → value for counters and gauges, ``{"count",
+        "sum"}`` for histograms."""
+        with self._lock:
+            insts = list(self._instruments.values())
+        out: dict[str, object] = {}
+        for inst in insts:
+            key = series_name(inst.name, inst.labels)
+            if isinstance(inst, Histogram):
+                out[key] = {"count": inst.count, "sum": inst.sum}
+            else:
+                out[key] = inst.value
+        return out

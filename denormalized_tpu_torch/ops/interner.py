@@ -424,6 +424,15 @@ class GroupInterner:
             for c, it in enumerate(self._col_interners)
         ]
 
+    def snapshot(self) -> dict:
+        """``{"columns": [values per column], "rows": [per-gid value
+        ids]}`` — the JAX package's ``GroupInterner.snapshot()`` layout.
+        Copies, so the snapshot does not grow with later interning."""
+        return {
+            "columns": [it.all_values() for it in self._col_interners],
+            "rows": list(self._gid_rows),
+        }
+
     @classmethod
     def restore(cls, snap: dict) -> "GroupInterner":
         """Rebuild from a group interner snapshot

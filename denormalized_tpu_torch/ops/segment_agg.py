@@ -482,6 +482,16 @@ def export_state(state: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
     return {k: to_host(v) for k, v in state.items()}
 
 
+def clone_state(state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """On-device copy of the window ring, queued on the current stream —
+    the snapshot source of an asynchronous export.  The dense and merge
+    kernels update the live ring in place, so an export copies this clone,
+    never the ring: any update queued after the clone cannot reach it
+    (the JAX package's ``clone_state``, which copies so donated update
+    programs cannot touch the snapshot)."""
+    return {k: v.clone() for k, v in state.items()}
+
+
 def import_state(
     spec: WindowKernelSpec,
     host_state: dict[str, np.ndarray],
@@ -489,8 +499,10 @@ def import_state(
 ) -> dict[str, torch.Tensor]:
     """Rebuild device state from a host snapshot (this package's or the JAX
     package's ``export_state``), padding up to the spec's (possibly larger)
-    capacity — used on G/W growth and to carry a JAX ring into the port."""
-    state = init_state(spec, "cpu")
+    capacity — used on G/W growth, on restore and to carry a JAX ring into
+    the port.  The ring is filled with its init values on ``device`` and
+    each host plane copied once into its corner."""
+    state = init_state(spec, device)
     for comp in spec.components:
         buf = state[comp.label]
         src = host_state.get(comp.label)
@@ -498,10 +510,10 @@ def import_state(
             w = min(src.shape[0], buf.shape[0])
             g = min(src.shape[1], buf.shape[1])
             # np.array copies: a host snapshot may be a read-only view
-            buf[:w, :g] = torch.from_numpy(
-                np.array(src[:w, :g], dtype=buf.numpy().dtype)
+            buf[:w, :g] = torch.from_numpy(np.array(src[:w, :g])).to(
+                device=buf.device, dtype=buf.dtype
             )
-    return {k: v.to(device) for k, v in state.items()}
+    return state
 
 
 def finalize(

@@ -14,11 +14,18 @@ group) partials (``ops/host_partial.py``) and folds the packed stripe into
 the same ring with one launch of the merge kernel
 (``ops/merge_partials.py``) a merge, counted in ``merges``.
 
+Checkpoints export the ring without stopping ingest:
+:meth:`SingleDeviceWindowState.export_start` clones the ring on the current
+stream and copies the clone to pinned host memory on a side stream;
+:meth:`~SingleDeviceWindowState.export_finish` waits for that copy alone.
+
 The sharded layouts (key-sharded, partial/final, two-level) are not ported
 yet.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -91,6 +98,19 @@ class WindowStateBackend:
         raise NotImplementedError
 
 
+@dataclass
+class AsyncExport:
+    """An export in flight: the host planes and, on a CUDA ring, the
+    on-device clones (kept referenced until the copy is done) and the event
+    the side stream records after the last copy into the planes' pinned
+    buffers.  On the CPU the planes are already numpy and there is no
+    event."""
+
+    host: dict
+    clones: dict[str, torch.Tensor] | None = None
+    done: torch.cuda.Event | None = None
+
+
 class SingleDeviceWindowState(WindowStateBackend):
     def __init__(
         self,
@@ -103,6 +123,7 @@ class SingleDeviceWindowState(WindowStateBackend):
         self._state = sa.init_state(spec, self.device)
         self.device_strategy = device_strategy
         self._finals_specs: tuple | None = None
+        self._side: torch.cuda.Stream | None = None  # export copies
         # actual dispatch counts: 'pallas_dense'/'auto' fall back to the
         # scatter program per batch when the kernel doesn't support the
         # spec or the batch shape — strategy_name reports what RAN
@@ -215,6 +236,51 @@ class SingleDeviceWindowState(WindowStateBackend):
 
     def export(self) -> dict[str, np.ndarray]:
         return sa.export_state(self._state)
+
+    def export_start(self):
+        """Start an export that later in-place updates cannot change.
+
+        On a CUDA ring: clone every plane on the current stream (where the
+        kernels run, so the clone is ordered before any later update),
+        record an event, and on this backend's side stream wait for it and
+        copy each clone into a pinned host buffer.  The clones stay
+        referenced in the handle and are marked as used on the side stream,
+        so the caching allocator cannot hand their memory to a later
+        kernel's output while the copy reads it.  Pinned buffers come from
+        torch's caching host allocator: a buffer is reused only once the
+        arrays of an earlier :meth:`export_finish` are freed and its copy
+        has completed.  A failed pinned allocation raises.
+
+        On the CPU the export is a synchronous copy."""
+        if self.device.type != "cuda":
+            return AsyncExport(sa.export_state(self._state))
+        main = torch.cuda.current_stream(self.device)
+        clones = sa.clone_state(self._state)
+        cloned = torch.cuda.Event()
+        cloned.record(main)
+        if self._side is None:
+            self._side = torch.cuda.Stream(device=self.device)
+        side = self._side
+        host = {}
+        with torch.cuda.stream(side):
+            side.wait_event(cloned)
+            for label, c in clones.items():
+                buf = torch.empty(c.shape, dtype=c.dtype, pin_memory=True)
+                buf.copy_(c, non_blocking=True)
+                c.record_stream(side)
+                host[label] = buf
+        done = torch.cuda.Event()
+        done.record(side)
+        return AsyncExport(host, clones, done)
+
+    def export_finish(self, handle: AsyncExport) -> dict[str, np.ndarray]:
+        """Wait for an export's copy (its event, not the whole device) →
+        ``(W, G)`` numpy planes keyed by component label."""
+        if handle.done is not None:
+            handle.done.synchronize()
+        out = {label: np.asarray(buf) for label, buf in handle.host.items()}
+        self.bytes_d2h += sum(int(a.nbytes) for a in out.values())
+        return out
 
     def import_(self, host_state: dict[str, np.ndarray]) -> None:
         self._state = sa.import_state(self.spec, host_state, self.device)

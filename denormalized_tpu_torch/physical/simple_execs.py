@@ -1,14 +1,16 @@
 """Source / projection / filter / sink operators (host-side, vectorized).
 
 Counterpart of ``denormalized_tpu/physical/simple_execs.py`` for bounded
-sources: the source round-robins its partitions in-thread and ends with
-EndOfStream.  Idle and per-partition watermarks, barriers and the prefetch
-pump of live sources are not ported yet.
+sources: the source round-robins its partitions in-thread, injects a
+checkpoint :class:`Marker` after the batch during which a barrier arrived
+(persisting the offsets of the batches it has yielded), and ends with
+EndOfStream.  Idle and per-partition watermarks, the cluster barrier hooks
+and the prefetch pump of live sources are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Iterator
+from typing import Callable, Iterator
 
 import numpy as np
 
@@ -19,6 +21,7 @@ from denormalized_tpu_torch.physical.base import (
     EOS,
     EndOfStream,
     ExecOperator,
+    Marker,
     StreamItem,
 )
 from denormalized_tpu_torch.sources.base import Source
@@ -31,7 +34,59 @@ class SourceExec(ExecOperator):
     def __init__(self, source: Source) -> None:
         self.source = source
         self.schema = source.schema
+        self._barrier_poll: Callable[[], int | None] | None = None
+        self._ckpt = None  # (CheckpointCoordinator, node_id)
+        # per partition, the offset snapshot after its last YIELDED batch
+        self._yielded_offsets: list | None = None
 
+    # -- checkpointing (offset persistence mirrors BatchReadMetadata,
+    # kafka_stream_read.rs:49-65,275-289; restore :110-140) -------------
+    def enable_checkpointing(self, node_id: str, coord, orch) -> None:
+        from denormalized_tpu_torch.state.checkpoint import make_barrier_poll
+
+        self._ckpt = (coord, node_id)
+        base_poll = make_barrier_poll(orch.register(f"src_{node_id}"))
+
+        def poll():
+            epoch = base_poll()
+            if epoch is not None:
+                self._persist_offsets(epoch)
+            return epoch
+
+        self._barrier_poll = poll
+
+    def _persist_offsets(self, epoch: int) -> None:
+        from denormalized_tpu_torch.state.checkpoint import put_json
+
+        if self._ckpt is None or self._yielded_offsets is None:
+            return
+        coord, node_id = self._ckpt
+        put_json(
+            coord,
+            f"offsets_{node_id}",
+            epoch,
+            {"epoch": epoch, "partitions": list(self._yielded_offsets)},
+        )
+
+    def _restore_offsets(self, readers) -> None:
+        from denormalized_tpu_torch.common.errors import StateError
+        from denormalized_tpu_torch.state.checkpoint import get_json
+
+        if self._ckpt is None:
+            return
+        coord, node_id = self._ckpt
+        snap = get_json(coord, f"offsets_{node_id}")
+        if snap is None:
+            return
+        parts = snap.get("partitions", [])
+        if len(parts) != len(readers):
+            raise StateError(
+                f"checkpoint has {len(parts)} partitions but source "
+                f"{self.source.name!r} now has {len(readers)} — partition "
+                "layout must match across restarts"
+            )
+        for r, s in zip(readers, parts):
+            r.offset_restore(s)
 
     def run(self) -> Iterator[StreamItem]:
         if self.source.unbounded:
@@ -40,16 +95,27 @@ class SourceExec(ExecOperator):
             raise PlanError(
                 "unbounded sources not yet ported to denormalized_tpu_torch"
             )
-        live = list(self.source.partitions())
+        readers = self.source.partitions()
+        poll = self._barrier_poll
+        if poll is not None:
+            self._restore_offsets(readers)
+            self._yielded_offsets = [r.offset_snapshot() for r in readers]
+        live = list(enumerate(readers))
         while live:
             nxt = []
-            for r in live:
+            for i, r in live:
                 b = r.read()
                 if b is None:
                     continue
-                nxt.append(r)
+                nxt.append((i, r))
                 if b.num_rows:
                     yield b
+                    if poll is not None:
+                        self._yielded_offsets[i] = r.offset_snapshot()
+                if poll is not None:
+                    epoch = poll()
+                    if epoch is not None:
+                        yield Marker(epoch)
             live = nxt
         yield EOS
 

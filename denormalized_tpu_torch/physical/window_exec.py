@@ -22,9 +22,18 @@ degenerate case).  Per input batch (host side, all vectorized):
 Capacity is elastic: group capacity G and ring size W double when the
 interner or the event-time skew outgrow them (export, re-lay out, import).
 
-Not ported yet: the cold tier, checkpointing, the host pipeline thread,
-emission compaction, watermark hints, asynchronous emission and the
-variance aggregates.
+Checkpointing: on a :class:`Marker` the operator merges the host stripe,
+starts an export of the ring that later in-place updates cannot change
+(``export_start``: a device clone copied to the host on a side stream),
+captures its host bookkeeping and holds the marker; the next item's device
+work is queued, then the export is awaited, packed and written under the
+marker's epoch, and the marker released before any output of that item.
+Restore rebuilds the backend for the snapshot's W and G and imports the
+ring onto the engine's device.
+
+Not ported yet: the cold tier (a snapshot holding spilled windows is
+refused), the host pipeline thread, emission compaction, watermark hints,
+asynchronous emission and the variance aggregates.
 """
 
 from __future__ import annotations
@@ -40,7 +49,7 @@ from denormalized_tpu_torch.common.constants import (
     WINDOW_END_COLUMN,
     WINDOW_START_COLUMN,
 )
-from denormalized_tpu_torch.common.errors import PlanError
+from denormalized_tpu_torch.common.errors import PlanError, StateError
 from denormalized_tpu_torch.common.record_batch import RecordBatch
 from denormalized_tpu_torch.common.schema import DataType, Field, Schema
 from denormalized_tpu_torch.logical.expr import (
@@ -57,7 +66,13 @@ from denormalized_tpu_torch.physical.base import (
     EOS,
     EndOfStream,
     ExecOperator,
+    Marker,
     StreamItem,
+)
+from denormalized_tpu_torch.runtime.tracing import span
+from denormalized_tpu_torch.state.serialization import (
+    pack_snapshot,
+    unpack_snapshot,
 )
 
 
@@ -200,7 +215,20 @@ class StreamingWindowExec(ExecOperator):
             "partial_merges": 0,
             "grow_events": 0,
             "host_prep_s": 0.0,
+            # checkpoints: snapshots written, their packed bytes, and the
+            # host's time waiting for the export, packing, and writing
+            # (frame + CRC + LSM put)
+            "snapshots": 0,
+            "snapshot_bytes": 0,
+            "snapshot_wait_s": 0.0,
+            "snapshot_pack_s": 0.0,
+            "snapshot_put_s": 0.0,
         }
+        # checkpointing (enable_checkpointing): (coordinator, state key),
+        # the snapshot whose export is in flight, and the marker it holds
+        self._ckpt: tuple | None = None
+        self._pending_snapshot: tuple | None = None
+        self._held_marker: Marker | None = None
 
     # ------------------------------------------------------------------
     @property
@@ -604,12 +632,110 @@ class StreamingWindowExec(ExecOperator):
         cols += [start, end, start.copy()]
         return RecordBatch(self.schema, cols)
 
+    # -- checkpointing ----------------------------------------------------
+    # Snapshot = ring planes + interner + watermark scalars, taken at an
+    # aligned in-band marker (the JAX package's layout, so either package
+    # restores the other's snapshot).
+    def enable_checkpointing(self, node_id: str, coord, orch) -> None:
+        self._ckpt = (coord, f"window_{node_id}")
+        self._restore()
+
+    def _snapshot(self, epoch: int) -> None:
+        """Start epoch ``epoch``'s snapshot without waiting for the device:
+        merge the host stripe (host state the ring does not hold yet),
+        start the ring's export, and capture the host bookkeeping now —
+        it changes with the very next batch."""
+        self._backend.flush_pending()
+        meta = {
+            "epoch": epoch,
+            "first_open": self._first_open,
+            "max_win_seen": self._max_win_seen,
+            "watermark_ms": self._watermark_ms,
+            "window_slots": self._spec.window_slots,
+            "group_capacity": self._backend.group_capacity,
+            "interner": self._interner.snapshot() if self._grouped else None,
+            # the JAX package's variance pivots: none here (no variance
+            # aggregates), kept so its restore reads the same keys
+            "var_shift": {},
+            "any_nulls_seen": self._any_nulls_seen,
+        }
+        self._pending_snapshot = (
+            epoch, meta, self._backend, self._backend.export_start()
+        )
+
+    def _release_snapshot(self) -> Iterator[Marker]:
+        """Wait for a pending snapshot's export, write it, and release its
+        held marker.  Runs before any output derived from post-marker input
+        leaves this operator: a downstream operator that saw such output
+        before the marker would snapshot state ahead of ours."""
+        if self._pending_snapshot is not None:
+            epoch, meta, backend, handle = self._pending_snapshot
+            self._pending_snapshot = None
+            coord, key = self._ckpt
+            m = self._metrics
+            with span("window.snapshot", epoch=epoch, key=key):
+                t0 = time.perf_counter()
+                planes = backend.export_finish(handle)
+                t1 = time.perf_counter()
+                blob = pack_snapshot(meta, planes)
+                t2 = time.perf_counter()
+                coord.put_snapshot(key, epoch, blob)
+                t3 = time.perf_counter()
+            m["snapshots"] += 1
+            m["snapshot_bytes"] += len(blob)
+            m["snapshot_wait_s"] += t1 - t0
+            m["snapshot_pack_s"] += t2 - t1
+            m["snapshot_put_s"] += t3 - t2
+        if self._held_marker is not None:
+            marker, self._held_marker = self._held_marker, None
+            yield marker
+
+    def _restore(self) -> None:
+        """Continue from the committed epoch's snapshot, if there is one:
+        the backend is rebuilt for its W and G and the ring imported onto
+        the engine's device (``load_state``)."""
+        coord, key = self._ckpt
+        blob = coord.get_snapshot(key)
+        if blob is None:
+            return
+        meta, arrays = unpack_snapshot(blob)
+        if meta.get("spill_windows"):
+            raise StateError(
+                f"snapshot {key!r} holds windows spilled to the cold tier "
+                "(state/tiering.py and the window's _WindowTier), which "
+                "denormalized_tpu_torch does not port yet"
+            )
+        self.load_state(
+            arrays,
+            meta["interner"],
+            meta["first_open"],
+            meta["max_win_seen"],
+            meta["watermark_ms"],
+            # restored state may hold counts < row counts (nulls before
+            # the kill); unless the snapshot says otherwise, stay on full
+            # gathers
+            bool(meta.get("any_nulls_seen", True)),
+        )
+
     # -- stream loop -----------------------------------------------------
     def run(self) -> Iterator[StreamItem]:
         for item in self.input_op.run():
             if isinstance(item, RecordBatch):
-                yield from list(self._process_batch(item))
+                # the batch's device work queues behind a pending export's
+                # clone, so the export's copy overlaps it; the held marker
+                # still leaves before any of the batch's output
+                out = list(self._process_batch(item))
+                yield from self._release_snapshot()
+                yield from out
+            elif isinstance(item, Marker):
+                yield from self._release_snapshot()  # an earlier epoch
+                if self._ckpt is not None:
+                    self._snapshot(item.epoch)
+                    self._held_marker = item
+                else:
+                    yield item
             elif isinstance(item, EndOfStream):
+                yield from self._release_snapshot()
                 # bounded input: merge the stripe, flush every open window
                 if self._first_open is not None:
                     self._backend.flush_pending()

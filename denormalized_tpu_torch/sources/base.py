@@ -105,6 +105,14 @@ class PartitionReader:
         sources) / the timeout elapsed (live sources return empty batches)."""
         raise NotImplementedError
 
+    # -- checkpoint hooks (reference BatchReadMetadata offsets,
+    # kafka_stream_read.rs:49-65,275-289) -------------------------------
+    def offset_snapshot(self) -> dict:
+        return {}
+
+    def offset_restore(self, snap: dict) -> None:
+        pass
+
 
 class Source:
     name: str = "source"

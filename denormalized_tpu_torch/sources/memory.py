@@ -46,6 +46,12 @@ class _MemoryPartition(PartitionReader):
             return b
         return None
 
+    def offset_snapshot(self) -> dict:
+        return {"pos": self._pos}
+
+    def offset_restore(self, snap: dict) -> None:
+        self._pos = int(snap.get("pos", 0))
+
 
 class MemorySource(Source):
     """Replayable bounded source over per-partition batch lists."""

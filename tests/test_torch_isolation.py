@@ -29,13 +29,23 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "denormalized_tpu_torch"
 
 
-# modules of the partial_merge slice, named so a rename cannot drop them
-# from the blocked-import check unseen
+# modules of the partial_merge and checkpoint slices, named so a rename
+# cannot drop them from the blocked-import check unseen
 NEW_MODULES = (
     "denormalized_tpu_torch.native.build",
     "denormalized_tpu_torch.ops.host_partial",
     "denormalized_tpu_torch.ops.merge_partials",
     "denormalized_tpu_torch.ops.interner",
+    "denormalized_tpu_torch.logical.optimizer",
+    "denormalized_tpu_torch.obs",
+    "denormalized_tpu_torch.obs.registry",
+    "denormalized_tpu_torch.runtime.faults",
+    "denormalized_tpu_torch.runtime.tracing",
+    "denormalized_tpu_torch.state.channel_manager",
+    "denormalized_tpu_torch.state.checkpoint",
+    "denormalized_tpu_torch.state.lsm",
+    "denormalized_tpu_torch.state.orchestrator",
+    "denormalized_tpu_torch.state.serialization",
 )
 
 
@@ -68,6 +78,13 @@ def test_port_imports_with_jax_and_reference_blocked():
         "g = GroupInterner(1)\n"
         "g.intern([np.array(['a', 'b', 'a'], dtype=object)])\n"
         "assert g.lanes[0].startswith('native'), g.lanes\n"
+        "import shutil, tempfile\n"
+        "from denormalized_tpu_torch.state.lsm import LsmStore\n"
+        "d = tempfile.mkdtemp()\n"
+        "kv = LsmStore(d)\n"
+        "assert kv.is_native, 'the native LSM store did not build'\n"
+        "kv.close()\n"
+        "shutil.rmtree(d)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'denormalized_tpu' or m.startswith('denormalized_tpu.')]\n"
         "assert all(sys.modules[m] is None for m in bad), bad\n"
