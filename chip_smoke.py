@@ -76,11 +76,26 @@ Phases:
 13. the snapshot race: 50 rounds of ``export_start`` on a seeded ring, 20
     dense updates and 20 merge folds queued at once, ``export_finish`` —
     every snapshot bit-identical to the synchronous export before it.
+14. config 4 (bench.py ``join``): phase 4's stream and one made from
+    --seed + 1, each through a window (avg(reading) by sensor_name, 1 s
+    tumbling, ``auto``: the dense kernel every batch, the two windows on two
+    pump threads), the right side renamed to hs/hws/hwe, an inner join on
+    (sensor_name, window_start_time) = (hs, hws), checked against the numpy
+    oracle: rows/s over both streams beside phase 4's, the dense launches of
+    each window (61 each, 122 in all), the join's rows and its build, probe,
+    gather and queue-wait times; then the same run under torch.profiler:
+    the device's busy share and whether the two sides' kernels overlapped;
+15. config 4 at config 3's key count: phase 10's stream and one made from
+    --seed + 6 (100K keys a side, 524,288-row batches), through ``auto``
+    (the scatter path at this G) and ``partial_merge``, each against the
+    oracle, with the join's resident rows and bytes at the end and the
+    adaptation policy's counts.
 
 Then one JSON line with each kernel's launches on its main path (phase 4
 for the dense kernel, phase 8 for the merge kernel, each counted from 0
 just before the run; for the dense kernel also its launches on phase 11's
-restored ring), its largest error against the plain version, its device
+restored ring, and both windows' launches under phase 14's join), its
+largest error against the plain version, its device
 time, the wrapper's time, the plain version's time and the least time the
 card could take, and as the last line ``{"ok": true, "device": {...}}``.
 Any failure ends the run with a non-zero exit and no result.  Without CUDA
@@ -1634,8 +1649,17 @@ def phase_ckpt_highcard(device, seed: int, batches, stream, card):
     union.update(rows_b)
     check_highcard_rows(union, exp)
     m = op.metrics()
-    if not len(rows_b) < len(exp) or m["batches_in"] >= len(batches):
-        raise AssertionError("phase 12: the restart reprocessed the stream")
+    # partial_merge holds emission up to emit_lag_ms of wall time, so the
+    # crashed run may have emitted nothing before its barrier: the restart
+    # then rightly emits every window.  What it must never do is emit a
+    # window the crashed run had emitted, or read the whole stream again.
+    again = rows_a.keys() & rows_b.keys()
+    if again or m["batches_in"] >= len(batches):
+        raise AssertionError(
+            f"phase 12: the restart reprocessed the stream ({len(again)} "
+            f"rows emitted again, {len(rows_a)} before the crash, "
+            f"{len(rows_b)} after; {m['batches_in']} of {len(batches)} "
+            f"batches read after the restore)")
     if op.backend.merges == 0 or mp.merge_partials_launches != op.backend.merges:
         raise AssertionError(
             f"phase 12: {mp.merge_partials_launches} merge launches for "
@@ -1737,6 +1761,253 @@ def phase_snapshot_race(device, seed: int, card, rounds: int = 50):
         f" s) ({card})")
 
 
+# -- phases 14-15: the windowed stream-stream join (config 4) -----------------
+
+
+def join_stream(device, left_batches, right_batches, strategy, **cfg):
+    """bench.py's ``join`` query, not yet run → (ctx, DataStream): two
+    streams, avg(reading) by sensor_name in 1 s tumbling windows, the right
+    side's sensor/start/end renamed to hs/hws/hwe, an inner join on
+    (sensor_name, window_start_time) = (hs, hws)."""
+    import denormalized_tpu_torch as tt
+    from denormalized_tpu_torch.api import functions as F
+    from denormalized_tpu_torch.sources.memory import MemorySource
+
+    ctx = tt.Context(tt.EngineConfig(device=str(device),
+                                     device_strategy=strategy, **cfg))
+    col = tt.col
+
+    def side(batches, name, agg):
+        return ctx.from_source(
+            MemorySource.from_batches(batches,
+                                      timestamp_column="occurred_at_ms"),
+            name=name,
+        ).window(["sensor_name"], [F.avg(col("reading")).alias(agg)], 1000)
+
+    right = (
+        side(right_batches, "bench_h", "avg_h")
+        .with_column_renamed("sensor_name", "hs")
+        .with_column_renamed("window_start_time", "hws")
+        .with_column_renamed("window_end_time", "hwe")
+    )
+    ds = side(left_batches, "bench_t", "avg_t").join(
+        right, "inner", ["sensor_name", "window_start_time"], ["hs", "hws"])
+    return ctx, ds
+
+
+def join_ops(ctx):
+    """(join operator, [left window, right window]) of the last plan."""
+    from denormalized_tpu_torch.physical.join_exec import StreamingJoinExec
+    from denormalized_tpu_torch.physical.window_exec import StreamingWindowExec
+
+    def find(op, cls):
+        if isinstance(op, cls):
+            return op
+        for c in op.children:
+            got = find(c, cls)
+            if got is not None:
+                return got
+        return None
+
+    join = find(ctx._last_physical, StreamingJoinExec)
+    return join, [find(c, StreamingWindowExec) for c in join.children]
+
+
+def check_join(res, left_stream, right_stream, num_keys) -> int:
+    """The joined rows against the numpy float64 oracle: the same
+    (window_start, sensor) row set as the windows both sides hold, both
+    averages to rtol=1e-4 → rows."""
+    lo = oracle(*left_stream, 1000, 1000, num_keys)
+    ro = oracle(*right_stream, 1000, 1000, num_keys)
+    exp = {k: (lo[k][3], ro[k][3]) for k in lo.keys() & ro.keys()}
+    ws = res.column("window_start_time").tolist()
+    names = res.column("sensor_name").tolist()
+    if res.column("hs").tolist() != names or res.column("hws").tolist() != ws:
+        raise AssertionError("joined rows disagree on their keys")
+    got = {}
+    for w, name, a, b in zip(ws, names, res.column("avg_t").tolist(),
+                             res.column("avg_h").tolist()):
+        key = (w, int(name[7:]))  # "sensor_<i>"
+        if key in got:
+            raise AssertionError(f"{key} joined twice")
+        got[key] = (a, b)
+    if set(got) != set(exp):
+        raise AssertionError(
+            f"row sets differ: {len(got)} joined vs {len(exp)} expected")
+    for k, (a, b) in exp.items():
+        ga, gb = got[k]
+        if not (np.isclose(ga, a, rtol=1e-4, atol=0)
+                and np.isclose(gb, b, rtol=1e-4, atol=0)):
+            raise AssertionError(f"{k}: got {got[k]}, expected {(a, b)}")
+    return len(got)
+
+
+def run_join(device, phase, strategy, left, right, num_keys, card, **cfg):
+    """Config 4 over two streams with every kernel count set to 0 just
+    before it, checked against the oracle → {rows_per_s, wall, launches,
+    ctx, join metrics}."""
+    from denormalized_tpu_torch.ops import dense_window as dw
+    from denormalized_tpu_torch.ops import merge_partials as mp
+
+    (lb, ls), (rb, rs) = left, right
+    rows = len(ls[0]) + len(rs[0])
+    ctx, ds = join_stream(device, lb, rb, strategy, **cfg)
+    dw.dense_window_launches = 0
+    mp.merge_partials_launches = 0
+    t0 = time.perf_counter()
+    res = ds.collect()
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = {"dense_window": dw.dense_window_launches,
+                "merge_partials": mp.merge_partials_launches}
+    join, windows = join_ops(ctx)
+    per_side = []
+    for w, batches in zip(windows, (lb, rb)):
+        b = w.backend
+        if strategy == "partial_merge":
+            if b.stripe.numpy_batches or not b.stripe.native_batches:
+                raise AssertionError(f"phase {phase}: a side folded on numpy")
+            per_side.append(f"{b.merges} merges")
+        elif num_keys == NUM_KEYS:
+            if b.dense_updates != len(batches) or b.scatter_updates:
+                raise AssertionError(
+                    f"phase {phase}: dense_updates={b.dense_updates}, "
+                    f"scatter_updates={b.scatter_updates}, batches "
+                    f"{len(batches)}")
+            per_side.append(f"{b.dense_updates} dense launches")
+        else:
+            if b.scatter_updates != len(batches):
+                raise AssertionError(f"phase {phase}: scatter_updates="
+                                     f"{b.scatter_updates}")
+            per_side.append(f"{b.scatter_updates} scatter steps")
+        if w._interner.lanes[0] != "native-pyobject":
+            raise AssertionError(f"phase {phase}: interner lane "
+                                 f"{w._interner.lanes}")
+    if strategy == "partial_merge":
+        merges = sum(w.backend.merges for w in windows)
+        if launches["merge_partials"] != merges:
+            raise AssertionError(f"phase {phase}: {launches['merge_partials']}"
+                                 f" merge launches for {merges} merges")
+    elif num_keys == NUM_KEYS and launches["dense_window"] != sum(
+            len(b) for b in (lb, rb)):
+        raise AssertionError(f"phase {phase}: {launches['dense_window']} "
+                             f"dense launches for {len(lb) + len(rb)} batches")
+    joined = check_join(res, ls, rs, num_keys)
+    m = join.metrics()
+    log(f"phase {phase} config 4 via {strategy}: {len(ls[0])} + {len(rs[0])} "
+        f"rows in {len(lb)} + {len(rb)} batches, {joined} joined rows match "
+        f"the oracle, left window {per_side[0]}, right window {per_side[1]} "
+        f"(kernel launches {launches}), wall {wall:.3f} s, "
+        f"{rows / wall:.0f} rows/s over both streams; join: {m['rows_in']} "
+        f"rows in {m['batches_in']} batches, {m['rows_out']} out, build "
+        f"{m['build_s'] * 1e3:.3f} ms, probe {m['probe_s'] * 1e3:.3f} ms, "
+        f"gather {m['gather_s'] * 1e3:.3f} ms, evict "
+        f"{m['evict_s'] * 1e3:.3f} ms, policy {m['policy_s'] * 1e3:.3f} ms, "
+        f"waiting on the merged queue {m['queue_wait_s']:.3f} s "
+        f"({100 * m['queue_wait_s'] / wall:.1f}% of the wall); window host "
+        f"prep {windows[0].metrics()['host_prep_s']:.3f} s + "
+        f"{windows[1].metrics()['host_prep_s']:.3f} s, "
+        f"{windows[0].metrics()['bytes_h2d']} + "
+        f"{windows[1].metrics()['bytes_h2d']} B to the card ({card})")
+    return {"rows_per_s": rows / wall, "wall": wall, "launches": launches,
+            "ctx": ctx, "join": m}
+
+
+def phase_join_profile(device, left, right, card) -> None:
+    """Phase 14's run again under torch.profiler: the device's busy share
+    of the wall, and whether the two windows' dense kernels (two pump
+    threads, each on its thread's current stream) overlapped or ran one
+    after another, by the Chrome trace's streams and times."""
+    import os
+    import shutil
+    import tempfile
+
+    n = len(left[0]) + len(right[0])
+    work = tempfile.mkdtemp(prefix="chip_smoke_join_")
+    try:
+        for _ in range(PROFILER_TRIES):
+            ctx, ds = join_stream(device, left[0], right[0], "auto")
+            holder = {}
+
+            def run():
+                t0 = time.perf_counter()
+                ds.collect()
+                torch.cuda.synchronize(device)
+                holder["wall"] = time.perf_counter() - t0
+
+            evts = chrome_gpu_events(profile(run),
+                                     os.path.join(work, "trace.json"))
+            dense = [e for e in evts if DENSE_KERNEL in e[1]]
+            if len(dense) > n:
+                raise AssertionError(f"phase 14 profile: {len(dense)} dense "
+                                     f"kernels for {n} batches")
+            if len(dense) == n:
+                break
+            log(f"phase 14 profile: the profiler recorded {len(dense)} dense"
+                f" kernels of {n} and {len(evts)} device events")
+        else:
+            log(f"phase 14 profile: device split not measured (the profiler "
+                f"missed launches in {PROFILER_TRIES} runs)")
+            return
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    wall_ms = holder["wall"] * 1e3
+    busy_ms = union_us((e[3], e[3] + e[4]) for e in evts) / 1e3
+    spans = sorted((e[3], e[3] + e[4]) for e in dense)
+    dense_sum = sum(e - s for s, e in spans) / 1e3
+    dense_union = union_us(spans) / 1e3
+    overlaps = sum(1 for (_s0, e0), (s1, _e1) in zip(spans, spans[1:])
+                   if s1 < e0)
+    log(f"phase 14 profile: wall {wall_ms:.3f} ms under the profiler, device "
+        f"busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.2f}% busy, "
+        f"{100 * (1 - busy_ms / wall_ms):.2f}% idle); {len(dense)} dense "
+        f"kernels on stream(s) {sorted({e[2] for e in dense})}, "
+        f"{dense_sum:.4f} ms summed, {dense_union:.4f} ms as a union, "
+        f"{overlaps} overlapping pairs: the two sides' kernels "
+        f"{'overlapped' if overlaps else 'ran one after another'} ({card})")
+
+
+def phase_join(device, seed, batches, stream, tumbling, card):
+    """Phase 14: config 4 at bench.py's shape — phase 4's stream on the
+    left, one made from --seed + 1 on the right — through auto, checked
+    against the oracle, then profiled → the run's dense launches."""
+    right_stream = gen_stream(TOTAL_ROWS, BATCH_ROWS, NUM_KEYS, seed + 1)
+    right = (to_batches(*right_stream, BATCH_ROWS, NUM_KEYS), right_stream)
+    out = run_join(device, 14, "auto", (batches, stream), right, NUM_KEYS,
+                   card)
+    log(f"phase 14 rows/s side by side: config 4 {out['rows_per_s']:.0f} "
+        f"over both streams, config 1 (phase 4) {tumbling['rows_per_s']:.0f}"
+        f" ({card})")
+    phase_join_profile(device, (batches, stream), right, card)
+    return out["launches"]["dense_window"]
+
+
+def phase_join_highcard(device, seed, batches, stream, rates, card):
+    """Phase 15: config 4 at config 3's key count — phase 10's stream on
+    the left, one made from --seed + 6 on the right — through auto (the
+    scatter path at this G) and partial_merge, each against the oracle;
+    the join holds ~100K rows a window a side, with the policy live."""
+    right_stream = gen_stream(TOTAL_ROWS, HIGHCARD_BATCH_ROWS, HIGHCARD_KEYS,
+                              seed + 6)
+    right = (to_batches(*right_stream, HIGHCARD_BATCH_ROWS, HIGHCARD_KEYS),
+             right_stream)
+    cfg = dict(min_group_capacity=2 * HIGHCARD_KEYS)
+    for strategy in ("auto", "partial_merge"):
+        out = run_join(device, 15, strategy, (batches, stream), right,
+                       HIGHCARD_KEYS, card, **cfg)
+        join, _ = join_ops(out["ctx"])
+        info = join.state_info()
+        ad = info["adaptations"]
+        log(f"phase 15 via {strategy}: join state at the end "
+            f"{info['slot_live']} resident rows ({info['sides']['left']['rows']}"
+            f" + {info['sides']['right']['rows']}), {info['state_bytes']} B, "
+            f"{info['live_keys']} live keys, {info['interner_keys_total']} "
+            f"interned; policy {ad['by_action']['adapt']} adapts, "
+            f"{ad['by_action']['fold']} folds, {info['hot_keys']} hot keys; "
+            f"{out['rows_per_s']:.0f} rows/s against config 3's "
+            f"{rates[strategy]:.0f} (phase 10, one stream) ({card})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1803,13 +2074,17 @@ def main(argv=None) -> int:
         f"{tumbling['rows_per_s']:.0f} ({card})")
     run_checked(device, 9, "sliding", "partial_merge", sliding_batches,
                 sliding_stream, NUM_KEYS, card)
-    _, highcard_batches, highcard_stream = phase_highcard(
+    highcard_rates, highcard_batches, highcard_stream = phase_highcard(
         device, args.seed + 4, card)
     restored_launches = phase_ckpt_sigkill(device, args.seed, batches, stream,
                                            tumbling, card)
     phase_ckpt_highcard(device, args.seed + 4, highcard_batches,
                         highcard_stream, card)
     phase_snapshot_race(device, args.seed + 5, card)
+    join_launches = phase_join(device, args.seed, batches, stream, tumbling,
+                               card)
+    phase_join_highcard(device, args.seed + 4, highcard_batches,
+                        highcard_stream, highcard_rates, card)
 
     hot = kern["main_hot"]
     m1 = merge["cfg1_dense"]
@@ -1833,6 +2108,8 @@ def main(argv=None) -> int:
         "main_host_ms": kern["main"]["host_ms"],
         # launches on the restored ring by phase 11's restarted child
         "restored_launches": restored_launches,
+        # launches of both windows under phase 14's join (61 a side)
+        "join_launches": join_launches,
     }, {
         "name": "merge_partials",
         "route": "cuda",

@@ -5,7 +5,9 @@ registers sources as named tables and hands out :class:`DataStream`
 builders.  :class:`EngineConfig` carries the knobs the ported window path
 reads, plus an explicit ``device``: the device rule of the whole package,
 and the checkpoint knobs (``checkpoint``, ``checkpoint_interval_s``,
-``state_backend_path``, or :meth:`Context.with_state_backend`).
+``state_backend_path``, or :meth:`Context.with_state_backend`) and the
+join knobs (``join_retention_ms``, ``join_adaptive``,
+``join_adapt_interval_s``).
 """
 
 from __future__ import annotations
@@ -59,6 +61,16 @@ class EngineConfig:
     # merge (partial_merge) folds into the pair by an exact TwoSum; the
     # dense kernel does not take such a spec (it falls back to scatter)
     compensated_sums: bool = False
+    # stream-stream joins: retained rows match while within this much event
+    # time of the joint watermark, then evict (outer joins emit them
+    # unmatched)
+    join_retention_ms: int = 300_000
+    # closed-loop skew adaptation (obs/doctor/actions.py): a key whose
+    # sketched share crosses the skewed-join-side thresholds moves into a
+    # dense hot sub-partition, and folds back on decay.  Emissions are
+    # identical either way — a layout, not a semantics switch
+    join_adaptive: bool = True
+    join_adapt_interval_s: float = 1.0
     min_batch_bucket: int = 256
     min_group_capacity: int = 128
     min_window_slots: int = 16

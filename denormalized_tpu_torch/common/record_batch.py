@@ -8,7 +8,7 @@ as padded tensors — batches themselves never hold device tensors.
 Counterpart of ``denormalized_tpu/common/record_batch.py``, trimmed to plain
 numpy columns: strings are object arrays (the Arrow-layout
 ``common/columns.py`` is not ported yet), with the constructors and
-transforms the window path uses.
+transforms the window and join paths use.
 
 Nullability: a column may carry a boolean validity mask; ``None`` mask means
 all-valid (Arrow's convention).
@@ -88,6 +88,13 @@ class RecordBatch:
             self.schema.append(field),
             list(self.columns) + [np.asarray(col)],
             list(self.masks) + [mask],
+        )
+
+    def take(self, indices: np.ndarray) -> "RecordBatch":
+        return RecordBatch(
+            self.schema,
+            [c[indices] for c in self.columns],
+            [m[indices] if m is not None else None for m in self.masks],
         )
 
     def filter(self, keep: np.ndarray) -> "RecordBatch":

@@ -1,6 +1,6 @@
 """Logical plan optimizer — counterpart of
 ``denormalized_tpu/logical/optimizer.py`` over the port's plan algebra
-(scan, project, filter, window, sink) and expressions (column, literal,
+(scan, project, filter, window, join, sink) and expressions (column, literal,
 binary, alias).
 
 The rules are the JAX package's, so both packages build the same physical
@@ -49,6 +49,16 @@ def map_children(
             node.window_type,
             node.length_ms,
             node.slide_ms,
+        )
+    if isinstance(node, lp.Join):
+        return lp.Join(
+            fn(node.left),
+            fn(node.right),
+            node.kind,
+            node.left_keys,
+            node.right_keys,
+            node.filter,
+            node.band,
         )
     return node
 
@@ -127,6 +137,28 @@ class ProjectionPruning:
                 node.window_type,
                 node.length_ms,
                 node.slide_ms,
+            )
+        if isinstance(node, lp.Join):
+            lnames = set(node.left.schema.names)
+            rnames = set(node.right.schema.names)
+            if required is None:
+                lneed = rneed = None
+            else:
+                base = set(required)
+                base |= set(node.left_keys) | set(node.right_keys)
+                lneed = {n for n in base if n in lnames}
+                rneed = {n for n in base if n in rnames}
+                if node.filter is not None:
+                    for n in node.filter.columns_referenced():
+                        (lneed if n in lnames else rneed).add(n)
+            return lp.Join(
+                self._walk(node.left, lneed),
+                self._walk(node.right, rneed),
+                node.kind,
+                node.left_keys,
+                node.right_keys,
+                node.filter,
+                node.band,
             )
         if isinstance(node, lp.Scan):
             if required is None:

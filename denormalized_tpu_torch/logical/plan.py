@@ -4,10 +4,11 @@ The reference reuses DataFusion's ``LogicalPlan`` and adds one extension node,
 ``StreamingWindowPlanNode`` (crates/core/src/logical_plan/streaming_window.rs:15)
 built by ``StreamingLogicalPlanBuilder::streaming_window``
 (logical_plan/mod.rs:16-60).  We own the whole (much smaller) plan algebra:
-Scan / Project / Filter / StreamingWindow / Sink, each of which knows its
-output schema eagerly — plan building touches no data (mirroring the lazy
-construction at context.rs:65 / datastream.rs).  Counterpart of
-``denormalized_tpu/logical/plan.py`` without the join nodes.
+Scan / Project / Filter / StreamingWindow / Join / Sink, each of which knows
+its output schema eagerly — plan building touches no data (mirroring the
+lazy construction at context.rs:65 / datastream.rs).  Counterpart of
+``denormalized_tpu/logical/plan.py``; :class:`JoinBand` is carried as a type
+only (band joins are not ported: the API refuses them).
 """
 
 from __future__ import annotations
@@ -150,6 +151,101 @@ class StreamingWindow(LogicalPlan):
             f"StreamingWindow([{', '.join(g.name for g in self.group_exprs)}] "
             f"[{', '.join(a.name for a in self.aggr_exprs)}] {w})"
         )
+
+
+class JoinKind(enum.Enum):
+    INNER = "inner"
+    LEFT = "left"
+    RIGHT = "right"
+    FULL = "full"
+    # existence joins (DataFusion JoinType::LeftSemi/LeftAnti, exposed by
+    # the reference's DataStream::join surface, datastream.rs:129): output
+    # is LEFT rows only — semi emits each left row at most once when a
+    # right match exists; anti emits left rows proven matchless (at
+    # eviction horizon or EOS).  Right-side variants normalize to these by
+    # swapping inputs at the API layer (DataStream.join).
+    LEFT_SEMI = "left_semi"
+    LEFT_ANTI = "left_anti"
+
+
+@dataclass(frozen=True)
+class JoinBand:
+    """Banded (interval) join predicate: a pair matches iff ``left_expr -
+    right_expr`` lands in ``[lower_ms, upper_ms]``.  The JAX package's
+    type, kept so a plan that names one reads the same; band joins are not
+    ported (DataStream.join raises on ``band=``)."""
+
+    left_expr: Expr
+    right_expr: Expr
+    lower_ms: int | float | None
+    upper_ms: int | float | None
+
+
+@dataclass
+class Join(LogicalPlan):
+    """Stream-stream equi-join.  The reference lowers joins to DataFusion's
+    join over two windowed streams (datastream.rs:126-177); ours is a
+    symmetric streaming hash join keyed on the equi-columns."""
+
+    left: LogicalPlan
+    right: LogicalPlan
+    kind: JoinKind
+    left_keys: list[str]
+    right_keys: list[str]
+    filter: Expr | None = None
+    band: JoinBand | None = None
+    schema: Schema = None  # type: ignore[assignment]
+
+    def __post_init__(self):
+        if self.band is not None:
+            raise PlanError(
+                "band joins are not yet ported to denormalized_tpu_torch"
+            )
+        if self.kind in (JoinKind.LEFT_SEMI, JoinKind.LEFT_ANTI):
+            # existence joins surface no right columns, so same-named
+            # columns across sides are fine in the OUTPUT — but a join
+            # filter still evaluates over matched pairs, and a name both
+            # sides carry would silently bind to the left column there
+            if self.filter is not None:
+                shared_keys = {
+                    l for l, r in zip(self.left_keys, self.right_keys)
+                    if l == r
+                }  # equal by construction on a matched pair: unambiguous
+                both = (
+                    {f.name for f in self.left.schema}
+                    & {f.name for f in self.right.schema}
+                ) - shared_keys - {CANONICAL_TIMESTAMP_COLUMN}
+                amb = self.filter.columns_referenced() & both
+                if amb:
+                    raise PlanError(
+                        f"ambiguous column(s) {sorted(amb)} in "
+                        f"{self.kind.value} join filter: present on both "
+                        "sides; rename one side before joining"
+                    )
+            self.schema = self.left.schema
+            return
+        fields = list(self.left.schema.fields)
+        names = {f.name for f in fields}
+        for f in self.right.schema:
+            if f.name == CANONICAL_TIMESTAMP_COLUMN:
+                continue  # keep left's canonical timestamp
+            if f.name in names:
+                if f.name in self.right_keys and f.name in self.left_keys:
+                    continue  # shared equi-key appears once
+                raise PlanError(
+                    f"ambiguous column {f.name!r} in join; rename one side "
+                    "(reference renames via with_column before joining)"
+                )
+            fields.append(f)
+        self.schema = Schema(fields)
+
+    @property
+    def children(self):
+        return [self.left, self.right]
+
+    def _label(self):
+        on = ", ".join(f"{l}={r}" for l, r in zip(self.left_keys, self.right_keys))
+        return f"Join({self.kind.value} on {on})"
 
 
 @dataclass

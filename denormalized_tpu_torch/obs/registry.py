@@ -42,6 +42,15 @@ INSTRUMENTS: dict[str, tuple[str, str]] = {
         "counter",
         "transient StateErrors absorbed by the bounded commit retry",
     ),
+    "dnz_op_rows_out_total": (
+        "counter",
+        "rows leaving a physical operator (join emission)",
+    ),
+    "dnz_join_adaptations_total": (
+        "counter",
+        "hot-key sub-partition layout changes applied by the join's "
+        "closed-loop policy, labeled action=adapt|fold and side=left|right",
+    ),
     "dnz_checkpoint_last_snapshot_bytes": (
         "gauge",
         "size of the most recent snapshot blob persisted under one state "

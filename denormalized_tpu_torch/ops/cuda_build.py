@@ -21,6 +21,7 @@ import functools
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 from denormalized_tpu_torch.native.build import source_hash
@@ -34,6 +35,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+# held around every build: _start's temp file is named by process id only
+_BUILD_LOCK = threading.Lock()
 
 
 class KernelBuildError(RuntimeError):
@@ -102,13 +106,17 @@ def sources() -> list[str]:
 def build_all() -> dict[str, str]:
     """Compile every ``csrc/*.cu`` in parallel (one nvcc each, all started
     together) → {name: nvcc output}."""
-    started = {n: _start(n) for n in sources()}
-    return {n: _finish(n, *started[n]) for n in started}
+    with _BUILD_LOCK:
+        started = {n: _start(n) for n in sources()}
+        return {n: _finish(n, *started[n]) for n in started}
 
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if needed and load it."""
-    out, pending = _start(name)
-    _finish(name, out, pending)
-    return ctypes.CDLL(str(out))
+    """Build ``csrc/<name>.cu`` if needed and load it.  A second thread that
+    misses the cache while the first builds waits on the lock, then finds
+    the library current and only loads it."""
+    with _BUILD_LOCK:
+        out, pending = _start(name)
+        _finish(name, out, pending)
+        return ctypes.CDLL(str(out))

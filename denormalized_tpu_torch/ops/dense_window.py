@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -50,6 +51,7 @@ _PLANE_COLUMN = {"count": 0, "sum": 1, "min": 2, "max": 3}
 #: launches of the CUDA kernel (incremented where it launches, and nowhere
 #: else — the CPU reference does not count)
 dense_window_launches = 0
+_COUNT_LOCK = threading.Lock()
 
 
 def dense_supported(spec: sa.WindowKernelSpec) -> bool:
@@ -197,7 +199,8 @@ def _launch(spec, state, values, colvalid, win_rel, rem, gid, row_valid,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, "launch")
-    dense_window_launches += 1
+    with _COUNT_LOCK:  # two window operators launch from two threads
+        dense_window_launches += 1
 
 
 def dense_update(

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -27,6 +28,7 @@ _OP_KIND = {"count": 0, "sum": 1, "min": 2, "max": 3}
 #: launches of the CUDA kernel (incremented where it launches, and nowhere
 #: else — the CPU reference does not count)
 merge_partials_launches = 0
+_COUNT_LOCK = threading.Lock()
 
 
 class _MergeOp(ctypes.Structure):
@@ -135,7 +137,8 @@ def _launch(spec, SUB, a_pad, dense, state, packed, lean) -> None:
     if rc != 0:
         msg = _lib().merge_partials_error_string(rc).decode()
         raise RuntimeError(f"merge kernel launch failed: {msg} (code {rc})")
-    merge_partials_launches += 1
+    with _COUNT_LOCK:  # two window operators launch from two threads
+        merge_partials_launches += 1
 
 
 def merge_partials(

@@ -19,6 +19,14 @@ degenerate case).  Per input batch (host side, all vectorized):
    Under ``partial_merge`` emission waits up to ``emit_lag_ms`` so a
    replay-speed feed closes several windows per merge.
 
+Watermark hints: after a ``kind="partition"`` :class:`WatermarkHint` (a
+join announces that mode before its first output) batch minima no longer
+advance the watermark, only hints do, and a batch whose windows lie below
+``first_open`` but not below the watermark rebases ``first_open`` down
+instead of late-dropping them.  Each hint is forwarded clamped below the
+start of any window this operator can still emit (emissions are stamped
+with the window start), so an operator above does not late-drop them.
+
 Capacity is elastic: group capacity G and ring size W double when the
 interner or the event-time skew outgrow them (export, re-lay out, import).
 
@@ -32,8 +40,8 @@ Restore rebuilds the backend for the snapshot's W and G and imports the
 ring onto the engine's device.
 
 Not ported yet: the cold tier (a snapshot holding spilled windows is
-refused), the host pipeline thread, emission compaction, watermark hints,
-asynchronous emission and the variance aggregates.
+refused), the host pipeline thread, emission compaction, asynchronous
+emission and the variance aggregates.
 """
 
 from __future__ import annotations
@@ -68,6 +76,7 @@ from denormalized_tpu_torch.physical.base import (
     ExecOperator,
     Marker,
     StreamItem,
+    WatermarkHint,
 )
 from denormalized_tpu_torch.runtime.tracing import span
 from denormalized_tpu_torch.state.serialization import (
@@ -88,6 +97,29 @@ def _round_capacity(g: int) -> int:
 def watermark_floor(wm_ms: int, length_ms: int, slide_ms: int) -> int:
     """First slide index NOT closed by watermark ``wm_ms``."""
     return (wm_ms - length_ms) // slide_ms + 1
+
+
+def window_output_low_watermark(
+    first_open: int | None, slide_ms: int, length_ms: int, hint_ts: int,
+    wm_ms: int | None = None,
+) -> int:
+    """Strict lower bound (minus one) on the start of any window the
+    operator can still emit, given no further input rows at or before
+    ``hint_ts``.  With open windows that is the first open slot's start;
+    with none, the earliest window a future row (> hint_ts) could land in.
+
+    Under hint-driven watermarks ``first_open`` is NOT monotone (a batch of
+    older windows may rebase it down to the watermark floor), so pass
+    ``wm_ms`` and the bound uses min(first_open, floor)."""
+    if first_open is not None:
+        low_first = first_open
+        if wm_ms is not None:
+            low_first = min(
+                low_first, watermark_floor(wm_ms, length_ms, slide_ms)
+            )
+        return low_first * slide_ms - 1
+    min_future_start = ((hint_ts + 1 - length_ms) // slide_ms + 1) * slide_ms
+    return min_future_start - 1
 
 
 class StreamingWindowExec(ExecOperator):
@@ -202,6 +234,9 @@ class StreamingWindowExec(ExecOperator):
         self._first_open: int | None = None  # lowest non-emitted slide index
         self._max_win_seen: int = -1
         self._watermark_ms: int | None = None
+        # True once a kind="partition" WatermarkHint arrived: batch min-ts
+        # no longer advances the watermark
+        self._src_watermarks = False
         # monotone: True once any value column carried a null.  While
         # False, emission gathers skip per-column count planes (they equal
         # the row-count plane) — see _gather_and_reset(lean=True)
@@ -373,6 +408,10 @@ class StreamingWindowExec(ExecOperator):
         if self._first_open is None:
             # windows overlapping the first data: back to units.min() - k + 1
             self._first_open = int(units.min()) - self._spec.length_units + 1
+        elif self._src_watermarks:
+            anchor = int(units.min()) - self._spec.length_units + 1
+            if anchor < self._first_open:
+                self._rebase_first_open(anchor)
         first = self._first_open
         win_rel64 = units - first
         self._max_win_seen = max(self._max_win_seen, int(units.max()))
@@ -417,11 +456,43 @@ class StreamingWindowExec(ExecOperator):
             self._ship_rows(t0, n, first, win_rel64, rem, gid, values,
                             colvalid)
 
-        # watermark: monotonic max of batch min-ts (reference semantics)
-        bmin = int(ts.min())
-        if self._watermark_ms is None or bmin > self._watermark_ms:
-            self._watermark_ms = bmin
+        # watermark: monotonic max of batch min-ts (reference semantics),
+        # unless hints drive it
+        if not self._src_watermarks:
+            bmin = int(ts.min())
+            if self._watermark_ms is None or bmin > self._watermark_ms:
+                self._watermark_ms = bmin
         yield from self._trigger()
+
+    def _rebase_first_open(self, anchor: int) -> None:
+        """Hint-driven watermarks: the first batch anchored ``first_open``
+        to ITS windows, but older windows stay legitimate until the
+        watermark closes them.  Lower ``first_open`` to the watermark floor
+        (never below it: triggers advance exactly to the floor, so anything
+        below was genuinely closed and stays late)."""
+        wm_floor = (
+            watermark_floor(self._watermark_ms, self.length_ms, self.slide_ms)
+            if self._watermark_ms is not None
+            else anchor
+        )
+        new_first = max(anchor, int(wm_floor))
+        if new_first >= self._first_open:
+            return
+        # the stripe's units are relative to the OLD first_open: fold it
+        # into the ring before the base moves
+        self._backend.flush_pending()
+        # the widened span needs ring capacity, grown BEFORE the base
+        # moves: _grow attributes old slots to windows first_open..
+        # first_open+W-1, so lowering first would alias a re-admitted low
+        # window with a live high one
+        self._ensure_capacity(self._max_win_seen - new_first)
+        self._first_open = new_first
+
+    def _output_low_watermark(self, hint_ts: int) -> int:
+        return window_output_low_watermark(
+            self._first_open, self.slide_ms, self.length_ms, hint_ts,
+            wm_ms=self._watermark_ms if self._src_watermarks else None,
+        )
 
     def _ship_rows(self, t0, n, first, win_rel64, rem, gid, values, colvalid):
         """Row shipping: pad the batch to a pow2 bucket and run one device
@@ -727,6 +798,8 @@ class StreamingWindowExec(ExecOperator):
                 out = list(self._process_batch(item))
                 yield from self._release_snapshot()
                 yield from out
+            elif isinstance(item, WatermarkHint):
+                yield from self._on_hint(item)
             elif isinstance(item, Marker):
                 yield from self._release_snapshot()  # an earlier epoch
                 if self._ckpt is not None:
@@ -746,3 +819,28 @@ class StreamingWindowExec(ExecOperator):
                     self._first_open = self._max_win_seen + 1
                 yield EOS
                 return
+
+    def _on_hint(self, item: WatermarkHint) -> Iterator[StreamItem]:
+        """Advance event time to the hint, close what is ready, and forward
+        the hint clamped below this operator's lowest possible future
+        emission timestamp.  Emission is synchronous here (asynchronous
+        emission is not ported), so nothing is left to drain."""
+        if item.kind == "partition":
+            # authoritative watermark: from now on batch min-ts must not
+            # advance it
+            self._src_watermarks = True
+            if item.is_announcement:
+                yield item  # pure mode announcement
+                return
+        # a held marker reaches downstream before any output of this hint
+        yield from self._release_snapshot()
+        if self._watermark_ms is None or item.ts_ms > self._watermark_ms:
+            self._watermark_ms = item.ts_ms
+            # partition hints arrive continuously (one per advancing
+            # batch), so the emit-lag deferral keeps working; an idle
+            # period delivers exactly ONE hint, so it forces emission
+            yield from self._trigger(force=item.kind != "partition")
+        yield WatermarkHint(
+            min(item.ts_ms, self._output_low_watermark(item.ts_ms)),
+            kind=item.kind,
+        )

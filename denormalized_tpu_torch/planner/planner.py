@@ -1,10 +1,11 @@
 """Physical planner: logical plan → executable operator tree.
 
 Counterpart of ``denormalized_tpu/planner/planner.py`` with the scan,
-project, filter, window and sink routes.  The window route threads the
-engine config's explicit ``device`` and kernel strategy into
-:class:`StreamingWindowExec`; sessions, UDAF windows, the slice path,
-meshes and joins are not ported yet.
+project, filter, window, join and sink routes.  The window route threads
+the engine config's explicit ``device`` and kernel strategy into
+:class:`StreamingWindowExec`; the join route its retention and adaptation
+knobs into :class:`StreamingJoinExec`.  Sessions, UDAF windows, the slice
+path and meshes are not ported yet.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 from denormalized_tpu_torch.common.errors import PlanError
 from denormalized_tpu_torch.logical import plan as lp
 from denormalized_tpu_torch.physical.base import ExecOperator
+from denormalized_tpu_torch.physical.join_exec import StreamingJoinExec
 from denormalized_tpu_torch.physical.simple_execs import (
     FilterExec,
     ProjectExec,
@@ -59,6 +61,20 @@ class Planner:
                 compensated_sums=c.compensated_sums,
                 partial_merge_rows=c.partial_merge_rows,
                 emit_lag_ms=c.emit_lag_ms,
+            )
+        if isinstance(node, lp.Join):
+            c = self.config
+            return StreamingJoinExec(
+                self.create_physical_plan(node.left),
+                self.create_physical_plan(node.right),
+                node.kind,
+                node.left_keys,
+                node.right_keys,
+                node.filter,
+                node.schema,
+                retention_ms=c.join_retention_ms,
+                adaptive=bool(c.join_adaptive),
+                adapt_interval_s=c.join_adapt_interval_s,
             )
         if isinstance(node, lp.Sink):
             return SinkExec(self.create_physical_plan(node.input), node.sink)

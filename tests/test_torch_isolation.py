@@ -29,8 +29,8 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "denormalized_tpu_torch"
 
 
-# modules of the partial_merge and checkpoint slices, named so a rename
-# cannot drop them from the blocked-import check unseen
+# modules of the partial_merge, checkpoint and join slices, named so a
+# rename cannot drop them from the blocked-import check unseen
 NEW_MODULES = (
     "denormalized_tpu_torch.native.build",
     "denormalized_tpu_torch.ops.host_partial",
@@ -46,6 +46,11 @@ NEW_MODULES = (
     "denormalized_tpu_torch.state.lsm",
     "denormalized_tpu_torch.state.orchestrator",
     "denormalized_tpu_torch.state.serialization",
+    "denormalized_tpu_torch.runtime.pump",
+    "denormalized_tpu_torch.physical.join_exec",
+    "denormalized_tpu_torch.obs.statewatch",
+    "denormalized_tpu_torch.obs.doctor.actions",
+    "denormalized_tpu_torch.ops.sketches",
 )
 
 
