@@ -38,17 +38,23 @@ Phases:
    over ~2M rows, the same way;
 6. the scatter path (``segment_agg.update_state``) on the card against the
    CPU on one batch with valid NaNs in several cells;
-7. the stripe-fold kernel (``merge_partials``) against its plain version
+7. the stripe-fold kernels (``merge_partials``) against their plain version
    (``merge_partials_reference``) on seeded rings and seeded stripes packed
    by the port's own ``HostPartialStripe``: ``cfg1_dense`` (the config-1
    stripe: G = 128, 10 live groups, 1-2 units, dense, lean), ``sliding_k5``
    (1 s / 200 ms, valid NaNs, NaNs already in the ring), ``ragged_compact``
    (500 ms / 200 ms: SUB = 2, k = 3; the compact layout with nulls,
-   compensated), ``cfg3_compact`` (100K live groups over 2 units at config
-   3's G, where the stripe packs compact) and ``cfg3_dense`` (the same
-   groups in a 131,072-wide ring, where it packs dense): counts, min and
-   max exact, sums to rtol=1e-5; device time (as in phase 3), wrapper
-   time, plain time and bound;
+   compensated), ``ragged_dense`` (the same fan-out, dense, with nulls),
+   ``cfg3_compact`` (100K live groups over 2 units at config 3's G, where
+   the stripe packs compact), ``cfg3_dense`` (the same groups in a
+   131,072-wide ring, where it packs dense) and ``cfg3_shard`` (one shard
+   of a key-sharded ring: a stripe over G_total = 2 x 131,072 groups, the
+   ring holding the upper half, g_shift = 131,072): counts, min and max
+   exact, sums to rtol=1e-5.  Each case prints the kernel it takes
+   (tumbling, gather or scatter), requires two launches on identical rings
+   to leave bit-identical rings where the kernel has no atomics, and says
+   whether those rings equal the plain version's on the CPU bit for bit;
+   device time (as in phase 3), wrapper time, plain time and bound;
 8. config 1 (the phase-4 stream) through ``device_strategy="partial_merge"``
    against the numpy oracle: rows/s, host prep, merges, kernel launches
    (equal to the merges), bytes to the card, and the native reducer's and
@@ -97,7 +103,9 @@ just before the run; for the dense kernel also its launches on phase 11's
 restored ring, and both windows' launches under phase 14's join), its
 largest error against the plain version, its device
 time, the wrapper's time, the plain version's time and the least time the
-card could take, and as the last line ``{"ok": true, "device": {...}}``.
+card could take (for the merge kernels also each phase-7 case's kernel,
+times, bound and bit-identity, under ``cases``), and as the last line
+``{"ok": true, "device": {...}}``.
 Any failure ends the run with a non-zero exit and no result.  Without CUDA
 it exits 1 at once.
 """
@@ -987,7 +995,9 @@ def phase_scatter_nan(device, seed: int):
 
 # -- phase 7: the merge kernel against its plain version ----------------------
 
-MERGE_KERNEL = "merge_partials_kernel"
+# the three kernels of csrc/merge_partials.cu: merge_partials_tumbling_kernel,
+# merge_partials_gather_kernel and merge_partials_scatter_kernel
+MERGE_KERNEL = "merge_partials_"
 HIGHCARD_AGGS = [("sum", 0), ("avg", 0)]
 # case: (length, slide, G, live groups, first unit, units, rows, nulls,
 #        valid NaNs, compensated, aggregates)
@@ -998,6 +1008,9 @@ MERGE_CASES = {
                    MAIN_AGGS),
     "ragged_compact": (500, 200, 8192, 50, 4, 3, BATCH_ROWS, True, False,
                        True, MAIN_AGGS),
+    # the same SUB = 2, k = 3 fan-out over 3 units x 2 x 128 cells: dense
+    "ragged_dense": (500, 200, 128, 10, 4, 3, BATCH_ROWS, True, False, False,
+                     MAIN_AGGS),
     # config 3's own stripe: at its G (2 x 100K keys, rounded up to 128)
     # the 100K live groups fill half the span, so it packs compact
     "cfg3_compact": (1000, 1000, 2 * HIGHCARD_KEYS + 64, HIGHCARD_KEYS, 5, 2,
@@ -1007,20 +1020,34 @@ MERGE_CASES = {
     "cfg3_dense": (1000, 1000, 131_072, HIGHCARD_KEYS, 5, 2,
                    2 * HIGHCARD_BATCH_ROWS, False, False, False,
                    HIGHCARD_AGGS),
+    # one shard of a key-sharded ring: the stripe spans G_total = 2 x G
+    # groups (100K live keys in each half), the ring holds the upper half
+    # (g_shift = G); it packs dense
+    "cfg3_shard": (1000, 1000, 131_072, 2 * HIGHCARD_KEYS, 5, 2,
+                   2 * HIGHCARD_BATCH_ROWS, False, False, False,
+                   HIGHCARD_AGGS),
 }
+# shards of the stripe's group space, for the cases that hold one shard
+MERGE_SHARDS = {"cfg3_shard": 2}
+MERGE_DENSE = ("cfg1_dense", "sliding_k5", "ragged_dense", "cfg3_dense",
+               "cfg3_shard")
 
 
 def merge_case(name: str, seed: int):
     """One phase-7 case → (spec, host ring, SUB, (packed, a_pad, u_base,
-    lean, dense)): seeded rows in time order folded into the port's own
-    HostPartialStripe and packed by it, and a seeded ring (W = 16) whose
-    sums are sums of positive readings.  ``cfg3_compact``'s G is config
-    3's (min_group_capacity = 2 × 100K keys, rounded up to 128)."""
+    lean, dense), G_total, g_shift): seeded rows in time order folded into
+    the port's own HostPartialStripe and packed by it, and a seeded ring
+    (W = 16) whose sums are sums of positive readings.  ``cfg3_compact``'s
+    G is config 3's (min_group_capacity = 2 × 100K keys, rounded up to
+    128).  A sharded case's stripe spans ``G_total`` = shards × G groups,
+    its live keys split evenly over the shards, and the ring holds the
+    last shard."""
     from denormalized_tpu_torch.ops import segment_agg as sa
     from denormalized_tpu_torch.ops.host_partial import HostPartialStripe
 
     (L, S, G, keys, u0, span, B, nulls, nans, compensated,
      aggs) = MERGE_CASES[name]
+    shards = MERGE_SHARDS.get(name, 1)
     rng = np.random.default_rng(seed)
     comps = sa.components_for(aggs)
     if compensated:
@@ -1032,7 +1059,9 @@ def merge_case(name: str, seed: int):
     ms = np.sort(rng.integers(0, span * S, B))
     units = (u0 + ms // S).astype(np.int64)
     rem = (ms % S).astype(np.int32)
-    gid = rng.integers(0, keys, B).astype(np.int32)
+    key = rng.integers(0, keys, B)
+    per_shard = keys // shards
+    gid = (key % per_shard + (key // per_shard) * G).astype(np.int32)
     vals = rng.normal(50.0, 10.0, (B, 1))
     colvalid = None
     if nulls:
@@ -1040,11 +1069,11 @@ def merge_case(name: str, seed: int):
         vals[~colvalid & (rng.random((B, 1)) < 0.5)] = np.nan
     if nans:
         vals[rng.integers(0, B, 4), 0] = np.nan  # valid NaNs
-    stripe = HostPartialStripe(spec, G)
+    stripe = HostPartialStripe(spec, shards * G)
     stripe.add_batch(units, rem, gid, vals, colvalid, None)
     base_mod = int(rng.integers(0, 16))
     taken = stripe.take_packed(base_mod)
-    if taken[4] != name.endswith(("dense", "k5")):
+    if taken[4] != (name in MERGE_DENSE):
         raise AssertionError(f"{name}: the stripe packed in the other layout")
     host = seeded_ring(spec, rng)
     if nans:
@@ -1052,29 +1081,37 @@ def merge_case(name: str, seed: int):
         for label in ("min_0", "max_0"):
             host[label][(base_mod + u0 + rng.integers(0, span, 8)) % 16,
                         rng.integers(0, keys, 8)] = np.nan
-    return spec, host, stripe.SUB, taken
+    return spec, host, stripe.SUB, taken, shards * G, (shards - 1) * G
 
 
-def merge_bound(spec, SUB: int, packed: np.ndarray, a_pad: int, dense: bool):
+def merge_bound(spec, SUB: int, packed: np.ndarray, a_pad: int, dense: bool,
+                G_total: int, g_shift: int):
     """Least time for one merge on this stripe's data: the bytes over the
     HBM rate or the updates over the f32 rate, whichever is longer.  Bytes:
-    the row-count plane of every cell (it tells a live cell from an empty
-    one or padding) and the two header slots; for each live cell, its other
-    value planes and, in the compact layout, its index; plus every
-    component of each ring cell the live cells land in, read and written
-    once (8 B).  An empty or padding cell holds only fold identities, so
-    its other planes need not be read.  Updates: one a ring plane per (live
-    cell, fan-out) that lands.  → (ms, what bounds it, ring cells
-    touched)."""
-    W, G, k = spec.window_slots, spec.group_capacity, spec.length_units
+    the two header slots; the row-count plane of every cell (it tells a
+    live cell from an empty one or padding) — in the dense layout only of
+    the cells in the ring's shard, whose group is their position; the
+    compact index of every non-empty cell; for each live cell of the
+    shard, its other value planes; plus every component of each ring cell
+    the live cells land in, read and written once (8 B).  An empty or
+    padding cell holds only fold identities, so its other planes need not
+    be read.  Updates: one a ring plane per (live cell, fan-out) that
+    lands.  → (ms, what bounds it, ring cells touched)."""
+    W, cap, k = spec.window_slots, spec.group_capacity, spec.length_units
     planes = packed if dense else packed[1:]
     flat = np.arange(a_pad) if dense else packed[0, :a_pad].astype(np.int64)
-    live = (planes[0, :a_pad] != 0) & (flat >= 0)
+    g = flat % G_total - g_shift
+    in_shard = (flat >= 0) & (g >= 0) & (g < cap)
+    nonempty = (planes[0, :a_pad] != 0) & (flat >= 0)
+    live = nonempty & in_shard
     n_live = int(live.sum())
-    stripe_bytes = 4 * a_pad + 8 + 4 * n_live * (
-        planes.shape[0] - 1 + (0 if dense else 1))
-    flat = flat[live]
-    g, us = flat % G, flat // G
+    if dense:
+        stripe_bytes = 4 * int(in_shard.sum()) + 8
+    else:
+        stripe_bytes = 4 * a_pad + 8 + 4 * int(nonempty.sum())
+    stripe_bytes += 4 * n_live * (planes.shape[0] - 1)
+    flat, g = flat[live], g[live]
+    us = flat // G_total
     s, u = us % SUB, us // SUB
     u_base_rel, base_mod = int(packed[0, a_pad]), int(packed[0, a_pad + 1])
     cells, updates = [], 0
@@ -1084,7 +1121,7 @@ def merge_bound(spec, SUB: int, packed: np.ndarray, a_pad: int, dense: bool):
         ok = (w >= 0) & (w < W)
         if SUB == 2 and f == k - 1:
             ok &= s == 0
-        cells.append(((base_mod + w[ok]) % W) * G + g[ok])
+        cells.append(((base_mod + w[ok]) % W) * cap + g[ok])
         updates += int(ok.sum()) * n_planes
     n_cells = len(np.unique(np.concatenate(cells)))
     nbytes = stripe_bytes + 8 * n_cells * n_planes
@@ -1095,52 +1132,95 @@ def merge_bound(spec, SUB: int, packed: np.ndarray, a_pad: int, dense: bool):
     return t_ops, "operations", n_cells
 
 
+def bit_diff(a: dict, b: dict) -> dict:
+    """The planes of two rings that differ bit for bit (NaN payloads
+    included) → {label: (cells that differ, of them cells that differ
+    other than as two NaNs)}."""
+    out = {}
+    for k in a:
+        x, y = a[k].cpu(), b[k].cpu()
+        ne = x.view(torch.int32) != y.view(torch.int32)
+        if ne.any():
+            both_nan = (torch.isnan(x) & torch.isnan(y)
+                        if x.is_floating_point() else torch.zeros_like(ne))
+            out[k] = (int(ne.sum()), int((ne & ~both_nan).sum()))
+    return out
+
+
 def phase_merge_kernel(device, seed: int, card: str):
-    """→ {case: {ms, host_ms, plain_ms, max_abs_err, bound_ms, bound_by}}."""
+    """→ {case: {branch, ms, host_ms, plain_ms, max_abs_err, bound_ms,
+    bound_by, repeat_bit_equal, cpu_bit_equal}}.  Each case: the kernel
+    against its plain version on the card; the kernel launched again on
+    an identical ring, whose planes must equal the first bit for bit in
+    the branches without atomics; and whether they also equal the plain
+    version's on the CPU bit for bit."""
     from denormalized_tpu_torch.ops import merge_partials as mp
     from denormalized_tpu_torch.ops import segment_agg as sa
 
     out = {}
     for i, name in enumerate(MERGE_CASES):
-        spec, host, SUB, (packed_np, a_pad, _u, lean, dense) = merge_case(
-            name, seed + i)
+        (spec, host, SUB, (packed_np, a_pad, _u, lean, dense), G_total,
+         g_shift) = merge_case(name, seed + i)
+        branch = mp.merge_branch(spec, dense)
+        shift = dict(G_total=G_total, g_shift=g_shift)
         packed = torch.from_numpy(packed_np).to(device)
         got = sa.import_state(spec, host, device)
+        again = sa.import_state(spec, host, device)
         want = sa.import_state(spec, host, device)
         before = mp.merge_partials_launches
-        mp.merge_partials(spec, SUB, a_pad, lean, dense, got, packed)
+        mp.merge_partials(spec, SUB, a_pad, lean, dense, got, packed, **shift)
+        mp.merge_partials(spec, SUB, a_pad, lean, dense, again, packed,
+                          **shift)
         torch.cuda.synchronize(device)
-        if mp.merge_partials_launches - before != 1:
-            raise AssertionError(f"{name}: the merge kernel did not launch once")
+        if mp.merge_partials_launches - before != 2:
+            raise AssertionError(f"{name}: the merge kernel did not launch "
+                                 f"once a call")
         sa.merge_partials_reference(spec, SUB, a_pad, lean, dense, want,
-                                    packed)
+                                    packed, **shift)
         err = compare_rings(spec, got, want, name)
+        repeat_equal = not bit_diff(got, again)
+        if branch != "scatter" and not repeat_equal:
+            raise AssertionError(f"{name}: two launches of the {branch} "
+                                 f"kernel left rings that differ")
+        cpu = sa.import_state(spec, host, "cpu")
+        sa.merge_partials_reference(spec, SUB, a_pad, lean, dense, cpu,
+                                    torch.from_numpy(packed_np), **shift)
+        cpu_diff = bit_diff(got, cpu)
+        cpu_equal = not cpu_diff
+        differ = (f" (cells that differ, as other than two NaNs: {cpu_diff})"
+                  if cpu_diff else "")
 
         scratch = sa.import_state(spec, host, device)
 
         def kernel():
-            mp.merge_partials(spec, SUB, a_pad, lean, dense, scratch, packed)
+            mp.merge_partials(spec, SUB, a_pad, lean, dense, scratch, packed,
+                              **shift)
 
         def plain():
             sa.merge_partials_reference(spec, SUB, a_pad, lean, dense,
-                                        scratch, packed)
+                                        scratch, packed, **shift)
 
         ms, ms_by = kernel_device_ms(kernel, MERGE_KERNEL)
         host_ms = time_ms(kernel, device, iters=200)
         plain_ms = time_ms(plain, device)
         bound_ms, bound_by, n_cells = merge_bound(spec, SUB, packed_np, a_pad,
-                                                  dense)
-        out[name] = dict(ms=ms, ms_by=ms_by, host_ms=host_ms,
+                                                  dense, G_total, g_shift)
+        out[name] = dict(branch=branch, ms=ms, ms_by=ms_by, host_ms=host_ms,
                          plain_ms=plain_ms, max_abs_err=err, bound_ms=bound_ms,
-                         bound_by=bound_by)
-        log(f"phase 7 merge {name}: {'dense' if dense else 'compact'} "
+                         bound_by=bound_by, repeat_bit_equal=repeat_equal,
+                         cpu_bit_equal=cpu_equal)
+        log(f"phase 7 merge {name}: {branch} kernel, "
+            f"{'dense' if dense else 'compact'} "
             f"{'lean' if lean else 'full'} stripe {tuple(packed.shape)} int32 "
             f"(a_pad {a_pad}), SUB={SUB} k={spec.length_units} "
-            f"G={spec.group_capacity} compensated={spec.compensated}, "
-            f"{n_cells} ring cells touched: ring matches the plain version "
-            f"(max_abs_err={err:.3g}), device {ms:.5f} ms ({ms_by}), "
-            f"host_ms {host_ms:.4f}, plain {plain_ms:.4f} ms, bound "
-            f"{bound_ms:.6f} ms ({bound_by}) ({card})")
+            f"G={spec.group_capacity} G_total={G_total} g_shift={g_shift} "
+            f"compensated={spec.compensated}, {n_cells} ring cells touched: "
+            f"ring matches the plain version (max_abs_err={err:.3g}), two "
+            f"launches bit-identical: {repeat_equal}, bit-identical to the "
+            f"plain version on the CPU: {cpu_equal}{differ}; "
+            f"device {ms:.5f} ms "
+            f"({ms_by}), host_ms {host_ms:.4f}, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.6f} ms ({bound_by}) ({card})")
     return out
 
 
@@ -1438,7 +1518,7 @@ def snapshot_streams(device, op, work: str, seed: int):
     from denormalized_tpu_torch.ops import merge_partials as mp
     from denormalized_tpu_torch.ops import segment_agg as sa
 
-    mspec, mhost, SUB, (packed_np, a_pad, _u, lean, dense) = merge_case(
+    mspec, mhost, SUB, (packed_np, a_pad, _u, lean, dense), *_ = merge_case(
         "cfg1_dense", seed)
     scratch = sa.import_state(mspec, mhost, device)
     packed = torch.from_numpy(packed_np).to(device)
@@ -2128,6 +2208,13 @@ def main(argv=None) -> int:
         "host_ms": m1["host_ms"],
         "cfg3_ms": merge["cfg3_compact"]["ms"],
         "cfg3_bound_ms": merge["cfg3_compact"]["bound_ms"],
+        # every phase-7 case: its kernel, device time, bound, wrapper and
+        # plain times, and its rings' bit-identity across two launches and
+        # to the plain version on the CPU
+        "cases": {name: {key: case[key] for key in (
+            "branch", "ms", "ms_by", "bound_ms", "bound_by", "host_ms",
+            "plain_ms", "max_abs_err", "repeat_bit_equal", "cpu_bit_equal")}
+            for name, case in merge.items()},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -7,7 +7,7 @@ reads, plus an explicit ``device``: the device rule of the whole package,
 and the checkpoint knobs (``checkpoint``, ``checkpoint_interval_s``,
 ``state_backend_path``, or :meth:`Context.with_state_backend`) and the
 join knobs (``join_retention_ms``, ``join_adaptive``,
-``join_adapt_interval_s``).
+``join_adapt_interval_s``) and ``partition_watermarks``.
 """
 
 from __future__ import annotations
@@ -71,6 +71,14 @@ class EngineConfig:
     # identical either way — a layout, not a semantics switch
     join_adaptive: bool = True
     join_adapt_interval_s: float = 1.0
+    # per-partition watermarks: the source-level watermark is the MIN over
+    # each partition's own max-of-batch-min-ts, so one fast-draining
+    # partition cannot race the watermark ahead and drop the slower
+    # partitions' backlog as late (replay skew; the reference's global
+    # max-of-min rule shares this flaw).  'auto' (default) enables it for
+    # bounded sources of several partitions (a finished partition leaves
+    # the min); True forces it on, False keeps the max-of-min rule
+    partition_watermarks: bool | str = "auto"
     min_batch_bucket: int = 256
     min_group_capacity: int = 128
     min_window_slots: int = 16

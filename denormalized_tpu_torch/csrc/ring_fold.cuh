@@ -6,6 +6,12 @@
 // floats and reduce with the hardware's integer min/max.  A valid NaN takes
 // the key below every number for min (INT_MIN) and above every number for
 // max (INT_MAX); both keys decode to NaN.
+//
+// Two kinds of fold: the atomic ones (fold_min/fold_max, and their halves
+// without the NaN check for a caller that read the cell earlier) for cells
+// that several threads may update in one launch, and the value folds
+// (min_value/max_value) for a thread that owns its cell.  Both order -0
+// below +0 and keep a NaN already in the cell.
 
 #pragma once
 
@@ -44,9 +50,12 @@ __device__ __forceinline__ int max_key(float x) {
 // for min (-1 as int, the largest unsigned), 0x7fffffff for max (the
 // largest int, below every negative float as unsigned).  A NaN that was
 // already in the ring before the launch may have another pattern, so the
-// cell is read first (past L1) and left alone when it holds a NaN.
-__device__ __forceinline__ void fold_min(float* addr, int key) {
-  if (isnan(__ldcg(addr))) return;
+// caller must leave a cell alone that held a NaN when the launch began:
+// fold_min/fold_max read it first (past L1); a caller that read it earlier
+// calls atomic_min_key/atomic_max_key directly.  No thread of a launch
+// writes a number over a NaN that was there when the launch began, so any
+// read of the cell during the launch sees that NaN.
+__device__ __forceinline__ void atomic_min_key(float* addr, int key) {
   if (key == INT_MIN) {
     atomicMax(reinterpret_cast<unsigned*>(addr), 0xffffffffu);
     return;
@@ -59,8 +68,7 @@ __device__ __forceinline__ void fold_min(float* addr, int key) {
   }
 }
 
-__device__ __forceinline__ void fold_max(float* addr, int key) {
-  if (isnan(__ldcg(addr))) return;
+__device__ __forceinline__ void atomic_max_key(float* addr, int key) {
   if (key == INT_MAX) {
     atomicMax(reinterpret_cast<int*>(addr), 0x7fffffff);
     return;
@@ -71,6 +79,31 @@ __device__ __forceinline__ void fold_max(float* addr, int key) {
   } else {
     atomicMin(reinterpret_cast<unsigned*>(addr), static_cast<unsigned>(bits));
   }
+}
+
+__device__ __forceinline__ void fold_min(float* addr, int key) {
+  if (isnan(__ldcg(addr))) return;
+  atomic_min_key(addr, key);
+}
+
+__device__ __forceinline__ void fold_max(float* addr, int key) {
+  if (isnan(__ldcg(addr))) return;
+  atomic_max_key(addr, key);
+}
+
+// The extremum of a cell's value r and a new value x, for a thread that
+// owns the cell: a NaN in r stays, a NaN x replaces a number (its own
+// bits), and numbers compare by their order keys (-0 below +0).
+__device__ __forceinline__ float min_value(float r, float x) {
+  if (isnan(r)) return r;
+  if (isnan(x)) return x;
+  return order_key(x) < order_key(r) ? x : r;
+}
+
+__device__ __forceinline__ float max_value(float r, float x) {
+  if (isnan(r)) return r;
+  if (isnan(x)) return x;
+  return order_key(x) > order_key(r) ? x : r;
 }
 
 }  // namespace ring_fold

@@ -1,13 +1,14 @@
 """The stripe fold of the ``partial_merge`` strategy — the wrapper of the
-hand-written CUDA kernel ``csrc/merge_partials.cu``.
+hand-written CUDA kernels ``csrc/merge_partials.cu``.
 
 :func:`merge_partials` folds one packed host stripe
 (``ops/host_partial.py::HostPartialStripe.take_packed``) into the window
 ring in place, in ONE launch a merge: the port of the JAX package's
-``segment_agg.merge_partials_body``.  On a CUDA tensor it launches the
-kernel or raises; it takes its plain version
-(:func:`denormalized_tpu_torch.ops.segment_agg.merge_partials_reference`)
-only for tensors on the CPU.
+``segment_agg.merge_partials_body``, group shift included.  The launch
+takes one of three kernels by the stripe's shape (:func:`merge_branch`).
+On a CUDA tensor it launches the kernel or raises; it takes its plain
+version (:func:`denormalized_tpu_torch.ops.segment_agg.
+merge_partials_reference`) only for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+import weakref
 
 import torch
 
@@ -22,13 +24,18 @@ from denormalized_tpu_torch.ops import segment_agg as sa
 
 # the kernel's by-value table of ring planes (MAX_OPS in the source)
 MAX_OPS = 64
-BLOCK_THREADS = 256
 _OP_KIND = {"count": 0, "sum": 1, "min": 2, "max": 3}
+# the source's Mode: the kernel a stripe takes
+BRANCHES = {"tumbling": 0, "gather": 1, "scatter": 2}
+# launch tables kept per (spec, lean, ring planes); more are dropped
+_TABLE_CACHE_SIZE = 64
 
 #: launches of the CUDA kernel (incremented where it launches, and nowhere
 #: else — the CPU reference does not count)
 merge_partials_launches = 0
 _COUNT_LOCK = threading.Lock()
+_TABLES: dict[tuple, tuple] = {}
+_TABLES_LOCK = threading.Lock()
 
 
 class _MergeOp(ctypes.Structure):
@@ -58,6 +65,16 @@ def merge_ops(spec: sa.WindowKernelSpec, lean: bool):
     return ops, pi
 
 
+def merge_branch(spec: sa.WindowKernelSpec, dense: bool) -> str:
+    """The kernel a stripe takes: ``tumbling`` where a cell feeds one
+    window (k = 1: distinct cells land in distinct ring cells, no
+    atomics), ``gather`` for a dense stripe with fan-out (a thread a ring
+    cell, no atomics), ``scatter`` for a compact one (atomics)."""
+    if spec.length_units == 1:
+        return "tumbling"
+    return "gather" if dense else "scatter"
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The built kernel library, its C signatures declared once."""
@@ -65,15 +82,15 @@ def _lib() -> ctypes.CDLL:
 
     lib = load("merge_partials")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.merge_partials_launch.argtypes = [p] + [i] * 7 + [p, p]
+    lib.merge_partials_launch.argtypes = [p] + [i] * 10 + [p, p]
     lib.merge_partials_launch.restype = i
     lib.merge_partials_error_string.argtypes = [i]
     lib.merge_partials_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_inputs(spec, SUB, a_pad, lean, dense, state, packed) -> int:
-    """dtype, device, shape and contiguity → the number of value planes."""
+def _check_packed(spec, SUB, a_pad, lean, dense, packed) -> None:
+    """dtype, shape and contiguity of the packed stripe."""
     if packed.dtype != torch.int32 or packed.dim() != 2:
         raise TypeError(
             f"packed must be a 2-D int32 tensor, got {packed.dtype} "
@@ -98,10 +115,15 @@ def _check_inputs(spec, SUB, a_pad, lean, dense, state, packed) -> int:
         )
     if len(ops) > MAX_OPS:
         raise ValueError(f"{len(ops)} ring planes exceed the kernel's {MAX_OPS}")
+
+
+def _check_ring(spec, state, device) -> None:
+    """Each ring plane: a contiguous (W, G) of the spec's type on
+    ``device``."""
     W, G = spec.window_slots, spec.group_capacity
     for comp in spec.components:
         buf = state[comp.label]
-        if buf.device != packed.device or buf.dtype != spec.init_dtype(comp):
+        if buf.device != device or buf.dtype != spec.init_dtype(comp):
             raise ValueError(
                 f"ring plane {comp.label} is {buf.dtype} on {buf.device}"
             )
@@ -109,17 +131,34 @@ def _check_inputs(spec, SUB, a_pad, lean, dense, state, packed) -> int:
             raise ValueError(
                 f"ring plane {comp.label} must be a contiguous {(W, G)}"
             )
-    return n_planes
 
 
-def _launch(spec, SUB, a_pad, dense, state, packed, lean) -> None:
-    """Launch the kernel on the current stream: the ring ``state`` gains
-    the stripe in place."""
-    global merge_partials_launches
+def _check_shift(spec, G_total: int, g_shift: int) -> None:
+    if G_total < 1 or g_shift < 0:
+        raise ValueError(f"G_total={G_total}, g_shift={g_shift}: need "
+                         "G_total >= 1 and g_shift >= 0")
+    if max(G_total, g_shift + spec.group_capacity) >= 2**31:
+        raise ValueError(f"G_total={G_total} exceeds the kernel's int32 "
+                         "group ids")
+
+
+def _launch_table(spec, lean, state, device):
+    """The kernel's table of ring planes for this ring, validated once and
+    kept per (spec, lean, ring plane pointers).  The entry holds weak
+    references to the planes it was built from and is used only while the
+    ring still holds those same tensors: a ring regrown, restored or
+    imported gets a new table."""
+    planes = tuple(state[c.label] for c in spec.components)
+    key = (spec, lean, device, tuple(t.data_ptr() for t in planes))
+    with _TABLES_LOCK:
+        hit = _TABLES.get(key)
+    if hit is not None and all(r() is t for r, t in zip(hit[2], planes)):
+        return hit[0], hit[1]
     if spec.accum_dtype != torch.float32:
         raise ValueError(
             f"the merge kernel folds float32 rings, not {spec.accum_dtype}"
         )
+    _check_ring(spec, state, device)
     ops, _ = merge_ops(spec, lean)
     table = (_MergeOp * len(ops))()
     for j, (comp, src) in enumerate(ops):
@@ -129,9 +168,23 @@ def _launch(spec, SUB, a_pad, dense, state, packed, lean) -> None:
             lo = state[sa.AggComponent("sumc", comp.col).label].data_ptr()
         table[j] = _MergeOp(_OP_KIND[comp.kind], src, dst,
                             lo if comp.kind == "sum" else None)
+    with _TABLES_LOCK:
+        if len(_TABLES) >= _TABLE_CACHE_SIZE:
+            _TABLES.clear()
+        _TABLES[key] = (table, len(ops), tuple(map(weakref.ref, planes)))
+    return table, len(ops)
+
+
+def _launch(spec, SUB, a_pad, lean, dense, state, packed, G_total,
+            g_shift) -> None:
+    """Launch the stripe's kernel on the current stream: the ring
+    ``state`` gains the stripe in place."""
+    global merge_partials_launches
+    table, n_ops = _launch_table(spec, lean, state, packed.device)
     rc = _lib().merge_partials_launch(
-        packed.data_ptr(), a_pad, int(dense), SUB, spec.length_units,
-        spec.window_slots, spec.group_capacity, len(ops), table,
+        packed.data_ptr(), BRANCHES[merge_branch(spec, dense)], a_pad,
+        int(dense), SUB, spec.length_units, spec.window_slots,
+        spec.group_capacity, G_total, g_shift, n_ops, table,
         torch.cuda.current_stream(packed.device).cuda_stream,
     )
     if rc != 0:
@@ -149,15 +202,22 @@ def merge_partials(
     dense: bool,
     state: dict[str, torch.Tensor],
     packed: torch.Tensor,  # int32, (P+1, a_pad+2) compact / (P, a_pad+2) dense
+    G_total: int | None = None,
+    g_shift: int = 0,
 ) -> dict[str, torch.Tensor]:
     """Fold the packed stripe into the ring ``state`` in place (see
-    :func:`segment_agg.merge_partials_reference` for what it computes)."""
-    _check_inputs(spec, SUB, a_pad, lean, dense, state, packed)
+    :func:`segment_agg.merge_partials_reference` for what it computes).
+    The ring holds groups ``[g_shift, g_shift + G)`` of a ``G_total``-wide
+    stripe (default: the whole ring, ``G_total = G``, ``g_shift = 0``)."""
+    G_total = spec.group_capacity if G_total is None else int(G_total)
+    _check_packed(spec, SUB, a_pad, lean, dense, packed)
+    _check_shift(spec, G_total, g_shift)
     if packed.device.type == "cpu":
+        _check_ring(spec, state, packed.device)
         return sa.merge_partials_reference(
-            spec, SUB, a_pad, lean, dense, state, packed
+            spec, SUB, a_pad, lean, dense, state, packed, G_total, g_shift
         )
     if packed.device.type != "cuda":
         raise ValueError(f"no merge kernel for {packed.device}")
-    _launch(spec, SUB, a_pad, dense, state, packed, lean)
+    _launch(spec, SUB, a_pad, lean, dense, state, packed, G_total, g_shift)
     return state

@@ -261,20 +261,24 @@ def merge_partials_reference(
     dense: bool,
     state: dict[str, torch.Tensor],
     packed: torch.Tensor,  # int32, (P+1, a_pad+2) compact / (P, a_pad+2) dense
+    G_total: int | None = None,
+    g_shift: int = 0,
 ) -> dict[str, torch.Tensor]:
     """Fold a packed host stripe (``ops/host_partial.py``) into the ring in
-    place — the plain PyTorch version of the kernel
+    place — the plain PyTorch version of the kernels
     ``csrc/merge_partials.cu`` (wrapper
     :func:`denormalized_tpu_torch.ops.merge_partials.merge_partials`), and
-    what the JAX package's ``merge_partials_body`` computes on one device
-    (``G_total = G``, ``g_shift = 0``).
+    what the JAX package's ``merge_partials_body`` computes.  The ring holds
+    groups ``[g_shift, g_shift + G)`` of the stripe's ``G_total``-wide group
+    space (one device: ``G_total = G``, ``g_shift = 0``, the defaults); a
+    cell whose group falls outside is dropped.
 
     ``packed`` is an int32 carrier: ``u_base_rel`` (stripe unit 0 relative
     to first_open) and ``base_mod`` (first_open % W) sit in row 0's two
     tail slots.  The compact layout's row 0 holds flat cell indices
-    ``((u*SUB)+s)*G + g`` (−1 = padding) and its value planes start at row
-    1; the dense layout has no index row (cell i is flat index i, padding
-    fold-neutral) and its planes start at row 0.  Value planes are f32
+    ``((u*SUB)+s)*G_total + g`` (−1 = padding) and its value planes start
+    at row 1; the dense layout has no index row (cell i is flat index i,
+    padding fold-neutral) and its planes start at row 0.  Value planes are f32
     bitcasts: one per count/min/max component (counts go to the int32
     rings), two per sum (hi, lo) — both added to 'sum', or lo to 'sumc' in
     compensated mode.  ``lean`` aliases every per-column count to the
@@ -282,6 +286,7 @@ def merge_partials_reference(
     sub-bucket 1 is left out of the oldest.  A window outside [0, W) is
     dropped, never clamped."""
     W, G = spec.window_slots, spec.group_capacity
+    G_total = G if G_total is None else G_total
     u_base_rel = int(packed[0, a_pad])
     base_mod = int(packed[0, a_pad + 1])
     dev = packed.device
@@ -292,8 +297,9 @@ def merge_partials_reference(
         idx = packed[0, :a_pad].long()
         valid = idx >= 0
         flat = torch.clamp(idx, min=0)
-    g = flat % G
-    us = flat // G
+    g = flat % G_total - g_shift
+    valid = valid & (g >= 0) & (g < G)
+    us = flat // G_total
     s = us % SUB
     u = us // SUB
     plane0 = 0 if dense else 1

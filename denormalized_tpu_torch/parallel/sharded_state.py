@@ -12,7 +12,8 @@ JAX package's per-batch rule, counted in ``dense_updates`` and
 reduces each batch on the host into a stripe of per-(slide unit, sub,
 group) partials (``ops/host_partial.py``) and folds the packed stripe into
 the same ring with one launch of the merge kernel
-(``ops/merge_partials.py``) a merge, counted in ``merges``.
+(``ops/merge_partials.py``) a merge, counted in ``merges``; on a card the
+stripe crosses through a reusable pinned host buffer.
 
 Checkpoints export the ring without stopping ingest:
 :meth:`SingleDeviceWindowState.export_start` clones the ring on the current
@@ -398,17 +399,45 @@ class PartialMergeWindowState(_HostPartialMixin, SingleDeviceWindowState):
     def __init__(self, spec: sa.WindowKernelSpec, device: torch.device | str):
         super().__init__(spec, device, "scatter")
         self._init_host_partial(spec.group_capacity)
+        # on a card: the pinned host buffer stripes cross in, and the event
+        # recorded after the last copy out of it
+        self._staging: torch.Tensor | None = None
+        self._staged: torch.cuda.Event | None = None
 
     @property
     def strategy_name(self) -> str:
         return "partial_merge"
+
+    def _stage_stripe(self, packed: np.ndarray) -> torch.Tensor:
+        """The packed stripe on the ring's device.  On a card it goes
+        through one reusable pinned host buffer, copied with
+        ``non_blocking`` on the current stream (the kernels' stream, so the
+        merge launched next on it waits for the copy); the host waits for
+        the event of the buffer's previous copy before writing it again."""
+        if self.device.type != "cuda":
+            return torch.from_numpy(packed)
+        if self._staged is not None:
+            self._staged.synchronize()
+        if self._staging is None or self._staging.numel() < packed.size:
+            self._staging = torch.empty(
+                1 << max(0, packed.size - 1).bit_length(), dtype=torch.int32,
+                pin_memory=True,
+            )
+        host = self._staging[: packed.size].view(packed.shape)
+        np.copyto(host.numpy(), packed)
+        out = torch.empty(packed.shape, dtype=torch.int32, device=self.device)
+        out.copy_(host, non_blocking=True)
+        if self._staged is None:
+            self._staged = torch.cuda.Event()
+        self._staged.record(torch.cuda.current_stream(self.device))
+        return out
 
     def _merge(
         self, packed: np.ndarray, a_pad: int, lean: bool, dense: bool
     ) -> None:
         merge_partials(
             self.spec, self._stripe.SUB, a_pad, lean, dense, self._state,
-            torch.from_numpy(packed).to(self.device),
+            self._stage_stripe(packed),
         )
 
 

@@ -4,8 +4,10 @@ Counterpart of ``denormalized_tpu/physical/simple_execs.py`` for bounded
 sources: the source round-robins its partitions in-thread, injects a
 checkpoint :class:`Marker` after the batch during which a barrier arrived
 (persisting the offsets of the batches it has yielded), and ends with
-EndOfStream.  Idle and per-partition watermarks, the cluster barrier hooks
-and the prefetch pump of live sources are not ported yet.
+EndOfStream.  A bounded source of several partitions sends per-partition
+watermarks (:class:`_PartitionWatermarks`, ``EngineConfig.
+partition_watermarks``).  Idle watermarks, the cluster barrier hooks and
+the prefetch pump of live sources are not ported yet.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Callable, Iterator
 
 import numpy as np
 
+from denormalized_tpu_torch.common.constants import CANONICAL_TIMESTAMP_COLUMN
 from denormalized_tpu_torch.common.record_batch import RecordBatch
 from denormalized_tpu_torch.common.schema import Schema
 from denormalized_tpu_torch.logical.expr import AliasExpr, Column, Expr
@@ -21,19 +24,70 @@ from denormalized_tpu_torch.physical.base import (
     EOS,
     EndOfStream,
     ExecOperator,
+    WM_ANNOUNCE,
     Marker,
     StreamItem,
+    WatermarkHint,
 )
 from denormalized_tpu_torch.sources.base import Source
+
+
+class _PartitionWatermarks:
+    """Per-partition watermark aggregation: the source-level watermark is
+    the MIN over each partition's own max-of-batch-min-ts.  The merged
+    stream's legacy rule (operator watermark = global max of batch min-ts)
+    races ahead on whichever partition drains fastest, and during replay
+    drops the slower partitions' backlog as late.  A finished partition
+    leaves the min for good.
+
+    ``observe``/``finish``/``advance`` return a kind="partition"
+    WatermarkHint only when the min strictly advances.  The reference's
+    idle-timeout exclusion and reader-activity gate come with live
+    sources."""
+
+    def __init__(self, n: int) -> None:
+        self._wm: list[int | None] = [None] * n
+        self._finished = [False] * n
+        self._emitted: int | None = None
+
+    def observe(self, idx: int, batch: RecordBatch) -> WatermarkHint | None:
+        bmin = int(np.min(np.asarray(
+            batch.column(CANONICAL_TIMESTAMP_COLUMN), dtype=np.int64)))
+        if self._wm[idx] is None or bmin > self._wm[idx]:
+            self._wm[idx] = bmin
+        return self.advance()
+
+    def finish(self, idx: int) -> WatermarkHint | None:
+        self._finished[idx] = True
+        return self.advance()
+
+    def advance(self) -> WatermarkHint | None:
+        vals = []
+        for w, fin in zip(self._wm, self._finished):
+            if fin:
+                continue
+            if w is None:
+                return None  # a live partition hasn't spoken yet
+            vals.append(w)
+        if not vals:
+            return None
+        m = min(vals)
+        if self._emitted is None or m > self._emitted:
+            self._emitted = m
+            return WatermarkHint(m, kind="partition")
+        return None
 
 
 class SourceExec(ExecOperator):
     """Leaf operator: drives every partition of a bounded source
     round-robin and merges their batches into one ordered stream."""
 
-    def __init__(self, source: Source) -> None:
+    def __init__(
+        self, source: Source, partition_watermarks: bool | str = "auto"
+    ) -> None:
         self.source = source
         self.schema = source.schema
+        self._partition_watermarks = partition_watermarks
         self._barrier_poll: Callable[[], int | None] | None = None
         self._ckpt = None  # (CheckpointCoordinator, node_id)
         # per partition, the offset snapshot after its last YIELDED batch
@@ -88,6 +142,15 @@ class SourceExec(ExecOperator):
         for r, s in zip(readers, parts):
             r.offset_restore(s)
 
+    def _partition_wm_tracker(self, n_readers: int):
+        """Resolve partition-watermark mode: True forces it on, 'auto'
+        enables it for a bounded source of several partitions (a finished
+        partition leaves the min), False keeps the legacy max-of-min."""
+        on = self._partition_watermarks is True or (
+            self._partition_watermarks == "auto" and n_readers > 1
+        )
+        return _PartitionWatermarks(n_readers) if on else None
+
     def run(self) -> Iterator[StreamItem]:
         if self.source.unbounded:
             from denormalized_tpu_torch.common.errors import PlanError
@@ -100,18 +163,25 @@ class SourceExec(ExecOperator):
         if poll is not None:
             self._restore_offsets(readers)
             self._yielded_offsets = [r.offset_snapshot() for r in readers]
+        pwm = self._partition_wm_tracker(len(readers))
+        if pwm is not None:
+            yield WatermarkHint(WM_ANNOUNCE, kind="partition")
         live = list(enumerate(readers))
         while live:
             nxt = []
             for i, r in live:
                 b = r.read()
                 if b is None:
+                    if pwm is not None and (h := pwm.finish(i)):
+                        yield h
                     continue
                 nxt.append((i, r))
                 if b.num_rows:
                     yield b
                     if poll is not None:
                         self._yielded_offsets[i] = r.offset_snapshot()
+                    if pwm is not None and (h := pwm.observe(i, b)):
+                        yield h
                 if poll is not None:
                     epoch = poll()
                     if epoch is not None:

@@ -30,7 +30,10 @@ class Planner:
 
     def create_physical_plan(self, node: lp.LogicalPlan) -> ExecOperator:
         if isinstance(node, lp.Scan):
-            return SourceExec(node.source)
+            return SourceExec(
+                node.source,
+                partition_watermarks=self.config.partition_watermarks,
+            )
         if isinstance(node, lp.Project):
             return ProjectExec(
                 self.create_physical_plan(node.input), node.exprs, node.schema
