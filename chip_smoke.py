@@ -95,12 +95,39 @@ Phases:
     --seed + 6 (100K keys a side, 524,288-row batches), through ``auto``
     (the scatter path at this G) and ``partial_merge``, each against the
     oracle, with the join's resident rows and bytes at the end and the
-    adaptation policy's counts.
+    adaptation policy's counts;
+16. config 4 as ``examples/stream_join.py --expressions`` writes it, over
+    phase 14's two streams through ``auto``: ``join_on`` with
+    upper(sensor_name) == upper(humidity_sensor) (hidden key columns
+    computed after each window), the window starts equal and the residual
+    average_humidity > average_temperature - 100, against the oracle
+    after the residual (no hidden column may reach the output): rows/s
+    beside phase 14's, the join's stage times, the dense launches (122)
+    and the host time of ``upper``;
+17. the same query at config 3's key count over phase 15's streams
+    (``auto``): rows/s beside phase 15's and ``upper``'s time over ~100K
+    window rows a side;
+18. bench.py's ``join_skew`` shape, uncut: a zipf(1.2) side (10,000 keys)
+    band-joined (±50 ms) against a mostly-uniform side with a 0.0004 share
+    of the hottest key, 500,000 rows a side in 8,192-row batches, once
+    adaptive and once static: the same rows in both runs, as many pairs as
+    a numpy searchsorted oracle counts, adaptations > 0 in the adaptive
+    run, and both rows/s with their ratio (host code on the card's host);
+19. the projection half of ``examples/functions_tour.py`` over phase 4's
+    first 15 batches: lower(replace(...)), a three-branch CASE,
+    date_trunc and a length filter feeding the dense window grouped by
+    (sensor, band), against the oracle: rows/s, host prep, and the host
+    time of each string map and of CASE;
+20. ``Expr.eval_torch`` on the card: sqrt(abs), round (half away from
+    zero), a three-branch CASE, casts, isnan and nanvl over 1M seeded
+    float32 / int64 rows, each result on the card and equal to the host
+    ``eval`` (rtol=1e-6 for sqrt, exact for the rest), with its time.
 
 Then one JSON line with each kernel's launches on its main path (phase 4
 for the dense kernel, phase 8 for the merge kernel, each counted from 0
 just before the run; for the dense kernel also its launches on phase 11's
-restored ring, and both windows' launches under phase 14's join), its
+restored ring, both windows' launches under phase 14's join and phase
+16's join_on, and phase 19's window), its
 largest error against the plain version, its device
 time, the wrapper's time, the plain version's time and the least time the
 card could take (for the merge kernels also each phase-7 case's kernel,
@@ -117,9 +144,11 @@ import time
 T_START = time.time()  # phase 11 times a child's restart from here
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import torch
@@ -1922,16 +1951,20 @@ def check_join(res, left_stream, right_stream, num_keys) -> int:
     return len(got)
 
 
-def run_join(device, phase, strategy, left, right, num_keys, card, **cfg):
+def run_join(device, phase, strategy, left, right, num_keys, card,
+             query=None, check=None, **cfg):
     """Config 4 over two streams with every kernel count set to 0 just
     before it, checked against the oracle → {rows_per_s, wall, launches,
-    ctx, join metrics}."""
+    ctx, join metrics}.  ``query`` builds the job (bench.py's ``join`` by
+    default) and ``check`` holds its rows against the oracle."""
     from denormalized_tpu_torch.ops import dense_window as dw
     from denormalized_tpu_torch.ops import merge_partials as mp
 
+    query = query or join_stream
+    check = check or check_join
     (lb, ls), (rb, rs) = left, right
     rows = len(ls[0]) + len(rs[0])
-    ctx, ds = join_stream(device, lb, rb, strategy, **cfg)
+    ctx, ds = query(device, lb, rb, strategy, **cfg)
     dw.dense_window_launches = 0
     mp.merge_partials_launches = 0
     t0 = time.perf_counter()
@@ -1972,7 +2005,7 @@ def run_join(device, phase, strategy, left, right, num_keys, card, **cfg):
             len(b) for b in (lb, rb)):
         raise AssertionError(f"phase {phase}: {launches['dense_window']} "
                              f"dense launches for {len(lb) + len(rb)} batches")
-    joined = check_join(res, ls, rs, num_keys)
+    joined = check(res, ls, rs, num_keys)
     m = join.metrics()
     log(f"phase {phase} config 4 via {strategy}: {len(ls[0])} + {len(rs[0])} "
         f"rows in {len(lb)} + {len(rb)} batches, {joined} joined rows match "
@@ -2059,7 +2092,7 @@ def phase_join(device, seed, batches, stream, tumbling, card):
         f"over both streams, config 1 (phase 4) {tumbling['rows_per_s']:.0f}"
         f" ({card})")
     phase_join_profile(device, (batches, stream), right, card)
-    return out["launches"]["dense_window"]
+    return out, right
 
 
 def phase_join_highcard(device, seed, batches, stream, rates, card):
@@ -2072,6 +2105,7 @@ def phase_join_highcard(device, seed, batches, stream, rates, card):
     right = (to_batches(*right_stream, HIGHCARD_BATCH_ROWS, HIGHCARD_KEYS),
              right_stream)
     cfg = dict(min_group_capacity=2 * HIGHCARD_KEYS)
+    rates = dict(rates)
     for strategy in ("auto", "partial_merge"):
         out = run_join(device, 15, strategy, (batches, stream), right,
                        HIGHCARD_KEYS, card, **cfg)
@@ -2086,6 +2120,471 @@ def phase_join_highcard(device, seed, batches, stream, rates, card):
             f"{ad['by_action']['fold']} folds, {info['hot_keys']} hot keys; "
             f"{out['rows_per_s']:.0f} rows/s against config 3's "
             f"{rates[strategy]:.0f} (phase 10, one stream) ({card})")
+        rates[f"join_{strategy}"] = out["rows_per_s"]
+    return rates, right
+
+
+# -- phases 16-20: the expression layer, join_on and band joins --------------
+
+
+@contextlib.contextmanager
+def timed_functions(*labels):
+    """Host time and rows of the scalar functions named in ``labels``
+    (``"case"`` for CASE) while the block runs, summed over every call on
+    any thread → {label: {"s", "rows", "calls"}}.  A call's time excludes
+    the timed calls nested in it (``lower(replace(x))`` counts each once).
+    It wraps the host evaluators of ``ScalarFunctionExpr`` and
+    ``CaseExpr`` for the block."""
+    from denormalized_tpu_torch.logical.expr import CaseExpr, ScalarFunctionExpr
+
+    acc = {name: {"s": 0.0, "rows": 0, "calls": 0} for name in labels}
+    lock = threading.Lock()
+    nested = threading.local()  # per thread: time of timed callees
+    originals = {cls: cls.eval for cls in (ScalarFunctionExpr, CaseExpr)}
+
+    def wrap(cls):
+        orig = originals[cls]
+
+        def ev(self, batch):
+            name = getattr(self, "fname", "case")
+            if name not in acc:
+                return orig(self, batch)
+            outer = getattr(nested, "s", 0.0)
+            nested.s = 0.0
+            t0 = time.perf_counter()
+            try:
+                out = orig(self, batch)
+            finally:
+                dt = time.perf_counter() - t0
+                inner, nested.s = nested.s, outer + dt
+            with lock:
+                acc[name]["s"] += dt - inner
+                acc[name]["rows"] += batch.num_rows
+                acc[name]["calls"] += 1
+            return out
+
+        return ev
+
+    for cls in originals:
+        cls.eval = wrap(cls)
+    try:
+        yield acc
+    finally:
+        for cls, orig in originals.items():
+            cls.eval = orig
+
+
+def expressions_stream(device, left_batches, right_batches, strategy, **cfg):
+    """Config 4 as ``examples/stream_join.py --expressions`` writes it, not
+    yet run → (ctx, DataStream): two 1 s windows of avg(reading) by
+    sensor_name, the right side renamed to humidity_sensor /
+    humidity_window_start_time / humidity_window_end_time, and ``join_on``
+    with upper(sensor_name) == upper(humidity_sensor), the window starts
+    equal, and the residual average_humidity > average_temperature - 100."""
+    import denormalized_tpu_torch as tt
+    from denormalized_tpu_torch.api import functions as F
+    from denormalized_tpu_torch.sources.memory import MemorySource
+
+    ctx = tt.Context(tt.EngineConfig(device=str(device),
+                                     device_strategy=strategy, **cfg))
+    col = tt.col
+
+    def side(batches, name, agg):
+        return ctx.from_source(
+            MemorySource.from_batches(batches,
+                                      timestamp_column="occurred_at_ms"),
+            name=name,
+        ).window([col("sensor_name")], [F.avg(col("reading")).alias(agg)],
+                 1000)
+
+    humidity = (
+        side(right_batches, "humidity", "average_humidity")
+        .with_column_renamed("sensor_name", "humidity_sensor")
+        .with_column_renamed("window_start_time", "humidity_window_start_time")
+        .with_column_renamed("window_end_time", "humidity_window_end_time")
+    )
+    ds = side(left_batches, "temperature", "average_temperature").join_on(
+        humidity, "inner", [
+            F.upper(col("sensor_name")) == F.upper(col("humidity_sensor")),
+            col("window_start_time") == col("humidity_window_start_time"),
+            col("average_humidity")
+            > col("average_temperature") - F.lit(100.0),
+        ])
+    return ctx, ds
+
+
+EXPRESSIONS_COLUMNS = [
+    "sensor_name", "average_temperature", "window_start_time",
+    "window_end_time", "humidity_sensor", "average_humidity",
+    "humidity_window_start_time", "humidity_window_end_time",
+]
+
+
+def check_join_expressions(res, left_stream, right_stream, num_keys) -> int:
+    """The --expressions join against the numpy float64 oracle: the
+    (window_start, sensor) windows both sides hold whose averages pass the
+    residual, both averages to rtol=1e-4, and no hidden key column in the
+    output → rows."""
+    names = res.schema.without_internal().names
+    if names != EXPRESSIONS_COLUMNS:
+        raise AssertionError(f"output columns {names}, hidden keys leaked?")
+    lo = oracle(*left_stream, 1000, 1000, num_keys)
+    ro = oracle(*right_stream, 1000, 1000, num_keys)
+    both = lo.keys() & ro.keys()
+    exp = {k: (lo[k][3], ro[k][3]) for k in both
+           if ro[k][3] > lo[k][3] - 100.0}
+    ws = res.column("window_start_time").tolist()
+    sensors = res.column("sensor_name").tolist()
+    if (res.column("humidity_sensor").tolist() != sensors
+            or res.column("humidity_window_start_time").tolist() != ws):
+        raise AssertionError("joined rows disagree on their keys")
+    got = {}
+    for w, name, a, b in zip(ws, sensors,
+                             res.column("average_temperature").tolist(),
+                             res.column("average_humidity").tolist()):
+        key = (w, int(name[7:]))  # "sensor_<i>"
+        if key in got:
+            raise AssertionError(f"{key} joined twice")
+        got[key] = (a, b)
+    if set(got) != set(exp):
+        raise AssertionError(
+            f"row sets differ: {len(got)} joined vs {len(exp)} expected")
+    for k, (a, b) in exp.items():
+        ga, gb = got[k]
+        if not (np.isclose(ga, a, rtol=1e-4, atol=0)
+                and np.isclose(gb, b, rtol=1e-4, atol=0)):
+            raise AssertionError(f"{k}: got {got[k]}, expected {(a, b)}")
+    log(f"  residual: {len(both)} windows held by both sides, "
+        f"{len(both) - len(exp)} dropped by average_humidity > "
+        f"average_temperature - 100")
+    return len(got)
+
+
+def phase_join_expressions(device, left, right, plain, card):
+    """Phase 16: config 4 as the reference's --expressions example writes
+    it, over phase 14's two streams through ``auto`` → the dense launches
+    of its run."""
+    with timed_functions("upper") as acc:
+        out = run_join(device, 16, "auto", left, right, NUM_KEYS, card,
+                       query=expressions_stream,
+                       check=check_join_expressions)
+    up = acc["upper"]
+    log(f"phase 16 rows/s side by side: config 4 --expressions "
+        f"{out['rows_per_s']:.0f}, plain keys (phase 14) "
+        f"{plain['rows_per_s']:.0f}, ratio "
+        f"{out['rows_per_s'] / plain['rows_per_s']:.3f}; upper over "
+        f"{up['rows']} window rows in {up['calls']} calls "
+        f"{up['s'] * 1e3:.3f} ms ({card})")
+    return out["launches"]["dense_window"]
+
+
+def phase_join_expressions_highcard(device, left, right, rates, card):
+    """Phase 17: the --expressions query at config 3's key count, over
+    phase 15's two streams (100K keys a side) through ``auto``."""
+    cfg = dict(min_group_capacity=2 * HIGHCARD_KEYS)
+    with timed_functions("upper") as acc:
+        out = run_join(device, 17, "auto", left, right, HIGHCARD_KEYS, card,
+                       query=expressions_stream,
+                       check=check_join_expressions, **cfg)
+    up = acc["upper"]
+    log(f"phase 17 rows/s side by side: config 4 --expressions at 100K keys "
+        f"{out['rows_per_s']:.0f}, plain keys (phase 15 auto) "
+        f"{rates['join_auto']:.0f}, ratio "
+        f"{out['rows_per_s'] / rates['join_auto']:.3f}; upper over "
+        f"{up['rows']} window rows in {up['calls']} calls "
+        f"{up['s'] * 1e3:.3f} ms, {1e9 * up['s'] / max(up['rows'], 1):.0f} "
+        f"ns a row ({card})")
+
+
+# bench.py join_skew (bench.py:1807-1935), uncut
+SKEW_ROWS_SIDE = 500_000
+SKEW_BATCH = 8_192
+SKEW_KEYSPACE = 10_000
+SKEW_DIM_DENSITY = 0.0004
+SKEW_BAND = 50
+
+
+def skew_feed(seed: int, shape: str):
+    """One side of bench.py's join_skew: event time 1 ms a row from
+    EVENT_T0, keys zipf(1.2) rejection-sampled onto 10,000 keys ("zipf") or
+    uniform with a 0.0004 share of key 1 ("dim") → (ts, key, value)."""
+    rng = np.random.default_rng(seed)
+    ts = EVENT_T0 + np.arange(SKEW_ROWS_SIDE, dtype=np.int64)
+    keys = np.empty(SKEW_ROWS_SIDE, dtype=np.int64)
+    for start in range(0, SKEW_ROWS_SIDE, SKEW_BATCH):
+        n = min(SKEW_BATCH, SKEW_ROWS_SIDE - start)
+        if shape == "zipf":
+            out = np.empty(n, dtype=np.int64)
+            filled = 0
+            while filled < n:
+                draw = rng.zipf(1.2, n - filled)
+                draw = draw[draw <= SKEW_KEYSPACE]
+                out[filled:filled + len(draw)] = draw
+                filled += len(draw)
+        else:
+            cel = rng.random(n) < SKEW_DIM_DENSITY
+            out = np.where(cel, 1, rng.integers(2, SKEW_KEYSPACE + 1, n))
+        keys[start:start + n] = out
+    return ts, keys, rng.random(SKEW_ROWS_SIDE)
+
+
+def skew_batches(stream, names):
+    from denormalized_tpu_torch.common.record_batch import RecordBatch
+    from denormalized_tpu_torch.common.schema import DataType, Field, Schema
+
+    schema = Schema([Field(names[0], DataType.TIMESTAMP_MS, nullable=False),
+                     Field(names[1], DataType.INT64, nullable=False),
+                     Field(names[2], DataType.FLOAT64)])
+    ts, keys, vals = stream
+    return [RecordBatch(schema, [ts[i:i + SKEW_BATCH], keys[i:i + SKEW_BATCH],
+                                 vals[i:i + SKEW_BATCH]])
+            for i in range(0, len(ts), SKEW_BATCH)]
+
+
+def skew_oracle_pairs(left, right) -> int:
+    """Pairs with equal keys and |ts - ts2| <= 50: per key, the right
+    timestamps sorted, counted around each left row by searchsorted."""
+    lts, lk, _ = left
+    rts, rk, _ = right
+    span = 1 << 21  # > the stream's 500,000 ms, so keys never overlap
+    rc = np.sort(rk * span + (rts - EVENT_T0))
+    base = lk * span + (lts - EVENT_T0)
+    return int((np.searchsorted(rc, base + SKEW_BAND, side="right")
+                - np.searchsorted(rc, base - SKEW_BAND, side="left")).sum())
+
+
+def run_skew(device, left, right, adaptive: bool):
+    """The band join once → (rows/s over both sides, sorted pair rows,
+    join state_info, join metrics)."""
+    import denormalized_tpu_torch as tt
+    from denormalized_tpu_torch.sources.memory import MemorySource
+
+    ctx = tt.Context(tt.EngineConfig(
+        device=str(device), join_adaptive=adaptive,
+        join_adapt_interval_s=0.25, join_retention_ms=600_000))
+    lsrc = ctx.from_source(MemorySource.from_batches(
+        skew_batches(left, ("ts", "k", "v")), timestamp_column="ts"),
+        name="skew_l")
+    rsrc = ctx.from_source(MemorySource.from_batches(
+        skew_batches(right, ("ts2", "k2", "w")), timestamp_column="ts2"),
+        name="skew_r")
+    ds = lsrc.join(rsrc, "inner", ["k"], ["k2"],
+                   band=("ts", "ts2", -SKEW_BAND, SKEW_BAND))
+    t0 = time.perf_counter()
+    res = ds.collect()
+    wall = time.perf_counter() - t0
+    cols = [np.asarray(res.column(n)) for n in ("ts", "k", "v", "ts2", "k2",
+                                                "w")]
+    if not np.array_equal(cols[1], cols[4]):
+        raise AssertionError("phase 18: a pair joined unequal keys")
+    if np.any(np.abs(cols[0] - cols[3]) > SKEW_BAND):
+        raise AssertionError("phase 18: a pair lies outside the band")
+    order = np.lexsort((cols[3], cols[0]))
+    rows = np.stack([c[order].astype(np.float64) for c in cols])
+    join, _ = join_ops(ctx)
+    return (2 * SKEW_ROWS_SIDE / wall, rows, join.state_info(),
+            join.metrics(), wall)
+
+
+def phase_join_skew(device, seed, card):
+    """Phase 18: bench.py's join_skew shape (a zipf(1.2) left side, a
+    mostly-uniform right side with a thin share of the hottest key,
+    500,000 rows a side in 8,192-row batches, band ±50 ms), once adaptive
+    and once with ``join_adaptive=False``: both emit the same multiset,
+    equal in count to a numpy oracle's pairs, and the adaptive run
+    adapts.  Host code on the card's host."""
+    left = skew_feed(seed + 7, "zipf")
+    right = skew_feed(seed + 8, "dim")
+    want = skew_oracle_pairs(left, right)
+    a_rate, a_rows, a_info, a_m, a_wall = run_skew(device, left, right, True)
+    s_rate, s_rows, _s_info, s_m, s_wall = run_skew(device, left, right,
+                                                    False)
+    if a_rows.shape != s_rows.shape or not np.array_equal(a_rows, s_rows):
+        raise AssertionError(f"phase 18: adaptive and static runs emit "
+                             f"different rows ({a_rows.shape[1]} vs "
+                             f"{s_rows.shape[1]})")
+    if a_rows.shape[1] != want:
+        raise AssertionError(f"phase 18: {a_rows.shape[1]} pairs, the "
+                             f"oracle counts {want}")
+    ad = a_info["adaptations"]
+    if ad["total"] <= 0:
+        raise AssertionError("phase 18: the adaptive run never adapted")
+    top = np.bincount(left[1]).max() / SKEW_ROWS_SIDE
+    log(f"phase 18 join_skew (bench.py shape): {SKEW_ROWS_SIDE} rows a side "
+        f"in {SKEW_BATCH}-row batches, top key {100 * top:.1f}% of the "
+        f"left rows, {want} pairs match the oracle and are equal in both "
+        f"modes; adaptive {a_rate:.0f} rows/s (wall {a_wall:.3f} s; "
+        f"{ad['total']} adaptations: {ad['by_action']}, "
+        f"{a_info['hot_keys']} hot keys, {a_info['hot_bytes']} hot B; "
+        f"probe {a_m['probe_s']:.3f} s, gather {a_m['gather_s']:.3f} s, "
+        f"policy {a_m['policy_s']:.3f} s), static {s_rate:.0f} rows/s "
+        f"(wall {s_wall:.3f} s; probe {s_m['probe_s']:.3f} s, gather "
+        f"{s_m['gather_s']:.3f} s), adaptive / static "
+        f"{a_rate / s_rate:.3f} (the reference's bench gate, >= 3, is "
+        f"logged, not enforced) ({card})")
+
+
+FUNCTIONS_BATCHES = 15
+BANDS = ("hot", "cold", "mild")
+
+
+def functions_stream(device, batches, **cfg):
+    """The projection half of ``examples/functions_tour.py`` feeding a
+    window through ``auto``, not yet run → (ctx, DataStream)."""
+    import denormalized_tpu_torch as tt
+    from denormalized_tpu_torch.api import functions as F
+    from denormalized_tpu_torch.sources.memory import MemorySource
+
+    ctx = tt.Context(tt.EngineConfig(device=str(device), **cfg))
+    col, lit = tt.col, tt.lit
+    ds = (
+        ctx.from_source(MemorySource.from_batches(
+            batches, timestamp_column="occurred_at_ms"))
+        .with_column("sensor",
+                     F.lower(F.replace("sensor_name", "Sensor_", "s")))
+        .with_column("band", F.when(col("reading") > 25.0, lit("hot"))
+                     .when(col("reading") < 15.0, lit("cold"))
+                     .otherwise(lit("mild")))
+        .with_column("minute", F.date_trunc("minute", col("occurred_at_ms")))
+        .filter(F.length("sensor") >= 2)
+        .window(["sensor", "band"],
+                [F.count(col("reading")).alias("n"),
+                 F.avg(col("reading")).alias("mean")], 1000)
+    )
+    return ctx, ds
+
+
+def phase_functions(device, batches, stream, card):
+    """Phase 19: scalar functions and CASE feeding the dense window (a
+    two-column group key) over phase 4's first 15 batches, against the
+    numpy oracle → the dense launches of its run."""
+    from denormalized_tpu_torch.ops import dense_window as dw
+
+    batches = batches[:FUNCTIONS_BATCHES]
+    n = sum(b.num_rows for b in batches)
+    ts, kid, val = (a[:n] for a in stream)
+    ctx, ds = functions_stream(device, batches)
+    dw.dense_window_launches = 0
+    with timed_functions("replace", "lower", "length", "case") as acc:
+        t0 = time.perf_counter()
+        res = ds.collect()
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    launches = dw.dense_window_launches
+    op = window_exec_of(ctx)
+    b = op.backend
+    if b.dense_updates != len(batches) or b.scatter_updates or \
+            launches != len(batches):
+        raise AssertionError(
+            f"phase 19: dense_updates={b.dense_updates}, scatter_updates="
+            f"{b.scatter_updates}, dense launches {launches} for "
+            f"{len(batches)} batches")
+    band = np.where(val > 25.0, 0, np.where(val < 15.0, 1, 2))
+    exp = oracle(ts, kid * len(BANDS) + band, val, 1000, 1000,
+                 NUM_KEYS * len(BANDS))
+    got = {}
+    for w, sensor, bd, cnt, mean in zip(
+            res.column("window_start_time").tolist(),
+            res.column("sensor").tolist(), res.column("band").tolist(),
+            res.column("n").tolist(), res.column("mean").tolist()):
+        key = (w, int(sensor[7:]) * len(BANDS) + BANDS.index(bd))
+        if key in got:
+            raise AssertionError(f"phase 19: {key} emitted twice")
+        got[key] = (cnt, mean)
+    if set(got) != set(exp):
+        raise AssertionError(f"phase 19: {len(got)} window rows, the oracle "
+                             f"has {len(exp)}")
+    for k, (cnt, mean) in got.items():
+        e = exp[k]
+        if cnt != e[0] or not np.isclose(mean, e[3], rtol=1e-4, atol=0):
+            raise AssertionError(f"phase 19: {k}: got {(cnt, mean)}, "
+                                 f"expected {(e[0], e[3])}")
+    m = op.metrics()
+    maps = ", ".join(
+        f"{name} {a['s'] * 1e3:.1f} ms over {a['rows']} rows "
+        f"({1e9 * a['s'] / max(a['rows'], 1):.0f} ns a row)"
+        for name, a in acc.items())
+    total = sum(a["s"] for a in acc.values())
+    log(f"phase 19 functions into the dense window: {n} rows in "
+        f"{len(batches)} batches, {len(got)} (window, sensor, band) rows "
+        f"match the oracle, {launches} dense launches, wall {wall:.3f} s, "
+        f"{n / wall:.0f} rows/s; window host prep {m['host_prep_s']:.3f} s; "
+        f"string maps and CASE {total:.3f} s ({100 * total / wall:.1f}% of "
+        f"the wall): {maps} ({card})")
+    return launches
+
+
+def phase_eval_torch(device, seed, card):
+    """Phase 20: ``Expr.eval_torch`` on the card against the host ``eval``
+    of the same trees over the same seeded float32 / int64 columns."""
+    import denormalized_tpu_torch as tt
+    from denormalized_tpu_torch.api import functions as F
+    from denormalized_tpu_torch.common.record_batch import RecordBatch
+    from denormalized_tpu_torch.common.schema import DataType, Field, Schema
+
+    n = 1 << 20
+    rng = np.random.default_rng(seed)
+    v = rng.normal(0.0, 20.0, n).astype(np.float32)
+    v[:8] = [2.5, -2.5, 0.5, -0.5, 1.5, -1.5, 3.5, -3.5]
+    v[rng.integers(8, n, 64)] = np.nan
+    w = rng.uniform(0.1, 500.0, n).astype(np.float32)
+    i = rng.integers(-100_000, 100_000, n).astype(np.int64)
+    batch = RecordBatch(
+        Schema([Field("v", DataType.FLOAT32), Field("w", DataType.FLOAT32),
+                Field("i", DataType.INT64)]), [v, w, i])
+    cols = {k: torch.from_numpy(a).to(device)
+            for k, a in (("v", v), ("w", w), ("i", i))}
+    col, lit = tt.col, tt.lit
+    cases = {
+        "sqrt(abs(v))": (F.sqrt(F.abs("v")), 1e-6),
+        "round(v)": (F.round("v"), None),
+        "case3": (F.when(col("v") > 10.0, lit(1.0))
+                  .when(col("v") < -10.0, lit(-1.0)).otherwise(lit(0.0)),
+                  None),
+        # the host multiplies by a float64 literal, the card in float32:
+        # casts compare on the column itself
+        "cast(w, int64)": (col("w").cast(DataType.INT64), None),
+        "cast(i, float32)": (col("i").cast(DataType.FLOAT32), None),
+        "isnan(v)": (F.isnan("v"), None),
+        "nanvl(v, -1)": (F.nanvl("v", lit(-1.0)), None),
+    }
+    lines = []
+    for name, (e, rtol) in cases.items():
+        got = e.eval_torch(cols)
+        if got.device != device:
+            raise AssertionError(f"phase 20 {name}: result on {got.device}")
+        host = np.asarray(e.eval(batch))
+        dev = got.cpu().numpy()
+        if dev.shape != host.shape:
+            raise AssertionError(f"phase 20 {name}: {dev.shape} vs "
+                                 f"{host.shape}")
+        if rtol is None:
+            ok = np.array_equal(dev.astype(np.float64),
+                                host.astype(np.float64), equal_nan=True)
+        else:
+            ok = np.allclose(dev, host, rtol=rtol, atol=0, equal_nan=True)
+        if not ok:
+            bad = np.flatnonzero(~np.isclose(dev, host, rtol=rtol or 0,
+                                             atol=0, equal_nan=True))[:5]
+            raise AssertionError(f"phase 20 {name}: rows {bad.tolist()}: "
+                                 f"{dev[bad].tolist()} vs {host[bad].tolist()}")
+        ms = time_ms(lambda e=e: e.eval_torch(cols), device)
+        t0 = time.perf_counter()
+        e.eval(batch)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        # bytes bound: each column the tree reads once, its result once
+        moved = (sum(cols[c].element_size() for c in e.columns_referenced())
+                 + got.element_size()) * n
+        lines.append(
+            f"{name} {ms:.4f} ms, bound {moved / HBM_BYTES_PER_S * 1e3:.5f} "
+            f"ms (bytes), host eval {host_ms:.3f} ms "
+            f"({'exact' if rtol is None else f'rtol={rtol}'})")
+    if not (np.asarray(F.round("v").eval_torch(cols)[:8].cpu())
+            == [3.0, -3.0, 1.0, -1.0, 2.0, -2.0, 4.0, -4.0]).all():
+        raise AssertionError("phase 20: round is not half away from zero")
+    log(f"phase 20 eval_torch on the card: {len(cases)} trees over {n} rows "
+        f"equal the host eval, every result on {device}: {'; '.join(lines)} "
+        f"({card})")
 
 
 def main(argv=None) -> int:
@@ -2161,10 +2660,19 @@ def main(argv=None) -> int:
     phase_ckpt_highcard(device, args.seed + 4, highcard_batches,
                         highcard_stream, card)
     phase_snapshot_race(device, args.seed + 5, card)
-    join_launches = phase_join(device, args.seed, batches, stream, tumbling,
-                               card)
-    phase_join_highcard(device, args.seed + 4, highcard_batches,
-                        highcard_stream, highcard_rates, card)
+    plain_join, join_right = phase_join(device, args.seed, batches, stream,
+                                        tumbling, card)
+    join_rates, highcard_right = phase_join_highcard(
+        device, args.seed + 4, highcard_batches, highcard_stream,
+        highcard_rates, card)
+    expressions_launches = phase_join_expressions(
+        device, (batches, stream), join_right, plain_join, card)
+    phase_join_expressions_highcard(
+        device, (highcard_batches, highcard_stream), highcard_right,
+        join_rates, card)
+    phase_join_skew(device, args.seed, card)
+    functions_launches = phase_functions(device, batches, stream, card)
+    phase_eval_torch(device, args.seed + 9, card)
 
     hot = kern["main_hot"]
     m1 = merge["cfg1_dense"]
@@ -2189,7 +2697,11 @@ def main(argv=None) -> int:
         # launches on the restored ring by phase 11's restarted child
         "restored_launches": restored_launches,
         # launches of both windows under phase 14's join (61 a side)
-        "join_launches": join_launches,
+        "join_launches": plain_join["launches"]["dense_window"],
+        # both windows under phase 16's join_on (61 a side), and phase
+        # 19's window behind the scalar functions (15 batches)
+        "join_expressions_launches": expressions_launches,
+        "functions_launches": functions_launches,
     }, {
         "name": "merge_partials",
         "route": "cuda",

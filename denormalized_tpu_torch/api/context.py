@@ -7,7 +7,8 @@ reads, plus an explicit ``device``: the device rule of the whole package,
 and the checkpoint knobs (``checkpoint``, ``checkpoint_interval_s``,
 ``state_backend_path``, or :meth:`Context.with_state_backend`) and the
 join knobs (``join_retention_ms``, ``join_adaptive``,
-``join_adapt_interval_s``) and ``partition_watermarks``.
+``join_adapt_interval_s``, ``join_band_slack_ms``) and
+``partition_watermarks``.
 """
 
 from __future__ import annotations
@@ -71,6 +72,14 @@ class EngineConfig:
     # identical either way — a layout, not a semantics switch
     join_adaptive: bool = True
     join_adapt_interval_s: float = 1.0
+    # band-aware eviction for banded (interval) joins: a retained row whose
+    # band value lies more than this slack below the OTHER side's band
+    # watermark (the max over its batches of the min band value) can never
+    # match a future row, so its batch evicts ahead of retention.  The slack
+    # absorbs band-space lateness as allowed lateness absorbs event-time
+    # lateness: 0 is exact for band values in order on each side.  None
+    # (the default) keeps retention-only eviction
+    join_band_slack_ms: int | None = None
     # per-partition watermarks: the source-level watermark is the MIN over
     # each partition's own max-of-batch-min-ts, so one fast-draining
     # partition cannot race the watermark ahead and drop the slower

@@ -2,9 +2,9 @@
 
 Counterpart of ``denormalized_tpu/api/data_stream.py`` with the methods the
 window and join jobs use: select / filter / column renames / window /
-join, and collect / stream to run them.  Plan building is lazy; execution
-happens in collect and stream.  ``join_on`` and band joins are not ported:
-those calls raise PlanError.
+join (equi keys, optionally banded) / join_on (expression keys, bands and
+residual filters), and collect / stream to run them.  Plan building is
+lazy; execution happens in collect and stream.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from denormalized_tpu_torch.common.errors import PlanError
 from denormalized_tpu_torch.common.record_batch import RecordBatch
 from denormalized_tpu_torch.common.schema import Schema
 from denormalized_tpu_torch.logical import plan as lp
-from denormalized_tpu_torch.logical.expr import AggregateExpr, Expr, col
+from denormalized_tpu_torch.logical.expr import AggregateExpr, Column, Expr, col
 
 
 class DataStream:
@@ -125,13 +125,18 @@ class DataStream:
         left_cols: Sequence[str] = (),
         right_cols: Sequence[str] = (),
         filter: Expr | None = None,
-        band=None,
+        band: "lp.JoinBand | tuple | None" = None,
     ) -> "DataStream":
-        """Stream-stream join on equi keys (inner, left, right, full, semi,
-        anti, right_semi, right_anti), with an optional residual
-        ``filter`` over matched pairs.  ``band`` is the JAX package's
-        interval predicate, not ported yet: passing one raises
-        (``lp.Join``)."""
+        """Stream-stream join on equi keys, optionally banded.
+
+        ``band`` adds an interval/range predicate alongside the equi
+        keys: ``(left_expr, right_expr, lower_ms, upper_ms)`` (column
+        names accepted for the exprs) matches a pair iff ``left -
+        right`` lands in ``[lower_ms, upper_ms]`` inclusive, ``None``
+        bounds open.  Band expressions evaluate on their OWN side, so
+        a band over event time works even though the right side's
+        timestamp never appears in the output — the enrichment /
+        temporal-correlation join (``ts BETWEEN a AND b``)."""
         jt = self._JOIN_TYPE_ALIASES.get(
             join_type.lower().replace(" ", ""), join_type.lower()
         )
@@ -143,8 +148,10 @@ class DataStream:
                 list(right_cols),
                 list(left_cols),
                 filter,
-                band,
+                band=None if band is None else self._flip_band(band),
             )
+        if band is not None:
+            band = self._as_band(band)
         return self._wrap(
             lp.Join(
                 self._plan,
@@ -157,11 +164,181 @@ class DataStream:
             )
         )
 
-    def join_on(self, right: "DataStream", join_type: str, on_exprs):
-        """Join on arbitrary binary expressions — not ported yet (it lowers
-        expression keys through the scalar functions, which the port does
-        not have)."""
-        raise PlanError("join_on is not yet ported to denormalized_tpu_torch")
+    @staticmethod
+    def _as_band(band) -> "lp.JoinBand":
+        """A ``(left_expr, right_expr, lower_ms, upper_ms)`` tuple (column
+        names accepted) as a JoinBand; a JoinBand passes through."""
+        if isinstance(band, lp.JoinBand):
+            return band
+        le, re_, lo, hi = band
+        return lp.JoinBand(
+            col(le) if isinstance(le, str) else le,
+            col(re_) if isinstance(re_, str) else re_,
+            lo,
+            hi,
+        )
+
+    @classmethod
+    def _flip_band(cls, band) -> "lp.JoinBand":
+        """Mirror a band across a left/right input swap: ``l - r ∈ [a,
+        b]`` becomes ``r - l ∈ [-b, -a]``."""
+        band = cls._as_band(band)
+        return lp.JoinBand(
+            band.right_expr,
+            band.left_expr,
+            None if band.upper_ms is None else -band.upper_ms,
+            None if band.lower_ms is None else -band.lower_ms,
+        )
+
+    def join_on(
+        self, right: "DataStream", join_type: str, on_exprs: Sequence[Expr]
+    ) -> "DataStream":
+        """Join on arbitrary binary expressions (datastream.rs:126-148).
+
+        ``expr_l == expr_r`` conjuncts where each side references exactly
+        one input become equi-keys: non-column sides are computed into
+        hidden key columns on their input, the hash join runs on those,
+        and the hidden columns are dropped from the output.  Inclusive
+        inequality conjuncts comparing a pure-left expression against a
+        pure-right expression (± a literal) — the ``l.ts >= r.ts - a``
+        / ``l.ts <= r.ts + b`` BETWEEN shape — lower to ONE banded
+        predicate evaluated per side before pair materialization
+        (lp.JoinBand), which is also the only way to bound against the
+        right side's canonical timestamp (it never reaches the pair
+        schema).  Any other conjunct (strict inequality, non-equi op,
+        or an expression mixing both inputs) becomes a residual filter
+        evaluated on matched pairs — the same lowering DataFusion
+        applies to the reference's ``join_on``."""
+        from denormalized_tpu_torch.logical.expr import BinaryExpr, Literal
+
+        left_names = set(self.schema().names)
+        right_names = set(right.schema().names)
+
+        def side_of(e: Expr) -> str | None:
+            refs = e.columns_referenced()
+            if not refs:
+                return None  # literal: computable on either side
+            if refs <= left_names and not (refs & right_names):
+                return "l"
+            if refs <= right_names and not (refs & left_names):
+                return "r"
+            return None  # ambiguous or mixed — not a separable equi side
+
+        def shifted(e: Expr) -> tuple[Expr, float, str | None]:
+            """Decompose ``e`` as ``base + const`` with ``base`` purely
+            one-sided: peels one additive numeric literal off a
+            BinaryExpr (the ``r.ts + 5000`` shape)."""
+            if isinstance(e, BinaryExpr) and e.op in ("+", "-"):
+                if isinstance(e.right, Literal) and isinstance(
+                    e.right.value, (int, float)
+                ):
+                    c = float(e.right.value)
+                    return e.left, c if e.op == "+" else -c, side_of(e.left)
+                if e.op == "+" and isinstance(e.left, Literal) and isinstance(
+                    e.left.value, (int, float)
+                ):
+                    return e.right, float(e.left.value), side_of(e.right)
+            return e, 0.0, side_of(e)
+
+        def band_constraint(e: Expr):
+            """``(l_expr, r_expr, lower, upper)`` for one inclusive
+            inequality conjunct over opposite sides, else None.  Strict
+            ops stay residual: the band contract is inclusive and the
+            operands may be floats, so ``<`` cannot be rewritten."""
+            if not isinstance(e, BinaryExpr) or e.op not in ("<=", ">="):
+                return None
+            a, ca, sa_ = shifted(e.left)
+            b, cb, sb_ = shifted(e.right)
+            if {sa_, sb_} != {"l", "r"}:
+                return None
+            # normalize to  left_expr - right_expr  (op)  const
+            if sa_ == "l":
+                le_, re2, const = a, b, cb - ca
+                op = e.op
+            else:
+                le_, re2, const = b, a, ca - cb
+                op = "<=" if e.op == ">=" else ">="
+            if op == "<=":
+                return (le_, re2, None, const)
+            return (le_, re2, const, None)
+
+        lds, rds = self, right
+        lcols: list[str] = []
+        rcols: list[str] = []
+        hidden: list[str] = []
+        residual: Expr | None = None
+        band_key = None
+        band_exprs = None
+        band_lo: float | None = None
+        band_hi: float | None = None
+        for i, e in enumerate(on_exprs):
+            sides = None
+            if isinstance(e, BinaryExpr) and e.op == "==":
+                if isinstance(e.left, Column) and isinstance(e.right, Column):
+                    # plain column == column: key names verbatim (including
+                    # the shared-name form col('k') == col('k'), which Join
+                    # resolves as a once-appearing shared equi-key)
+                    lcols.append(e.left.name)
+                    rcols.append(e.right.name)
+                    continue
+                sl, sr = side_of(e.left), side_of(e.right)
+                if {sl, sr} == {"l", "r"}:
+                    sides = (e.left, e.right) if sl == "l" else (e.right, e.left)
+                elif sl == "l" and sr is None and not e.right.columns_referenced():
+                    sides = (e.left, e.right)
+                elif sl == "r" and sr is None and not e.left.columns_referenced():
+                    sides = (e.right, e.left)
+            if sides is None:
+                bc = band_constraint(e)
+                if bc is not None:
+                    le_, re2, lo, hi = bc
+                    key = (repr(le_), repr(re2))
+                    if band_key is None or key == band_key:
+                        band_key = key
+                        band_exprs = (le_, re2)
+                        if lo is not None:
+                            band_lo = (
+                                lo if band_lo is None else max(band_lo, lo)
+                            )
+                        if hi is not None:
+                            band_hi = (
+                                hi if band_hi is None else min(band_hi, hi)
+                            )
+                        continue
+                    # the exec carries ONE band; a second distinct
+                    # expression pair stays a residual pair filter
+                residual = e if residual is None else (residual & e)
+                continue
+            le, re_ = sides
+            if isinstance(le, Column):
+                lcols.append(le.name)
+            else:
+                name = f"__join_lk_{i}__"
+                lds = lds.with_column(name, le)
+                lcols.append(name)
+                hidden.append(name)
+            if isinstance(re_, Column):
+                rcols.append(re_.name)
+            else:
+                name = f"__join_rk_{i}__"
+                rds = rds.with_column(name, re_)
+                rcols.append(name)
+                hidden.append(name)
+        if not lcols:
+            raise PlanError(
+                "join_on needs at least one separable equi conjunct "
+                "(expr_over_left == expr_over_right) — a pure theta join "
+                "over unbounded streams has no hash key to bound state"
+            )
+        band = None
+        if band_exprs is not None:
+            band = lp.JoinBand(
+                band_exprs[0], band_exprs[1], band_lo, band_hi
+            )
+        out = lds.join(
+            rds, join_type, lcols, rcols, filter=residual, band=band
+        )
+        return out.drop_columns(*hidden) if hidden else out
 
     # -- execution -------------------------------------------------------
     def collect(self) -> RecordBatch:

@@ -1,18 +1,20 @@
 """Logical plan optimizer — counterpart of
 ``denormalized_tpu/logical/optimizer.py`` over the port's plan algebra
-(scan, project, filter, window, join, sink) and expressions (column, literal,
-binary, alias).
+(scan, project, filter, window, join, sink) and expression tree.
 
 The rules are the JAX package's, so both packages build the same physical
 plan for a query — the DFS node ids that key its checkpoints included:
 
 - :class:`ProjectionPruning` — narrow every Project to the outputs read
   above it, and put a narrow Project above each Scan (the JAX package's
-  decode pushdown serves its Kafka source, which is not ported);
+  decode pushdown serves its Kafka source, which is not ported); a join
+  keeps every column its band's expressions read, each on its own side;
 - :class:`FilterPushdown` — evaluate a filter below the projection above
-  it, and fuse adjacent filters into one conjunction;
+  it, and fuse adjacent filters into one conjunction, but never push an
+  IsNull check (a mask check on a column would become a value check on a
+  computed expression) or duplicate a UDF call;
 - :class:`MergeProjects` — collapse stacked projections where that
-  duplicates no work.
+  duplicates no work, and never inline a UDF.
 
 Rules run to a bounded fixpoint.
 """
@@ -26,8 +28,17 @@ from denormalized_tpu_torch.logical import plan as lp
 from denormalized_tpu_torch.logical.expr import (
     AliasExpr,
     BinaryExpr,
+    CaseExpr,
+    CastExpr,
     Column,
     Expr,
+    FieldAccessExpr,
+    IsNullExpr,
+    Literal,
+    NotExpr,
+    ScalarFunctionExpr,
+    ScalarUDFExpr,
+    substitute_columns,
 )
 
 
@@ -63,30 +74,38 @@ def map_children(
     return node
 
 
-def substitute_columns(e: Expr, mapping: dict[str, Expr]) -> Expr:
-    """``e`` with every Column reference replaced by its mapped
-    expression; untouched subtrees are reused."""
-    if isinstance(e, Column):
-        return mapping.get(e.name, e)
-    if isinstance(e, BinaryExpr):
-        return BinaryExpr(
-            e.op,
-            substitute_columns(e.left, mapping),
-            substitute_columns(e.right, mapping),
-        )
-    if isinstance(e, AliasExpr):
-        return AliasExpr(substitute_columns(e.inner, mapping), e._name)
-    return e
-
-
 def _expr_nodes(e: Expr):
     """Yield every node of an expression tree."""
     yield e
     if isinstance(e, BinaryExpr):
         yield from _expr_nodes(e.left)
         yield from _expr_nodes(e.right)
-    elif isinstance(e, AliasExpr):
+    elif isinstance(
+        e, (NotExpr, IsNullExpr, AliasExpr, CastExpr, FieldAccessExpr)
+    ):
         yield from _expr_nodes(e.inner)
+    elif isinstance(e, (ScalarFunctionExpr, ScalarUDFExpr)):
+        for a in e.args:
+            yield from _expr_nodes(a)
+    elif isinstance(e, CaseExpr):
+        if e.base is not None:
+            yield from _expr_nodes(e.base)
+        for c, r in e.branches:
+            yield from _expr_nodes(c)
+            yield from _expr_nodes(r)
+        if e.otherwise is not None:
+            yield from _expr_nodes(e.otherwise)
+
+
+def _contains(e: Expr, cls) -> bool:
+    return any(isinstance(n, cls) for n in _expr_nodes(e))
+
+
+def _is_trivial(e: Expr) -> bool:
+    """Inlining this duplicates no meaningful work."""
+    while isinstance(e, AliasExpr):
+        e = e.inner
+    return isinstance(e, (Column, Literal))
 
 
 class ProjectionPruning:
@@ -151,6 +170,12 @@ class ProjectionPruning:
                 if node.filter is not None:
                     for n in node.filter.columns_referenced():
                         (lneed if n in lnames else rneed).add(n)
+                if node.band is not None:
+                    # band expressions evaluate against their own side's
+                    # input: keep those columns, though they may never
+                    # reach the output
+                    lneed |= node.band.left_expr.columns_referenced()
+                    rneed |= node.band.right_expr.columns_referenced()
             return lp.Join(
                 self._walk(node.left, lneed),
                 self._walk(node.right, rneed),
@@ -185,6 +210,8 @@ class MergeProjects:
         if isinstance(node, lp.Project) and isinstance(node.input, lp.Project):
             inner = node.input
             mapping = self._mapping(inner)
+            if self._udf_inlined(node, mapping):
+                return node  # UDFs may be expensive or non-deterministic
             merged = [
                 self._realias(substitute_columns(e, mapping), e)
                 for e in node.exprs
@@ -202,6 +229,20 @@ class MergeProjects:
     @staticmethod
     def _size(exprs) -> int:
         return sum(sum(1 for _ in _expr_nodes(e)) for e in exprs)
+
+    @staticmethod
+    def _udf_inlined(outer: lp.Project, mapping: dict[str, Expr]) -> bool:
+        for e in outer.exprs:
+            for n in _expr_nodes(e):
+                if isinstance(n, Column):
+                    inner_e = mapping.get(n.name)
+                    if (
+                        inner_e is not None
+                        and not _is_trivial(inner_e)
+                        and _contains(inner_e, ScalarUDFExpr)
+                    ):
+                        return True
+        return False
 
     @staticmethod
     def _realias(sub: Expr, original: Expr) -> Expr:
@@ -232,7 +273,11 @@ class FilterPushdown:
                     n in mapping or child.input.schema.has(n) for n in refs
                 ):
                     return node
+                if _contains(node.predicate, IsNullExpr):
+                    return node
                 pred = substitute_columns(node.predicate, mapping)
+                if _contains(pred, ScalarUDFExpr):
+                    return node
                 return self.rewrite(
                     lp.Project(lp.Filter(child.input, pred), child.exprs)
                 )

@@ -7,8 +7,7 @@ built by ``StreamingLogicalPlanBuilder::streaming_window``
 Scan / Project / Filter / StreamingWindow / Join / Sink, each of which knows
 its output schema eagerly — plan building touches no data (mirroring the
 lazy construction at context.rs:65 / datastream.rs).  Counterpart of
-``denormalized_tpu/logical/plan.py``; :class:`JoinBand` is carried as a type
-only (band joins are not ported: the API refuses them).
+``denormalized_tpu/logical/plan.py``.
 """
 
 from __future__ import annotations
@@ -170,15 +169,30 @@ class JoinKind(enum.Enum):
 
 @dataclass(frozen=True)
 class JoinBand:
-    """Banded (interval) join predicate: a pair matches iff ``left_expr -
-    right_expr`` lands in ``[lower_ms, upper_ms]``.  The JAX package's
-    type, kept so a plan that names one reads the same; band joins are not
-    ported (DataStream.join raises on ``band=``)."""
+    """Banded (interval/range) join predicate riding alongside the equi
+    keys: a pair matches iff ``left_expr - right_expr`` lands in
+    ``[lower_ms, upper_ms]`` (inclusive; ``None`` = unbounded on that
+    side).  ``lower_ms > upper_ms`` is a legal EMPTY band (matches
+    nothing).  Each expression is evaluated against its OWN input's
+    schema, so a band can reference the right side's canonical timestamp
+    even though that column never appears in the join output — the
+    enrichment/temporal-correlation shape (``ts BETWEEN a AND b``) the
+    residual pair filter cannot express.  Rows only match while
+    co-retained: a band reaching beyond ``join_retention_ms`` is clipped
+    by eviction.  The join operator refuses a band with no bound."""
 
     left_expr: Expr
     right_expr: Expr
     lower_ms: int | float | None
     upper_ms: int | float | None
+
+    def _label(self) -> str:
+        lo = "-inf" if self.lower_ms is None else self.lower_ms
+        hi = "+inf" if self.upper_ms is None else self.upper_ms
+        return (
+            f"{self.left_expr.name} - {self.right_expr.name} in "
+            f"[{lo}, {hi}]"
+        )
 
 
 @dataclass
@@ -197,10 +211,6 @@ class Join(LogicalPlan):
     schema: Schema = None  # type: ignore[assignment]
 
     def __post_init__(self):
-        if self.band is not None:
-            raise PlanError(
-                "band joins are not yet ported to denormalized_tpu_torch"
-            )
         if self.kind in (JoinKind.LEFT_SEMI, JoinKind.LEFT_ANTI):
             # existence joins surface no right columns, so same-named
             # columns across sides are fine in the OUTPUT — but a join
@@ -245,6 +255,8 @@ class Join(LogicalPlan):
 
     def _label(self):
         on = ", ".join(f"{l}={r}" for l, r in zip(self.left_keys, self.right_keys))
+        if self.band is not None:
+            on += f", band {self.band._label()}"
         return f"Join({self.kind.value} on {on})"
 
 

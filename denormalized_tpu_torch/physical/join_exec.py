@@ -32,8 +32,15 @@ of the operator contract — probe-major, newest build row first per probe
 row — and both layouts produce it exactly, so an adapted run's emissions
 equal the unadapted run's.
 
-Not ported yet: band (interval) predicates, the cold tier (spilling
-retained batches), the join's checkpoint (``wire_checkpointing`` refuses a
+Banded (interval) joins: a :class:`~logical.plan.JoinBand` keeps a pair
+only when ``left_expr - right_expr`` lands in ``[lower_ms, upper_ms]``.
+Each side caches its band value per row (float64, NaN for a null, which
+matches nothing) at insert, and the band filter runs on the probe's index
+arrays before any row is gathered.  With ``band_slack_ms`` set, eviction
+also drops whole batches whose band values can no longer meet a future
+row of the other side (:func:`band_evict_mask`).
+
+Not ported yet: the cold tier (spilling retained batches), the join's checkpoint (``wire_checkpointing`` refuses a
 plan holding a join), shared-group cost attribution and the doctor's
 lineage hooks.
 """
@@ -53,7 +60,7 @@ from denormalized_tpu_torch.common.constants import CANONICAL_TIMESTAMP_COLUMN
 from denormalized_tpu_torch.common.errors import PlanError
 from denormalized_tpu_torch.common.record_batch import RecordBatch
 from denormalized_tpu_torch.common.schema import Schema
-from denormalized_tpu_torch.logical.expr import Expr
+from denormalized_tpu_torch.logical.expr import Expr, column_validity
 from denormalized_tpu_torch.logical.plan import JoinKind
 from denormalized_tpu_torch.obs import statewatch
 from denormalized_tpu_torch.ops.interner import GroupInterner
@@ -66,6 +73,24 @@ from denormalized_tpu_torch.physical.base import (
     StreamItem,
     WatermarkHint,
 )
+
+
+def band_evict_mask(
+    batch_max_ts: np.ndarray,
+    horizon: int,
+    batch_band_max: np.ndarray | None,
+    band_horizon: float | None,
+) -> np.ndarray:
+    """Whole-batch eviction verdicts from the cached per-batch maxima: a
+    batch drops when every retained row is older than the time horizon
+    OR — for interval joins — its band maximum sits so far behind the
+    other side's band watermark that no future row can land in band.  One
+    vectorized compare over the cached maxima; retained rows are never
+    rescanned here."""
+    drop = batch_max_ts < horizon
+    if band_horizon is not None and batch_band_max is not None:
+        drop = drop | (batch_band_max < band_horizon)
+    return drop
 
 
 class _HotStore:
@@ -294,12 +319,15 @@ class _SideState:
     __slots__ = (
         "batches",
         "batch_max_ts",
+        "batch_band_max",
+        "band_wm",
         "head",
         "link",
         "row_bi",
         "row_ri",
         "row_gid",
         "matched",
+        "row_band",
         "hot",
         "count",
         "watermark",
@@ -307,15 +335,27 @@ class _SideState:
         "done",
     )
 
-    def __init__(self) -> None:
+    def __init__(self, with_band: bool = False) -> None:
         self.batches: list[RecordBatch] = []  # retained row storage
         self.batch_max_ts: list[int] = []  # cached per-batch max event time
+        # band-aware eviction bookkeeping (interval joins): per-batch max
+        # FINITE band value (NaN matches nothing, so an all-NaN batch is
+        # -inf, band-dead at once), and this side's band watermark — the
+        # max over batches of the min finite band value, the band-space
+        # analog of the event-time watermark.  The OTHER side's rows whose
+        # band reach lies below band_wm - slack can never match a future
+        # row of this side.
+        self.batch_band_max: list[float] = []
+        self.band_wm: float | None = None
         self.head = np.full(1024, -1, dtype=np.int64)  # gid -> newest row
         self.link = np.empty(1024, dtype=np.int64)  # row -> older same-key row
         self.row_bi = np.empty(1024, dtype=np.int32)
         self.row_ri = np.empty(1024, dtype=np.int32)
         self.row_gid = np.empty(1024, dtype=np.int32)
         self.matched = np.zeros(1024, dtype=bool)
+        # cached band-expression value per row (interval joins); NaN = a
+        # null band value, which matches nothing
+        self.row_band = np.empty(1024, dtype=np.float64) if with_band else None
         self.hot = _HotStore()
         self.count = 0
         self.watermark: int | None = None
@@ -331,7 +371,10 @@ class _SideState:
             return
         while cap < need:
             cap *= 2
-        for name in ("link", "row_bi", "row_ri", "row_gid"):
+        names = ["link", "row_bi", "row_ri", "row_gid"]
+        if self.row_band is not None:
+            names.append("row_band")
+        for name in names:
             old = getattr(self, name)
             new = np.empty(cap, dtype=old.dtype)
             new[: self.count] = old[: self.count]
@@ -373,7 +416,12 @@ class _SideState:
         last[:-1] = first[1:]
         self.head[gs[last]] = rs[last]
 
-    def insert(self, batch: RecordBatch, gids: np.ndarray) -> None:
+    def insert(
+        self,
+        batch: RecordBatch,
+        gids: np.ndarray,
+        band_vals: np.ndarray | None = None,
+    ) -> None:
         """Append a batch and chain its rows.  Rows whose key holds a hot
         sub-partition append to that block instead of the chains."""
         n = len(gids)
@@ -395,6 +443,17 @@ class _SideState:
         self.row_ri[base : base + n] = np.arange(n, dtype=np.int32)
         self.row_gid[base : base + n] = gids
         self.matched[base : base + n] = False
+        if self.row_band is not None:
+            self.row_band[base : base + n] = band_vals
+            fin = band_vals[~np.isnan(band_vals)]
+            if len(fin):
+                self.batch_band_max.append(float(fin.max()))
+                bmin = float(fin.min())
+                self.band_wm = (
+                    bmin if self.band_wm is None else max(self.band_wm, bmin)
+                )
+            else:
+                self.batch_band_max.append(float("-inf"))
         self.count += n
         rows = np.arange(base, base + n, dtype=np.int64)
         if self.hot.nslots:
@@ -427,6 +486,7 @@ class _SideState:
         bis: np.ndarray,
         ris: np.ndarray,
         matched: np.ndarray,
+        band: np.ndarray | None = None,
     ) -> None:
         """Replace all chained state with the given rows (insert order).
         Hot sub-partitions are cleared — callers that keep keys hot
@@ -444,6 +504,23 @@ class _SideState:
         self.row_ri[:m] = ris
         self.row_gid[:m] = gids
         self.matched[:m] = matched
+        self.batch_band_max = []
+        if self.row_band is not None:
+            self.row_band[:m] = band
+            # per-batch band maxima recomputed from the retained rows:
+            # eviction is whole-batch, so each retained batch keeps all its
+            # rows and the maxima equal the originals.  band_wm is a
+            # monotone high-water mark over every batch ever inserted and
+            # survives the rebuild untouched
+            if m:
+                bounds = np.nonzero(
+                    np.concatenate(([True], bis[1:] != bis[:-1]))
+                )[0]
+                vals = np.asarray(band[:m], dtype=np.float64)
+                vals = np.where(np.isnan(vals), float("-inf"), vals)
+                self.batch_band_max = [
+                    float(x) for x in np.maximum.reduceat(vals, bounds)
+                ]
         self.count = m
         self._chain(gids, np.arange(m, dtype=np.int64))
 
@@ -621,6 +698,8 @@ class StreamingJoinExec(ExecOperator):
         schema: Schema,
         *,
         retention_ms: int = 300_000,
+        band=None,
+        band_slack_ms: int | None = None,
         adaptive: bool = True,
         adapt_interval_s: float = 1.0,
     ) -> None:
@@ -634,6 +713,29 @@ class StreamingJoinExec(ExecOperator):
         self.filter_expr = filter_expr
         self.schema = schema
         self.retention_ms = retention_ms
+        # band (interval) predicate: left_expr - right_expr must land in
+        # [lower_ms, upper_ms] for a pair to join (logical.plan.JoinBand)
+        self.band = band
+        # band-aware eviction slack (EngineConfig.join_band_slack_ms); None
+        # keeps retention-only eviction
+        self._band_slack_ms = band_slack_ms
+        if band is not None:
+            if band.lower_ms is None and band.upper_ms is None:
+                raise PlanError(
+                    "join band needs at least one bound (both lower_ms "
+                    "and upper_ms are None)"
+                )
+            for e, side_schema, label in (
+                (band.left_expr, left.schema, "left"),
+                (band.right_expr, right.schema, "right"),
+            ):
+                missing = e.columns_referenced() - set(side_schema.names)
+                if missing:
+                    raise PlanError(
+                        f"join band {label} expression references "
+                        f"{sorted(missing)} not present on the {label} "
+                        "input"
+                    )
         # equi-key dtype compatibility: the shared interner assigns ids per
         # column (numeric dict vs string table), so joining a STRING key
         # against a numeric key would silently collide unrelated ids
@@ -724,6 +826,8 @@ class StreamingJoinExec(ExecOperator):
             side.link.itemsize + side.row_bi.itemsize
             + side.row_ri.itemsize + side.row_gid.itemsize + 1  # matched
         )
+        if side.row_band is not None:
+            per_row += int(side.row_band.itemsize)
         batch_bytes = sum(statewatch.rb_nbytes(b) for b in side.batches)
         # hot sub-partitions, counted apart (hot_bytes): hot row ids + each
         # hot row's proportional share of its batch's bytes
@@ -799,6 +903,39 @@ class StreamingJoinExec(ExecOperator):
     def _gids_of(self, batch: RecordBatch, names: list[str]) -> np.ndarray:
         return self._interner.intern([batch.column(n) for n in names])
 
+    def _band_vals(self, batch: RecordBatch, is_left: bool) -> np.ndarray:
+        """One side's band-expression values for a batch, as float64 with
+        NaN where the expression reads a null (NaN compares False against
+        both bounds, so a null band value matches nothing)."""
+        e = self.band.left_expr if is_left else self.band.right_expr
+        v = np.asarray(e.eval(batch), dtype=np.float64)
+        m = column_validity(e, batch)
+        if m is not None and not m.all():
+            v = v.copy()
+            v[~np.asarray(m, dtype=bool)] = np.nan
+        return v
+
+    def _band_keep(
+        self,
+        probe_band: np.ndarray,
+        p_idx: np.ndarray,
+        build: _SideState,
+        b_rows: np.ndarray,
+        probe_is_left: bool,
+    ) -> np.ndarray:
+        """The band filter over equi-probe pairs: index arithmetic on the
+        cached per-row band values, before any row gather."""
+        pv = probe_band[p_idx]
+        bv = build.row_band[b_rows]
+        diff = pv - bv if probe_is_left else bv - pv
+        lo = self.band.lower_ms
+        hi = self.band.upper_ms
+        if lo is not None and hi is not None:
+            return (diff >= lo) & (diff <= hi)
+        if lo is not None:
+            return diff >= lo
+        return diff <= hi
+
     def _probe(
         self,
         probe_batch: RecordBatch,
@@ -807,15 +944,26 @@ class StreamingJoinExec(ExecOperator):
         probe_is_left: bool,
         probe_base: int,
         probe_side: _SideState,
+        probe_band: np.ndarray | None = None,
     ) -> RecordBatch | None:
         """Join a new batch against the opposite side's table.  Rows are
-        marked 'matched' (outer-join bookkeeping) only AFTER the join filter
-        accepts the pair — an equi-hit it rejects must still surface as
-        unmatched in an outer join.  ``probe_base`` is the probe side's row
-        count BEFORE this batch inserted (its rows' global ids)."""
+        marked 'matched' (outer-join bookkeeping) only AFTER the band and
+        the join filter accept the pair — an equi-hit either rejects must
+        still surface as unmatched in an outer join.  ``probe_base`` is the
+        probe side's row count BEFORE this batch inserted (its rows' global
+        ids)."""
         p_idx, b_rows = build.probe(probe_gids)
         if len(p_idx) == 0:
             return None
+        if self.band is not None:
+            kb = self._band_keep(
+                probe_band, p_idx, build, b_rows, probe_is_left
+            )
+            if not kb.all():
+                p_idx = p_idx[kb]
+                b_rows = b_rows[kb]
+            if len(p_idx) == 0:
+                return None
         if self._existence and self.filter_expr is None:
             # no pair materializes downstream and no filter reads one: the
             # index arrays alone decide existence
@@ -883,14 +1031,27 @@ class StreamingJoinExec(ExecOperator):
         return None
 
     # ------------------------------------------------------------------
-    def _evict(self, side: _SideState, is_left: bool, horizon: int):
-        """Drop batches wholly older than the horizon, emit unmatched rows
-        for outer joins, and rebuild the chained arrays over the retained
-        rows.  Batch ages come from the cached per-batch max timestamps —
-        no rescans of retained data."""
+    def _evict(
+        self,
+        side: _SideState,
+        is_left: bool,
+        horizon: int,
+        band_horizon: float | None = None,
+    ):
+        """Drop batches wholly older than the horizon — or, for interval
+        joins, wholly below the band horizon — emit unmatched rows for
+        outer joins, and rebuild the chained arrays over the retained
+        rows.  Batch ages come from the cached per-batch max timestamps
+        and band maxima — no rescans of retained data."""
         if not side.batches:
             return []
-        drop_set = np.asarray(side.batch_max_ts, dtype=np.int64) < horizon
+        drop_set = band_evict_mask(
+            np.asarray(side.batch_max_ts, dtype=np.int64),
+            horizon,
+            np.asarray(side.batch_band_max, dtype=np.float64)
+            if band_horizon is not None and side.batch_band_max else None,
+            band_horizon,
+        )
         if not drop_set.any():
             return []
         drop_bi = np.nonzero(drop_set)[0]
@@ -923,6 +1084,10 @@ class StreamingJoinExec(ExecOperator):
             remap_bi[side.row_bi[:n][keep_rows]].astype(np.int32),
             side.row_ri[:n][keep_rows].copy(),
             side.matched[:n][keep_rows].copy(),
+            band=(
+                side.row_band[:n][keep_rows].copy()
+                if side.row_band is not None else None
+            ),
         )
         if hot_gids is not None:
             # eviction renumbered rows but not gids: re-adopt each hot key's
@@ -940,9 +1105,24 @@ class StreamingJoinExec(ExecOperator):
         horizon = (
             min(sides[0].watermark, sides[1].watermark) - self.retention_ms
         )
+        # band-aware horizons: a pair joins iff left_band - right_band ∈
+        # [lower_ms, upper_ms], so a LEFT row with band value L only ever
+        # matches right rows with R ≥ L - upper … R ≤ L - lower.  Future
+        # right rows carry band values ≥ right.band_wm - slack, so L is
+        # dead once L < right.band_wm + lower_ms - slack (needs lower_ms:
+        # without it an arbitrarily large future R still lands in band);
+        # symmetrically a RIGHT row R is dead once R < left.band_wm -
+        # upper_ms - slack (needs upper_ms)
+        band_h: list[float | None] = [None, None]
+        if self.band is not None and self._band_slack_ms is not None:
+            slack = self._band_slack_ms
+            if self.band.lower_ms is not None and sides[1].band_wm is not None:
+                band_h[0] = sides[1].band_wm + self.band.lower_ms - slack
+            if self.band.upper_ms is not None and sides[0].band_wm is not None:
+                band_h[1] = sides[0].band_wm - self.band.upper_ms - slack
         out = []
-        for s, l in ((sides[0], True), (sides[1], False)):
-            for ub in self._evict(s, l, horizon):
+        for (s, l), bh in zip(((sides[0], True), (sides[1], False)), band_h):
+            for ub in self._evict(s, l, horizon, band_horizon=bh):
                 padded = self._null_padded(ub, l)
                 self._metrics["rows_out"] += padded.num_rows
                 out.append(padded)
@@ -983,6 +1163,10 @@ class StreamingJoinExec(ExecOperator):
                 side.row_bi[:n].copy(),
                 side.row_ri[:n].copy(),
                 side.matched[:n].copy(),
+                band=(
+                    side.row_band[:n].copy()
+                    if side.row_band is not None else None
+                ),
             )
             if hot_reps:
                 side.rehot(np.unique(gids[np.asarray(hot_reps)]))
@@ -1019,7 +1203,8 @@ class StreamingJoinExec(ExecOperator):
     def run(self) -> Iterator[StreamItem]:
         from denormalized_tpu_torch.runtime.pump import spawn_pump
 
-        sides = (_SideState(), _SideState())
+        with_band = self.band is not None
+        sides = (_SideState(with_band), _SideState(with_band))
         self._sides = sides
         m = self._metrics
         q: queue_mod.Queue = queue_mod.Queue(maxsize=8)
@@ -1125,15 +1310,21 @@ class StreamingJoinExec(ExecOperator):
                     batch, self.left_keys if is_left else self.right_keys
                 )
                 (self._sw if is_left else self._sw_right).update(gids)
+                band_vals = (
+                    self._band_vals(batch, is_left)
+                    if self.band is not None else None
+                )
                 # insert BEFORE probing: the probe targets the OTHER side
                 # (no self-match) and the matched[] marks it writes for
                 # this batch's rows must not be cleared by a later insert
                 probe_base = side.count
-                side.insert(batch, gids)
+                side.insert(batch, gids, band_vals)
                 t1 = time.perf_counter()
                 m["build_s"] += t1 - t0_batch
                 g0 = m["gather_s"]
-                out = self._probe(batch, gids, other, is_left, probe_base, side)
+                out = self._probe(
+                    batch, gids, other, is_left, probe_base, side, band_vals
+                )
                 # _probe accumulated its gather sub-phase itself; the rest
                 # of the call is index-probe time
                 m["probe_s"] += max(

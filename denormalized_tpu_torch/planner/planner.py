@@ -3,9 +3,9 @@
 Counterpart of ``denormalized_tpu/planner/planner.py`` with the scan,
 project, filter, window, join and sink routes.  The window route threads
 the engine config's explicit ``device`` and kernel strategy into
-:class:`StreamingWindowExec`; the join route its retention and adaptation
-knobs into :class:`StreamingJoinExec`.  Sessions, UDAF windows, the slice
-path and meshes are not ported yet.
+:class:`StreamingWindowExec`; the join route its band, retention, band
+slack and adaptation knobs into :class:`StreamingJoinExec`.  Sessions,
+UDAF windows, the slice path and meshes are not ported yet.
 """
 
 from __future__ import annotations
@@ -76,6 +76,8 @@ class Planner:
                 node.filter,
                 node.schema,
                 retention_ms=c.join_retention_ms,
+                band=node.band,
+                band_slack_ms=c.join_band_slack_ms,
                 adaptive=bool(c.join_adaptive),
                 adapt_interval_s=c.join_adapt_interval_s,
             )

@@ -29,9 +29,12 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "denormalized_tpu_torch"
 
 
-# modules of the partial_merge, checkpoint and join slices, named so a
-# rename cannot drop them from the blocked-import check unseen
+# modules of the partial_merge, checkpoint, join and expression slices,
+# named so a rename cannot drop them from the blocked-import check unseen
 NEW_MODULES = (
+    "denormalized_tpu_torch.logical.scalar_functions",
+    "denormalized_tpu_torch.logical.array_functions",
+    "denormalized_tpu_torch.api.functions",
     "denormalized_tpu_torch.native.build",
     "denormalized_tpu_torch.ops.host_partial",
     "denormalized_tpu_torch.ops.merge_partials",
