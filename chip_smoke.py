@@ -121,13 +121,35 @@ Phases:
 20. ``Expr.eval_torch`` on the card: sqrt(abs), round (half away from
     zero), a three-branch CASE, casts, isnan and nanvl over 1M seeded
     float32 / int64 rows, each result on the card and equal to the host
-    ``eval`` (rtol=1e-6 for sqrt, exact for the rest), with its time.
+    ``eval`` (rtol=1e-6 for sqrt, exact for the rest), with its time;
+21. bench.py's ``kafka_e2e`` through the port's live path: phase 4's
+    stream JSON-encoded (readings to 6 decimals, as bench.py writes them)
+    into a 4-partition topic of the port's own mock broker
+    (``testing/mock_kafka.py``), interleaved by partition, then
+    ``from_topic`` → the dense window with
+    ``source_idle_timeout_ms=1000``, after a warm-up on a broker of its
+    own: the native wire client and JSON parser, four prefetch workers,
+    per-partition and idle watermarks.  Every closable window against the
+    oracle; late rows 0; no Python-decoded or salvaged row; dense launches
+    = the window's batches: rows/s, wall, batch sizes, host prep, decode
+    and fetch seconds, supervised restarts;
+22. BASELINE's window latency: a paced producer thread feeds 24 windows
+    of event time to a fresh topic at min(1M, 0.6 x phase 21's rows/s)
+    rows a second (bench.py's rule; each 8,192-row chunk at the wall time
+    of its last event), and a window's latency is its emission's wall
+    minus the wall of its close: p50, p99, max over 22 samples;
+23. config 5 over Kafka: the first 6 s of phase 22's stream fed at its
+    pace; a checkpointed child (the script re-invoked with private
+    ``--kafka-*`` flags) is SIGKILLed after an epoch committed past its
+    second window, and a second child restores the store and runs until
+    the union of both children's rows covers every closable window: the
+    union against the oracle, no full reprocess, the time to recover.
 
 Then one JSON line with each kernel's launches on its main path (phase 4
 for the dense kernel, phase 8 for the merge kernel, each counted from 0
 just before the run; for the dense kernel also its launches on phase 11's
 restored ring, both windows' launches under phase 14's join and phase
-16's join_on, and phase 19's window), its
+16's join_on, phase 19's window and phase 21's Kafka job), its
 largest error against the plain version, its device
 time, the wrapper's time, the plain version's time and the least time the
 card could take (for the merge kernels also each phase-7 case's kernel,
@@ -2587,6 +2609,738 @@ def phase_eval_torch(device, seed, card):
         f"({card})")
 
 
+# -- phases 21-23: the live Kafka path ---------------------------------------
+
+KAFKA_PARTITIONS = 4
+KAFKA_RECORDS_PER_BATCH = 512  # MockKafkaBroker.produce_batched's default
+KAFKA_WARM_ROWS = 3 * EVENTS_PER_SEC  # three windows of event time
+KAFKA_DEADLINE_S = 240.0
+LAT_ROWS = 24 * EVENTS_PER_SEC  # 24 windows → 22 latency samples
+LAT_CHUNK = 8192  # rows a paced append, over all partitions
+CKPT_KAFKA_ROWS = 6 * EVENTS_PER_SEC  # phase 23's feed: 6 windows
+E2E_COLUMNS = ("occurred_at_ms", "sensor_name", "reading")
+
+
+def _varint_table(n: int):
+    """Unsigned LEB128 varints of 0..n-1 → ((n, 3) uint8 bytes, lengths)."""
+    v = np.arange(n, dtype=np.int64)
+    if n > 1 << 21:
+        raise ValueError("varint table covers values below 2**21")
+    out = np.zeros((n, 3), np.uint8)
+    lens = 1 + (v >= 1 << 7) + (v >= 1 << 14)
+    for j in range(3):
+        more = lens > j + 1
+        out[:, j] = ((v >> (7 * j)) & 0x7F) | (more << 7)
+    return out, lens.astype(np.int64)
+
+
+def _concat_pieces(pieces, n: int):
+    """Row-wise concatenation of byte pieces → (flat uint8 data, int64
+    offsets (n + 1)).  A piece is ``(matrix, lengths)``: row i takes the
+    first ``lengths[i]`` bytes of the matrix's row i (a 1-row matrix and
+    an int length broadcast).  One boolean compress of the side-by-side
+    matrices keeps each row's pieces in order."""
+    mats, masks, lens = [], [], []
+    for mat, ln in pieces:
+        ln = np.broadcast_to(np.asarray(ln, np.int64), (n,))
+        w = mat.shape[1]
+        mats.append(np.broadcast_to(mat, (n, w)))
+        masks.append(np.arange(w)[None, :] < ln[:, None])
+        lens.append(ln)
+    data = np.concatenate(mats, axis=1)[np.concatenate(masks, axis=1)]
+    offs = np.zeros(n + 1, np.int64)
+    np.cumsum(np.sum(lens, axis=0), out=offs[1:])
+    return data, offs
+
+
+def _const(b: bytes):
+    return np.frombuffer(b, np.uint8)[None, :], len(b)
+
+
+def _digits(x, width: int):
+    """Fixed-width decimal digits of non-negative int64 ``x`` → (n, width)
+    ASCII, most significant first."""
+    p = 10 ** np.arange(width - 1, -1, -1, dtype=np.int64)
+    return ((x[:, None] // p[None, :]) % 10 + 48).astype(np.uint8)
+
+
+def json_pieces(ts, kid, micro, key_names):
+    """The pieces (see :func:`_concat_pieces`) of the emit_measurements
+    JSON records of bench.py's ``_json_payloads``
+    (``{"occurred_at_ms":T,"sensor_name":"K","reading":R}``) for
+    ``len(ts)`` rows at once: ``micro`` is the reading in integer
+    millionths, written as ``I.FFFFFF`` (bench.py rounds to 6 decimals
+    too), which a correctly-rounded parser reads back as exactly
+    ``micro / 1e6``."""
+    if len(ts) and (ts.min() < 10 ** 12 or ts.max() >= 10 ** 13):
+        raise ValueError("event times must have 13 digits")
+    names = [k.encode() for k in key_names]
+    name_mat = np.zeros((len(names), max(map(len, names))), np.uint8)
+    for i, nb in enumerate(names):
+        name_mat[i, : len(nb)] = np.frombuffer(nb, np.uint8)
+    name_len = np.array([len(nb) for nb in names], np.int64)
+    a = np.abs(micro)
+    ip, fp = a // 1_000_000, a % 1_000_000
+    width = max(1, len(str(int(ip.max(initial=0)))))
+    nd = 1 + np.floor(np.log10(np.maximum(ip, 1))).astype(np.int64)
+    # left-align the integer digits: row i's start at width - nd[i]
+    gather = np.minimum(np.arange(width)[None, :] + (width - nd)[:, None],
+                        width - 1)
+    return [
+        _const(b'{"occurred_at_ms":'),
+        (_digits(ts, 13), 13),
+        _const(b',"sensor_name":"'),
+        (name_mat[kid], name_len[kid]),
+        _const(b'","reading":'),
+        (np.full((1, 1), ord("-"), np.uint8), (micro < 0).astype(np.int64)),
+        (np.take_along_axis(_digits(ip, width), gather, axis=1), nd),
+        _const(b"."),
+        (_digits(fp, 6), 6),
+        _const(b"}"),
+    ]
+
+
+def kafka_record_batches(payload, n: int, records_per_batch: int,
+                         broker_ts: int, base_offset: int = 0):
+    """Magic-2 record batches of ``n`` records whose values are the pieces
+    ``payload`` (:func:`json_pieces`), ``records_per_batch`` a batch, byte
+    for byte what ``MockKafkaBroker.produce_batched``/``stage_batched``
+    encode (zero CRC, every record at ``broker_ts``) → [(first offset,
+    records, bytes)]."""
+    import struct
+
+    if n == 0:
+        return []
+    vt, vl = _varint_table(1 << 16)
+    vlen = sum(np.broadcast_to(np.asarray(ln, np.int64), (n,))
+               for _, ln in payload)
+    off_delta = np.arange(n, dtype=np.int64) % records_per_batch
+    # zigzag of a non-negative x is 2x; the null key is zigzag(-1) = 1
+    body = 1 + 1 + vl[2 * off_delta] + 1 + vl[2 * vlen] + vlen + 1
+    rec, rec_offs = _concat_pieces([
+        (vt[2 * body], vl[2 * body]),
+        _const(b"\x00\x00"),  # attributes, timestamp delta 0
+        (vt[2 * off_delta], vl[2 * off_delta]),
+        _const(b"\x01"),  # null key
+        (vt[2 * vlen], vl[2 * vlen]),
+        *payload,
+        _const(b"\x00"),  # no headers
+    ], n)
+    out = []
+    raw = rec.tobytes()
+    for first in range(0, n, records_per_batch):
+        k = min(records_per_batch, n - first)
+        section = raw[rec_offs[first]:rec_offs[first + k]]
+        head = struct.pack(">hiqqqhii", 0, k - 1, broker_ts, broker_ts,
+                           -1, -1, -1, k)
+        enc = (struct.pack(">qiib", base_offset + first,
+                           len(head) + len(section) + 9, -1, 2)
+               + struct.pack(">I", 0) + head + section)
+        out.append((base_offset + first, k, enc))
+    return out
+
+
+def staged_entries(batches, broker_ts: int) -> list:
+    """Broker log entries of encoded record batches, in the shape of
+    ``MockKafkaBroker.stage_batched``'s (a batch's bytes on its first
+    offset, the followers empty; payloads are not kept)."""
+    import itertools
+
+    entries = []
+    for first, k, enc in batches:
+        entries.append((first, broker_ts, None, enc))
+        entries.extend(zip(range(first + 1, first + k),
+                           itertools.repeat(broker_ts),
+                           itertools.repeat(None), itertools.repeat(b"")))
+    return entries
+
+
+def micro_of(val):
+    """Readings in integer millionths, as bench.py's JSON rounds them."""
+    return np.rint(val * 1e6).astype(np.int64)
+
+
+def encode_topic(stream, parts: int, records_per_batch: int,
+                 chunk_rows: int | None = None):
+    """The stream's JSON records, row i to partition i % parts (bench.py's
+    interleave, which keeps every partition's event-time range aligned),
+    as broker entries → per partition a list of entry lists: one list for
+    the whole partition, or one a ``chunk_rows // parts``-record chunk
+    (each chunk one record batch, as bench.py's paced feed stages them)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    ts, kid, val = stream
+    micro = micro_of(val)
+    names = [f"sensor_{i}" for i in range(int(kid.max()) + 1)]
+    step = (chunk_rows // parts) if chunk_rows else records_per_batch
+    # encode in slices of whole record batches (bounded memory)
+    span = max(step, (1 << 19) // step * step)
+
+    def encode(p):
+        t, k, m = ts[p::parts], kid[p::parts], micro[p::parts]
+        per = []
+        for a in range(0, len(t), span):
+            pieces = json_pieces(t[a:a + span], k[a:a + span],
+                                 m[a:a + span], names)
+            per += kafka_record_batches(pieces, len(t[a:a + span]), step,
+                                        EVENT_T0, a)
+        if chunk_rows:
+            return [staged_entries([b], EVENT_T0) for b in per]
+        return staged_entries(per, EVENT_T0)
+
+    # numpy releases the interpreter lock in the bulk steps: a thread a
+    # partition
+    with ThreadPoolExecutor(parts) as pool:
+        return list(pool.map(encode, range(parts)))
+
+
+class FeedClock:
+    """Shared wall ↔ event-time mapping (bench.py's ``_FeedClock``):
+    wall(E) = t0 + (E - EVENT_T0) / 1000 scaled by the feed pace (events
+    a second; the stream holds 1M rows an event-second, so a slower pace
+    stretches event time onto the wall)."""
+
+    def __init__(self, pace_events_per_sec: float):
+        self.t0 = None
+        self.scale = EVENTS_PER_SEC / float(pace_events_per_sec)
+
+    def start(self):
+        if self.t0 is None:
+            self.t0 = time.perf_counter()
+        return self.t0
+
+    def wall_of(self, event_ms: float) -> float:
+        return self.t0 + (event_ms - EVENT_T0) / 1000.0 * self.scale
+
+
+class GcFence:
+    """bench.py's ``_GcFence``: move the harness's permanent objects (the
+    staged records) out of the collector's scan set, and record the
+    collections that still run, so their pauses are reported, not charged
+    to the engine unseen.  ``install()``/``remove()``; ``remove()`` is
+    idempotent."""
+
+    def __init__(self, pauses: list):
+        self._pauses = pauses
+        self._t0 = 0.0
+        self._installed = False
+
+    def _cb(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self._pauses.append((time.perf_counter() - self._t0) * 1000.0)
+
+    def install(self):
+        import gc
+
+        gc.collect()
+        gc.freeze()
+        gc.callbacks.append(self._cb)
+        self._installed = True
+
+    def remove(self):
+        import gc
+
+        if not self._installed:
+            return
+        self._installed = False
+        gc.callbacks.remove(self._cb)
+        gc.unfreeze()
+
+
+def consume_bounded(fn, deadline_s: float, label: str, on_timeout=None):
+    """bench.py's ``_consume_bounded``: run the blocking consumer ``fn`` on
+    a daemon thread with a hard wall deadline; past it, ``on_timeout``
+    (the broker's teardown) unsticks the abandoned consumer so it cannot
+    keep fetching into the next phase, and the phase fails."""
+    result: dict = {}
+
+    def run():
+        try:
+            result["value"] = fn()
+        except BaseException as e:  # re-raised on the caller's thread
+            result["error"] = e
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    th.join(deadline_s)
+    if th.is_alive():
+        if on_timeout is not None:
+            on_timeout()
+            th.join(30.0)
+        raise AssertionError(f"{label}: no result within {deadline_s:.0f} s")
+    if "error" in result:
+        raise result["error"]
+    return result.get("value")
+
+
+def e2e_schema():
+    from denormalized_tpu_torch.common.schema import DataType, Field, Schema
+
+    return Schema([
+        Field("occurred_at_ms", DataType.INT64, nullable=False),
+        Field("sensor_name", DataType.STRING, nullable=False),
+        Field("reading", DataType.FLOAT64),
+    ])
+
+
+def kafka_stream(device, bootstrap, topic,
+                 aggs=("count", "min", "max", "avg"), **cfg):
+    """bench.py's ``kafka_e2e`` pipeline: ``from_topic`` (JSON, event time
+    from occurred_at_ms) → 1 s tumbling window by sensor_name, with a 1 s
+    idleness policy → (ctx, DataStream)."""
+    import denormalized_tpu_torch as tt
+    from denormalized_tpu_torch.api import functions as F
+
+    cfg.setdefault("source_idle_timeout_ms", 1000)
+    ctx = tt.Context(tt.EngineConfig(device=str(device), **cfg))
+    names = {"count": "count", "min": "min", "max": "max", "avg": "average"}
+    ds = ctx.from_topic(
+        topic, schema=e2e_schema(), bootstrap_servers=bootstrap,
+        timestamp_column="occurred_at_ms",
+    ).window(
+        ["sensor_name"],
+        [getattr(F, a)(tt.col("reading")).alias(names[a]) for a in aggs],
+        1000,
+    )
+    return ctx, ds
+
+
+def make_broker(topic, entries=None):
+    """A started mock broker (the port's own ``testing/mock_kafka.py``)
+    with ``topic`` over KAFKA_PARTITIONS partitions, holding ``entries``
+    (per partition) when given."""
+    from denormalized_tpu_torch.testing.mock_kafka import MockKafkaBroker
+
+    broker = MockKafkaBroker().start()
+    broker.create_topic(topic, partitions=KAFKA_PARTITIONS)
+    for p, e in enumerate(entries or ()):
+        broker.append_staged(topic, p, e)
+    return broker
+
+
+def source_exec_of(ctx):
+    from denormalized_tpu_torch.physical.simple_execs import SourceExec
+
+    node = ctx._last_physical
+    while not isinstance(node, SourceExec):
+        (node,) = node.children
+    return node
+
+
+def closable_rows(stream, exp):
+    """The oracle's rows of every window that can close (its end at or
+    before the stream's last event: the idle hint moves event time only
+    to the max seen) → (rows, last closable window start)."""
+    max_ts = int(stream[0].max())
+    rows = {k: v for k, v in exp.items() if k[0] + 1000 <= max_ts}
+    return rows, max(k[0] for k in rows)
+
+
+def check_native_path(ctx, what: str):
+    """The native wire client and JSON parser carried every row: each
+    reader decodes through ``NativeJsonParser`` with no Python-decode or
+    salvaged row, and the client library is the one built from
+    ``native/kafka_client.cpp``."""
+    from denormalized_tpu_torch.formats.native_json import NativeJsonParser
+    from denormalized_tpu_torch.native import build as native_build
+
+    src = source_exec_of(ctx)
+    readers = [w.reader for w in src._pump.workers]
+    for r in readers:
+        if not isinstance(r._decoder._native, NativeJsonParser):
+            raise AssertionError(f"{what}: a reader decodes without the "
+                                 "native JSON parser")
+        if r.decode_fallback_rows() or r.salvaged_rows:
+            raise AssertionError(
+                f"{what}: {r.decode_fallback_rows()} rows through the Python "
+                f"decoder, {r.salvaged_rows} salvaged")
+    libs = [k for k in native_build._CACHE if k[0] in ("kafka_client",
+                                                       "json_parser")]
+    if {k[0] for k in libs} != {"kafka_client", "json_parser"}:
+        raise AssertionError(f"{what}: native libraries loaded: {libs}")
+    return src.metrics()
+
+
+def phase_kafka_e2e(device, stream, card):
+    """Phase 21: bench.py's ``kafka_e2e`` on phase 4's stream: its JSON
+    records produced into a 4-partition topic, interleaved by partition,
+    then ``from_topic`` → the dense window on the card through the native
+    client, the native parser and four prefetch workers, after a warm-up
+    on a broker of its own.  Every closable window against the oracle;
+    late rows 0, no Python-decoded row, dense launches = the window's
+    batches → rows/s."""
+    from denormalized_tpu_torch.common.constants import WINDOW_START_COLUMN
+    from denormalized_tpu_torch.ops import dense_window as dw
+
+    ts, kid, val = stream
+    t0 = time.perf_counter()
+    entries = encode_topic(stream, KAFKA_PARTITIONS, KAFKA_RECORDS_PER_BATCH)
+    warm = encode_topic(tuple(a[:KAFKA_WARM_ROWS] for a in stream),
+                        KAFKA_PARTITIONS, KAFKA_RECORDS_PER_BATCH)
+    encode_s = time.perf_counter() - t0
+    exp = oracle(ts, kid, np.round(val, 6), 1000, 1000, NUM_KEYS)
+    need, last_ws = closable_rows(stream, exp)
+    warm_last = closable_rows(tuple(a[:KAFKA_WARM_ROWS] for a in stream),
+                              exp)[1]
+
+    def drain(ds, stop_ws, rows):
+        it = ds.stream()
+        try:
+            for b in it:
+                if b.num_rows and b.schema.has(WINDOW_START_COLUMN):
+                    rows.update(tumbling_rows(b))
+                    if int(np.max(b.column(WINDOW_START_COLUMN))) >= stop_ws:
+                        return True
+        finally:
+            it.close()
+        raise AssertionError("phase 21: the stream ended")
+
+    wbroker = make_broker("warm", warm)
+    try:
+        _, wds = kafka_stream(device, wbroker.bootstrap, "warm")
+        consume_bounded(lambda: drain(wds, warm_last, {}), 120.0,
+                        "phase 21 warm-up", on_timeout=wbroker.stop)
+    finally:
+        wbroker.stop()
+    del warm
+    broker = make_broker("e2e", entries)
+    got: dict = {}
+    try:
+        dw.dense_window_launches = 0
+        t0 = time.perf_counter()
+        ctx, ds = kafka_stream(device, broker.bootstrap, "e2e")
+        consume_bounded(lambda: drain(ds, last_ws, got), KAFKA_DEADLINE_S,
+                        "phase 21", on_timeout=broker.stop)
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = dw.dense_window_launches
+        src = check_native_path(ctx, "phase 21")
+    finally:
+        broker.stop()
+    check_tumbling_rows(got, need)
+    op = window_exec_of(ctx)
+    m = op.metrics()
+    b = op.backend
+    if m["late_rows"]:
+        raise AssertionError(f"phase 21: {m['late_rows']} late rows")
+    if not (launches == m["batches_in"] == b.dense_updates > 0
+            and b.scatter_updates == 0):
+        raise AssertionError(
+            f"phase 21: {launches} dense launches, {m['batches_in']} window "
+            f"batches, dense_updates={b.dense_updates}, scatter_updates="
+            f"{b.scatter_updates}")
+    rate = len(ts) / wall
+    log(f"phase 21 kafka_e2e (from_topic, {KAFKA_PARTITIONS} partitions, "
+        f"JSON, native client + parser, prefetch workers, auto): {len(ts)} "
+        f"rows produced ({encode_s:.1f} s to encode), {len(got)} window rows "
+        f"of every closable window match the oracle, wall {wall:.3f} s to "
+        f"the last closable window, {rate:.0f} rows/s (bench.py's measure: "
+        f"every produced row over that wall), {src['rows_out']} rows out of "
+        f"the source by then; window batches "
+        f"{m['batches_in']} of {m['rows_in']} rows (source batches of "
+        f"{src['batch_rows_min']}-{src['batch_rows_max']} rows), dense "
+        f"launches {launches}, late_rows {m['late_rows']}, "
+        f"decode_fallback_rows {src['decode_fallback_rows']}, salvaged "
+        f"{src['salvaged_rows']}, prefetch_restarts "
+        f"{src['prefetch_restarts']}; window host prep "
+        f"{m['host_prep_s']:.3f} s, decode {src['decode_s']:.3f} s and fetch "
+        f"{src['fetch_s']:.3f} s summed over the {KAFKA_PARTITIONS} reader "
+        f"threads; interner lane {op._interner.lanes[0]} ({card})")
+    return {"rows_per_s": rate, "wall": wall, "launches": launches}
+
+
+def phase_kafka_latency(device, seed, rows_per_s, card):
+    """Phase 22: BASELINE's window latency.  A paced producer thread feeds
+    a fresh topic at min(1M, 0.6 x phase 21's rows/s) rows a second
+    (bench.py's rule), a LAT_CHUNK-row chunk at a time; latency = the wall
+    of a window's emission − the wall of its close, one sample per
+    window → (pace, staged chunks, stream) for phase 23."""
+    from denormalized_tpu_torch.common.constants import WINDOW_END_COLUMN
+
+    pace = min(EVENTS_PER_SEC, 0.6 * rows_per_s)
+    stream = gen_stream(LAT_ROWS, LAT_CHUNK, NUM_KEYS, seed)
+    t0 = time.perf_counter()
+    staged = encode_topic(stream, KAFKA_PARTITIONS, None, LAT_CHUNK)
+    encode_s = time.perf_counter() - t0
+    n_chunks = max(len(s) for s in staged)
+    # a chunk is due at the wall time of its last event (bench.py's feed
+    # assumes exactly 1M rows an event-second, 2.4% off gen_stream's
+    # 8 ms a 8,192-row chunk, and lags ~24 ms more each window)
+    due_ms = stream[0][LAT_CHUNK - 1::LAT_CHUNK]
+    n_windows = LAT_ROWS // EVENTS_PER_SEC - 2
+    clock = FeedClock(pace)
+    pauses: list = []
+    fence = GcFence(pauses)
+    broker = make_broker("lat")
+    stop = threading.Event()
+
+    def feed():
+        clock.start()
+        for ci in range(n_chunks):
+            due = clock.wall_of(float(due_ms[ci]))
+            if stop.wait(max(0.0, due - time.perf_counter())):
+                return
+            for p in range(KAFKA_PARTITIONS):
+                if ci < len(staged[p]):
+                    broker.append_staged("lat", p, staged[p][ci])
+        feed_end[0] = time.perf_counter()
+
+    lats: list = []
+    seen: set = set()
+    feed_end = [None]
+    feeder = threading.Thread(target=feed, daemon=True)
+    try:
+        ctx, ds = kafka_stream(device, broker.bootstrap, "lat",
+                               aggs=("count", "avg"))
+        fence.install()
+
+        def sample():
+            it = ds.stream()
+            feeder.start()
+            try:
+                for b in it:
+                    now = time.perf_counter()
+                    if not b.num_rows or not b.schema.has(WINDOW_END_COLUMN):
+                        continue
+                    for e in np.unique(np.asarray(b.column(WINDOW_END_COLUMN))):
+                        if int(e) not in seen:
+                            seen.add(int(e))
+                            lats.append((now - clock.wall_of(float(e))) * 1e3)
+                    if len(seen) >= n_windows:
+                        return True
+            finally:
+                it.close()
+            raise AssertionError("phase 22: the stream ended")
+
+        consume_bounded(sample, LAT_ROWS / pace + 120, "phase 22",
+                        on_timeout=broker.stop)
+        m = window_exec_of(ctx).metrics()
+        src = source_exec_of(ctx).metrics()
+    finally:
+        stop.set()
+        fence.remove()
+        broker.stop()
+        if feeder.is_alive():
+            feeder.join(30)
+    a = np.asarray(lats)
+    if len(a) < 20 or m["late_rows"]:
+        raise AssertionError(f"phase 22: {len(a)} samples, "
+                             f"{m['late_rows']} late rows")
+    slope = float(np.polyfit(np.arange(a.size), a, 1)[0])
+    fed = (f"{len(stream[0]) / (feed_end[0] - clock.t0):.0f} rows/s fed"
+           if feed_end[0] else "the feed was cut at the last sample")
+    log(f"phase 22 window latency (paced from_topic, {KAFKA_PARTITIONS} "
+        f"partitions, count+avg, 1 s tumbling; {LAT_ROWS} rows over "
+        f"{LAT_ROWS // EVENTS_PER_SEC} s of event time, {encode_s:.1f} s to "
+        f"encode): pace {pace:.0f} rows/s ({fed}), {a.size} samples, p50 "
+        f"{np.percentile(a, 50):.2f} ms, p99 {np.percentile(a, 99):.2f} ms, "
+        f"max {a.max():.2f} ms, drift {slope:.2f} ms a window, gc pauses "
+        f"{len(pauses)} (max {max(pauses, default=0.0):.1f} ms), late_rows "
+        f"{m['late_rows']}; window batches {m['batches_in']} of "
+        f"{m['rows_in'] / max(1, m['batches_in']):.0f} rows on average "
+        f"(source batches of {src['batch_rows_min']}-"
+        f"{src['batch_rows_max']} rows), window host prep "
+        f"{m['host_prep_s']:.3f} s, decode {src['decode_s']:.3f} s over the "
+        f"reader threads ({card})")
+    return pace, staged, stream
+
+
+def kafka_child(args) -> int:
+    """Phase 23's child: the kafka_e2e job checkpointed to
+    ``--kafka-child`` (barriers every 0.5 s) over the parent's broker.  One
+    flushed JSON line per emitted window row, per committed epoch, and for
+    the restore (a watcher thread sees the coordinator once the executor
+    has wired and restored it)."""
+    from denormalized_tpu_torch.common.constants import WINDOW_START_COLUMN
+
+    t_main = time.time()
+    device = torch.device(args.ckpt_device)
+    out = open(args.kafka_out, "a", buffering=1)
+    lock = threading.Lock()
+
+    def line(**kw):
+        with lock:
+            out.write(json.dumps(kw) + "\n")
+
+    ctx, ds = kafka_stream(device, args.kafka_broker, args.kafka_topic,
+                           checkpoint=True,
+                           checkpoint_interval_s=0.5,
+                           state_backend_path=args.kafka_child)
+
+    def watch():
+        while ctx.last_checkpointing()[0] is None:
+            time.sleep(0.005)
+        coord = ctx.last_checkpointing()[0]
+        line(event="restored", t=time.time(), t_start=T_START,
+             t_main=t_main, epoch=coord.restored_epoch)
+        seen = coord.restored_epoch
+        while True:
+            e = coord.committed_epoch
+            if e is not None and e != seen:
+                seen = e
+                line(event="commit", epoch=e, t=time.time())
+            time.sleep(0.01)
+
+    threading.Thread(target=watch, daemon=True).start()
+    line(event="ready", t=time.time())
+    first = True
+    for b in ds.stream():
+        if not b.num_rows or not b.schema.has(WINDOW_START_COLUMN):
+            continue
+        rows = tumbling_rows(b)
+        if first:
+            first = False
+            line(event="first_row", t=time.time())
+        t = time.time()
+        for (ws, k), (c, mn, mx, a) in rows.items():
+            line(event="row", ws=ws, k=k, c=c, mn=mn, mx=mx, a=a, t=t)
+    return 0
+
+
+def phase_kafka_ckpt(device, pace, staged, stream, card):
+    """Phase 23: config 5 over Kafka (the twin of tests/test_checkpoint.py's
+    SIGKILL test on the card).  Phase 22's first CKPT_KAFKA_ROWS rows are
+    fed to a fresh topic at phase 22's pace; a checkpointed child is
+    SIGKILLed after it committed an epoch past its first two windows; a
+    second child restores on the same store and runs until the union of
+    both children's rows covers every closable window.  The union equals
+    the oracle, the restart re-emits fewer windows than the oracle has
+    (no full reprocess) → the time to recover."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    n_chunks = CKPT_KAFKA_ROWS // LAT_CHUNK
+    sub = tuple(a[: n_chunks * LAT_CHUNK] for a in stream)
+    exp = oracle(sub[0], sub[1], np.round(sub[2], 6), 1000, 1000, NUM_KEYS)
+    need, _ = closable_rows(sub, exp)
+    work = tempfile.mkdtemp(prefix="dnz_kafka_ckpt_")
+    state = os.path.join(work, "state")
+    broker = make_broker("ckpt")
+    clock = FeedClock(pace)
+    stop = threading.Event()
+    procs = []
+
+    due_ms = sub[0][LAT_CHUNK - 1::LAT_CHUNK]
+
+    def feed():
+        clock.start()
+        for ci in range(n_chunks):
+            due = clock.wall_of(float(due_ms[ci]))
+            if stop.wait(max(0.0, due - time.perf_counter())):
+                return
+            for p in range(KAFKA_PARTITIONS):
+                broker.append_staged("ckpt", p, staged[p][ci])
+
+    def spawn(name):
+        out = os.path.join(work, f"{name}.jsonl")
+        err = open(os.path.join(work, f"{name}.err"), "w")
+        t = time.time()
+        p = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--ckpt-device",
+             str(device), "--kafka-child", state, "--kafka-broker",
+             broker.bootstrap, "--kafka-topic", "ckpt", "--kafka-out", out],
+            stdout=subprocess.DEVNULL, stderr=err,
+        )
+        procs.append(p)
+        return p, out, t
+
+    def tail(name):
+        with open(os.path.join(work, f"{name}.err")) as f:
+            return f.read()[-3000:]
+
+    def wait_for(p, name, out, cond, what, timeout=180):
+        deadline = time.time() + timeout
+        while True:
+            lines = read_jsonl(out)
+            if cond(lines):
+                return lines
+            if p.poll() is not None:
+                raise AssertionError(f"phase 23: child {name} exited "
+                                     f"({p.returncode}) {what}: {tail(name)}")
+            if time.time() > deadline:
+                raise AssertionError(f"phase 23: child {name} {what}")
+            time.sleep(0.05)
+
+    def rows(lines):
+        return {(d["ws"], d["k"]): (d["c"], d["mn"], d["mx"], d["a"])
+                for d in lines if d["event"] == "row"}
+
+    feeder = threading.Thread(target=feed, daemon=True)
+    try:
+        pa, out_a, _ = spawn("a")
+        wait_for(pa, "a", out_a, lambda ls: any(
+            d["event"] == "ready" for d in ls), "before it was ready")
+        feeder.start()
+
+        def killable(ls):
+            # a commit logged 0.2 s after the second window's first row:
+            # that epoch's barrier passed the window after both windows
+            # emitted, so the restart resumes past them
+            first_t: dict = {}
+            for d in ls:
+                if d["event"] == "row":
+                    first_t.setdefault(d["ws"], d["t"])
+            if len(first_t) < 2:
+                return False
+            t2 = sorted(first_t.items())[1][1]
+            return any(d["event"] == "commit" and d["t"] > t2 + 0.2
+                       for d in ls)
+
+        wait_for(pa, "a", out_a, killable, "never committed after two "
+                 "windows")
+        os.kill(pa.pid, signal.SIGKILL)
+        pa.wait(60)
+        a = read_jsonl(out_a)
+        commits = [d["epoch"] for d in a if d["event"] == "commit"]
+        pb, out_b, t_spawn = spawn("b")
+
+        def covered(ls):
+            union = rows(a)
+            union.update(rows(ls))
+            return set(need) <= set(union)
+
+        b = wait_for(pb, "b", out_b, covered, "never covered every closable "
+                     "window", timeout=300)
+        os.kill(pb.pid, signal.SIGKILL)
+        pb.wait(60)
+    finally:
+        stop.set()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(60)
+        broker.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    restored = next(d for d in b if d["event"] == "restored")
+    first = next(d for d in b if d["event"] == "first_row")
+    rows_a, rows_b = rows(a), rows(b)
+    union = dict(rows_a)
+    union.update(rows_b)
+    check_tumbling_rows({k: v for k, v in union.items() if k in need}, need)
+    if restored["epoch"] != commits[-1]:
+        raise AssertionError(f"phase 23: restored epoch {restored['epoch']}, "
+                             f"child A's last commit {commits[-1]}")
+    if not set(rows_a) - set(rows_b):
+        raise AssertionError("phase 23: the restart re-emitted every window "
+                             "child A emitted (a full reprocess)")
+    log(f"phase 23 config 5 over Kafka ({CKPT_KAFKA_ROWS} rows fed at "
+        f"{pace:.0f} rows/s to {KAFKA_PARTITIONS} partitions, barriers every "
+        f"0.5 s): child A committed {len(commits)} epochs, emitted "
+        f"{len(rows_a)} rows and was SIGKILLed; child B restored epoch "
+        f"{restored['epoch']} and emitted {len(rows_b)} rows; the union "
+        f"matches the oracle on all {len(need)} rows of the closable windows; "
+        f"{len(set(rows_a) - set(rows_b))} of A's rows were not re-emitted; "
+        f"time to recover: {restored['t'] - t_spawn:.3f} s from spawn to "
+        f"restore done ({restored['t_start'] - t_spawn:.3f} s to the "
+        f"script's first line, {restored['t_main'] - restored['t_start']:.3f}"
+        f" s of imports), {first['t'] - t_spawn:.3f} s to the first emission "
+        f"({card})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2596,9 +3350,16 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-pause-after", type=int, default=0,
                     help=argparse.SUPPRESS)
     ap.add_argument("--ckpt-device", default="cuda:0", help=argparse.SUPPRESS)
+    # phase 23's child (the script re-invoked against the parent's broker)
+    ap.add_argument("--kafka-child", help=argparse.SUPPRESS)
+    ap.add_argument("--kafka-broker", help=argparse.SUPPRESS)
+    ap.add_argument("--kafka-topic", help=argparse.SUPPRESS)
+    ap.add_argument("--kafka-out", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.ckpt_child:
         return ckpt_child(args)
+    if args.kafka_child:
+        return kafka_child(args)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -2611,6 +3372,7 @@ def main(argv=None) -> int:
     log(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda} "
         f"on {torch.cuda.get_device_name(0)}")
 
+    import sysconfig
     from concurrent.futures import ThreadPoolExecutor
 
     from denormalized_tpu_torch.native.build import load as load_native
@@ -2620,15 +3382,22 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:
         # the host libraries build with g++ while nvcc runs
-        host = pool.submit(lambda: (load_native("partial_agg"),
-                                    native_interner(), load_native("lsmkv")))
+        # (and the live path's: the JSON parser, the wire client, which
+        # links zlib, and the row assembler)
+        host = pool.submit(lambda: (
+            load_native("partial_agg"), native_interner(),
+            load_native("lsmkv"), load_native("json_parser"),
+            load_native("kafka_client", ("-lz",)),
+            load_native("pyassemble", (
+                f"-I{sysconfig.get_paths()['include']}",), pydll=True)))
         reports = cuda_build.build_all()
-        _, interner, _ = host.result()
+        interner = host.result()[1]
     if interner is None:
         raise AssertionError("the native interner did not build")
     log(f"phase 2: built {', '.join(sorted(reports))} and the host "
-        f"libraries partial_agg, interner (lane {interner.lane}) and lsmkv "
-        f"in {time.perf_counter() - t0:.1f} s")
+        f"libraries partial_agg, interner (lane {interner.lane}), lsmkv, "
+        f"json_parser, kafka_client (-lz) and pyassemble in "
+        f"{time.perf_counter() - t0:.1f} s")
     for name, text in reports.items():
         for line in text.splitlines():
             if "registers" in line or "smem" in line:
@@ -2673,6 +3442,10 @@ def main(argv=None) -> int:
     phase_join_skew(device, args.seed, card)
     functions_launches = phase_functions(device, batches, stream, card)
     phase_eval_torch(device, args.seed + 9, card)
+    kafka = phase_kafka_e2e(device, stream, card)
+    pace, staged, lat_stream = phase_kafka_latency(
+        device, args.seed + 7, kafka["rows_per_s"], card)
+    phase_kafka_ckpt(device, pace, staged, lat_stream, card)
 
     hot = kern["main_hot"]
     m1 = merge["cfg1_dense"]
@@ -2702,6 +3475,8 @@ def main(argv=None) -> int:
         # 19's window behind the scalar functions (15 batches)
         "join_expressions_launches": expressions_launches,
         "functions_launches": functions_launches,
+        # launches on phase 21's kafka_e2e run, one a window batch
+        "kafka_launches": kafka["launches"],
     }, {
         "name": "merge_partials",
         "route": "cuda",

@@ -7,8 +7,9 @@ reads, plus an explicit ``device``: the device rule of the whole package,
 and the checkpoint knobs (``checkpoint``, ``checkpoint_interval_s``,
 ``state_backend_path``, or :meth:`Context.with_state_backend`) and the
 join knobs (``join_retention_ms``, ``join_adaptive``,
-``join_adapt_interval_s``, ``join_band_slack_ms``) and
-``partition_watermarks``.
+``join_adapt_interval_s``, ``join_band_slack_ms``),
+``partition_watermarks`` and ``source_idle_timeout_ms``.
+:meth:`Context.from_topic` reads a Kafka topic (JSON payloads).
 """
 
 from __future__ import annotations
@@ -88,6 +89,15 @@ class EngineConfig:
     # bounded sources of several partitions (a finished partition leaves
     # the min); True forces it on, False keeps the max-of-min rule
     partition_watermarks: bool | str = "auto"
+    # idle sources: when EVERY partition of a live source has produced no
+    # rows for this long, emit a WatermarkHint advancing event time to the
+    # max timestamp seen, so windows over a quiet topic still close (the
+    # last partial window stays open: event time moves only to the max
+    # seen).  None (default) = reference behavior: the last windows of a
+    # quiet stream wait for more data forever.  With it set, 'auto'
+    # partition watermarks also cover live sources of several partitions
+    # (quiet partitions leave the min instead of stalling it)
+    source_idle_timeout_ms: int | None = None
     min_batch_bucket: int = 256
     min_group_capacity: int = 128
     min_window_slots: int = 16
@@ -151,3 +161,43 @@ class Context:
         name = name or source.name
         self.register_source(name, source)
         return DataStream(lp.Scan(name, source, source.schema), self)
+
+    def from_topic(
+        self,
+        topic: str,
+        sample_json: str | None = None,
+        bootstrap_servers: str = "localhost:9092",
+        timestamp_column: str | None = None,
+        group_id: str = "denormalized-tpu",
+        encoding: str = "json",
+        schema=None,
+        avro_schema=None,
+        timestamp_unit: str | None = None,
+    ):
+        """Kafka source entry point (PyContext::from_topic): the schema is
+        an explicit Schema or inferred from ``sample_json``.  The
+        parameter ORDER is the reference wrapper's (topic, sample_json,
+        bootstrap_servers, timestamp_column, group_id), so a positional
+        ``from_topic("t", sample, server, "occurred_at_ms")`` binds the
+        timestamp column.  Avro (``encoding="avro"``/``avro_schema=``)
+        raises: it is not ported yet."""
+        from denormalized_tpu_torch.formats import unported_avro
+        from denormalized_tpu_torch.sources.kafka import KafkaTopicBuilder
+
+        if avro_schema is not None or encoding.lower() == "avro":
+            raise unported_avro()
+        builder = (
+            KafkaTopicBuilder(bootstrap_servers)
+            .with_topic(topic)
+            .with_encoding(encoding)
+            .with_group_id(group_id)
+        )
+        if timestamp_column:
+            builder = builder.with_timestamp_column(timestamp_column)
+        if timestamp_unit:
+            builder = builder.with_timestamp_unit(timestamp_unit)
+        if schema is not None:
+            builder = builder.with_schema(schema)
+        elif sample_json is not None:
+            builder = builder.infer_schema_from_json(sample_json)
+        return self.from_source(builder.build_reader(), name=topic)

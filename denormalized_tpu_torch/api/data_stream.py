@@ -1,15 +1,16 @@
 """DataStream — the fluent user API.
 
 Counterpart of ``denormalized_tpu/api/data_stream.py`` with the methods the
-window and join jobs use: select / filter / column renames / window /
+window, join and Kafka jobs use: select / filter / column renames / window /
 join (equi keys, optionally banded) / join_on (expression keys, bands and
-residual filters), and collect / stream to run them.  Plan building is
-lazy; execution happens in collect and stream.
+residual filters), and collect / stream / print_stream / sink / sink_kafka
+to run them.  Plan building is lazy; execution happens in those last five.
+``collect`` needs a bounded stream: over a live source it raises.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Sequence
+from typing import Callable, Iterator, Sequence
 
 from denormalized_tpu_torch.common.errors import PlanError
 from denormalized_tpu_torch.common.record_batch import RecordBatch
@@ -341,14 +342,62 @@ class DataStream:
         return out.drop_columns(*hidden) if hidden else out
 
     # -- execution -------------------------------------------------------
-    def collect(self) -> RecordBatch:
-        """Execute a bounded stream to completion and return all emitted
-        rows."""
-        from denormalized_tpu_torch.physical.simple_execs import CollectSink
+    def _execute(self, sink) -> None:
         from denormalized_tpu_torch.runtime.executor import execute_plan
 
+        execute_plan(lp.Sink(self._plan, sink), self._ctx)
+
+    def print_stream(self) -> None:
+        """Execute, printing rows as JSON (datastream.rs:311-339)."""
+        from denormalized_tpu_torch.physical.simple_execs import PrintSink
+
+        self._execute(PrintSink())
+
+    def sink(
+        self, fn: Callable[[RecordBatch], None], *, as_pyarrow: bool = False
+    ) -> None:
+        """Execute, calling ``fn`` per emitted batch (the PyO3 sink_python
+        path).  With ``as_pyarrow=True`` the callback receives
+        ``pyarrow.RecordBatch`` objects, as the reference hands its Python
+        callbacks; that needs the ``pyarrow`` package."""
+        from denormalized_tpu_torch.physical.simple_execs import CallbackSink
+
+        if as_pyarrow:
+            try:
+                import pyarrow  # noqa: F401
+            except ImportError as e:
+                raise PlanError(
+                    "sink(as_pyarrow=True) needs the pyarrow package, which "
+                    "is not installed; use sink(fn) for RecordBatches"
+                ) from e
+            user_fn = fn
+            fn = lambda b: user_fn(b.to_pyarrow())  # noqa: E731
+        self._execute(CallbackSink(fn))
+
+    def sink_kafka(self, bootstrap_servers: str, topic: str) -> None:
+        """Execute, producing JSON rows to a Kafka topic
+        (datastream.rs:346-374)."""
+        from denormalized_tpu_torch.sources.kafka import KafkaSinkWriter
+
+        self._execute(KafkaSinkWriter(bootstrap_servers, topic))
+
+    def collect(self) -> RecordBatch:
+        """Execute a bounded stream to completion and return all emitted
+        rows.  Over a live (unbounded) source it raises: such a stream
+        never ends, so read it with stream() or a sink."""
+        from denormalized_tpu_torch.physical.simple_execs import CollectSink
+
+        live = sorted(
+            str(n.source.name) for n in _scans(self._plan) if n.source.unbounded
+        )
+        if live:
+            raise PlanError(
+                f"collect() needs a bounded stream, but source(s) {live} "
+                "are unbounded (live topics never end); use stream(), "
+                "sink(), print_stream() or sink_kafka()"
+            )
         s = CollectSink()
-        execute_plan(lp.Sink(self._plan, s), self._ctx)
+        self._execute(s)
         if not s.batches:
             return RecordBatch.empty(self._plan.schema)
         return s.result()
@@ -358,3 +407,11 @@ class DataStream:
         from denormalized_tpu_torch.runtime.executor import stream_plan
 
         yield from stream_plan(self._plan, self._ctx)
+
+
+def _scans(plan: lp.LogicalPlan):
+    """Every Scan under ``plan``."""
+    if isinstance(plan, lp.Scan):
+        yield plan
+    for c in plan.children:
+        yield from _scans(c)

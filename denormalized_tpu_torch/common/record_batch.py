@@ -5,10 +5,11 @@ Arrow ``RecordBatch`` in the reference.  Device transfer happens only inside
 the windowed-aggregation operator, which ships the numeric columns it needs
 as padded tensors — batches themselves never hold device tensors.
 
-Counterpart of ``denormalized_tpu/common/record_batch.py``, trimmed to plain
-numpy columns: strings are object arrays (the Arrow-layout
-``common/columns.py`` is not ported yet), with the constructors and
-transforms the window and join paths use.
+Counterpart of ``denormalized_tpu/common/record_batch.py``: a column is a
+numpy array or an Arrow-layout :class:`~denormalized_tpu_torch.common.
+columns.Column` (strings from the JSON parser stay ``StringColumn``s), with
+the constructors and transforms the window, join and Kafka paths use and
+``to_pyarrow`` for ``sink(as_pyarrow=True)``.
 
 Nullability: a column may carry a boolean validity mask; ``None`` mask means
 all-valid (Arrow's convention).
@@ -21,13 +22,20 @@ from typing import Sequence
 
 import numpy as np
 
+from denormalized_tpu_torch.common.columns import (
+    Column,
+    as_numpy,
+    concat_columns,
+)
 from denormalized_tpu_torch.common.errors import SchemaError
-from denormalized_tpu_torch.common.schema import Field, Schema
+from denormalized_tpu_torch.common.schema import DataType, Field, Schema
 
 
 @dataclass
 class RecordBatch:
     schema: Schema
+    # plain host ndarrays, or columnar Column instances (StringColumn /
+    # NestedColumn — see common/columns.py) for string & nested fields
     columns: list[np.ndarray]
     # validity masks, parallel to columns; None = all valid
     masks: list[np.ndarray | None]
@@ -44,7 +52,9 @@ class RecordBatch:
                 f"{len(columns)} columns for schema of {len(schema)} fields"
             )
         self.schema = schema
-        self.columns = [np.asarray(c) for c in columns]
+        self.columns = [
+            c if isinstance(c, Column) else np.asarray(c) for c in columns
+        ]
         n = self.columns[0].shape[0] if self.columns else 0
         for f, c in zip(schema, self.columns):
             if c.shape[0] != n:
@@ -70,7 +80,66 @@ class RecordBatch:
     def mask(self, name: str) -> np.ndarray | None:
         return self.masks[self.schema.index_of(name)]
 
+    def to_pydict(self) -> dict[str, list]:
+        """Python value lists per column, with validity APPLIED: a null
+        entry surfaces as ``None``, never as the storage fill value."""
+        out: dict[str, list] = {}
+        for f, c, m in zip(self.schema, self.columns, self.masks):
+            vals = c.tolist()
+            if m is not None and not (valid := np.asarray(m, dtype=bool)).all():
+                vals = [
+                    v if ok else None for v, ok in zip(vals, valid.tolist())
+                ]
+            out[f.name] = vals
+        return out
+
+    def materialized(self) -> "RecordBatch":
+        """A batch whose columnar string/nested columns are replaced by
+        their object-array materialization — the user-facing boundary
+        (CallbackSink, UDF inputs).  A batch with no Column instances
+        returns itself."""
+        if not any(isinstance(c, Column) for c in self.columns):
+            return self
+        return RecordBatch(
+            self.schema, [as_numpy(c) for c in self.columns], self.masks
+        )
+
+    def to_pyarrow(self):
+        """Convert to a ``pyarrow.RecordBatch`` (nulls preserved)."""
+        import pyarrow as pa
+
+        arrays, fields = [], []
+        for f, col, mask in zip(self.schema, self.columns, self.masks):
+            nulls = None if mask is None else ~np.asarray(mask, dtype=bool)
+            pa_type = _pa_type_of_field(pa, f)
+            if pa_type is not None and col.dtype != object and not (
+                pa.types.is_struct(pa_type) or pa.types.is_list(pa_type)
+            ):
+                arr = pa.array(np.ascontiguousarray(col), type=pa_type,
+                               mask=nulls)
+            else:
+                # strings and host-only STRUCT/LIST columns go through
+                # python values; nulls become None.  The declared type
+                # keeps the arrow schema identical between empty and
+                # non-empty batches
+                vals = col.tolist()
+                if nulls is not None:
+                    vals = [None if d else v for v, d in zip(vals, nulls)]
+                arr = (pa.array(vals, type=pa_type)
+                       if pa_type is not None else pa.array(vals))
+            arrays.append(arr)
+            fields.append(pa.field(f.name, arr.type, nullable=f.nullable))
+        return pa.RecordBatch.from_arrays(arrays, schema=pa.schema(fields))
+
     # -- transforms ------------------------------------------------------
+    def select(self, names: Sequence[str]) -> "RecordBatch":
+        idx = [self.schema.index_of(n) for n in names]
+        return RecordBatch(
+            self.schema.select(names),
+            [self.columns[i] for i in idx],
+            [self.masks[i] for i in idx],
+        )
+
     def with_column(
         self, field: Field, col: np.ndarray, mask: np.ndarray | None = None
     ) -> "RecordBatch":
@@ -80,13 +149,14 @@ class RecordBatch:
             fields = list(self.schema.fields)
             fields[i] = field
             cols = list(self.columns)
-            cols[i] = np.asarray(col)
+            cols[i] = col if isinstance(col, Column) else np.asarray(col)
             masks = list(self.masks)
             masks[i] = mask
             return RecordBatch(Schema(fields), cols, masks)
         return RecordBatch(
             self.schema.append(field),
-            list(self.columns) + [np.asarray(col)],
+            list(self.columns)
+            + [col if isinstance(col, Column) else np.asarray(col)],
             list(self.masks) + [mask],
         )
 
@@ -105,6 +175,13 @@ class RecordBatch:
             [m[keep] if m is not None else None for m in self.masks],
         )
 
+    def slice(self, start: int, length: int) -> "RecordBatch":
+        return RecordBatch(
+            self.schema,
+            [c[start : start + length] for c in self.columns],
+            [m[start : start + length] if m is not None else None for m in self.masks],
+        )
+
     @staticmethod
     def concat(
         batches: Sequence["RecordBatch"], schema: Schema | None = None
@@ -120,7 +197,7 @@ class RecordBatch:
         batches = [b for b in batches if b.num_rows > 0] or batches[:1]
         first = batches[0]
         cols = [
-            np.concatenate([b.columns[i] for b in batches])
+            concat_columns([b.columns[i] for b in batches])
             for i in range(len(first.schema))
         ]
         masks = []
@@ -143,3 +220,37 @@ class RecordBatch:
     def __repr__(self) -> str:
         return f"RecordBatch({self.num_rows} rows, {self.schema!r})"
 
+
+
+# engine dtype → pyarrow type factory (callables taking the pa module, so
+# pyarrow stays a lazy import); STRUCT/LIST fall through to inference
+_PA_OF = {
+    DataType.INT32: lambda pa: pa.int32(),
+    DataType.INT64: lambda pa: pa.int64(),
+    DataType.FLOAT32: lambda pa: pa.float32(),
+    DataType.FLOAT64: lambda pa: pa.float64(),
+    DataType.BOOL: lambda pa: pa.bool_(),
+    DataType.STRING: lambda pa: pa.string(),
+    DataType.TIMESTAMP_MS: lambda pa: pa.timestamp("ms"),
+}
+
+
+def _pa_type_of_field(pa, f):
+    """Arrow type for an engine Field, or None when not derivable (a LIST
+    with no declared child falls back to value inference)."""
+    base = _PA_OF.get(f.dtype)
+    if base is not None:
+        return base(pa)
+    if f.dtype is DataType.STRUCT:
+        return pa.struct(
+            [
+                pa.field(c.name, _pa_type_of_field(pa, c) or pa.null(),
+                         nullable=c.nullable)
+                for c in f.children
+            ]
+        )
+    if f.dtype is DataType.LIST and len(f.children) == 1:
+        child = _pa_type_of_field(pa, f.children[0])
+        if child is not None:
+            return pa.list_(child)
+    return None

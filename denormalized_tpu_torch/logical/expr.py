@@ -11,9 +11,10 @@ Counterpart of ``denormalized_tpu/logical/expr.py``.  Two evaluators exist:
   ``eval_jax``).  It raises where ``eval_jax`` raises: a function with no
   device form, a cast to a host-only type.
 
-The port has no Arrow-layout columns (``common/columns.py``): strings,
-structs and lists are numpy object arrays, so the reference's columnar
-fast paths reduce to :func:`_as_numpy`.  Aggregates are the ones the
+A batch column is a numpy array or an Arrow-layout ``Column``
+(``common/columns.py``): the columnar fast paths read a ``StringColumn``'s
+or ``NestedColumn``'s buffers, and every other node materializes it
+through ``as_numpy``, as the JAX package does.  Aggregates are the ones the
 device ring finalizes (count/sum/min/max/avg); the others raise a
 ``PlanError`` that names the ROADMAP item bringing them.
 """
@@ -26,6 +27,7 @@ from typing import Any, Callable
 
 import numpy as np
 
+from denormalized_tpu_torch.common.columns import as_numpy
 from denormalized_tpu_torch.common.errors import PlanError, SchemaError
 from denormalized_tpu_torch.common.record_batch import RecordBatch
 from denormalized_tpu_torch.common.schema import DataType, Field, Schema
@@ -153,12 +155,6 @@ def _wrap(v) -> Expr:
     return v if isinstance(v, Expr) else Literal(v)
 
 
-def _as_numpy(v) -> np.ndarray:
-    """The reference's columnar → numpy boundary: the port's columns are
-    numpy arrays already (strings, structs and lists as object arrays)."""
-    return np.asarray(v)
-
-
 def _as_tensor(v, device=None):
     """A traced value as a tensor: a python scalar (a literal) becomes a
     0-d tensor on ``device`` (the other operand's), which takes part in
@@ -251,8 +247,8 @@ class BinaryExpr(Expr):
         return Field(self.name, _promote(lf.dtype, rf.dtype, self.op))
 
     def eval(self, batch: RecordBatch) -> np.ndarray:
-        l = self.left.eval(batch)
-        r = self.right.eval(batch)
+        l = as_numpy(self.left.eval(batch))
+        r = as_numpy(self.right.eval(batch))
         l_obj = getattr(l, "dtype", None) == object
         r_obj = getattr(r, "dtype", None) == object
         if self.op in _CMP and (l_obj or r_obj):
@@ -358,13 +354,21 @@ class IsNullExpr(Expr):
         return Field(self.name, DataType.BOOL)
 
     def eval(self, batch: RecordBatch) -> np.ndarray:
+        from denormalized_tpu_torch.common.columns import Column as _ColData
+
         if isinstance(self.inner, Column):
             m = batch.mask(self.inner.name)
             null = (
                 np.zeros(batch.num_rows, dtype=bool) if m is None else ~m
             )
             v = batch.column(self.inner.name)
-            if v.dtype == object:
+            if isinstance(v, _ColData):
+                # columnar string/nested columns carry nulls as validity
+                # — read it directly, no row materialization
+                validity = getattr(v, "validity", None)
+                if validity is not None:
+                    null = null | ~validity
+            elif v.dtype == object:
                 # string/derived columns carry nulls as None VALUES (scalar
                 # functions propagate None without materializing a mask) —
                 # both representations are null
@@ -373,11 +377,18 @@ class IsNullExpr(Expr):
                 )
         else:
             v = self.inner.eval(batch)
-            null = (
-                np.array([x is None for x in v])
-                if v.dtype == object
-                else np.isnan(v) if v.dtype.kind == "f" else np.zeros(len(v), bool)
-            )
+            if isinstance(v, _ColData):
+                validity = getattr(v, "validity", None)
+                null = (
+                    ~validity if validity is not None
+                    else np.zeros(len(v), bool)
+                )
+            else:
+                null = (
+                    np.array([x is None for x in v])
+                    if v.dtype == object
+                    else np.isnan(v) if v.dtype.kind == "f" else np.zeros(len(v), bool)
+                )
         return ~null if self.negate else null
 
     def columns_referenced(self) -> set[str]:
@@ -802,7 +813,33 @@ class FieldAccessExpr(Expr):
         raise SchemaError(f"struct {f.name!r} has no field {self.field_name!r}")
 
     def eval(self, batch: RecordBatch) -> np.ndarray:
-        structs = _as_numpy(self.inner.eval(batch))  # object array of dicts
+        from denormalized_tpu_torch.common.columns import (
+            NestedColumn,
+            PrimitiveColumn,
+        )
+
+        structs = self.inner.eval(batch)
+        if (
+            isinstance(structs, NestedColumn)
+            and structs.kind == "struct"
+            and structs.validity is None
+        ):
+            # shredded access: the child column IS the answer — no row
+            # materialization.  (A null parent struct must surface None
+            # for every child, which only the row path models; the
+            # all-present case — the normal one — stays columnar.)
+            for f, child in zip(structs.field.children, structs.children):
+                if f.name == self.field_name:
+                    if isinstance(child, PrimitiveColumn):
+                        if child.validity is not None:
+                            return child.as_object()
+                        # densified exactly like the tight path below
+                        return (
+                            child.values.view(np.bool_)
+                            if child.kind == "bool" else child.values
+                        )
+                    return child
+        structs = as_numpy(structs)  # object array of dicts
         out = np.empty(len(structs), dtype=object)
         for i, s in enumerate(structs):
             out[i] = None if s is None else s.get(self.field_name)
@@ -836,10 +873,16 @@ class CastExpr(Expr):
         return Field(f.name, self.dtype, f.nullable)
 
     def eval(self, batch: RecordBatch) -> np.ndarray:
+        from denormalized_tpu_torch.common.columns import StringColumn
+
         v = self.inner.eval(batch)
         if self.dtype is DataType.STRING:
-            # a null slot casts to the string 'None', as in the JAX package
-            return np.array([str(x) for x in _as_numpy(v)], dtype=object)
+            if isinstance(v, StringColumn) and v.validity is None:
+                # already columnar strings with no nulls: identity cast
+                # (null slots cast to the string 'None', as in the JAX
+                # package, so they take the materializing path below)
+                return v
+            return np.array([str(x) for x in as_numpy(v)], dtype=object)
         return np.asarray(v).astype(self.dtype.to_numpy())
 
     def eval_torch(self, cols):
@@ -906,7 +949,7 @@ class ScalarFunctionExpr(Expr):
                 out = fn.np_fn(batch.num_rows)
             else:
                 out = fn.np_fn(
-                    *[_as_numpy(a.eval(batch)) for a in self.args]
+                    *[as_numpy(a.eval(batch)) for a in self.args]
                 )
         if not isinstance(out, np.ndarray):
             out = np.asarray(out)
@@ -1059,7 +1102,7 @@ class ScalarUDFExpr(Expr):
     def eval(self, batch: RecordBatch) -> np.ndarray:
         # the UDF boundary: user code sees plain numpy columns
         return np.asarray(
-            self.fn(*[_as_numpy(a.eval(batch)) for a in self.args])
+            self.fn(*[as_numpy(a.eval(batch)) for a in self.args])
         )
 
     def eval_torch(self, cols):

@@ -6,8 +6,9 @@ The rules are the JAX package's, so both packages build the same physical
 plan for a query — the DFS node ids that key its checkpoints included:
 
 - :class:`ProjectionPruning` — narrow every Project to the outputs read
-  above it, and put a narrow Project above each Scan (the JAX package's
-  decode pushdown serves its Kafka source, which is not ported); a join
+  above it, and push the pruning into each Scan's source
+  (``Source.with_projection``: the Kafka source's JSON decode skips the
+  pruned fields), or put a narrow Project above the Scan; a join
   keeps every column its band's expressions read, each on its own side;
 - :class:`FilterPushdown` — evaluate a filter below the projection above
   it, and fuse adjacent filters into one conjunction, but never push an
@@ -195,6 +196,19 @@ class ProjectionPruning:
             ]
             if len(keep) == len(node.schema):
                 return node  # nothing to prune
+            # best case: the reader itself declines to DECODE the pruned
+            # columns (JSON sources); a pushed source may still carry its
+            # timestamp column, narrowed by a Project here
+            pushed = node.source.with_projection(set(keep))
+            if pushed is not None:
+                scan = lp.Scan(node.table_name, pushed, pushed.schema)
+                extra = set(pushed.schema.names) - set(keep)
+                if extra - {CANONICAL_TIMESTAMP_COLUMN}:
+                    return lp.Project(
+                        scan,
+                        [Column(n) for n in pushed.schema.names if n in keep],
+                    )
+                return scan
             return lp.Project(node, [Column(n) for n in keep])
         return map_children(node, lambda c: self._walk(c, None))
 

@@ -66,7 +66,9 @@ def build_library(name: str, extra_flags: tuple[str, ...] = ()) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = ["g++", *flags, str(src), "-o", str(tmp)]
+    # flags after the source: a library (``-lz``) must follow the objects
+    # that use it, or the linker drops it
+    cmd = ["g++", str(src), "-o", str(tmp), *flags]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
     except FileNotFoundError as e:

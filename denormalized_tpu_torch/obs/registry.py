@@ -44,7 +44,7 @@ INSTRUMENTS: dict[str, tuple[str, str]] = {
     ),
     "dnz_op_rows_out_total": (
         "counter",
-        "rows leaving a physical operator (join emission)",
+        "rows leaving a physical operator (source or join emission)",
     ),
     "dnz_join_adaptations_total": (
         "counter",
@@ -55,6 +55,38 @@ INSTRUMENTS: dict[str, tuple[str, str]] = {
         "gauge",
         "size of the most recent snapshot blob persisted under one state "
         "key (framed bytes), labeled key=<node-scoped state key>",
+    ),
+    # -- live sources (sources/kafka.py, runtime/prefetch.py) -----------
+    "dnz_prefetch_queue_depth": (
+        "gauge",
+        "rowful batches enqueued but not yet consumed for one "
+        "partition's prefetch buffer (the bounded per-partition buffer is "
+        "full when depth == depth limit)",
+    ),
+    "dnz_prefetch_restarts_total": (
+        "counter",
+        "supervised prefetch-worker restarts (crash + rebuild + reseek)",
+    ),
+    "dnz_prefetch_queue_dwell_ms": (
+        "histogram",
+        "time a rowful batch sat in the prefetch ready queue between "
+        "worker enqueue and consumer dequeue (sustained growth means the "
+        "consumer thread is the bottleneck, not ingest)",
+    ),
+    "dnz_kafka_consumer_lag_rows": (
+        "gauge",
+        "records between this reader's cursor and the partition high "
+        "watermark reported by the last fetch response (0 = caught up)",
+    ),
+    "dnz_source_salvaged_rows": (
+        "gauge",
+        "poison records skipped by per-record salvage decode, labeled "
+        "source= and partition=",
+    ),
+    "dnz_sink_retries_total": (
+        "counter",
+        "transient produce errors absorbed by the Kafka sink's bounded "
+        "exp-backoff retry",
     ),
 }
 

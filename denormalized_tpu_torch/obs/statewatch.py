@@ -34,9 +34,18 @@ def rb_nbytes(batch) -> int:
     """Accounting bytes of one RecordBatch: exact nbytes for numeric
     columns and masks, the documented per-cell estimate for object
     (string) columns."""
+    from denormalized_tpu_torch.common.columns import Column as _ColData
+
     total = 0
     for col, m in zip(batch.columns, batch.masks):
-        if col.dtype == object:
+        if isinstance(col, _ColData):
+            # columnar string/nested columns have EXACT buffer bytes (and
+            # np.asarray here would build every Python row to count them)
+            total += int(col.nbytes)
+            if getattr(col, "_obj", None) is not None:
+                # materialized (and cached) Python rows are resident too
+                total += len(col) * OBJ_CELL_EST_BYTES
+        elif col.dtype == object:
             total += len(col) * OBJ_CELL_EST_BYTES
         else:
             total += int(col.nbytes)

@@ -9,7 +9,10 @@ A string (object) column takes the native lane of ``native/interner.cpp``:
 an open-addressing table that persists across batches, fed either straight
 from the Python objects (``intern_pyobjects``, built with
 ``-DINTERN_HAVE_PYTHON`` where the Python headers exist) or, without the
-headers, from a UTF-8 byte buffer with offsets (``intern_offsets``).
+headers, from a UTF-8 byte buffer with offsets (``intern_offsets``).  A
+``StringColumn`` (the JSON parser's string columns) interns straight off
+its own offsets and bytes through ``intern_offsets``, with no Python
+``str`` made for a key.
 Numeric columns, and every column when the native build fails (logged),
 take the dict lane.  A column keeps the lane of its first batch.
 
@@ -29,6 +32,8 @@ import os
 import sysconfig
 
 import numpy as np
+
+from denormalized_tpu_torch.common.columns import StringColumn, as_key_column
 
 _log = logging.getLogger(__name__)
 
@@ -213,7 +218,40 @@ class ColumnInterner:
         self.native_calls += 1
         return ids
 
+    def _intern_string_column(self, col) -> np.ndarray:
+        """The columnar lane: a ``StringColumn`` interns straight off its
+        offsets and bytes (one foreign call a batch, no Python ``str`` a
+        key).  Null slots intern the 0xFF NULL key, the id the PyObject
+        lane gives None, so columnar and object batches group alike."""
+        n = len(col)
+        ids = np.empty(n, dtype=np.int32)
+        if n == 0:
+            return ids
+        offsets = np.ascontiguousarray(col.offsets, dtype=np.uint64)
+        data = np.ascontiguousarray(col.data)
+        valid = (
+            None if col.validity is None
+            else np.ascontiguousarray(col.validity, dtype=np.uint8)
+        )
+        self._native.lib.intern_offsets(
+            self._h,
+            data.ctypes.data if data.size else None,
+            offsets.ctypes.data,
+            None if valid is None else valid.ctypes.data,
+            n,
+            ids.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        )
+        self._native_active = True
+        self.native_calls += 1
+        return ids
+
     def intern_array(self, arr: np.ndarray) -> np.ndarray:
+        if isinstance(arr, StringColumn):
+            if self._native_active or (
+                self._h is not None and not self._values
+            ):
+                return self._intern_string_column(arr)
+            arr = arr.as_object()  # the dict lane holds this column
         arr = np.asarray(arr)
         if self._native_active or (
             self._h is not None
@@ -390,7 +428,8 @@ class GroupInterner:
                 f"{self.num_columns}-column interner"
             )
         per_col = [
-            it.intern_array(c) for it, c in zip(self._col_interners, key_columns)
+            it.intern_array(as_key_column(c))
+            for it, c in zip(self._col_interners, key_columns)
         ]
         if self.num_columns == 1:
             # single column: the column interner assigns dense ids in

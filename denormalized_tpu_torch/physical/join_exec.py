@@ -56,6 +56,7 @@ from typing import Iterator
 import numpy as np
 
 from denormalized_tpu_torch import obs
+from denormalized_tpu_torch.common.columns import as_numpy
 from denormalized_tpu_torch.common.constants import CANONICAL_TIMESTAMP_COLUMN
 from denormalized_tpu_torch.common.errors import PlanError
 from denormalized_tpu_torch.common.record_batch import RecordBatch
@@ -908,7 +909,7 @@ class StreamingJoinExec(ExecOperator):
         NaN where the expression reads a null (NaN compares False against
         both bounds, so a null band value matches nothing)."""
         e = self.band.left_expr if is_left else self.band.right_expr
-        v = np.asarray(e.eval(batch), dtype=np.float64)
+        v = np.asarray(as_numpy(e.eval(batch)), dtype=np.float64)
         m = column_validity(e, batch)
         if m is not None and not m.all():
             v = v.copy()

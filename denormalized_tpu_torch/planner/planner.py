@@ -1,6 +1,7 @@
 """Physical planner: logical plan → executable operator tree.
 
-Counterpart of ``denormalized_tpu/planner/planner.py`` with the scan,
+Counterpart of ``denormalized_tpu/planner/planner.py`` with the scan
+(with the idle timeout and partition-watermark mode of live sources),
 project, filter, window, join and sink routes.  The window route threads
 the engine config's explicit ``device`` and kernel strategy into
 :class:`StreamingWindowExec`; the join route its band, retention, band
@@ -32,6 +33,7 @@ class Planner:
         if isinstance(node, lp.Scan):
             return SourceExec(
                 node.source,
+                idle_timeout_ms=self.config.source_idle_timeout_ms,
                 partition_watermarks=self.config.partition_watermarks,
             )
         if isinstance(node, lp.Project):

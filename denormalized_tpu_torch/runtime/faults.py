@@ -1,10 +1,14 @@
-"""Fault injection at the state I/O boundaries.
+"""Fault injection at the Kafka, decode and state I/O boundaries.
 
 Counterpart of ``denormalized_tpu/runtime/faults.py`` with the sites the
-port has: the LSM store's put/get/flush and the checkpoint commit.  A
-process-global :class:`FaultPlan` is threaded through named **injection
-sites**::
+port has.  A process-global :class:`FaultPlan` is threaded through named
+**injection sites**::
 
+    kafka.fetch         KafkaClient fetch           (raises SourceError)
+    kafka.produce       KafkaClient produce         (raises SourceError)
+    decode              decoder output, per rowful  (raises SourceError)
+                        batch, both decode paths
+    sink.write          KafkaSinkWriter.write       (raises SourceError)
     lsm.put             LsmStore.put                (StateError / torn value)
     lsm.get             LsmStore.get                (raises StateError)
     lsm.flush           LsmStore.flush              (raises StateError)
@@ -23,18 +27,30 @@ A plan is a dict given to :func:`arm`::
 
 Rule fields: ``site`` (one of the names above), ``kind``
 (``error``: raise the site's error class, or ``torn``: the payload cut to
-its first half), ``times`` (fire at most N times) and ``key_substr``
-(match only keys holding it).  The first rule that fires wins the call.
+its first half), ``times`` (fire at most N times), ``after`` (skip the
+first K matching calls), ``key_substr`` (match only keys holding it) and
+``message`` (the error's text).  The first rule that fires wins the call.
+
+The message steers where a Kafka fault lands, as in the JAX package: a
+transport marker (``recv:``, ``send:``, ``connect``...) routes a
+``kafka.fetch`` error into the reader's reconnect path, ``fetch error 1``
+into its offset-out-of-range reset, and any other text (the default)
+escapes the reader and crashes its prefetch worker, which the supervisor
+of ``runtime/prefetch.py`` restarts.
 """
 
 from __future__ import annotations
 
 import threading
 
-from denormalized_tpu_torch.common.errors import StateError
+from denormalized_tpu_torch.common.errors import SourceError, StateError
 
 #: the port's injection sites, and the error class each raises
 SITES = {
+    "kafka.fetch": SourceError,
+    "kafka.produce": SourceError,
+    "decode": SourceError,
+    "sink.write": SourceError,
     "lsm.put": StateError,
     "lsm.get": StateError,
     "lsm.flush": StateError,
@@ -65,7 +81,10 @@ class FaultRule:
             )
         times = spec.get("times")
         self.times = None if times is None else int(times)
+        self.after = int(spec.get("after", 0))
         self.key_substr = spec.get("key_substr")
+        self.message = spec.get("message")
+        self.hits = 0  # matching calls seen
         self.fired = 0  # times this rule actually fired
 
     def matches(self, site: str, key: str | None) -> bool:
@@ -76,8 +95,13 @@ class FaultRule:
         )
 
     def fire(self) -> bool:
-        """True (and counted) unless the rule has fired ``times`` times."""
+        """Count one matching call; True (and counted) once the first
+        ``after`` calls are past, unless the rule has fired ``times``
+        times."""
+        self.hits += 1
         if self.times is not None and self.fired >= self.times:
+            return False
+        if self.hits <= self.after:
             return False
         self.fired += 1
         return True
@@ -107,7 +131,7 @@ class FaultPlan:
                     continue
                 if rule.kind == "torn":
                     return payload[: len(payload) // 2]
-                raise SITES[site](f"injected fault at {site}")
+                raise SITES[site](rule.message or f"injected fault at {site}")
         return payload
 
 
@@ -134,8 +158,8 @@ def armed() -> bool:
 
 def inject(site: str, key: str | None = None, payload=None):
     """Site hook: no-op (returns ``payload`` unchanged) unless a plan is
-    armed.  Sites sit at I/O-operation granularity — one call per state
-    op or commit — never per row."""
+    armed.  Sites sit at I/O-operation granularity — one call per fetch,
+    produce, decoded batch, state op or commit — never per row."""
     p = _PLAN
     if p is None:
         return payload

@@ -6,8 +6,7 @@ stream_table.rs:57-65).  A :class:`Source` describes schema + partitioning;
 each :class:`PartitionReader` is an independent cursor that the source exec
 drives (on threads for live connectors).
 
-Counterpart of ``denormalized_tpu/sources/base.py`` without the prefetch
-and projection hooks the ported sources do not use.
+Counterpart of ``denormalized_tpu/sources/base.py``.
 
 Every source attaches the canonical event-time column
 (``CANONICAL_TIMESTAMP_COLUMN``) exactly like the reference's
@@ -113,6 +112,25 @@ class PartitionReader:
     def offset_restore(self, snap: dict) -> None:
         pass
 
+    # -- optional decode-path observability ------------------------------
+    def decode_fallback_rows(self) -> int:
+        """Rows this reader decoded through a pure-Python fallback path
+        (native parser unavailable, or the schema has a shape the native
+        shredder declines).  Aggregated into ``SourceExec.metrics()`` so
+        a topic silently riding the slower decode path is visible — 0 for
+        readers with no payload decode stage (memory)."""
+        return 0
+
+    # -- optional backlog report ----------------------------------------
+    def caught_up(self) -> bool | None:
+        """Does this reader KNOW whether more data is already waiting at
+        the source?  ``False`` = yes, backlog exists (the prefetch
+        engine then never judges the partition idle, even mid-fetch);
+        ``True`` = the cursor is at the source's frontier; ``None``
+        (default) = no backlog knowledge — idleness falls back to the
+        wall-clock-since-last-rows judgment."""
+        return None
+
 
 class Source:
     name: str = "source"
@@ -125,6 +143,23 @@ class Source:
     def partitions(self) -> list[PartitionReader]:
         raise NotImplementedError
 
+    def partition_factories(self) -> "list | None":
+        """Optional per-partition reader factories for the prefetch
+        supervisor: element ``i`` is a zero-arg callable rebuilding
+        partition ``i``'s reader after its worker crashed (the supervisor
+        then seeks the fresh reader to the last enqueued offset snapshot
+        via ``offset_restore``).  ``None`` (default) disables supervised
+        restarts for this source — a worker crash surfaces as a query
+        error."""
+        return None
+
     @property
     def unbounded(self) -> bool:
         return True
+
+    def with_projection(self, names: set[str]) -> "Source | None":
+        """Reader-level projection pushdown: return a copy of this source
+        that only DECODES the named columns, or None when unsupported (the
+        optimizer then projects above the Scan).  Implementations retain
+        their timestamp column regardless of ``names``."""
+        return None

@@ -29,7 +29,8 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "denormalized_tpu_torch"
 
 
-# modules of the partial_merge, checkpoint, join and expression slices,
+# modules of the partial_merge, checkpoint, join, expression and live-source
+# slices,
 # named so a rename cannot drop them from the blocked-import check unseen
 NEW_MODULES = (
     "denormalized_tpu_torch.logical.scalar_functions",
@@ -54,6 +55,16 @@ NEW_MODULES = (
     "denormalized_tpu_torch.obs.statewatch",
     "denormalized_tpu_torch.obs.doctor.actions",
     "denormalized_tpu_torch.ops.sketches",
+    # the live-source slice
+    "denormalized_tpu_torch.common.columns",
+    "denormalized_tpu_torch.formats",
+    "denormalized_tpu_torch.formats.json_codec",
+    "denormalized_tpu_torch.formats._native_parser_base",
+    "denormalized_tpu_torch.formats.native_json",
+    "denormalized_tpu_torch.sources.kafka",
+    "denormalized_tpu_torch.runtime.prefetch",
+    "denormalized_tpu_torch.state.tiering",
+    "denormalized_tpu_torch.testing.mock_kafka",
 )
 
 
@@ -93,6 +104,21 @@ def test_port_imports_with_jax_and_reference_blocked():
         "assert kv.is_native, 'the native LSM store did not build'\n"
         "kv.close()\n"
         "shutil.rmtree(d)\n"
+        # the live path's native libraries: broker, wire client, parser
+        "from denormalized_tpu_torch.testing.mock_kafka import MockKafkaBroker\n"
+        "from denormalized_tpu_torch.sources.kafka import KafkaClient\n"
+        "from denormalized_tpu_torch.formats.json_codec import JsonDecoder\n"
+        "from denormalized_tpu_torch.common.schema import Schema, Field, DataType\n"
+        "b = MockKafkaBroker().start()\n"
+        "b.create_topic('t', 1)\n"
+        "c = KafkaClient(b.bootstrap)\n"
+        "c.produce('t', 0, [b'{\"x\": 1}'])\n"
+        "dec = JsonDecoder(Schema([Field('x', DataType.INT64)]))\n"
+        "assert dec._native is not None, 'the native JSON parser did not build'\n"
+        "dec.push(c.fetch('t', 0, 0, max_wait_ms=10)[0][0])\n"
+        "assert dec.flush().column('x').tolist() == [1]\n"
+        "c.close()\n"
+        "b.stop()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'denormalized_tpu' or m.startswith('denormalized_tpu.')]\n"
         "assert all(sys.modules[m] is None for m in bad), bad\n"
