@@ -143,17 +143,54 @@ Phases:
     ``--kafka-*`` flags) is SIGKILLed after an epoch committed past its
     second window, and a second child restores the store and runs until
     the union of both children's rows covers every closable window: the
-    union against the oracle, no full reprocess, the time to recover.
+    union against the oracle, no full reprocess, the time to recover;
+24. configs 4 and 5 together: phase 14's join in a child (the script
+    re-invoked with private ``--join-*`` flags), checkpointed every 8 left
+    batches, SIGKILLed after two committed epochs with more than a third
+    of both streams unread; a second child restores (both windows' rings
+    onto the card, the join's retained rows re-interned) and runs to the
+    end.  The union of both children's joined rows against phase 14's
+    oracle, the time to recover, the join snapshot's bytes, pack, put and
+    commit ms; then one snapshot and restore of the join's state at phase
+    15's 100K keys a side, in this process, timed;
+25. the compaction kernel (``compact_slot``, ``csrc/compact_slot.cu``)
+    against its plain version (``compact_slot_reference``) on seeded rings
+    at G = 131,072 with 0, 0.1%, 10%, 76% (100K cells, config 3's shape;
+    also on a float64 ring) and 100% of the cells active, five planes with
+    nulls and NaNs: exact, with device time, wrapper time, bound and the
+    library sequence's time (nonzero + index_select a plane); then config
+    3 with ``emission_compaction=True`` through ``auto`` and
+    ``partial_merge`` against the oracle, beside phase 10's rows/s, the
+    kernel's launches equal to the windows emitted;
+26. the variance family: phase 4's job with stddev, stddev_pop, var and
+    var_pop of ``reading`` through ``auto`` and ``partial_merge``, against
+    a numpy float64 oracle at rtol=1e-3 (counts, min and max exact; dense
+    launches = batches, merge launches = merges), then values ~1.7e12 with
+    sigma 1000, the stddev within 800-1200;
+27. float64: phase 7 carries three float64 cases (``cfg3_f64``, the
+    scatter kernel's ``ragged_compact_f64`` and the gather kernel's
+    ``sliding_k5_f64``, sums to rtol=1e-12); config 3 with
+    ``accum_dtype=torch.float64`` through ``auto`` (scatter) and
+    ``partial_merge`` (the merge kernel's f64 instantiation, launches
+    counted), sums and averages at rtol=1e-10 of the float64 oracle, and
+    the same stream in float32 shown to miss that bound;
+28. the host pipeline and asynchronous emission: configs 1 and 3 through
+    ``partial_merge`` with ``host_pipeline=True`` and the card's default
+    emit lag against the oracle, beside phases 8 and 10, with the emission
+    blocks drained a trigger later counted and every merge (the worker
+    thread's included) launched on the main thread's stream.
 
 Then one JSON line with each kernel's launches on its main path (phase 4
-for the dense kernel, phase 8 for the merge kernel, each counted from 0
-just before the run; for the dense kernel also its launches on phase 11's
-restored ring, both windows' launches under phase 14's join and phase
-16's join_on, phase 19's window and phase 21's Kafka job), its
-largest error against the plain version, its device
-time, the wrapper's time, the plain version's time and the least time the
-card could take (for the merge kernels also each phase-7 case's kernel,
-times, bound and bit-identity, under ``cases``), and as the last line
+for the dense kernel, phase 8 for the merge kernel, phase 25's config 3
+run for the compaction kernel, phase 27's for the f64 merge, each counted
+from 0 just before the run; for the dense kernel also its launches on
+phase 11's restored ring, both windows' launches under phase 14's join and
+phase 16's join_on, phase 19's window and phase 21's Kafka job), its
+largest error against the plain version, its device time, the wrapper's
+time, the plain version's time, the library call's (for the compaction
+kernel the nonzero + index_select sequence) and the least time the card
+could take (for the merge kernels also each phase-7 case's kernel, times,
+bound and bit-identity, under ``cases``), and as the last line
 ``{"ok": true, "device": {...}}``.
 Any failure ends the run with a non-zero exit and no result.  Without CUDA
 it exits 1 at once.
@@ -467,8 +504,9 @@ def dense_case(name: str, seed: int):
 
 def compare_rings(spec, got, want, what: str) -> float:
     """Counts, min and max exact (NaN where NaN); sums to rtol=1e-5 (float
-    atomics reorder them), a compensated sum as hi + lo.  → largest
-    absolute error over finite sums."""
+    atomics reorder them; rtol=1e-12 in a float64 ring), a compensated sum
+    as hi + lo.  → largest absolute error over finite sums."""
+    rtol = 1e-12 if spec.accum_dtype == torch.float64 else 1e-5
     worst = 0.0
     labels = {c.label for c in spec.components}
     for c in spec.components:
@@ -481,7 +519,7 @@ def compare_rings(spec, got, want, what: str) -> float:
             a = a.astype(np.float64) + got[lo].cpu().numpy()
             b = b.astype(np.float64) + want[lo].cpu().numpy()
         if c.kind == "sum":
-            np.testing.assert_allclose(a, b, rtol=1e-5,
+            np.testing.assert_allclose(a, b, rtol=rtol,
                                        err_msg=f"{what}: {c.label}")
             fin = np.isfinite(a) & np.isfinite(b)
             if fin.any():
@@ -578,10 +616,23 @@ def phase_kernels(device, seed: int):
 # -- phases 4 and 5: the port end to end ------------------------------------
 
 
+_ORACLES: dict = {}
+
+
 def oracle(ts, kid, val, length_ms, slide_ms, num_keys):
     """numpy float64 oracle: {(window_start, key index): (count, min, max,
     avg)} over every window a row falls in; min/max over the f32-rounded
-    readings (what the ring holds)."""
+    readings (what the ring holds).  Kept per stream and window shape (the
+    stream's arrays are held with it, so their ids stay theirs)."""
+    key = (id(ts), id(kid), id(val), length_ms, slide_ms, num_keys)
+    hit = _ORACLES.get(key)
+    if hit is None:
+        hit = _ORACLES[key] = ((ts, kid, val), _oracle(
+            ts, kid, val, length_ms, slide_ms, num_keys))
+    return hit[1]
+
+
+def _oracle(ts, kid, val, length_ms, slide_ms, num_keys):
     k = -(-length_ms // slide_ms)
     units = ts // slide_ms
     rem = ts - units * slide_ms
@@ -760,12 +811,23 @@ def check_highcard_rows(got, exp):
         raise AssertionError(
             f"row sets differ: {len(got)} emitted vs {len(exp)} expected"
         )
-    for k, (c, _mn, _mx, a) in exp.items():
-        gs, ga = got[k]
-        if not (np.isclose(gs, a * c, rtol=1e-4, atol=0)
-                and np.isclose(ga, a, rtol=1e-4, atol=0)):
-            raise AssertionError(f"{k}: got {got[k]}, expected {(a * c, a)}")
+    keys = list(exp)
+    assert_close_rows(keys, [got[k] for k in keys],
+                      [(exp[k][3] * exp[k][0], exp[k][3]) for k in keys])
     return len(got)
+
+
+def assert_close_rows(keys, got, want, rtol=1e-4) -> None:
+    """Row i of ``got`` within ``rtol`` of row i of ``want``, every column
+    (one vectorized comparison; raises naming the first row that is
+    not)."""
+    g = np.asarray(got, dtype=np.float64)
+    w = np.asarray(want, dtype=np.float64)
+    ok = np.isclose(g, w, rtol=rtol, atol=0).all(axis=1)
+    if not ok.all():
+        i = int(np.flatnonzero(~ok)[0])
+        raise AssertionError(f"{keys[i]}: got {tuple(g[i])}, expected "
+                             f"{tuple(w[i])}")
 
 
 JOB_NAMES = {"tumbling": "tumbling 1s", "sliding": "sliding 1s/200ms",
@@ -1077,11 +1139,22 @@ MERGE_CASES = {
     "cfg3_shard": (1000, 1000, 131_072, 2 * HIGHCARD_KEYS, 5, 2,
                    2 * HIGHCARD_BATCH_ROWS, False, False, False,
                    HIGHCARD_AGGS),
+    # float64 rings (accum_dtype=torch.float64): config 3's compact stripe
+    # (tumbling), and the fan-out shapes of the scatter and gather kernels
+    "cfg3_f64": (1000, 1000, 2 * HIGHCARD_KEYS + 64, HIGHCARD_KEYS, 5, 2,
+                 2 * HIGHCARD_BATCH_ROWS, False, False, False,
+                 HIGHCARD_AGGS),
+    "ragged_compact_f64": (500, 200, 8192, 50, 4, 3, BATCH_ROWS, True, False,
+                           True, MAIN_AGGS),
+    "sliding_k5_f64": (1000, 200, 128, 10, 2, 4, BATCH_ROWS, False, True,
+                       False, MAIN_AGGS),
 }
+# the cases whose ring is float64
+MERGE_F64 = ("cfg3_f64", "ragged_compact_f64", "sliding_k5_f64")
 # shards of the stripe's group space, for the cases that hold one shard
 MERGE_SHARDS = {"cfg3_shard": 2}
 MERGE_DENSE = ("cfg1_dense", "sliding_k5", "ragged_dense", "cfg3_dense",
-               "cfg3_shard")
+               "cfg3_shard", "sliding_k5_f64")
 
 
 def merge_case(name: str, seed: int):
@@ -1106,6 +1179,7 @@ def merge_case(name: str, seed: int):
     spec = sa.WindowKernelSpec(
         components=tuple(comps), num_value_cols=1, window_slots=16,
         group_capacity=G, length_ms=L, slide_ms=S, compensated=compensated,
+        accum_dtype=torch.float64 if name in MERGE_F64 else torch.float32,
     )
     ms = np.sort(rng.integers(0, span * S, B))
     units = (u0 + ms // S).astype(np.int64)
@@ -1144,7 +1218,8 @@ def merge_bound(spec, SUB: int, packed: np.ndarray, a_pad: int, dense: bool,
     the cells in the ring's shard, whose group is their position; the
     compact index of every non-empty cell; for each live cell of the
     shard, its other value planes; plus every component of each ring cell
-    the live cells land in, read and written once (8 B).  An empty or
+    the live cells land in, read and written once (8 B; 16 B for a float64
+    plane).  An empty or
     padding cell holds only fold identities, so its other planes need not
     be read.  Updates: one a ring plane per (live cell, fan-out) that
     lands.  → (ms, what bounds it, ring cells touched)."""
@@ -1175,7 +1250,10 @@ def merge_bound(spec, SUB: int, packed: np.ndarray, a_pad: int, dense: bool,
         cells.append(((base_mod + w[ok]) % W) * cap + g[ok])
         updates += int(ok.sum()) * n_planes
     n_cells = len(np.unique(np.concatenate(cells)))
-    nbytes = stripe_bytes + 8 * n_cells * n_planes
+    cell_bytes = sum(2 * (4 if c.kind == "count" else
+                          torch.empty(0, dtype=spec.accum_dtype).element_size())
+                     for c in spec.components)
+    nbytes = stripe_bytes + n_cells * cell_bytes
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = updates / F32_OPS_PER_S * 1e3
     if t_bytes >= t_ops:
@@ -1190,7 +1268,8 @@ def bit_diff(a: dict, b: dict) -> dict:
     out = {}
     for k in a:
         x, y = a[k].cpu(), b[k].cpu()
-        ne = x.view(torch.int32) != y.view(torch.int32)
+        bits = torch.int64 if x.element_size() == 8 else torch.int32
+        ne = x.view(bits) != y.view(bits)
         if ne.any():
             both_nan = (torch.isnan(x) & torch.isnan(y)
                         if x.is_floating_point() else torch.zeros_like(ne))
@@ -1895,11 +1974,14 @@ def phase_snapshot_race(device, seed: int, card, rounds: int = 50):
 # -- phases 14-15: the windowed stream-stream join (config 4) -----------------
 
 
-def join_stream(device, left_batches, right_batches, strategy, **cfg):
+def join_stream(device, left_batches, right_batches, strategy, on_read=None,
+                **cfg):
     """bench.py's ``join`` query, not yet run → (ctx, DataStream): two
     streams, avg(reading) by sensor_name in 1 s tumbling windows, the right
     side's sensor/start/end renamed to hs/hws/hwe, an inner join on
-    (sensor_name, window_start_time) = (hs, hws)."""
+    (sensor_name, window_start_time) = (hs, hws).  ``on_read(ctx, side,
+    i)``, where given, runs before side 0 (left) or 1 (right) reads its
+    batch i."""
     import denormalized_tpu_torch as tt
     from denormalized_tpu_torch.api import functions as F
     from denormalized_tpu_torch.sources.memory import MemorySource
@@ -1909,11 +1991,14 @@ def join_stream(device, left_batches, right_batches, strategy, **cfg):
     col = tt.col
 
     def side(batches, name, agg):
-        return ctx.from_source(
-            MemorySource.from_batches(batches,
-                                      timestamp_column="occurred_at_ms"),
-            name=name,
-        ).window(["sensor_name"], [F.avg(col("reading")).alias(agg)], 1000)
+        if on_read is None:
+            source = MemorySource.from_batches(
+                batches, timestamp_column="occurred_at_ms")
+        else:
+            sid = 0 if name == "bench_t" else 1
+            source = hooked_source(batches, lambda i: on_read(ctx, sid, i))
+        return ctx.from_source(source, name=name).window(
+            ["sensor_name"], [F.avg(col("reading")).alias(agg)], 1000)
 
     right = (
         side(right_batches, "bench_h", "avg_h")
@@ -1944,13 +2029,9 @@ def join_ops(ctx):
     return join, [find(c, StreamingWindowExec) for c in join.children]
 
 
-def check_join(res, left_stream, right_stream, num_keys) -> int:
-    """The joined rows against the numpy float64 oracle: the same
-    (window_start, sensor) row set as the windows both sides hold, both
-    averages to rtol=1e-4 → rows."""
-    lo = oracle(*left_stream, 1000, 1000, num_keys)
-    ro = oracle(*right_stream, 1000, 1000, num_keys)
-    exp = {k: (lo[k][3], ro[k][3]) for k in lo.keys() & ro.keys()}
+def join_rows(res) -> dict:
+    """{(window_start, key index): (avg_t, avg_h)} of joined rows; raises
+    on a row whose two sides disagree on the key or one joined twice."""
     ws = res.column("window_start_time").tolist()
     names = res.column("sensor_name").tolist()
     if res.column("hs").tolist() != names or res.column("hws").tolist() != ws:
@@ -1962,14 +2043,26 @@ def check_join(res, left_stream, right_stream, num_keys) -> int:
         if key in got:
             raise AssertionError(f"{key} joined twice")
         got[key] = (a, b)
+    return got
+
+
+def check_join(res, left_stream, right_stream, num_keys) -> int:
+    return check_join_rows(join_rows(res), left_stream, right_stream,
+                           num_keys)
+
+
+def check_join_rows(got, left_stream, right_stream, num_keys) -> int:
+    """The joined rows against the numpy float64 oracle: the same
+    (window_start, sensor) row set as the windows both sides hold, both
+    averages to rtol=1e-4 → rows."""
+    lo = oracle(*left_stream, 1000, 1000, num_keys)
+    ro = oracle(*right_stream, 1000, 1000, num_keys)
+    exp = {k: (lo[k][3], ro[k][3]) for k in lo.keys() & ro.keys()}
     if set(got) != set(exp):
         raise AssertionError(
             f"row sets differ: {len(got)} joined vs {len(exp)} expected")
-    for k, (a, b) in exp.items():
-        ga, gb = got[k]
-        if not (np.isclose(ga, a, rtol=1e-4, atol=0)
-                and np.isclose(gb, b, rtol=1e-4, atol=0)):
-            raise AssertionError(f"{k}: got {got[k]}, expected {(a, b)}")
+    keys = list(exp)
+    assert_close_rows(keys, [got[k] for k in keys], [exp[k] for k in keys])
     return len(got)
 
 
@@ -3341,6 +3434,777 @@ def phase_kafka_ckpt(device, pace, staged, stream, card):
         f"({card})")
 
 
+# -- phase 24: configs 4 and 5 together (a checkpointed join) -----------------
+
+JOIN_CKPT_PAUSE_READS = 2  # left reads the killed child makes after commit 2
+
+
+def join_child(args) -> int:
+    """Phase 24's child: phase 14's join (phase 4's stream on the left, one
+    from --seed + 1 on the right, ``auto``) checkpointed to
+    ``--join-child`` with a barrier every CKPT_EVERY left reads.  One
+    flushed JSON line per joined row, per committed epoch (with the join's
+    snapshot counters and the commit histogram so far), and for the
+    restore; with ``--join-pause-after N`` both sources stop reading
+    JOIN_CKPT_PAUSE_READS left reads after the N-th commit, until the
+    parent's SIGKILL."""
+    from denormalized_tpu_torch import obs
+    from denormalized_tpu_torch.ops import dense_window as dw
+    from denormalized_tpu_torch.state import checkpoint as ck
+
+    t_main = time.time()
+    device = torch.device(args.ckpt_device)
+    left = gen_stream(TOTAL_ROWS, BATCH_ROWS, NUM_KEYS, args.seed)
+    right = gen_stream(TOTAL_ROWS, BATCH_ROWS, NUM_KEYS, args.seed + 1)
+    lb = to_batches(*left, BATCH_ROWS, NUM_KEYS)
+    rb = to_batches(*right, BATCH_ROWS, NUM_KEYS)
+    t_data = time.time()
+    out = open(args.join_out, "a", buffering=1)
+    lock = threading.RLock()  # on_read writes lines while holding it
+    commit_ms = obs.histogram("dnz_checkpoint_commit_ms")
+
+    def line(**kw):
+        with lock:
+            out.write(json.dumps(kw) + "\n")
+
+    st = {"restored": False, "commits": [], "after": 0, "paused": False}
+
+    def on_read(ctx, side, i):
+        coord = ctx.last_checkpointing()[0]
+        with lock:
+            if not st["restored"]:
+                st["restored"] = True
+                root = ctx._last_physical
+                ids = ck.assign_node_ids(root)
+                pos = []
+                for op in ck.walk(root):
+                    if not op.children:
+                        off = ck.get_json(coord, f"offsets_{ids[id(op)]}")
+                        pos.append(off["partitions"][0]["pos"] if off else 0)
+                line(event="restored", t=time.time(), t_start=T_START,
+                     t_main=t_main, t_data=t_data,
+                     epoch=coord.restored_epoch, pos=pos,
+                     restore_s=join_ops(ctx)[0].metrics()["restore_s"])
+            if side == 0:
+                e = coord.committed_epoch
+                if e is not None and e != coord.restored_epoch and (
+                        e not in st["commits"]):
+                    st["commits"].append(e)
+                    m = join_ops(ctx)[0].metrics()
+                    line(event="commit", epoch=e, read=i,
+                         snapshots=m["snapshots"],
+                         snapshot_bytes=m["snapshot_bytes"],
+                         pack_s=m["snapshot_pack_s"],
+                         put_s=m["snapshot_put_s"], commits=commit_ms.count,
+                         commit_ms=commit_ms.sum)
+                if args.join_pause_after and (
+                        len(st["commits"]) >= args.join_pause_after):
+                    st["after"] += 1
+                    if st["after"] > JOIN_CKPT_PAUSE_READS:
+                        st["paused"] = True
+                        line(event="paused", read=i)
+                if i % CKPT_EVERY == CKPT_EVERY - 1:
+                    ctx.last_checkpointing()[1].trigger_now()
+        while st["paused"]:  # both sides, until the parent's SIGKILL
+            time.sleep(1)
+
+    ctx, ds = join_stream(device, lb, rb, "auto", on_read,
+                          **ckpt_config(args.join_child))
+    dw.dense_window_launches = 0
+    first = True
+    for b in ds.stream():
+        rows = join_rows(b)
+        if first and rows:
+            first = False
+            line(event="first_row", t=time.time())
+        for (ws, k), (a, h) in rows.items():
+            line(event="row", ws=ws, k=k, a=a, h=h)
+    sync(device)
+    join, windows = join_ops(ctx)
+    m = join.metrics()
+    line(event="done", batches=[w.metrics()["batches_in"] for w in windows],
+         launches=dw.dense_window_launches,
+         dense_updates=[w.backend.dense_updates for w in windows],
+         snapshots=m["snapshots"], snapshot_bytes=m["snapshot_bytes"],
+         pack_s=m["snapshot_pack_s"], put_s=m["snapshot_put_s"],
+         commits=commit_ms.count, commit_ms=commit_ms.sum)
+    return 0
+
+
+def phase_join_ckpt(device, seed: int, left, right, card):
+    """Phase 24: configs 4 and 5 together on phase 14's streams.  A child
+    commits two epochs and is SIGKILLed with more than a third of both
+    streams unread; a second child restores the join (both windows' rings
+    onto the card, the join's retained rows re-interned) and runs to the
+    end.  The union of their joined rows against phase 14's oracle; the
+    time to recover; the snapshot's bytes and pack, put and commit times."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    (lb, ls), (_rb, rs) = left, right
+    n_batches = len(lb)
+    work = tempfile.mkdtemp(prefix="dnz_join_ckpt_")
+    state = os.path.join(work, "state")
+    procs = []
+
+    def spawn(name, *extra):
+        out = os.path.join(work, f"{name}.jsonl")
+        err = open(os.path.join(work, f"{name}.err"), "w")
+        t = time.time()
+        p = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             "--ckpt-device", str(device), "--join-child", state,
+             "--join-out", out, *extra],
+            stdout=subprocess.DEVNULL, stderr=err,
+        )
+        procs.append(p)
+        return p, out, t
+
+    def tail(name):
+        with open(os.path.join(work, f"{name}.err")) as f:
+            return f.read()[-3000:]
+
+    try:
+        pa, out_a, _ = spawn("a", "--join-pause-after", "2")
+        deadline = time.time() + 300
+        while not any(d["event"] == "paused" for d in read_jsonl(out_a)):
+            if pa.poll() is not None:
+                raise AssertionError(
+                    f"phase 24: child A exited ({pa.returncode}) before its "
+                    f"second commit: {tail('a')}")
+            if time.time() > deadline:
+                raise AssertionError("phase 24: child A never paused")
+            time.sleep(0.05)
+        os.kill(pa.pid, signal.SIGKILL)
+        pa.wait(60)
+        a = read_jsonl(out_a)
+        commits = [d for d in a if d["event"] == "commit"]
+        # paused before that left read (rows of batches read before the
+        # pause may still follow the line)
+        unread = n_batches - next(
+            d["read"] for d in a if d["event"] == "paused")
+        if pa.returncode != -signal.SIGKILL or len(commits) != 2 or (
+                unread < n_batches / 3):
+            raise AssertionError(
+                f"phase 24: child A rc {pa.returncode}, {len(commits)} "
+                f"commits, {unread} of {n_batches} left batches unread")
+        pb, out_b, t_spawn = spawn("b")
+        if pb.wait(600) != 0:
+            raise AssertionError(f"phase 24: child B failed: {tail('b')}")
+        b = read_jsonl(out_b)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(60)
+        shutil.rmtree(work, ignore_errors=True)
+
+    restored, done = b[0], b[-1]
+    first = next(d for d in b if d["event"] == "first_row")
+
+    def rows(lines):
+        return {(d["ws"], d["k"]): (d["a"], d["h"])
+                for d in lines if d["event"] == "row"}
+
+    rows_a, rows_b = rows(a), rows(b)
+    union = dict(rows_a)
+    union.update(rows_b)
+    joined = check_join_rows(union, ls, rs, NUM_KEYS)
+    if restored["epoch"] != commits[-1]["epoch"]:
+        raise AssertionError(f"phase 24: restored epoch {restored['epoch']},"
+                             f" last commit {commits[-1]['epoch']}")
+    if not len(rows_b) < joined or min(restored["pos"]) == 0:
+        raise AssertionError(f"phase 24: the restart reprocessed the stream "
+                             f"({len(rows_b)} of {joined} rows, restored at "
+                             f"{restored['pos']})")
+    read_b = sum(done["batches"])
+    if not (read_b == done["launches"] == sum(done["dense_updates"])
+            == 2 * n_batches - sum(restored["pos"])):
+        raise AssertionError(f"phase 24: restart read from "
+                             f"{restored['pos']}: {done}")
+    last = commits[-1]
+    log(f"phase 24 configs 4 and 5 together (phase 14's join, auto, barrier "
+        f"every {CKPT_EVERY} left batches): child A committed epochs "
+        f"{[d['epoch'] for d in commits]} and was SIGKILLed with {unread} of "
+        f"{n_batches} left batches unread, {len(rows_a)} joined rows "
+        f"emitted; child B restored epoch {restored['epoch']} at batches "
+        f"{restored['pos']} (join restore {restored['restore_s'] * 1e3:.3f} "
+        f"ms: read, unpack, re-intern, rebuild), read {done['batches']} "
+        f"batches with {done['launches']} dense launches, emitted "
+        f"{len(rows_b)} rows; the union matches the oracle ({joined} joined "
+        f"rows); time to recover: {restored['t'] - t_spawn:.3f} s from "
+        f"spawn to restore done ({restored['t_main'] - restored['t_start']:.3f}"
+        f" s of imports, {restored['t_data'] - restored['t_main']:.3f} s "
+        f"making the streams), {first['t'] - t_spawn:.3f} s to the first "
+        f"joined row; child A's join snapshots: {last['snapshots']} of "
+        f"{last['snapshot_bytes'] / max(last['snapshots'], 1):.0f} B, pack "
+        f"{last['pack_s'] / max(last['snapshots'], 1) * 1e3:.3f} ms, "
+        f"frame+CRC+put {last['put_s'] / max(last['snapshots'], 1) * 1e3:.3f}"
+        f" ms, {last['commits']} commits of "
+        f"{last['commit_ms'] / max(last['commits'], 1):.3f} ms; child B: "
+        f"{done['snapshots']} snapshots ({card})")
+
+
+def phase_join_ckpt_highcard(device, left, right, card):
+    """Phase 24, second half: config 4 at phase 15's 100K keys a side
+    (``auto``), in this process: a barrier before left read 8, a crash
+    right after its commit, then a restore on the same store and a run to
+    the end; the union of the two runs' joined rows against the oracle,
+    with the join's snapshot (bytes, pack, put) and restore timed."""
+    import os
+    import shutil
+    import tempfile
+
+    from denormalized_tpu_torch import obs
+    from denormalized_tpu_torch.common.record_batch import RecordBatch
+    from denormalized_tpu_torch.logical import plan as lp
+    from denormalized_tpu_torch.physical.base import Marker
+    from denormalized_tpu_torch.physical.simple_execs import CollectSink
+    from denormalized_tpu_torch.runtime import executor
+    from denormalized_tpu_torch.state import checkpoint as ck
+    from denormalized_tpu_torch.state.lsm import close_global_state_backend
+    from denormalized_tpu_torch.state.orchestrator import Orchestrator
+
+    (lb, ls), (rb, rs) = left, right
+    work = tempfile.mkdtemp(prefix="dnz_join_ckpt3_")
+    cfg = dict(min_group_capacity=2 * HIGHCARD_KEYS,
+               **ckpt_config(os.path.join(work, "state")))
+    commit_ms = obs.histogram("dnz_checkpoint_commit_ms")
+
+    def build(on_read=None):
+        ctx, ds = join_stream(device, lb, rb, "auto", on_read, **cfg)
+        root = executor.build_physical(lp.Sink(ds._plan, CollectSink()), ctx)
+        ctx._last_physical = root
+        orch = Orchestrator(interval_s=1e9)
+        coord = ck.wire_checkpointing(root, ctx, orch)
+        ctx._checkpointing = (coord, orch)
+        return ctx, root, orch, coord
+
+    try:
+        hold = {}
+
+        def trigger(ctx, side, i):
+            if side == 0 and i == 8:
+                hold["orch"].trigger_now()
+
+        ctx, root, orch, coord = build(trigger)
+        hold["orch"] = orch
+        rows_a, epoch = {}, None
+        c0, s0 = commit_ms.count, commit_ms.sum
+        it = root.run()
+        for item in it:
+            if isinstance(item, RecordBatch):
+                rows_a.update(join_rows(item))
+            if isinstance(item, Marker):
+                coord.commit(item.epoch)
+                epoch = item.epoch
+                break
+        if epoch is None:
+            raise AssertionError("phase 24 (100K keys): no epoch committed")
+        snap = join_ops(ctx)[0].metrics()
+        commit = (commit_ms.sum - s0) / max(commit_ms.count - c0, 1)
+        it.close()  # the crash
+        orch.stop()
+        close_global_state_backend()
+
+        ctx, root, orch, coord = build()
+        rows_b = {}
+        t0 = time.perf_counter()
+        for item in root.run():
+            if isinstance(item, RecordBatch):
+                rows_b.update(join_rows(item))
+        sync(device)
+        wall = time.perf_counter() - t0
+        orch.stop()
+        close_global_state_backend()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    join, windows = join_ops(ctx)
+    m = join.metrics()
+    union = dict(rows_a)
+    union.update(rows_b)
+    joined = check_join_rows(union, ls, rs, HIGHCARD_KEYS)
+    if coord.restored_epoch != epoch or m["restore_s"] == 0:
+        raise AssertionError(f"phase 24 (100K keys): restored epoch "
+                             f"{coord.restored_epoch} of {epoch}")
+    log(f"phase 24 config 4 at {HIGHCARD_KEYS} keys a side (auto): a "
+        f"snapshot of the join's state at epoch {epoch} ({snap['rows_in']} "
+        f"rows in): {snap['snapshot_bytes']} B, pack "
+        f"{snap['snapshot_pack_s'] * 1e3:.3f} ms, frame+CRC+put "
+        f"{snap['snapshot_put_s'] * 1e3:.3f} ms, commit {commit:.3f} ms; "
+        f"the restore {m['restore_s'] * 1e3:.3f} ms (read, unpack, "
+        f"re-intern, rebuild); the restarted run read "
+        f"{[w.metrics()['batches_in'] for w in windows]} batches in "
+        f"{wall:.3f} s; the union matches the oracle ({joined} joined rows, "
+        f"{len(rows_a)} before the crash, {len(rows_b)} after) ({card})")
+    return dict(snapshot_bytes=snap["snapshot_bytes"],
+                pack_ms=snap["snapshot_pack_s"] * 1e3,
+                put_ms=snap["snapshot_put_s"] * 1e3, commit_ms=commit,
+                restore_ms=m["restore_s"] * 1e3)
+
+
+# -- phase 25: the compaction kernel ------------------------------------------
+
+COMPACT_KERNEL = "compact_slot_"
+COMPACT_G = 131_072
+# case: (active share, ring float type)
+COMPACT_CASES = {
+    "none": (0.0, torch.float32),
+    "sparse_0.1pct": (0.001, torch.float32),
+    "share_10pct": (0.1, torch.float32),
+    "cfg3_76pct": (HIGHCARD_KEYS / COMPACT_G, torch.float32),
+    "full": (1.0, torch.float32),
+    "cfg3_76pct_f64": (HIGHCARD_KEYS / COMPACT_G, torch.float64),
+}
+
+
+def compact_case(share: float, accum, seed: int):
+    """A seeded (4, COMPACT_G) ring of count/sum/min/max/avg planes whose
+    slot 1 has ``share`` of its cells active (exactly round(share·G),
+    at seeded places), with nulls (per-column counts below the row
+    counts), valid NaNs and ±inf extrema → (spec, host ring)."""
+    from denormalized_tpu_torch.ops import segment_agg as sa
+
+    rng = np.random.default_rng(seed)
+    spec = sa.WindowKernelSpec(
+        components=tuple(sa.components_for(
+            [("count", 0), ("sum", 0), ("min", 0), ("max", 0), ("avg", 0)])),
+        num_value_cols=1, window_slots=4, group_capacity=COMPACT_G,
+        length_ms=1000, slide_ms=1000, accum_dtype=accum)
+    fdt = np.float64 if accum == torch.float64 else np.float32
+    W, G = 4, COMPACT_G
+    active = np.zeros((W, G), bool)
+    for w in range(W):
+        active[w, rng.choice(G, int(round(share * G)), replace=False)] = True
+    rc = np.where(active, rng.integers(1, 40, (W, G)), 0).astype(np.int32)
+    host = {"count_star": rc,
+            "count_0": np.maximum(rc - rng.integers(0, 2, (W, G)), 0
+                                  ).astype(np.int32),
+            "sum_0": np.where(active, rc * rng.normal(50, 10, (W, G)), 0
+                              ).astype(fdt)}
+    for kind, fill in (("min", np.inf), ("max", -np.inf)):
+        host[f"{kind}_0"] = np.where(active, rng.normal(50, 10, (W, G)),
+                                     fill).astype(fdt)
+    for label in ("sum_0", "min_0", "max_0"):
+        host[label][1, rng.choice(G, 4, replace=False)] = np.nan
+    return spec, host
+
+
+def compact_bound(counts_row, planes) -> float:
+    """Least time for one compaction: the bytes over the HBM rate — the
+    row-count plane read once (G × 4 B), and for each active cell its gid
+    written (4 B) and its value in every other plane read and written once
+    (the row count is written too)."""
+    k = int((counts_row > 0).sum())
+    per_cell = 4 + 4 + sum(2 * p.element_size() for p in planes[1:])
+    return (4 * counts_row.numel() + k * per_cell) / HBM_BYTES_PER_S * 1e3
+
+
+def compact_pair_device_ms(fn, n: int = 50, warm: int = 20):
+    """Device time of one compaction (its two kernels, count and scatter)
+    by the profiler, apart from the wrapper → (ms, how); after
+    PROFILER_TRIES sessions short of n calls' kernels, by
+    ``queued_event_ms``.  The tracer can miss a session's first ~20
+    launches, hence the long warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILER_TRIES):
+        def run():
+            for _ in range(warm):
+                fn()
+            torch.cuda.synchronize()
+            for _ in range(n):
+                fn()
+
+        evts = sorted((e for e in device_events(profile(run))
+                       if COMPACT_KERNEL in e.name),
+                      key=lambda e: e.time_range.start)
+        if len(evts) > 2 * (warm + n):
+            raise AssertionError(f"the profiler recorded {len(evts)} "
+                                 f"compaction kernels for {warm + n} calls")
+        if len(evts) >= 2 * n:
+            last = evts[-2 * n:]
+            return sum(e.time_range.elapsed_us() for e in last) / n / 1e3, (
+                "profiler")
+        log(f"the profiler recorded {len(evts)} compaction kernels of "
+            f"{2 * (warm + n)}, fewer than the {2 * n} timed")
+    return queued_event_ms(fn, n), "CUDA events"
+
+
+def phase_compact_kernel(device, seed: int, card: str):
+    """Phase 25, first half: ``compact_slot`` against its plain version on
+    seeded rings at G = 131,072 and every active share of COMPACT_CASES:
+    the same count, gids and plane values bit for bit (it is a copy) → per
+    case {ms, ms_by, host_ms, plain_ms, library_ms, bound_ms, active}."""
+    from denormalized_tpu_torch.ops import compact_slot as cs
+    from denormalized_tpu_torch.ops import segment_agg as sa
+
+    out = {}
+    for i, (name, (share, accum)) in enumerate(COMPACT_CASES.items()):
+        spec, host = compact_case(share, accum, seed + i)
+        state = sa.import_state(spec, host, device)
+        labels = [c.label for c in spec.components]
+        counts = state["count_star"][1]
+        planes = [state[lb][1] for lb in labels]
+        before = cs.compact_slot_launches
+        n, gids, outs = cs.compact_slot(counts, planes)
+        torch.cuda.synchronize(device)
+        if cs.compact_slot_launches - before != 1:
+            raise AssertionError(f"phase 25 {name}: the kernel did not "
+                                 f"launch once")
+        rn, rgids, routs = cs.compact_slot_reference(counts, planes)
+        k = int(n.item())
+        if k != int(rn.item()) or k != int(round(share * COMPACT_G)):
+            raise AssertionError(f"phase 25 {name}: {k} active, the plain "
+                                 f"version {int(rn.item())}")
+        if not torch.equal(gids[:k], rgids):
+            raise AssertionError(f"phase 25 {name}: gids differ")
+        for lb, o, r in zip(labels, outs, routs):
+            ib = torch.int64 if o.element_size() == 8 else torch.int32
+            if not torch.equal(o[:k].view(ib), r.view(ib)):
+                raise AssertionError(f"phase 25 {name}: plane {lb} differs")
+
+        def kernel():
+            cs.compact_slot(counts, planes)
+
+        def plain():
+            cs.compact_slot_reference(counts, planes)
+
+        def library():
+            idx = torch.nonzero(counts > 0).squeeze(1)
+            for p in planes:
+                p.index_select(0, idx)
+
+        ms, ms_by = compact_pair_device_ms(kernel)
+        out[name] = dict(
+            active=k, ms=ms, ms_by=ms_by,
+            host_ms=time_ms(kernel, device, iters=200),
+            plain_ms=time_ms(plain, device), library_ms=time_ms(library, device),
+            bound_ms=compact_bound(counts, planes), bound_by="bytes",
+            max_abs_err=0.0)
+        c = out[name]
+        log(f"phase 25 compact_slot {name}: G={COMPACT_G}, {k} active cells "
+            f"({100 * k / COMPACT_G:.2f}%), {len(planes)} planes "
+            f"({str(accum).replace('torch.', '')} ring): count, gids and "
+            f"every plane equal the plain version bit for bit; device "
+            f"{c['ms']:.5f} ms ({ms_by}, both kernels), wrapper "
+            f"{c['host_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, library "
+            f"sequence (nonzero + index_select a plane) "
+            f"{c['library_ms']:.4f} ms, bound {c['bound_ms']:.6f} ms "
+            f"(bytes) ({card})")
+    return out
+
+
+def phase_compact_highcard(device, batches, stream, rates, card):
+    """Phase 25, second half: config 3 (phase 10's stream) with
+    ``emission_compaction=True`` through ``auto`` and ``partial_merge``,
+    each against the oracle, with the compaction kernel's launches equal
+    to the windows emitted → {strategy: {rows_per_s, launches}}."""
+    from denormalized_tpu_torch.ops import compact_slot as cs
+
+    ts, kid, val = stream
+    exp = oracle(ts, kid, val, 1000, 1000, HIGHCARD_KEYS)
+    out = {}
+    for strategy in ("auto", "partial_merge"):
+        cs.compact_slot_launches = 0
+        ctx, res, wall = run_job(device, batches, "highcard",
+                                 strategy=strategy, emission_compaction=True,
+                                 min_group_capacity=2 * HIGHCARD_KEYS)
+        launches = cs.compact_slot_launches
+        check_highcard(res, exp, HIGHCARD_KEYS)
+        op = window_exec_of(ctx)
+        m = op.metrics()
+        if launches == 0 or launches != m["windows_emitted"]:
+            raise AssertionError(f"phase 25 config 3 via {strategy}: "
+                                 f"{launches} compaction launches for "
+                                 f"{m['windows_emitted']} windows emitted")
+        out[strategy] = dict(rows_per_s=len(ts) / wall, launches=launches)
+        log(f"phase 25 config 3 with emission_compaction via {strategy}: "
+            f"{len(ts)} rows, {res.num_rows} window rows match the oracle, "
+            f"{launches} compaction launches = {m['windows_emitted']} windows "
+            f"emitted, {m['bytes_d2h']} B from the card, wall {wall:.3f} s, "
+            f"{len(ts) / wall:.0f} rows/s against phase 10's "
+            f"{rates[strategy]:.0f} without compaction ({card})")
+    return out
+
+
+# -- phase 26: the variance family ---------------------------------------------
+
+VAR_NAMES = ("sd", "sdp", "va", "vp")
+
+
+def variance_stream(device, batches, strategy, **cfg):
+    """Phase 4's job with stddev, stddev_pop, var and var_pop of
+    ``reading`` added, not yet run → (ctx, DataStream)."""
+    import denormalized_tpu_torch as tt
+    from denormalized_tpu_torch.api import functions as F
+    from denormalized_tpu_torch.sources.memory import MemorySource
+
+    ctx = tt.Context(tt.EngineConfig(device=str(device),
+                                     device_strategy=strategy, **cfg))
+    r = tt.col("reading")
+    ds = ctx.from_source(MemorySource.from_batches(
+        batches, timestamp_column="occurred_at_ms")).window(
+        ["sensor_name"],
+        [F.count(r).alias("count"), F.min(r).alias("min"),
+         F.max(r).alias("max"), F.avg(r).alias("average"),
+         F.stddev(r).alias("sd"), F.stddev_pop(r).alias("sdp"),
+         F.var(r).alias("va"), F.var_pop(r).alias("vp")],
+        1000)
+    return ctx, ds
+
+
+def variance_oracle(ts, kid, val, num_keys) -> dict:
+    """{(window_start, key): (sample sd, pop sd, sample var, pop var)} in
+    float64, two passes (mean, then squared deviations), ddof 1 for the
+    sample kinds."""
+    code = (ts // 1000) * num_keys + kid
+    order = np.argsort(code, kind="stable")
+    c, v = code[order], val[order]
+    starts = np.flatnonzero(np.r_[True, c[1:] != c[:-1]])
+    n = np.diff(np.r_[starts, len(c)]).astype(np.float64)
+    mean = np.add.reduceat(v, starts) / n
+    m2 = np.add.reduceat((v - np.repeat(mean, n.astype(np.int64))) ** 2,
+                         starts)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        va = np.where(n > 1, m2 / np.maximum(n - 1, 1), np.nan)
+        vp = m2 / n
+    out = {}
+    for cc, a, b, x, y in zip(c[starts].tolist(), np.sqrt(va).tolist(),
+                              np.sqrt(vp).tolist(), va.tolist(), vp.tolist()):
+        j, key = divmod(cc, num_keys)
+        out[(j * 1000, key)] = (a, b, x, y)
+    return out
+
+
+def phase_variance(device, batches, stream, card):
+    """Phase 26: the variance family on phase 4's stream through ``auto``
+    (the dense kernel: V = 3, the reading and its two pivot-shifted
+    columns) and ``partial_merge``, against the numpy float64 oracle at
+    rtol=1e-3 (counts, min and max exact, avg at rtol=1e-4); the dense
+    launches equal the batches, the merge launches the merges.  Then the
+    epoch-magnitude case of tests/test_functions.py:305 on the card."""
+    from denormalized_tpu_torch.ops import dense_window as dw
+    from denormalized_tpu_torch.ops import merge_partials as mp
+
+    ts, kid, val = stream
+    exp = oracle(ts, kid, val, 1000, 1000, NUM_KEYS)
+    vexp = variance_oracle(ts, kid, val, NUM_KEYS)
+    out = {}
+    for strategy in ("auto", "partial_merge"):
+        ctx, ds = variance_stream(device, batches, strategy)
+        dw.dense_window_launches = 0
+        mp.merge_partials_launches = 0
+        t0 = time.perf_counter()
+        res = ds.collect()
+        sync(device)
+        wall = time.perf_counter() - t0
+        op = window_exec_of(ctx)
+        b = op.backend
+        if strategy == "auto":
+            if not (dw.dense_window_launches == b.dense_updates
+                    == len(batches)) or b.scatter_updates:
+                raise AssertionError(
+                    f"phase 26 auto: {dw.dense_window_launches} dense "
+                    f"launches, dense_updates={b.dense_updates}, scatter="
+                    f"{b.scatter_updates}, batches {len(batches)}")
+            dispatch = f"{dw.dense_window_launches} dense launches"
+        else:
+            if mp.merge_partials_launches != b.merges or not b.merges:
+                raise AssertionError(f"phase 26 partial_merge: "
+                                     f"{mp.merge_partials_launches} merge "
+                                     f"launches for {b.merges} merges")
+            dispatch = f"{b.merges} merges = merge launches"
+        check_tumbling(res, exp, NUM_KEYS)
+        worst = 0.0
+        for ws, name, *vs in zip(res.column("window_start_time").tolist(),
+                                 res.column("sensor_name").tolist(),
+                                 *(res.column(c).tolist() for c in VAR_NAMES)):
+            want = vexp[(ws, int(name[7:]))]
+            for got, w in zip(vs, want):
+                if not np.isclose(got, w, rtol=1e-3, atol=0):
+                    raise AssertionError(f"phase 26 {strategy} {(ws, name)}:"
+                                         f" {vs} vs {want}")
+                worst = max(worst, abs(got / w - 1))
+        out[strategy] = dict(rows_per_s=len(ts) / wall,
+                             launches=dw.dense_window_launches)
+        log(f"phase 26 variance via {strategy}: {len(ts)} rows, "
+            f"{res.num_rows} window rows: counts, min, max exact, avg "
+            f"rtol=1e-4, stddev/stddev_pop/var/var_pop within rtol=1e-3 of "
+            f"the float64 oracle (worst {worst:.3g}), pivot "
+            f"{op._var_shift}, {dispatch}, value columns "
+            f"{op._spec.num_value_cols}, wall {wall:.3f} s, "
+            f"{len(ts) / wall:.0f} rows/s ({card})")
+
+    # epoch magnitude: the naive s2 - s^2/c cancels to 0 here
+    rng = np.random.default_rng(7)
+    n = 2048
+    e_ts = np.concatenate([np.sort(EVENT_T0 + b * 500 + rng.integers(0, 500, n))
+                           for b in range(4)])
+    e_val = 1.7e12 + rng.normal(0.0, 1000.0, 4 * n)
+    e_batches = to_batches(e_ts, np.zeros(4 * n, np.int64), e_val, n, 1)
+    for strategy in ("auto", "partial_merge"):
+        _ctx, ds = variance_stream(device, e_batches, strategy)
+        res = ds.collect()
+        sds = res.column("sd").tolist()
+        if not sds or not all(800.0 < x < 1200.0 for x in sds):
+            raise AssertionError(f"phase 26 epoch magnitude via {strategy}: "
+                                 f"stddev {sds}")
+        log(f"phase 26 epoch magnitude via {strategy}: values ~1.7e12 with "
+            f"sigma 1000 over {len(sds)} windows: stddev "
+            f"{', '.join(f'{x:.1f}' for x in sds)} (800-1200) ({card})")
+    return out
+
+
+# -- phase 27: float64 rings ---------------------------------------------------
+
+
+def f64_oracle(ts, kid, val, num_keys, values_f32: bool) -> dict:
+    """{(window_start, key): (count, sum)} in float64 over the values the
+    ring receives: the f32-rounded readings on row shipping (rows ship as
+    f32 and widen on the card, the JAX package's rule), the readings
+    themselves through partial_merge (the host reduces in f64)."""
+    v = val.astype(np.float32).astype(np.float64) if values_f32 else val
+    code = (ts // 1000) * num_keys + kid
+    order = np.argsort(code, kind="stable")
+    c, v = code[order], v[order]
+    starts = np.flatnonzero(np.r_[True, c[1:] != c[:-1]])
+    n = np.diff(np.r_[starts, len(c)])
+    sums = np.add.reduceat(v, starts)
+    return {(int(cc) // num_keys * 1000, int(cc) % num_keys): (int(k), float(s))
+            for cc, k, s in zip(c[starts], n, sums)}
+
+
+def phase_f64(device, batches, stream, card):
+    """Phase 27: config 3 with ``accum_dtype=torch.float64`` through
+    ``auto`` (the scatter path: the dense kernel is f32 only) and
+    ``partial_merge`` (the merge kernel's f64 instantiation, launches
+    counted), sums and averages against the float64 oracle at rtol=1e-10;
+    the same stream in f32 misses that bound, and its worst error says by
+    how much → the partial_merge run's merge launches."""
+    from denormalized_tpu_torch.ops import merge_partials as mp
+
+    ts, kid, val = stream
+    cfg = dict(min_group_capacity=2 * HIGHCARD_KEYS)
+    out = {}
+    for strategy in ("auto", "partial_merge"):
+        want = f64_oracle(ts, kid, val, HIGHCARD_KEYS,
+                          values_f32=strategy == "auto")
+        errs = {}
+        for accum in (torch.float64, torch.float32):
+            mp.merge_partials_launches = 0
+            ctx, res, wall = run_job(device, batches, "highcard",
+                                     strategy=strategy, accum_dtype=accum,
+                                     **cfg)
+            launches = mp.merge_partials_launches
+            op = window_exec_of(ctx)
+            got = highcard_rows(res)
+            if set(got) != set(want):
+                raise AssertionError(f"phase 27 {strategy}: row sets differ")
+            keys = list(want)
+            g = np.asarray([got[k] for k in keys], dtype=np.float64)
+            w = np.asarray([want[k] for k in keys], dtype=np.float64)
+            worst = float(max(np.abs(g[:, 0] / w[:, 1] - 1).max(),
+                              np.abs(g[:, 1] / (w[:, 1] / w[:, 0]) - 1).max()))
+            errs[accum] = worst
+            if accum == torch.float64:
+                planes = {str(t.dtype) for lb, t in op.backend._state.items()
+                          if not lb.startswith("count")}
+                if worst > 1e-10 or planes != {"torch.float64"}:
+                    raise AssertionError(f"phase 27 {strategy} f64: worst "
+                                         f"relative error {worst:.3g}, "
+                                         f"planes {planes}")
+                b = op.backend
+                if strategy == "partial_merge":
+                    if launches != b.merges or not b.merges:
+                        raise AssertionError(f"phase 27: {launches} merge "
+                                             f"launches for {b.merges} merges")
+                    out["launches"] = launches
+                    dispatch = f"{b.merges} merges = f64 merge launches"
+                else:
+                    if b.scatter_updates != len(batches) or b.dense_updates:
+                        raise AssertionError(f"phase 27 auto f64: scatter="
+                                             f"{b.scatter_updates}")
+                    dispatch = f"{b.scatter_updates} scatter steps"
+                out[strategy] = dict(rows_per_s=len(ts) / wall)
+                f64_wall = wall
+        if errs[torch.float32] <= 1e-10:
+            raise AssertionError(f"phase 27 {strategy}: the f32 ring met the "
+                                 f"f64 bound ({errs[torch.float32]:.3g})")
+        log(f"phase 27 config 3 in float64 via {strategy}: {len(ts)} rows, "
+            f"{len(want)} window rows, sums and averages within "
+            f"{errs[torch.float64]:.3g} of the float64 oracle (bound 1e-10; "
+            f"the same stream in float32: {errs[torch.float32]:.3g}), "
+            f"{dispatch}, wall {f64_wall:.3f} s, {len(ts) / f64_wall:.0f} "
+            f"rows/s ({card})")
+    return out
+
+
+# -- phase 28: the host pipeline and asynchronous emission ---------------------
+
+
+def phase_host_pipeline(device, jobs, rates, card):
+    """Phase 28: config 1 and config 3 through ``partial_merge`` with
+    ``host_pipeline=True`` and the default emit lag (200 ms on the card),
+    against the oracle, beside phases 8 and 10; every merge, the worker
+    thread's included, launched on the main thread's stream.  A replay-
+    speed run may close no window within the 200 ms lag before its end of
+    stream (then every window leaves at the end, block reads unused), so
+    config 3 runs once more with a 1 ms lag: each trigger reads its closed
+    windows as blocks and drains them at the next trigger, asynchronously
+    — there at least one block must have drained a trigger later."""
+    from denormalized_tpu_torch.ops import merge_partials as mp
+
+    main_stream = torch.cuda.current_stream(device).cuda_stream
+    out = {}
+    runs = [("tumbling", None), ("highcard", None), ("highcard", 1)]
+    for job, lag in runs:
+        batches, stream, num_keys = jobs[job]
+        ts, kid, val = stream
+        cfg = (dict(min_group_capacity=2 * HIGHCARD_KEYS)
+               if job == "highcard" else {})
+        if lag is not None:
+            cfg["emit_lag_ms"] = lag
+        mp.merge_partials_launches = 0
+        ctx, res, wall = run_job(device, batches, job,
+                                 strategy="partial_merge", host_pipeline=True,
+                                 **cfg)
+        exp = oracle(ts, kid, val, 1000, 1000, num_keys)
+        check = check_highcard if job == "highcard" else check_tumbling
+        n_rows = check(res, exp, num_keys)
+        op = window_exec_of(ctx)
+        b, m = op.backend, op.metrics()
+        sites = dict(b.merge_sites)
+        streams = {st for (_thread, st) in sites}
+        worker = sum(n for (thread, _st), n in sites.items()
+                     if thread != threading.main_thread().name)
+        if streams != {main_stream} or mp.merge_partials_launches != b.merges:
+            raise AssertionError(f"phase 28 {job}: merges on streams "
+                                 f"{sites}, main stream {main_stream}; "
+                                 f"{mp.merge_partials_launches} launches for "
+                                 f"{b.merges} merges")
+        if lag is not None and m["emit_blocks_deferred"] == 0:
+            raise AssertionError(f"phase 28 {job} (emit lag {lag} ms): no "
+                                 f"emission block was drained a trigger later")
+        label = job if lag is None else f"{job}_lag{lag}"
+        out[label] = dict(rows_per_s=len(ts) / wall, worker_merges=worker,
+                          deferred=m["emit_blocks_deferred"])
+        log(f"phase 28 {JOB_NAMES[job]} via partial_merge with host_pipeline"
+            f" (emit lag {'default' if lag is None else f'{lag} ms'}): "
+            f"{len(ts)} rows, {n_rows} window rows match the oracle, "
+            f"{b.merges} merges ({worker} on the worker thread), all on the "
+            f"main thread's stream {main_stream}; {m['emit_blocks']} emission "
+            f"blocks read, {m['emit_blocks_deferred']} drained a trigger "
+            f"later; wall {wall:.3f} s, {len(ts) / wall:.0f} rows/s against "
+            f"{rates[job]:.0f} without the pipeline (phase "
+            f"{8 if job == 'tumbling' else 10}) ({card})")
+    if not any(r["worker_merges"] for r in out.values()):
+        raise AssertionError("phase 28: no merge ran on the worker thread")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3355,11 +4219,18 @@ def main(argv=None) -> int:
     ap.add_argument("--kafka-broker", help=argparse.SUPPRESS)
     ap.add_argument("--kafka-topic", help=argparse.SUPPRESS)
     ap.add_argument("--kafka-out", help=argparse.SUPPRESS)
+    # phase 24's child (the script re-invoked on a state path)
+    ap.add_argument("--join-child", help=argparse.SUPPRESS)
+    ap.add_argument("--join-out", help=argparse.SUPPRESS)
+    ap.add_argument("--join-pause-after", type=int, default=0,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.ckpt_child:
         return ckpt_child(args)
     if args.kafka_child:
         return kafka_child(args)
+    if args.join_child:
+        return join_child(args)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -3446,9 +4317,26 @@ def main(argv=None) -> int:
     pace, staged, lat_stream = phase_kafka_latency(
         device, args.seed + 7, kafka["rows_per_s"], card)
     phase_kafka_ckpt(device, pace, staged, lat_stream, card)
+    phase_join_ckpt(device, args.seed, (batches, stream), join_right, card)
+    phase_join_ckpt_highcard(
+        device, (highcard_batches, highcard_stream), highcard_right, card)
+    compact = phase_compact_kernel(device, args.seed + 10, card)
+    compact_runs = phase_compact_highcard(device, highcard_batches,
+                                          highcard_stream, highcard_rates,
+                                          card)
+    phase_variance(device, batches, stream, card)
+    f64 = phase_f64(device, highcard_batches, highcard_stream, card)
+    phase_host_pipeline(
+        device,
+        {"tumbling": (batches, stream, NUM_KEYS),
+         "highcard": (highcard_batches, highcard_stream, HIGHCARD_KEYS)},
+        {"tumbling": cfg1_pm["rows_per_s"],
+         "highcard": highcard_rates["partial_merge"]}, card)
 
     hot = kern["main_hot"]
     m1 = merge["cfg1_dense"]
+    m64 = merge["cfg3_f64"]
+    c76 = compact["cfg3_76pct"]
     print(json.dumps({"kernels": [{
         "name": "dense_window",
         "route": "cuda",
@@ -3501,7 +4389,50 @@ def main(argv=None) -> int:
         "cases": {name: {key: case[key] for key in (
             "branch", "ms", "ms_by", "bound_ms", "bound_by", "host_ms",
             "plain_ms", "max_abs_err", "repeat_bit_equal", "cpu_bit_equal")}
-            for name, case in merge.items()},
+            for name, case in merge.items() if name not in MERGE_F64},
+    }, {
+        "name": "compact_slot",
+        "route": "cuda",
+        "source": "denormalized_tpu_torch/csrc/compact_slot.cu",
+        "replaces": "denormalized_tpu/ops/segment_agg.py:623",
+        # launches on config 3 with emission_compaction (phase 25, auto):
+        # one a window emitted
+        "launches": compact_runs["auto"]["launches"],
+        "max_abs_err": 0.0,
+        # device time of one compaction (both kernels) at config 3's shape:
+        # 100K of 131,072 cells active, five planes
+        "ms": c76["ms"],
+        "ms_by": c76["ms_by"],
+        "plain_ms": c76["plain_ms"],
+        "bound_ms": c76["bound_ms"],
+        "bound_by": c76["bound_by"],
+        # nonzero + index_select a plane: no single torch call compacts
+        "library_ms": c76["library_ms"],
+        "host_ms": c76["host_ms"],
+        "partial_merge_launches": compact_runs["partial_merge"]["launches"],
+        "cases": {name: {key: case[key] for key in (
+            "active", "ms", "ms_by", "host_ms", "plain_ms", "library_ms",
+            "bound_ms")} for name, case in compact.items()},
+    }, {
+        "name": "merge_partials_f64",
+        "route": "cuda",
+        "source": "denormalized_tpu_torch/csrc/merge_partials.cu",
+        "replaces": "denormalized_tpu/ops/segment_agg.py:365",
+        # launches on config 3 in float64 through partial_merge (phase 27)
+        "launches": f64["launches"],
+        "max_abs_err": max(merge[n]["max_abs_err"] for n in MERGE_F64),
+        # device time of one launch at cfg3_f64, apart from the wrapper
+        "ms": m64["ms"],
+        "ms_by": m64["ms_by"],
+        "plain_ms": m64["plain_ms"],
+        "bound_ms": m64["bound_ms"],
+        "bound_by": m64["bound_by"],
+        "library_ms": None,
+        "host_ms": m64["host_ms"],
+        "cases": {name: {key: merge[name][key] for key in (
+            "branch", "ms", "ms_by", "bound_ms", "bound_by", "host_ms",
+            "plain_ms", "max_abs_err", "repeat_bit_equal", "cpu_bit_equal")}
+            for name in MERGE_F64},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -8,7 +8,8 @@ and the checkpoint knobs (``checkpoint``, ``checkpoint_interval_s``,
 ``state_backend_path``, or :meth:`Context.with_state_backend`) and the
 join knobs (``join_retention_ms``, ``join_adaptive``,
 ``join_adapt_interval_s``, ``join_band_slack_ms``),
-``partition_watermarks`` and ``source_idle_timeout_ms``.
+``partition_watermarks``, ``source_idle_timeout_ms``, and the window
+operator's ``accum_dtype``, ``emission_compaction`` and ``host_pipeline``.
 :meth:`Context.from_topic` reads a Kafka topic (JSON payloads).
 """
 
@@ -59,6 +60,22 @@ class EngineConfig:
     # per merge.  None = 0 on the CPU, 200 ms on the card
     partial_merge_rows: int = 4_000_000
     emit_lag_ms: int | None = None
+    # partial_merge: run backend.accumulate (the native stripe reduction,
+    # which releases the interpreter lock) on a worker thread, so batch N's
+    # reduction overlaps batch N+1's eval/intern; the worker launches any
+    # merge on the operator's CUDA stream
+    host_pipeline: bool = False
+    # the ring's float type: torch.float32 (the default) or torch.float64
+    # (sums, min and max in f64; row shipping then takes the scatter path,
+    # the dense kernel being f32 only, and partial_merge the merge kernel's
+    # f64 instantiation).  No x64 switch is needed, as torch has f64
+    accum_dtype: torch.dtype = torch.float32
+    # device-side emission compaction: each closed window is read alone,
+    # its active groups moved to the front on the device
+    # (csrc/compact_slot.cu), and only a power-of-two prefix covering them
+    # crosses to the host instead of every group of the ring; turns
+    # device_finalize off
+    emission_compaction: bool = False
     # compensated (hi, lo) f32 sums: each batch (scatter path) or each
     # merge (partial_merge) folds into the pair by an exact TwoSum; the
     # dense kernel does not take such a spec (it falls back to scatter)

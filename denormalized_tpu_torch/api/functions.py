@@ -6,14 +6,15 @@ re-exports it (py-denormalized/python/denormalized/datafusion/functions.py):
 string/math/date/conditional/array/struct scalar functions injected from
 the registry (:mod:`denormalized_tpu_torch.logical.scalar_functions`),
 CASE, ranking and offset window functions, ``in_list``, ``order_by`` and
-scalar UDFs, and the aggregates the device ring finalizes
-(count/sum/min/max/avg, with ``count_star`` and ``mean``).
+scalar UDFs, and the aggregates the device ring accumulates
+(count/sum/min/max/avg, with ``count_star`` and ``mean``, and the variance
+family: ``stddev``, ``stddev_pop``, ``var``, ``var_pop`` and the aliases
+``stddev_samp``, ``var_samp``, ``var_sample``).
 
 ``__all__`` lists the JAX package's names.  The aggregates the port cannot
-run yet — the variance family, and every UDAF- or sketch-backed one
-(median, array_agg, approx_distinct, corr, bit_and, ``udaf``, ...) — exist
-by the same names and raise a ``PlanError`` naming the ROADMAP item that
-brings them.
+run yet — every UDAF- or sketch-backed one (median, array_agg,
+approx_distinct, corr, bit_and, ``udaf``, ...) — exist by the same names
+and raise a ``PlanError`` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -89,6 +90,37 @@ def mean(expr: Expr | str) -> AggregateExpr:
     return avg(expr)
 
 
+def stddev(expr: Expr | str) -> AggregateExpr:
+    """Sample standard deviation (decomposes onto the device ring)."""
+    return AggregateExpr("stddev", _e(expr))
+
+
+def stddev_samp(expr: Expr | str) -> AggregateExpr:
+    return AggregateExpr("stddev", _e(expr))
+
+
+def stddev_pop(expr: Expr | str) -> AggregateExpr:
+    return AggregateExpr("stddev_pop", _e(expr))
+
+
+def var(expr: Expr | str) -> AggregateExpr:
+    """Sample variance (DataFusion ``var``/``var_samp``)."""
+    return AggregateExpr("var", _e(expr))
+
+
+def var_samp(expr: Expr | str) -> AggregateExpr:
+    return AggregateExpr("var", _e(expr))
+
+
+def var_sample(expr: Expr | str) -> AggregateExpr:
+    """Alias of :func:`var` (reference functions.py:1893)."""
+    return var(expr)
+
+
+def var_pop(expr: Expr | str) -> AggregateExpr:
+    return AggregateExpr("var_pop", _e(expr))
+
+
 def _unported(name: str, kind: str | None = None):
     """A constructor the port has by name but cannot run yet: calling it
     raises the ``PlanError`` that names its ROADMAP item."""
@@ -104,16 +136,6 @@ def _unported(name: str, kind: str | None = None):
     )
     return make
 
-
-# the variance family (``*_samp`` and ``var_sample`` are the JAX
-# package's aliases of the sample kinds)
-stddev = _unported("stddev")
-stddev_samp = _unported("stddev_samp", "stddev")
-stddev_pop = _unported("stddev_pop")
-var = _unported("var")
-var_samp = _unported("var_samp", "var")
-var_sample = _unported("var_sample", "var")
-var_pop = _unported("var_pop")
 
 # UDAF- and sketch-backed aggregates (the JAX package's host accumulator
 # frame path)

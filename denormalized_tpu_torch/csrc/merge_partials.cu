@@ -6,7 +6,11 @@
 // (:365-456, jitted as merge_partials at :316 and, per key shard, as
 // parallel/sharded_state.py::_key_sharded_merge_partials at :696), a
 // jax.jit program that runs k x (components) XLA scatters a merge; in torch
-// that would be 20-30 small launches.  The host (ops/host_partial.py,
+// that would be 20-30 small launches.  Every kernel is a template on the
+// ring's float type T: float (merge_partials_launch) for the default f32
+// rings, double (merge_partials_launch_f64) for EngineConfig.accum_dtype =
+// torch.float64, where each stripe value (an f32 bitcast) widens to double
+// before it folds, as merge_partials_body's .astype(f64) does.  The host (ops/host_partial.py,
 // native/partial_agg.cpp) has already reduced the rows to per-(slide unit u,
 // sub-bucket s, group g) partials and packed them into one int32 matrix,
 // row length a_pad + 2:
@@ -28,7 +32,8 @@
 // never clamped) and not (SUB == 2 and f == k - 1 and s == 1): sub-bucket 1
 // misses the oldest window.  Counts go to the int32 rings as int32, sums
 // add hi then lo (lo goes to the sumc plane in compensated mode), min and
-// max fold NaN-safely.
+// max fold NaN-safely.  In an f64 ring the hi + lo pair keeps ~48 bits of
+// the host's f64 sum.
 //
 // What bounds it on the card.  The bytes: the row-count plane of the
 // stripe, the other planes of its live cells, plus every ring cell the
@@ -69,9 +74,9 @@
 //      No atomics: deterministic sums.
 //   3. merge_partials_scatter_kernel (compact layout, k > 1).
 //      Cells that feed one ring cell lie far apart in the sorted index row,
-//      so updates stay atomic (int32 atomicAdd for counts, f32 atomicAdd
-//      for sums, the NaN-safe int-key folds of ring_fold.cuh for min and
-//      max), but a thread reads its cell's header, index, row count and
+//      so updates stay atomic (int32 atomicAdd for counts, f32 or f64
+//      atomicAdd for sums, the NaN-safe int-key folds of ring_fold.cuh,
+//      32- or 64-bit, for min and max), but a thread reads its cell's header, index, row count and
 //      value planes at once, then the NaN check of every ring cell it will
 //      fold an extremum into, before its first atomic.  Sums here are
 //      added in an order that varies from run to run.
@@ -98,11 +103,62 @@ enum Mode : int { MODE_TUMBLING = 0, MODE_GATHER = 1, MODE_SCATTER = 2 };
 
 // One ring plane and the packed value plane that feeds it.
 struct MergeOp {
-  int kind;       // OpKind
-  int src;        // value plane index (sum: hi; lo is the next plane)
-  void* dst;      // ring plane: int* for counts, float* otherwise
-  float* dst_lo;  // sum only: where lo goes (the sumc plane, or dst)
+  int kind;      // OpKind
+  int src;       // value plane index (sum: hi; lo is the next plane)
+  void* dst;     // ring plane: int* for counts, T* otherwise
+  void* dst_lo;  // sum only: where lo goes (the sumc plane, or dst)
 };
+
+// A ring value of type T travels through a thread as its bits (Bits), so
+// one carrier holds a count (int) or a float value; an f32 ring's carrier
+// is the int it always was.
+template <class T>
+struct Ring;
+
+template <>
+struct Ring<float> {
+  using Bits = int;
+  __device__ __forceinline__ static float val(int b) {
+    return __int_as_float(b);
+  }
+  __device__ __forceinline__ static int bits(float v) {
+    return __float_as_int(v);
+  }
+};
+
+template <>
+struct Ring<double> {
+  using Bits = long long;
+  __device__ __forceinline__ static double val(long long b) {
+    return __longlong_as_double(b);
+  }
+  __device__ __forceinline__ static long long bits(double v) {
+    return __double_as_longlong(v);
+  }
+};
+
+// A ring cell's value as bits: counts from the int32 plane, the rest from
+// the T plane.
+template <class T>
+__device__ __forceinline__ typename Ring<T>::Bits load_ring(const void* plane,
+                                                            int kind,
+                                                            long long off) {
+  using Bits = typename Ring<T>::Bits;
+  if (kind == OP_COUNT) return static_cast<const int*>(plane)[off];
+  return static_cast<const Bits*>(plane)[off];
+}
+
+template <class T>
+__device__ __forceinline__ void store_ring(void* plane, int kind,
+                                           long long off,
+                                           typename Ring<T>::Bits r) {
+  using Bits = typename Ring<T>::Bits;
+  if (kind == OP_COUNT) {
+    static_cast<int*>(plane)[off] = static_cast<int>(r);
+  } else {
+    static_cast<Bits*>(plane)[off] = r;
+  }
+}
 
 struct OpTable {
   MergeOp op[MAX_OPS];
@@ -162,26 +218,30 @@ __device__ __forceinline__ long long ring_offset(const Geometry& geo,
 
 // One contributor folded into ring values a thread owns (tumbling,
 // gather).  r/rl hold the ring value(s) as bits: counts as int, the rest
-// as float; a plain sum adds hi, then lo.
-__device__ __forceinline__ void fold_value(int kind, bool split, int& r,
-                                           int& rl, float x, float lo) {
+// as T; a plain sum adds hi, then lo.
+template <class T>
+__device__ __forceinline__ void fold_value(int kind, bool split,
+                                           typename Ring<T>::Bits& r,
+                                           typename Ring<T>::Bits& rl,
+                                           float x, float lo) {
+  using R = Ring<T>;
   switch (kind) {
     case OP_COUNT:
       r += static_cast<int>(x);
       break;
     case OP_SUM:
       if (split) {
-        r = __float_as_int(as_float(r) + x);
-        rl = __float_as_int(as_float(rl) + lo);
+        r = R::bits(R::val(r) + static_cast<T>(x));
+        rl = R::bits(R::val(rl) + static_cast<T>(lo));
       } else {
-        r = __float_as_int(as_float(r) + x + lo);
+        r = R::bits(R::val(r) + static_cast<T>(x) + static_cast<T>(lo));
       }
       break;
     case OP_MIN:
-      r = __float_as_int(ring_fold::min_value(as_float(r), x));
+      r = R::bits(ring_fold::min_value(R::val(r), static_cast<T>(x)));
       break;
     default:
-      r = __float_as_int(ring_fold::max_value(as_float(r), x));
+      r = R::bits(ring_fold::max_value(R::val(r), static_cast<T>(x)));
       break;
   }
 }
@@ -209,6 +269,7 @@ __device__ __forceinline__ void load_plane(const int* __restrict__ row,
 
 // 1. k = 1: distinct cells, distinct ring cells; no atomics.  A thread
 // takes CELLS stripe cells of one op.
+template <class T>
 __global__ void __launch_bounds__(BLOCK_THREADS)
     merge_partials_tumbling_kernel(const int* __restrict__ packed,
                                    const Geometry geo,
@@ -262,31 +323,32 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
   if (!any) return;
   // second round trip: the op's planes and its ring cells, then the folds
   // and one store a ring cell
+  using Bits = typename Ring<T>::Bits;
   const bool sum = op.kind == OP_SUM;
   const bool split = sum && op.dst_lo != op.dst;
-  int* dst = static_cast<int*>(op.dst);
-  int* dst_lo = reinterpret_cast<int*>(op.dst_lo);
-  int x[CELLS], lo[CELLS], r[CELLS], rl[CELLS];
+  int x[CELLS], lo[CELLS];
+  Bits r[CELLS], rl[CELLS];
   load_plane(planes + op.src * ld, cell, geo.a_pad, 0, x);
   if (sum) load_plane(planes + (op.src + 1) * ld, cell, geo.a_pad, 0, lo);
 #pragma unroll
   for (int c = 0; c < CELLS; ++c) {
     if (off[c] < 0) continue;
-    r[c] = dst[off[c]];
-    if (split) rl[c] = dst_lo[off[c]];
+    r[c] = load_ring<T>(op.dst, op.kind, off[c]);
+    if (split) rl[c] = load_ring<T>(op.dst_lo, OP_SUM, off[c]);
   }
 #pragma unroll
   for (int c = 0; c < CELLS; ++c) {
     if (off[c] < 0) continue;
-    fold_value(op.kind, split, r[c], rl[c], as_float(x[c]),
-               sum ? as_float(lo[c]) : 0.f);
-    dst[off[c]] = r[c];
-    if (split) dst_lo[off[c]] = rl[c];
+    fold_value<T>(op.kind, split, r[c], rl[c], as_float(x[c]),
+                  sum ? as_float(lo[c]) : 0.f);
+    store_ring<T>(op.dst, op.kind, off[c], r[c]);
+    if (split) store_ring<T>(op.dst_lo, OP_SUM, off[c], rl[c]);
   }
 }
 
 // 2. Dense layout with fan-out: one thread a (window, group) of one op,
 // gathering its contributors.
+template <class T>
 __global__ void __launch_bounds__(BLOCK_THREADS) merge_partials_gather_kernel(
     const int* __restrict__ packed, const Geometry geo,
     const __grid_constant__ OpTable table) {
@@ -306,12 +368,11 @@ __global__ void __launch_bounds__(BLOCK_THREADS) merge_partials_gather_kernel(
   const long long off = ring_offset(
       geo, base_mod, static_cast<long long>(u_base_rel) + m - (geo.k - 1), g);
   if (off < 0) return;
+  using Bits = typename Ring<T>::Bits;
   const bool sum = op.kind == OP_SUM;
   const bool split = sum && op.dst_lo != op.dst;
-  int* dst = static_cast<int*>(op.dst);
-  int* dst_lo = reinterpret_cast<int*>(op.dst_lo);
-  int r = dst[off];
-  int rl = split ? dst_lo[off] : 0;
+  Bits r = load_ring<T>(op.dst, op.kind, off);
+  Bits rl = split ? load_ring<T>(op.dst_lo, OP_SUM, off) : 0;
   bool live = false;
   // contributors in the plain version's order: fan-out f ascending (unit
   // u = m - (k - 1) + f), then sub-bucket s; sub-bucket 1 misses f = k - 1.
@@ -346,29 +407,32 @@ __global__ void __launch_bounds__(BLOCK_THREADS) merge_partials_gather_kernel(
       for (int qq = 0; qq < FAN; ++qq) {
         if ((qq & (geo.SUB - 1)) != 0) continue;  // qq leads its group
         const bool two = geo.SUB == 2 && qq + 1 < FAN;
-        float acc = as_float(r);
-        if (rc[qq] != 0) acc += as_float(x[qq]);
-        if (two && rc[qq + 1] != 0) acc += as_float(x[qq + 1]);
-        if (rc[qq] != 0) acc += as_float(lo[qq]);
-        if (two && rc[qq + 1] != 0) acc += as_float(lo[qq + 1]);
-        r = __float_as_int(acc);
+        T acc = Ring<T>::val(r);
+        if (rc[qq] != 0) acc += static_cast<T>(as_float(x[qq]));
+        if (two && rc[qq + 1] != 0) acc += static_cast<T>(as_float(x[qq + 1]));
+        if (rc[qq] != 0) acc += static_cast<T>(as_float(lo[qq]));
+        if (two && rc[qq + 1] != 0) {
+          acc += static_cast<T>(as_float(lo[qq + 1]));
+        }
+        r = Ring<T>::bits(acc);
       }
     } else {
 #pragma unroll
       for (int qq = 0; qq < FAN; ++qq) {
         if (rc[qq] == 0) continue;
-        fold_value(op.kind, split, r, rl, as_float(x[qq]),
-                   sum ? as_float(lo[qq]) : 0.f);
+        fold_value<T>(op.kind, split, r, rl, as_float(x[qq]),
+                      sum ? as_float(lo[qq]) : 0.f);
       }
     }
   }
   if (!live) return;  // every contributor empty: the ring cell stays
-  dst[off] = r;
-  if (split) dst_lo[off] = rl;
+  store_ring<T>(op.dst, op.kind, off, r);
+  if (split) store_ring<T>(op.dst_lo, OP_SUM, off, rl);
 }
 
 // 3. Compact layout with fan-out: one thread a stripe cell of one op,
 // atomics; every load a thread needs is issued before its first atomic.
+template <class T>
 __global__ void __launch_bounds__(BLOCK_THREADS) merge_partials_scatter_kernel(
     const int* __restrict__ packed, const Geometry geo,
     const __grid_constant__ OpTable table) {
@@ -409,25 +473,27 @@ __global__ void __launch_bounds__(BLOCK_THREADS) merge_partials_scatter_kernel(
                                   g)
                     : -1;
       nan[ff] = extremum && off[ff] >= 0 &&
-                isnan(__ldcg(static_cast<const float*>(op.dst) + off[ff]));
+                isnan(__ldcg(static_cast<const T*>(op.dst) + off[ff]));
     }
 #pragma unroll
     for (int ff = 0; ff < FAN; ++ff) {
       if (off[ff] < 0 || nan[ff]) continue;
-      float* cell = static_cast<float*>(op.dst) + off[ff];
+      T* cell = static_cast<T*>(op.dst) + off[ff];
       switch (op.kind) {
         case OP_COUNT:
           atomicAdd(static_cast<int*>(op.dst) + off[ff], static_cast<int>(x));
           break;
         case OP_SUM:
-          atomicAdd(cell, x);
-          atomicAdd(op.dst_lo + off[ff], lo);
+          atomicAdd(cell, static_cast<T>(x));
+          atomicAdd(static_cast<T*>(op.dst_lo) + off[ff], static_cast<T>(lo));
           break;
         case OP_MIN:
-          ring_fold::atomic_min_key(cell, ring_fold::min_key(x));
+          ring_fold::atomic_min_key(cell,
+                                    ring_fold::min_key(static_cast<T>(x)));
           break;
         default:
-          ring_fold::atomic_max_key(cell, ring_fold::max_key(x));
+          ring_fold::atomic_max_key(cell,
+                                    ring_fold::max_key(static_cast<T>(x)));
           break;
       }
     }
@@ -445,20 +511,12 @@ FastDiv fast_div_of(int d) {
   return FastDiv{static_cast<unsigned>(m), l};
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launch on ``stream`` (a cudaStream_t passed as a pointer) the kernel of
-// ``mode`` (0 tumbling, 1 gather, 2 scatter; the wrapper picks it from the
-// stripe's shape).  ``ops`` is a HOST array of n_ops MergeOp (device
-// pointers), copied into the kernel's parameters.  Allocates nothing;
-// returns cudaGetLastError() after the launch (0 = success), so a refused
-// launch reaches the caller.
-int merge_partials_launch(const int* packed, int mode, int a_pad, int dense,
-                          int SUB, int k, int W, int cap, int G_total,
-                          int g_shift, int n_ops, const void* ops,
-                          void* stream) {
+// Launch on ``stream`` the kernel of ``mode`` for a ring of T (see the
+// extern "C" entries below).
+template <class T>
+int launch(const int* packed, int mode, int a_pad, int dense, int SUB, int k,
+           int W, int cap, int G_total, int g_shift, int n_ops,
+           const void* ops, void* stream) {
   if (n_ops < 1 || n_ops > MAX_OPS || a_pad < 1 || SUB < 1 || SUB > 2 ||
       k < 1 || W < 1 || cap < 1 || G_total < 1 || g_shift < 0) {
     return (int)cudaErrorInvalidValue;
@@ -494,21 +552,49 @@ int merge_partials_launch(const int* packed, int mode, int a_pad, int dense,
   if (threads < 1 || threads > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const long long blocks = (threads + BLOCK_THREADS - 1) / BLOCK_THREADS;
   const dim3 grid(static_cast<unsigned>(blocks), n_ops);  // y: the op
+  const auto tumbling = merge_partials_tumbling_kernel<T>;
+  const auto gather = merge_partials_gather_kernel<T>;
+  const auto scatter = merge_partials_scatter_kernel<T>;
   switch (mode) {
     case MODE_TUMBLING:
-      merge_partials_tumbling_kernel<<<grid, BLOCK_THREADS, 0, st>>>(
-          packed, geo, table);
+      tumbling<<<grid, BLOCK_THREADS, 0, st>>>(packed, geo, table);
       break;
     case MODE_GATHER:
-      merge_partials_gather_kernel<<<grid, BLOCK_THREADS, 0, st>>>(
-          packed, geo, table);
+      gather<<<grid, BLOCK_THREADS, 0, st>>>(packed, geo, table);
       break;
     default:
-      merge_partials_scatter_kernel<<<grid, BLOCK_THREADS, 0, st>>>(
-          packed, geo, table);
+      scatter<<<grid, BLOCK_THREADS, 0, st>>>(packed, geo, table);
       break;
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch on ``stream`` (a cudaStream_t passed as a pointer) the kernel of
+// ``mode`` (0 tumbling, 1 gather, 2 scatter; the wrapper picks it from the
+// stripe's shape) for a float32 ring.  ``ops`` is a HOST array of n_ops
+// MergeOp (device pointers), copied into the kernel's parameters.
+// Allocates nothing; returns cudaGetLastError() after the launch (0 =
+// success), so a refused launch reaches the caller.
+int merge_partials_launch(const int* packed, int mode, int a_pad, int dense,
+                          int SUB, int k, int W, int cap, int G_total,
+                          int g_shift, int n_ops, const void* ops,
+                          void* stream) {
+  return launch<float>(packed, mode, a_pad, dense, SUB, k, W, cap, G_total,
+                       g_shift, n_ops, ops, stream);
+}
+
+// The same for a float64 ring (sum, sumc, min and max planes of double;
+// counts stay int32).
+int merge_partials_launch_f64(const int* packed, int mode, int a_pad,
+                              int dense, int SUB, int k, int W, int cap,
+                              int G_total, int g_shift, int n_ops,
+                              const void* ops, void* stream) {
+  return launch<double>(packed, mode, a_pad, dense, SUB, k, W, cap, G_total,
+                        g_shift, n_ops, ops, stream);
 }
 
 const char* merge_partials_error_string(int code) {

@@ -12,6 +12,10 @@
 // that several threads may update in one launch, and the value folds
 // (min_value/max_value) for a thread that owns its cell.  Both order -0
 // below +0 and keep a NaN already in the cell.
+//
+// Each has a double twin for float64 rings (merge_partials.cu's f64
+// instantiation): 64-bit keys (bits ^ 0x7fff...ffff below zero), LLONG_MIN
+// and LLONG_MAX for a NaN, and the same sign-split atomics on 64-bit ints.
 
 #pragma once
 
@@ -101,6 +105,71 @@ __device__ __forceinline__ float min_value(float r, float x) {
 }
 
 __device__ __forceinline__ float max_value(float r, float x) {
+  if (isnan(r)) return r;
+  if (isnan(x)) return x;
+  return order_key(x) > order_key(r) ? x : r;
+}
+
+// -- float64 ring cells ------------------------------------------------------
+
+__device__ __forceinline__ long long order_key(double x) {
+  const long long b = __double_as_longlong(x);
+  return b >= 0 ? b : b ^ 0x7fffffffffffffffLL;
+}
+
+// Inverse of order_key(double); LLONG_MIN and LLONG_MAX decode to NaN.
+__device__ __forceinline__ double key_value(long long k) {
+  return __longlong_as_double(k >= 0 ? k : k ^ 0x7fffffffffffffffLL);
+}
+
+__device__ __forceinline__ long long min_key(double x) {
+  return x != x ? LLONG_MIN : order_key(x);
+}
+
+__device__ __forceinline__ long long max_key(double x) {
+  return x != x ? LLONG_MAX : order_key(x);
+}
+
+// The f32 atomic folds' rules on 64 bits: sign clear -> signed atomics,
+// sign set -> unsigned atomics the other way; a NaN is stored as all ones
+// (min) or 0x7fff...ffff (max).  The caller leaves a cell alone that held
+// a NaN when the launch began.
+__device__ __forceinline__ void atomic_min_key(double* addr, long long key) {
+  if (key == LLONG_MIN) {
+    atomicMax(reinterpret_cast<unsigned long long*>(addr),
+              0xffffffffffffffffull);
+    return;
+  }
+  const long long bits = __double_as_longlong(key_value(key));
+  if (bits >= 0) {
+    atomicMin(reinterpret_cast<long long*>(addr), bits);
+  } else {
+    atomicMax(reinterpret_cast<unsigned long long*>(addr),
+              static_cast<unsigned long long>(bits));
+  }
+}
+
+__device__ __forceinline__ void atomic_max_key(double* addr, long long key) {
+  if (key == LLONG_MAX) {
+    atomicMax(reinterpret_cast<long long*>(addr), 0x7fffffffffffffffLL);
+    return;
+  }
+  const long long bits = __double_as_longlong(key_value(key));
+  if (bits >= 0) {
+    atomicMax(reinterpret_cast<long long*>(addr), bits);
+  } else {
+    atomicMin(reinterpret_cast<unsigned long long*>(addr),
+              static_cast<unsigned long long>(bits));
+  }
+}
+
+__device__ __forceinline__ double min_value(double r, double x) {
+  if (isnan(r)) return r;
+  if (isnan(x)) return x;
+  return order_key(x) < order_key(r) ? x : r;
+}
+
+__device__ __forceinline__ double max_value(double r, double x) {
   if (isnan(r)) return r;
   if (isnan(x)) return x;
   return order_key(x) > order_key(r) ? x : r;

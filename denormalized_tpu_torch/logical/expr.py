@@ -1120,30 +1120,30 @@ class ScalarUDFExpr(Expr):
 
 # -- aggregates ---------------------------------------------------------
 
-AGG_KINDS = ("count", "sum", "min", "max", "avg")
-#: the variance family needs sum-of-squares planes in the device ring
+AGG_KINDS = (
+    "count", "sum", "min", "max", "avg",
+    # variance family: decomposes into sum/count/sum-of-squares components
+    # over pivot-shifted value columns in the device ring
+    "stddev", "stddev_pop", "var", "var_pop",
+)
 VAR_KINDS = ("stddev", "stddev_pop", "var", "var_pop")
 
 
 def unported_aggregate(kind: str) -> PlanError:
     """The refusal for an aggregate the port cannot run yet, naming the
-    ROADMAP item that brings it: the variance family with the window
-    operator's remaining options (§A item 4), every UDAF-backed or
-    sketch-backed aggregate with the UDAF executor (§A item 6)."""
-    item = (
-        "§A item 4, the variance family's device ring planes"
-        if kind in VAR_KINDS
-        else "§A item 6, the UDAF executor"
-    )
+    ROADMAP item that brings it: every UDAF-backed or sketch-backed
+    aggregate comes with the UDAF executor (§A item 6)."""
     return PlanError(
         f"aggregate {kind!r} not yet ported to denormalized_tpu_torch: it "
-        f"comes with ROADMAP {item} (ported: {', '.join(AGG_KINDS)})"
+        f"comes with ROADMAP §A item 6, the UDAF executor (ported: "
+        f"{', '.join(AGG_KINDS)})"
     )
 
 
 @dataclass(frozen=True, eq=False)
 class AggregateExpr(Expr):
-    """An aggregate call inside window(): count/sum/min/max/avg."""
+    """An aggregate call inside window(): count/sum/min/max/avg or the
+    variance family."""
 
     kind: str  # one of AGG_KINDS
     arg: Expr | None  # None for count(*)
@@ -1166,7 +1166,7 @@ class AggregateExpr(Expr):
     def out_field(self, schema: Schema) -> Field:
         if self.kind == "count":
             return Field(self.name, DataType.INT64, nullable=False)
-        if self.kind == "avg":
+        if self.kind == "avg" or self.kind in VAR_KINDS:
             return Field(self.name, DataType.FLOAT64)
         f = self.arg.out_field(schema)
         if self.kind == "sum":

@@ -5,8 +5,9 @@ hand-written CUDA kernels ``csrc/merge_partials.cu``.
 (``ops/host_partial.py::HostPartialStripe.take_packed``) into the window
 ring in place, in ONE launch a merge: the port of the JAX package's
 ``segment_agg.merge_partials_body``, group shift included.  The launch
-takes one of three kernels by the stripe's shape (:func:`merge_branch`).
-On a CUDA tensor it launches the kernel or raises; it takes its plain
+takes one of three kernels by the stripe's shape (:func:`merge_branch`),
+instantiated for the ring's type: float32 rings, or float64 ones
+(``EngineConfig.accum_dtype=torch.float64``).  On a CUDA tensor it launches the kernel or raises; it takes its plain
 version (:func:`denormalized_tpu_torch.ops.segment_agg.
 merge_partials_reference`) only for tensors on the CPU.
 """
@@ -35,6 +36,9 @@ _TABLE_CACHE_SIZE = 64
 merge_partials_launches = 0
 _COUNT_LOCK = threading.Lock()
 _TABLES: dict[tuple, tuple] = {}
+# the source's entry point for each ring type
+_LAUNCH = {torch.float32: "merge_partials_launch",
+           torch.float64: "merge_partials_launch_f64"}
 _TABLES_LOCK = threading.Lock()
 
 
@@ -82,8 +86,9 @@ def _lib() -> ctypes.CDLL:
 
     lib = load("merge_partials")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.merge_partials_launch.argtypes = [p] + [i] * 10 + [p, p]
-    lib.merge_partials_launch.restype = i
+    for fn in (lib.merge_partials_launch, lib.merge_partials_launch_f64):
+        fn.argtypes = [p] + [i] * 10 + [p, p]
+        fn.restype = i
     lib.merge_partials_error_string.argtypes = [i]
     lib.merge_partials_error_string.restype = ctypes.c_char_p
     return lib
@@ -154,9 +159,10 @@ def _launch_table(spec, lean, state, device):
         hit = _TABLES.get(key)
     if hit is not None and all(r() is t for r, t in zip(hit[2], planes)):
         return hit[0], hit[1]
-    if spec.accum_dtype != torch.float32:
+    if spec.accum_dtype not in _LAUNCH:
         raise ValueError(
-            f"the merge kernel folds float32 rings, not {spec.accum_dtype}"
+            f"the merge kernel folds float32 or float64 rings, not "
+            f"{spec.accum_dtype}"
         )
     _check_ring(spec, state, device)
     ops, _ = merge_ops(spec, lean)
@@ -181,7 +187,7 @@ def _launch(spec, SUB, a_pad, lean, dense, state, packed, G_total,
     ``state`` gains the stripe in place."""
     global merge_partials_launches
     table, n_ops = _launch_table(spec, lean, state, packed.device)
-    rc = _lib().merge_partials_launch(
+    rc = getattr(_lib(), _LAUNCH[spec.accum_dtype])(
         packed.data_ptr(), BRANCHES[merge_branch(spec, dense)], a_pad,
         int(dense), SUB, spec.length_units, spec.window_slots,
         spec.group_capacity, G_total, g_shift, n_ops, table,

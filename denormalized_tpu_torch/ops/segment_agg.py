@@ -17,9 +17,14 @@ primitive component, lives on the device for *all* open windows:
   dropped.  torch has no ``mode="drop"``, so they are masked out BEFORE
   indexing: an out-of-range flat index would raise or land in another cell.
 
-Every function except :func:`finalize` runs on the ring's device.  Counts
-are int32 and sums/min/max ``accum_dtype`` (float32), as in the JAX package;
-nothing widens silently.
+Every function except :func:`finalize` and the variance helpers runs on
+the ring's device.  Counts are int32 and sums/min/max ``accum_dtype``
+(float32 by default, float64 with ``EngineConfig.accum_dtype``), as in the
+JAX package; nothing widens silently.
+
+:func:`read_slot_compact` reads one slot through the compaction kernel
+(``ops/compact_slot.py``): the active count first, then a power-of-two
+prefix of the compacted buffers.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import numpy as np
 import torch
 
 from denormalized_tpu_torch.common.errors import PlanError
+from denormalized_tpu_torch.logical.expr import VAR_KINDS
 
 
 @dataclass(frozen=True)
@@ -50,9 +56,56 @@ class AggComponent:
 ROW_COUNT = AggComponent("count", None)
 
 
+def variance_result(
+    kind: str, c: np.ndarray, s: np.ndarray, s2: np.ndarray
+) -> np.ndarray:
+    """Variance finalize: ``s``/``s2`` are Σ(x−K) and Σ(x−K)² for a
+    constant shift K near the data's magnitude, so the ``s2 − s²/c``
+    subtraction does not cancel catastrophically (with K=0 and epoch-scale
+    values the two terms agree to ~24 digits); the shift cancels exactly
+    in the algebra."""
+    c = np.asarray(c, np.float64)
+    s = np.asarray(s, np.float64)
+    s2 = np.asarray(s2, np.float64)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        m2 = np.maximum(s2 - s * s / np.maximum(c, 1), 0.0)
+    return variance_from_m2(kind, c, m2)
+
+
+def variance_from_m2(kind: str, c, m2):
+    """Variance finalize from (count, M2) moments: ``*_pop`` divides by c,
+    the sample kinds by c − 1 (NaN below 2 rows); ``stddev*`` takes the
+    square root."""
+    c = np.asarray(c, np.float64)
+    m2 = np.asarray(m2, np.float64)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        if kind.endswith("_pop"):
+            v = np.where(c > 0, m2 / np.maximum(c, 1), np.nan)
+        else:
+            v = np.where(c > 1, m2 / np.maximum(c - 1, 1), np.nan)
+    return np.sqrt(v) if kind.startswith("stddev") else v
+
+
+def chan_merge(n1, mean1, m21, n2, mean2, m22):
+    """Chan et al.'s parallel combine of (count, mean, M2) moment pairs —
+    stable at any magnitude, exact merge algebra."""
+    n = n1 + n2
+    if n == 0:
+        return 0.0, 0.0, 0.0
+    delta = mean2 - mean1
+    mean = mean1 + delta * n2 / n
+    m2 = m21 + m22 + delta * delta * n1 * n2 / n
+    return n, mean, m2
+
+
 def components_for(aggs: list[tuple]) -> list[AggComponent]:
-    """Decompose aggregate specs ``(kind, value_col)`` into deduped
-    primitive components (``avg`` → sum + count)."""
+    """Decompose aggregate specs into deduped primitive components.
+
+    Entries are ``(kind, value_col)`` — or, for the variance family,
+    ``(kind, shifted_col, shifted_sq_col)``: the caller registers two value
+    columns holding (x−K) and (x−K)² for a pivot K it picks from the first
+    data it sees (see :func:`variance_result`).  ``avg`` → sum + count;
+    variance → sum + count + sum of squares over the shifted columns."""
     comps: list[AggComponent] = [ROW_COUNT]
     for spec in aggs:
         kind, col = spec[0], spec[1]
@@ -60,6 +113,12 @@ def components_for(aggs: list[tuple]) -> list[AggComponent]:
             wanted = [AggComponent("count", col)]
         elif kind == "avg":
             wanted = [AggComponent("sum", col), AggComponent("count", col)]
+        elif kind in VAR_KINDS:
+            wanted = [
+                AggComponent("sum", col),
+                AggComponent("count", col),
+                AggComponent("sum", spec[2]),
+            ]
         elif kind in ("sum", "min", "max"):
             wanted = [AggComponent(kind, col)]
         else:
@@ -404,7 +463,8 @@ ACTIVE_MASK = "__active__"
 
 
 def finals_possible(agg_specs: tuple) -> bool:
-    """True when every output aggregate can be finalized on device."""
+    """True when every output aggregate can be finalized on device (the
+    variance family needs the host's pivot-shifted f64 algebra)."""
     return all(s[0] in BASIC_FINAL_KINDS for s in agg_specs)
 
 
@@ -482,6 +542,31 @@ def read_slot(
     return {c.label: to_host(state[c.label][slot]) for c in spec.components}
 
 
+def read_slot_compact(
+    spec: WindowKernelSpec, state: dict[str, torch.Tensor], slot: int,
+    capacity: int | None = None,
+) -> tuple[np.ndarray, dict[str, np.ndarray]]:
+    """→ (active gids ascending, component rows aligned to them).
+
+    Two-phase transfer: the compaction kernel (``ops/compact_slot.py``)
+    moves the slot's active cells to the front on the device; the scalar
+    active count k crosses first, then a power-of-two prefix (capped at
+    ``capacity``, default G) of the compacted buffers, cut to k on the
+    host."""
+    from denormalized_tpu_torch.ops.compact_slot import compact_slot
+
+    comps = spec.components
+    n, gids, outs = compact_slot(
+        state[ROW_COUNT.label][slot], [state[c.label][slot] for c in comps]
+    )
+    k = int(n.item())
+    bucket = 0 if k == 0 else min(
+        1 << (k - 1).bit_length(), capacity or spec.group_capacity
+    )
+    rows = {c.label: to_host(o[:bucket])[:k] for c, o in zip(comps, outs)}
+    return to_host(gids[:bucket])[:k], rows
+
+
 def export_state(state: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
     """Full device→host snapshot: ``(W, G)`` numpy planes keyed by
     component label — the layout both packages export."""
@@ -532,7 +617,16 @@ def finalize(
     outs: list[np.ndarray] = []
     for spec in agg_specs:
         kind, col = spec[0], spec[1]
-        if kind == "count":
+        if kind in VAR_KINDS:
+            outs.append(
+                variance_result(
+                    kind,
+                    rows[AggComponent("count", col).label][active],
+                    read_sum(rows, col)[active],
+                    read_sum(rows, spec[2])[active],
+                )
+            )
+        elif kind == "count":
             label = AggComponent("count", col).label
             outs.append(rows[label][active].astype(np.int64))
         elif kind == "sum":

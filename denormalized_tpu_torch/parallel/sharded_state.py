@@ -19,6 +19,12 @@ Checkpoints export the ring without stopping ingest:
 :meth:`SingleDeviceWindowState.export_start` clones the ring on the current
 stream and copies the clone to pinned host memory on a side stream;
 :meth:`~SingleDeviceWindowState.export_finish` waits for that copy alone.
+Emission reads blocks of slots the same way
+(:meth:`~SingleDeviceWindowState.read_reset_block_start` /
+:meth:`~SingleDeviceWindowState.read_reset_block_finish`), so the window
+operator can drain a block a trigger later, and
+:meth:`~SingleDeviceWindowState.read_slot_compact` moves only a slot's
+active cells, through the compaction kernel.
 
 The sharded layouts (key-sharded, partial/final, two-level) are not ported
 yet.
@@ -26,6 +32,7 @@ yet.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -69,23 +76,36 @@ class WindowStateBackend:
         """Fold pending host partials into the ring (row shipping holds
         none)."""
 
-    def read_reset_block(
+    # -- emission: start dispatches a block's gather+reset and its copy to
+    # the host and returns a handle; finish materializes it
+    def read_reset_block_start(
         self, first_slot: int, n: int, live_groups=None, lean=False
-    ) -> dict[str, np.ndarray]:
-        """Read and reset n consecutive ring slots (component planes)."""
+    ):
+        """Start reading and resetting n consecutive ring slots (component
+        planes)."""
+        raise NotImplementedError
+
+    def read_reset_block_finish(self, handle) -> dict[str, np.ndarray]:
         raise NotImplementedError
 
     def prepare_finals(self, agg_specs: tuple) -> None:
         """Announce the output aggregate specs for on-device
         finalization."""
 
-    def read_reset_block_finals(self, first_slot: int, n: int, live_groups=None):
-        """Finals emission (final output planes + active mask, see
+    def read_reset_block_finals_start(
+        self, first_slot: int, n: int, live_groups=None
+    ):
+        """Start a finals emission (final output planes + active mask, see
         segment_agg._finals_and_reset) for n ring slots — or None when
         finals were not prepared (caller takes the component path)."""
         return None
 
     def read_slot(self, slot: int) -> dict[str, np.ndarray]:
+        raise NotImplementedError
+
+    def read_slot_compact(self, slot: int):
+        """(active gids ascending, aligned component rows) of one slot,
+        compacted on the device."""
         raise NotImplementedError
 
     def reset_slot(self, slot: int) -> None:
@@ -101,11 +121,12 @@ class WindowStateBackend:
 
 @dataclass
 class AsyncExport:
-    """An export in flight: the host planes and, on a CUDA ring, the
-    on-device clones (kept referenced until the copy is done) and the event
-    the side stream records after the last copy into the planes' pinned
-    buffers.  On the CPU the planes are already numpy and there is no
-    event."""
+    """A copy to the host in flight (an export, or an emission block): the
+    host planes and, on a CUDA ring, the device tensors they copy (ring
+    clones, gathered slots; kept referenced until the copy is done) and the
+    event the side stream records after the last copy into the planes'
+    pinned buffers.  On the CPU the planes are already numpy and there is
+    no event."""
 
     host: dict
     clones: dict[str, torch.Tensor] | None = None
@@ -186,27 +207,91 @@ class SingleDeviceWindowState(WindowStateBackend):
         self.bytes_d2h += sum(int(a.nbytes) for a in out.values())
         return out
 
+    def read_slot_compact(self, slot: int):
+        """One slot's active cells through the compaction kernel → (gids
+        ascending, aligned component rows)."""
+        gids, rows = sa.read_slot_compact(self.spec, self._state, slot)
+        self._count_compact_d2h(gids, rows, self.spec.group_capacity)
+        return gids, rows
+
+    def _count_compact_d2h(self, gids, rows, capacity) -> None:
+        """A compact read moves the power-of-two BUCKET covering the k
+        active groups (cut to k on the host after the copy), plus the
+        count."""
+        k = len(gids)
+        if k == 0:
+            self.bytes_d2h += 4
+            return
+        bucket = min(1 << (k - 1).bit_length(), capacity)
+        per_elem = gids.dtype.itemsize + sum(
+            a.dtype.itemsize for a in rows.values()
+        )
+        self.bytes_d2h += 4 + bucket * per_elem
+
     def reset_slot(self, slot: int) -> None:
         sa.reset_slot(self.spec, self._state, slot)
 
-    def _host(self, out: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
-        host = {k: sa.to_host(v) for k, v in out.items()}
-        self.bytes_d2h += sum(int(a.nbytes) for a in host.values())
-        return host
+    def _side_stream(self) -> torch.cuda.Stream:
+        if self._side is None:
+            self._side = torch.cuda.Stream(device=self.device)
+        return self._side
 
-    def read_reset_block(
+    def _host_copy_start(self, tensors: dict[str, torch.Tensor]) -> AsyncExport:
+        """Start copying ``tensors`` to the host without waiting for them.
+
+        On a CUDA ring: record an event on the current stream (where the
+        kernels that wrote the tensors run, so it follows them), and on
+        this backend's side stream wait for it and copy each tensor into a
+        pinned host buffer.  The tensors stay referenced in the handle and
+        are marked as used on the side stream, so the caching allocator
+        cannot hand their memory to a later kernel's output while the copy
+        reads it.  Pinned buffers come from torch's caching host allocator:
+        a buffer is reused only once the arrays of an earlier finish are
+        freed and its copy has completed.  A failed pinned allocation
+        raises.  On the CPU the copy is synchronous."""
+        if self.device.type != "cuda":
+            return AsyncExport({k: sa.to_host(v) for k, v in tensors.items()})
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.device))
+        side = self._side_stream()
+        host = {}
+        with torch.cuda.stream(side):
+            side.wait_event(ready)
+            for label, t in tensors.items():
+                buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                buf.copy_(t, non_blocking=True)
+                t.record_stream(side)
+                host[label] = buf
+        done = torch.cuda.Event()
+        done.record(side)
+        return AsyncExport(host, tensors, done)
+
+    def _host_copy_finish(self, handle: AsyncExport) -> dict[str, np.ndarray]:
+        """Wait for a copy started by :meth:`_host_copy_start` (its event,
+        not the whole device) → numpy planes."""
+        if handle.done is not None:
+            handle.done.synchronize()
+        out = {label: np.asarray(buf) for label, buf in handle.host.items()}
+        self.bytes_d2h += sum(int(a.nbytes) for a in out.values())
+        return out
+
+    def read_reset_block_start(
         self, first_slot: int, n: int, live_groups=None, lean=False
-    ) -> dict[str, np.ndarray]:
+    ) -> AsyncExport:
         """Fused gather+reset of n ring slots, limited to the live-group
-        bucket (see :meth:`_live_bucket`)."""
+        bucket (see :meth:`_live_bucket`), on the current stream; their
+        copy to the host runs on the side stream after the gather."""
         if n > self.spec.window_slots:  # slots must be distinct
             raise ValueError(f"{n} slots from a {self.spec.window_slots}-slot ring")
-        return self._host(
+        return self._host_copy_start(
             sa._gather_and_reset(
                 self.spec, n, self._live_bucket(live_groups), self._state,
                 first_slot, lean,
             )
         )
+
+    def read_reset_block_finish(self, handle: AsyncExport) -> dict[str, np.ndarray]:
+        return self._host_copy_finish(handle)
 
     def prepare_finals(self, agg_specs: tuple) -> None:
         self._finals_specs = tuple(agg_specs)
@@ -223,12 +308,14 @@ class SingleDeviceWindowState(WindowStateBackend):
             )
         return g_bucket
 
-    def read_reset_block_finals(self, first_slot: int, n: int, live_groups=None):
+    def read_reset_block_finals_start(
+        self, first_slot: int, n: int, live_groups=None
+    ) -> AsyncExport | None:
         if self._finals_specs is None:
             return None
         if n > self.spec.window_slots:
             raise ValueError(f"{n} slots from a {self.spec.window_slots}-slot ring")
-        return self._host(
+        return self._host_copy_start(
             sa._finals_and_reset(
                 self.spec, self._finals_specs, n,
                 self._live_bucket(live_groups), self._state, first_slot,
@@ -239,49 +326,19 @@ class SingleDeviceWindowState(WindowStateBackend):
         return sa.export_state(self._state)
 
     def export_start(self):
-        """Start an export that later in-place updates cannot change.
-
-        On a CUDA ring: clone every plane on the current stream (where the
-        kernels run, so the clone is ordered before any later update),
-        record an event, and on this backend's side stream wait for it and
-        copy each clone into a pinned host buffer.  The clones stay
-        referenced in the handle and are marked as used on the side stream,
-        so the caching allocator cannot hand their memory to a later
-        kernel's output while the copy reads it.  Pinned buffers come from
-        torch's caching host allocator: a buffer is reused only once the
-        arrays of an earlier :meth:`export_finish` are freed and its copy
-        has completed.  A failed pinned allocation raises.
-
-        On the CPU the export is a synchronous copy."""
+        """Start an export that later in-place updates cannot change: clone
+        every plane on the current stream (where the kernels run, so the
+        clone is ordered before any later update) and copy the clones to
+        the host on the side stream (:meth:`_host_copy_start`).  On the CPU
+        the export is a synchronous copy."""
         if self.device.type != "cuda":
             return AsyncExport(sa.export_state(self._state))
-        main = torch.cuda.current_stream(self.device)
-        clones = sa.clone_state(self._state)
-        cloned = torch.cuda.Event()
-        cloned.record(main)
-        if self._side is None:
-            self._side = torch.cuda.Stream(device=self.device)
-        side = self._side
-        host = {}
-        with torch.cuda.stream(side):
-            side.wait_event(cloned)
-            for label, c in clones.items():
-                buf = torch.empty(c.shape, dtype=c.dtype, pin_memory=True)
-                buf.copy_(c, non_blocking=True)
-                c.record_stream(side)
-                host[label] = buf
-        done = torch.cuda.Event()
-        done.record(side)
-        return AsyncExport(host, clones, done)
+        return self._host_copy_start(sa.clone_state(self._state))
 
     def export_finish(self, handle: AsyncExport) -> dict[str, np.ndarray]:
         """Wait for an export's copy (its event, not the whole device) →
         ``(W, G)`` numpy planes keyed by component label."""
-        if handle.done is not None:
-            handle.done.synchronize()
-        out = {label: np.asarray(buf) for label, buf in handle.host.items()}
-        self.bytes_d2h += sum(int(a.nbytes) for a in out.values())
-        return out
+        return self._host_copy_finish(handle)
 
     def import_(self, host_state: dict[str, np.ndarray]) -> None:
         self._state = sa.import_state(self.spec, host_state, self.device)
@@ -403,6 +460,9 @@ class PartialMergeWindowState(_HostPartialMixin, SingleDeviceWindowState):
         # recorded after the last copy out of it
         self._staging: torch.Tensor | None = None
         self._staged: torch.cuda.Event | None = None
+        # merges by (thread name, CUDA stream handle) they launched from:
+        # a host pipeline's worker must launch on the operator's stream
+        self.merge_sites: dict[tuple[str, int], int] = {}
 
     @property
     def strategy_name(self) -> str:
@@ -435,10 +495,20 @@ class PartialMergeWindowState(_HostPartialMixin, SingleDeviceWindowState):
     def _merge(
         self, packed: np.ndarray, a_pad: int, lean: bool, dense: bool
     ) -> None:
+        if self.device.type == "cuda":
+            site = (threading.current_thread().name,
+                    torch.cuda.current_stream(self.device).cuda_stream)
+            self.merge_sites[site] = self.merge_sites.get(site, 0) + 1
         merge_partials(
             self.spec, self._stripe.SUB, a_pad, lean, dense, self._state,
             self._stage_stripe(packed),
         )
+
+    def read_slot_compact(self, slot: int):
+        """The stripe folds into the ring first: the compacted slot must
+        hold every row ingested so far."""
+        self.flush_pending()
+        return super().read_slot_compact(slot)
 
 
 def make_sharded_state(

@@ -40,9 +40,16 @@ arrays before any row is gathered.  With ``band_slack_ms`` set, eviction
 also drops whole batches whose band values can no longer meet a future
 row of the other side (:func:`band_evict_mask`).
 
-Not ported yet: the cold tier (spilling retained batches), the join's checkpoint (``wire_checkpointing`` refuses a
-plan holding a join), shared-group cost attribution and the doctor's
-lineage hooks.
+Checkpointing: at an ALIGNED marker (both inputs delivered it) the join
+writes both sides' retained rows, ``matched`` flags, batch boundaries,
+watermarks, band state and hot-block representatives under
+``join_{node_id}``, in the JAX package's meta and array layout, so either
+package restores the other's snapshot; a restore re-interns the keys and
+rebuilds the chains and hot blocks.
+
+Not ported yet: the cold tier (spilling retained batches; a snapshot
+holding spilled blocks is refused), shared-group cost attribution and the
+doctor's lineage hooks.
 """
 
 from __future__ import annotations
@@ -58,7 +65,7 @@ import numpy as np
 from denormalized_tpu_torch import obs
 from denormalized_tpu_torch.common.columns import as_numpy
 from denormalized_tpu_torch.common.constants import CANONICAL_TIMESTAMP_COLUMN
-from denormalized_tpu_torch.common.errors import PlanError
+from denormalized_tpu_torch.common.errors import PlanError, StateError
 from denormalized_tpu_torch.common.record_batch import RecordBatch
 from denormalized_tpu_torch.common.schema import Schema
 from denormalized_tpu_torch.logical.expr import Expr, column_validity
@@ -758,12 +765,19 @@ class StreamingJoinExec(ExecOperator):
             "rows_in": 0, "batches_in": 0, "rows_out": 0, "evicted": 0,
             "queue_wait_s": 0.0, "build_s": 0.0, "probe_s": 0.0,
             "gather_s": 0.0, "evict_s": 0.0, "policy_s": 0.0,
+            # checkpoints: snapshots written, their bytes, the host's time
+            # packing them and writing them (frame + CRC + LSM put), and
+            # the restore's time (read, unpack, re-intern, rebuild)
+            "snapshots": 0, "snapshot_bytes": 0, "snapshot_pack_s": 0.0,
+            "snapshot_put_s": 0.0, "restore_s": 0.0,
         }
         # one heavy-hitter sketch PER SIDE, windowed so the policy's
         # shares track recent traffic
         self._sw = statewatch.StateWatch()
         self._sw_right = statewatch.StateWatch()
         self._sides = None  # run()'s live (_SideState, _SideState) pair
+        # checkpointing (enable_checkpointing): (coordinator, state key)
+        self._ckpt: tuple | None = None
         # closed-loop skew adaptation: the policy runs on the join's own
         # thread between batches
         self._policy = None
@@ -1200,6 +1214,210 @@ class StreamingJoinExec(ExecOperator):
                 masks.append(np.zeros(n, dtype=bool))
         return RecordBatch(self.schema, cols, masks)
 
+    # -- checkpointing ---------------------------------------------------
+    # Snapshot = both sides' retained rows (+ matched flags, batch
+    # boundaries, watermarks, band values, hot-block representatives) at an
+    # ALIGNED marker; keys, gids and chains are re-derived on restore by
+    # re-interning, so the interner itself is never serialized.
+    def enable_checkpointing(self, node_id: str, coord, orch) -> None:
+        self._ckpt = (coord, f"join_{node_id}")
+
+    def _snapshot(self, epoch: int, sides) -> None:
+        from denormalized_tpu_torch.state.serialization import pack_snapshot
+
+        coord, key = self._ckpt
+        t0 = time.perf_counter()
+        meta: dict = {"epoch": epoch, "sides": []}
+        arrays: dict[str, np.ndarray] = {}
+        for sid, (side, schema) in enumerate(
+            zip(sides, (self.left.schema, self.right.schema))
+        ):
+            n = side.count
+            rows = RecordBatch.concat(side.batches) if side.batches else None
+            side_meta = {
+                "watermark": side.watermark,
+                "count": n,
+                "strings": {},
+                "masked": [],
+            }
+            if side.band_wm is not None:
+                # band-aware eviction resumes exactly: the band watermark
+                # rides the snapshot, batch band maxima rebuild from the
+                # persisted per-row band values
+                side_meta["band_wm"] = side.band_wm
+            if rows is not None:
+                # insert order == row-array order
+                self._pack_side_cols(sid, rows, schema, side_meta, arrays)
+            if n and rows is not None:
+                arrays[f"s{sid}_matched"] = side.matched[:n].copy()
+                # per-batch boundaries: restore keeps the original batch
+                # granularity, or whole-batch eviction by max ts would
+                # retain (and match) rows past retention_ms
+                arrays[f"s{sid}_row_bi"] = side.row_bi[:n].copy()
+                arrays[f"s{sid}_batch_max_ts"] = np.asarray(
+                    side.batch_max_ts, dtype=np.int64
+                )
+                if side.row_band is not None:
+                    arrays[f"s{sid}_band"] = side.row_band[:n].copy()
+            if side.hot.nslots:
+                # one representative row a non-empty hot block: blocks hold
+                # ascending row ids, so each rebuilds from its rep's gid
+                side_meta["hot_reps"] = side.hot.reps()
+            meta["sides"].append(side_meta)
+        blob = pack_snapshot(meta, arrays)
+        t1 = time.perf_counter()
+        coord.put_snapshot(key, epoch, blob)
+        m = self._metrics
+        m["snapshots"] += 1
+        m["snapshot_bytes"] += len(blob)
+        m["snapshot_pack_s"] += t1 - t0
+        m["snapshot_put_s"] += time.perf_counter() - t1
+
+    def _restore(self, sides) -> None:
+        """Continue from the committed epoch's snapshot, if there is one.
+        A snapshot of the JAX package's cold tier (``meta["spill"]``) is
+        refused whole, never restored in part."""
+        from denormalized_tpu_torch.state.serialization import unpack_snapshot
+
+        coord, key = self._ckpt
+        t0 = time.perf_counter()
+        blob = coord.get_snapshot(key)
+        if blob is None:
+            return
+        meta, arrays = unpack_snapshot(blob)
+        if meta.get("spill") is not None:
+            raise StateError(
+                f"snapshot {key!r} references join blocks spilled to the "
+                "cold tier (state/tiering.py and the join's _JoinTier, "
+                "ROADMAP §A item 7), which denormalized_tpu_torch does not "
+                "port yet"
+            )
+        self._restore_v1(meta, arrays, sides)
+        self._metrics["restore_s"] += time.perf_counter() - t0
+
+    @staticmethod
+    def _pack_side_cols(sid, rows, schema, side_meta, arrays) -> None:
+        """One side's retained-row columns into the snapshot: columnar
+        string/nested columns store their raw buffers, plain object columns
+        the JSON ``strings`` lane."""
+        from denormalized_tpu_torch.common.columns import (
+            Column,
+            column_to_arrays,
+        )
+
+        for f in schema:
+            col = rows.column(f.name)
+            if isinstance(col, Column):
+                side_meta.setdefault("columnar", {})[f.name] = (
+                    column_to_arrays(col, f"s{sid}_cc_{f.name}_", arrays)
+                )
+            else:
+                colv = np.asarray(col)
+                if colv.dtype == object:
+                    side_meta["strings"][f.name] = [
+                        None if v is None else str(v) for v in colv
+                    ]
+                else:
+                    arrays[f"s{sid}_col_{f.name}"] = colv
+            mask = rows.mask(f.name)
+            # a columnar column packs its validity already
+            if mask is not None and mask is not getattr(
+                col, "validity", None
+            ):
+                side_meta["masked"].append(f.name)
+                arrays[f"s{sid}_mask_{f.name}"] = np.asarray(
+                    mask, dtype=bool
+                )
+
+    @staticmethod
+    def _unpack_side_cols(sid, schema, side_meta, arrays) -> RecordBatch:
+        """Inverse of :meth:`_pack_side_cols`."""
+        from denormalized_tpu_torch.common.columns import column_from_arrays
+
+        colspecs = side_meta.get("columnar", {})
+        cols, masks = [], []
+        for f in schema:
+            if f.name in colspecs:
+                cols.append(
+                    column_from_arrays(
+                        colspecs[f.name], f"s{sid}_cc_{f.name}_", arrays
+                    )
+                )
+            elif f.name in side_meta["strings"]:
+                vals = side_meta["strings"][f.name]
+                arr = np.empty(len(vals), dtype=object)
+                arr[:] = vals
+                cols.append(arr)
+            else:
+                cols.append(arrays[f"s{sid}_col_{f.name}"])
+            if f.name in side_meta["masked"]:
+                masks.append(arrays.get(f"s{sid}_mask_{f.name}"))
+            else:
+                masks.append(getattr(cols[-1], "validity", None))
+        return RecordBatch(schema, cols, masks)
+
+    def _restore_v1(self, meta, arrays, sides) -> None:
+        for sid, (side, schema, names) in enumerate(
+            zip(
+                sides,
+                (self.left.schema, self.right.schema),
+                (self.left_keys, self.right_keys),
+            )
+        ):
+            side_meta = meta["sides"][sid]
+            side.watermark = side_meta["watermark"]
+            # a snapshot without band_wm leaves band-aware eviction off
+            # until new batches re-establish the band watermark
+            side.band_wm = side_meta.get("band_wm")
+            n = int(side_meta["count"])
+            if n == 0:
+                continue
+            merged = self._unpack_side_cols(sid, schema, side_meta, arrays)
+            gids = self._gids_of(merged, names).astype(np.int32)
+            # split back into the ORIGINAL batches: rows are stored in
+            # (batch, row) insert order, so each batch is one run of bis
+            bis = arrays[f"s{sid}_row_bi"].astype(np.int32)
+            batch_max_ts = [
+                int(x) for x in arrays[f"s{sid}_batch_max_ts"]
+            ]
+            starts = np.concatenate(([True], bis[1:] != bis[:-1]))
+            bounds = np.nonzero(starts)[0]
+            ends = np.append(bounds[1:], n)
+            batches = [
+                merged.take(np.arange(b0, b1, dtype=np.int64))
+                for b0, b1 in zip(bounds, ends)
+            ]
+            ris = np.concatenate(
+                [np.arange(b1 - b0, dtype=np.int32)
+                 for b0, b1 in zip(bounds, ends)]
+            )
+            # renumber batch indices to positions in `batches`
+            new_bi = np.cumsum(starts) - 1
+            band = None
+            if self.band is not None:
+                band = arrays.get(f"s{sid}_band")
+                if band is None:
+                    # the snapshot predates the band predicate (the plan
+                    # gained one since the cut): evaluate it over the
+                    # restored rows, as the JAX package does
+                    band = np.concatenate(
+                        [self._band_vals(b, sid == 0) for b in batches]
+                    )
+            side.rebuild(
+                batches,
+                [batch_max_ts[int(bis[b0])] for b0 in bounds],
+                gids,
+                new_bi.astype(np.int32),
+                ris,
+                arrays[f"s{sid}_matched"].astype(bool),
+                band=band,
+            )
+            reps = side_meta.get("hot_reps") or []
+            if reps:
+                side.rehot(
+                    np.unique(gids[np.asarray(reps, dtype=np.int64)])
+                )
+
     # ------------------------------------------------------------------
     def run(self) -> Iterator[StreamItem]:
         from denormalized_tpu_torch.runtime.pump import spawn_pump
@@ -1207,6 +1425,8 @@ class StreamingJoinExec(ExecOperator):
         with_band = self.band is not None
         sides = (_SideState(with_band), _SideState(with_band))
         self._sides = sides
+        if self._ckpt is not None:
+            self._restore(sides)
         m = self._metrics
         q: queue_mod.Queue = queue_mod.Queue(maxsize=8)
         done = threading.Event()
@@ -1278,23 +1498,37 @@ class StreamingJoinExec(ExecOperator):
                     if side.done:
                         continue
                     side.done = True
-                    # markers are pure pass-throughs here (a join's state
-                    # is not checkpointed): flush any the live side(s)
-                    # delivered
-                    live = sum(1 for s in sides if not s.done)
-                    for epoch in sorted(
-                        e for e, c in markers_seen.items() if c >= live
-                    ):
-                        markers_seen.pop(epoch, None)
-                        yield Marker(epoch)
+                    if self._ckpt is None:
+                        # without checkpointing markers are pure pass-
+                        # throughs: flush any the live side(s) delivered
+                        live = sum(1 for s in sides if not s.done)
+                        for epoch in sorted(
+                            e for e, c in markers_seen.items() if c >= live
+                        ):
+                            markers_seen.pop(epoch, None)
+                            yield Marker(epoch)
+                    else:
+                        # a finished side takes part in no later barrier,
+                        # so an epoch committed from here on would be an
+                        # inconsistent cut (that side replays in full on
+                        # restore while the join re-inserts its retained
+                        # rows): drop pending markers; the last epoch both
+                        # sides reached stays the recovery point
+                        markers_seen.clear()
                     blocked[0] = blocked[1] = False
                     continue
                 if isinstance(item, Marker):
                     c = markers_seen.get(item.epoch, 0) + 1
+                    if self._ckpt is not None and (
+                        sides[0].done or sides[1].done
+                    ):
+                        continue  # no consistent two-input cut (see EOS)
                     # align markers: forward once both sides delivered it
                     live = sum(1 for s in sides if not s.done)
                     if c >= live:
                         markers_seen.pop(item.epoch, None)
+                        if self._ckpt is not None:
+                            self._snapshot(item.epoch, sides)
                         yield item
                         blocked[0] = blocked[1] = False
                     else:

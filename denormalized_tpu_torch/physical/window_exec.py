@@ -14,10 +14,25 @@ degenerate case).  Per input batch (host side, all vectorized):
    emission, growth or end of stream (see
    :mod:`denormalized_tpu_torch.parallel.sharded_state`);
 5. advance the watermark (monotonic max of batch min-timestamps) and emit
-   every window whose end ≤ watermark, synchronously: read and reset that
-   block of ring slots on the device, finalize, and build the output batch.
-   Under ``partial_merge`` emission waits up to ``emit_lag_ms`` so a
-   replay-speed feed closes several windows per merge.
+   every window whose end ≤ watermark: read and reset that block of ring
+   slots on the device, copy it to the host on a side stream, finalize, and
+   build the output batch.  Row shipping drains each block in the trigger
+   that read it; under ``partial_merge`` with a non-zero ``emit_lag_ms``
+   the drain waits for the NEXT trigger, so the copy overlaps ingest, and
+   emission waits up to ``emit_lag_ms`` so a replay-speed feed closes
+   several windows per merge.  With ``emission_compaction`` each window is
+   read alone through the compaction kernel: only its active groups (a
+   power-of-two prefix of them) cross to the host.
+
+Options: ``accum_dtype`` (float32 or float64 rings; float64 row shipping
+takes the scatter path, the dense kernel being f32 only), the variance
+family (``stddev``/``var`` and their ``_pop`` forms: two value columns a
+variance argument, (x−K) and (x−K)² for a pivot K taken from the first
+finite value seen, finalized on the host in f64), and ``host_pipeline``
+(``partial_merge``: the native reduction of batch N runs on a worker thread
+while the main thread evaluates and interns batch N+1, launching any merge
+on the operator's own CUDA stream; every other backend access fences on
+the worker first, and a worker's failure surfaces at the next fence).
 
 Watermark hints: after a ``kind="partition"`` :class:`WatermarkHint` (a
 join announces that mode before its first output) batch minima no longer
@@ -40,8 +55,7 @@ Restore rebuilds the backend for the snapshot's W and G and imports the
 ring onto the engine's device.
 
 Not ported yet: the cold tier (a snapshot holding spilled windows is
-refused), the host pipeline thread, emission compaction, asynchronous
-emission and the variance aggregates.
+refused).
 """
 
 from __future__ import annotations
@@ -61,6 +75,7 @@ from denormalized_tpu_torch.common.errors import PlanError, StateError
 from denormalized_tpu_torch.common.record_batch import RecordBatch
 from denormalized_tpu_torch.common.schema import DataType, Field, Schema
 from denormalized_tpu_torch.logical.expr import (
+    VAR_KINDS,
     AggregateExpr,
     Expr,
     column_validity,
@@ -133,6 +148,8 @@ class StreamingWindowExec(ExecOperator):
         slide_ms: int | None,
         *,
         device: torch.device | str,
+        accum_dtype: torch.dtype = torch.float32,
+        emission_compaction: bool = False,
         device_finalize: bool = True,
         min_group_capacity: int = 128,
         min_window_slots: int = 16,
@@ -141,6 +158,7 @@ class StreamingWindowExec(ExecOperator):
         compensated_sums: bool = False,
         partial_merge_rows: int = 4_000_000,
         emit_lag_ms: int | None = None,
+        host_pipeline: bool = False,
     ) -> None:
         if window_type is WindowType.SESSION:
             raise PlanError(
@@ -154,6 +172,11 @@ class StreamingWindowExec(ExecOperator):
         self.slide_ms = int(slide_ms) if slide_ms else self.length_ms
         self._min_batch_bucket = min_batch_bucket
         self._device = torch.device(device)
+        if accum_dtype not in (torch.float32, torch.float64):
+            raise PlanError(
+                f"accum_dtype must be torch.float32 or torch.float64, got "
+                f"{accum_dtype!r}"
+            )
 
         in_schema = input_op.schema
         # deduped value columns: one device column per distinct agg argument
@@ -165,12 +188,34 @@ class StreamingWindowExec(ExecOperator):
             if k not in keys:
                 keys[k] = len(self._value_exprs)
                 self._value_exprs.append(e)
+                self._value_transforms.append(None)
+            return keys[k]
+
+        # variance columns are SHIFTED on the host by a pivot K picked from
+        # the first data (see segment_agg.variance_result): transforms[j]
+        # is None | "shift" | "shift_sq", and _var_shift maps the source
+        # expression's repr to its pivot (checkpointed with the operator)
+        self._value_transforms: list[str | None] = []
+        self._var_shift: dict[str, float] = {}
+
+        def shifted_idx(e: Expr, transform: str) -> int:
+            k = (transform, repr(e))
+            if k not in keys:
+                keys[k] = len(self._value_exprs)
+                self._value_exprs.append(e)
+                self._value_transforms.append(transform)
             return keys[k]
 
         self._agg_specs: list[tuple] = []
         for a in self.aggr_exprs:
             if a.arg is None:
                 self._agg_specs.append((a.kind, None))
+            elif a.kind in VAR_KINDS:
+                self._agg_specs.append((
+                    a.kind,
+                    shifted_idx(a.arg, "shift"),
+                    shifted_idx(a.arg, "shift_sq"),
+                ))
             else:
                 self._agg_specs.append((a.kind, value_idx(a.arg)))
         comps = sa.components_for(self._agg_specs)
@@ -192,16 +237,21 @@ class StreamingWindowExec(ExecOperator):
             ),
             length_ms=self.length_ms,
             slide_ms=self.slide_ms,
+            accum_dtype=accum_dtype,
             compensated=compensated_sums,
         )
         self._backend = make_sharded_state(
             self._spec, self._device, device_strategy
         )
+        self._emission_compaction = emission_compaction
         # on-device finalization: emission ships final output planes + an
-        # active mask instead of raw component planes
+        # active mask instead of raw component planes.  Compaction takes
+        # its own trigger branch, which reads component planes
         self._finals_specs = (
             tuple(self._agg_specs)
-            if device_finalize and sa.finals_possible(tuple(self._agg_specs))
+            if device_finalize
+            and not emission_compaction
+            and sa.finals_possible(tuple(self._agg_specs))
             else None
         )
         if self._finals_specs is not None:
@@ -229,6 +279,18 @@ class StreamingWindowExec(ExecOperator):
         self._emit_lag_s = emit_lag_ms / 1000.0
         self._merge_rows = partial_merge_rows
         self._stripe_wall: float | None = None
+        # emission blocks dispatched but not yet drained:
+        # (first window, n, handle, is_finals)
+        self._pending_emit: list[tuple] = []
+        # host pipeline (partial_merge): backend.accumulate runs on ONE
+        # worker thread (the native reduction releases the interpreter
+        # lock), so batch N's reduction overlaps batch N+1's host prep; the
+        # single worker keeps stripe mutation serialized, and _join_acc()
+        # fences before any other backend access
+        self._host_pipeline = host_pipeline
+        self._acc_exec = None
+        self._acc_future = None
+        self._acc_error: BaseException | None = None
 
         # streaming state
         self._first_open: int | None = None  # lowest non-emitted slide index
@@ -250,6 +312,9 @@ class StreamingWindowExec(ExecOperator):
             "partial_merges": 0,
             "grow_events": 0,
             "host_prep_s": 0.0,
+            # emission blocks read, and those drained a trigger later
+            "emit_blocks": 0,
+            "emit_blocks_deferred": 0,
             # checkpoints: snapshots written, their packed bytes, and the
             # host's time waiting for the export, packing, and writing
             # (frame + CRC + LSM put)
@@ -296,10 +361,13 @@ class StreamingWindowExec(ExecOperator):
         max_win_seen: int,
         watermark_ms: int | None,
         any_nulls_seen: bool = True,
+        var_shift: dict | None = None,
     ) -> None:
         """Continue from a ring exported by this package or the JAX package
         (``(W, G)`` numpy planes keyed by component label) plus the group
-        interner's snapshot and the operator's window bookkeeping."""
+        interner's snapshot, the operator's window bookkeeping and the
+        variance pivots the ring's shifted sums were taken under."""
+        self._join_acc()
         W, G = next(iter(host_state.values())).shape
         self._spec = sa.WindowKernelSpec(
             components=self._spec.components,
@@ -320,6 +388,7 @@ class StreamingWindowExec(ExecOperator):
         self._max_win_seen = max_win_seen
         self._watermark_ms = watermark_ms
         self._any_nulls_seen = any_nulls_seen
+        self._var_shift = dict(var_shift or {})
 
     def _replace_backend(self) -> None:
         old = self._backend
@@ -346,7 +415,7 @@ class StreamingWindowExec(ExecOperator):
     def _grow(self, *, window_slots: int | None = None, group_capacity: int | None = None):
         # host partials are laid out for the old G/W: merge them into the
         # ring before exporting it
-        self._backend.flush_pending()
+        self._flush()
         host = self._backend.export()
         old = self._spec
         self._spec = sa.WindowKernelSpec(
@@ -439,11 +508,16 @@ class StreamingWindowExec(ExecOperator):
         colvalid = np.ones((n, max(V, 1)), dtype=bool)
         any_invalid = False
         for j, e in enumerate(self._value_exprs):
-            values[:, j] = e.eval(batch)
             m = column_validity(e, batch)
             if m is not None:
                 colvalid[:, j] = m
                 any_invalid = any_invalid or not m.all()
+            tr = self._value_transforms[j]
+            if tr is None:
+                values[:, j] = e.eval(batch)
+            else:
+                values[:, j] = self._shifted(e, batch, tr, m)
+
         if any_invalid:
             self._any_nulls_seen = True
 
@@ -464,6 +538,26 @@ class StreamingWindowExec(ExecOperator):
                 self._watermark_ms = bmin
         yield from self._trigger()
 
+    def _shifted(self, e: Expr, batch: RecordBatch, transform: str,
+                 valid: np.ndarray | None) -> np.ndarray:
+        """A variance moment column: (x − K), or its square, in f64, with K
+        the first finite valid value ever seen for ``e`` (the s2 − s²/c
+        finalize then never cancels catastrophically; exact for any K).
+        An all-null or non-finite warm-up batch shifts by 0 and caches
+        nothing, so a later batch still sets a magnitude-matched pivot."""
+        raw = np.asarray(e.eval(batch), dtype=np.float64)
+        key = repr(e)
+        K = self._var_shift.get(key)
+        if K is None:
+            vals = raw if valid is None else raw[valid]
+            finite = vals[np.isfinite(vals)]
+            K = 0.0
+            if len(finite):
+                K = float(finite[0])
+                self._var_shift[key] = K
+        raw = raw - K
+        return raw * raw if transform == "shift_sq" else raw
+
     def _rebase_first_open(self, anchor: int) -> None:
         """Hint-driven watermarks: the first batch anchored ``first_open``
         to ITS windows, but older windows stay legitimate until the
@@ -480,7 +574,7 @@ class StreamingWindowExec(ExecOperator):
             return
         # the stripe's units are relative to the OLD first_open: fold it
         # into the ring before the base moves
-        self._backend.flush_pending()
+        self._flush()
         # the widened span needs ring capacity, grown BEFORE the base
         # moves: _grow attributes old slots to windows first_open..
         # first_open+W-1, so lowering first would alias a re-admitted low
@@ -559,13 +653,86 @@ class StreamingWindowExec(ExecOperator):
                 self._metrics["late_rows"] += n_drop - late
             else:
                 keep = None
-        if self._backend.pending_rows == 0:
+        if (
+            self._acc_future is None or self._acc_future.done()
+        ) and self._backend.pending_rows == 0:
             self._stripe_wall = time.perf_counter()
-        self._backend.accumulate(
-            win_rel64, rem, gid, values64, colvalid, keep,
-            first % self._spec.window_slots,
-        )
+        acc_args = (win_rel64, rem, gid, values64, colvalid, keep,
+                    first % self._spec.window_slots)
+        if self._host_pipeline:
+            self._submit_acc(*acc_args)
+        else:
+            self._backend.accumulate(*acc_args)
         self._metrics["host_prep_s"] += time.perf_counter() - t0
+
+    # -- host pipeline ----------------------------------------------------
+    def _join_acc(self) -> None:
+        """Wait for the in-flight host accumulation.  Every backend access
+        other than pacing reads (``pending_rows``) fences here: the stripe
+        and the ring are consistent only between worker tasks.  A worker's
+        failure is raised here, once."""
+        f, self._acc_future = self._acc_future, None
+        if f is not None:
+            try:
+                f.result()  # re-raises the worker's failure on this thread
+            finally:
+                # read the flag after the wait: an earlier task may set it
+                # while we wait on the latest; clearing it keeps f's own
+                # failure from being raised again by a later fence
+                err, self._acc_error = self._acc_error, None
+        else:
+            err, self._acc_error = self._acc_error, None
+        if err is not None:
+            # a superseded task failed though the latest one succeeded: the
+            # stream must not go on over a half-updated stripe
+            raise err
+
+    def _submit_acc(self, *args) -> None:
+        """Queue one batch's accumulation on the worker.  It launches any
+        merge on the stream this thread's kernels and emission use (torch's
+        current stream is per thread)."""
+        if self._acc_error is not None:
+            err, self._acc_error = self._acc_error, None
+            raise err
+        if self._acc_exec is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._acc_exec = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="window-acc"
+            )
+        backend = self._backend
+        stream = (
+            torch.cuda.current_stream(self._device)
+            if self._device.type == "cuda" else None
+        )
+
+        def run():
+            try:
+                if stream is None:
+                    backend.accumulate(*args)
+                else:
+                    with torch.cuda.stream(stream):
+                        backend.accumulate(*args)
+            except BaseException as e:  # surfaced by _join_acc/_submit_acc
+                self._acc_error = e
+                raise
+
+        self._acc_future = self._acc_exec.submit(run)
+
+    def _shutdown_acc(self) -> None:
+        """Stop the worker: join its last task, so a failure in the
+        stream's final batches still surfaces, and release the thread."""
+        ex, self._acc_exec = self._acc_exec, None
+        if ex is not None:
+            try:
+                self._join_acc()
+            finally:
+                ex.shutdown(wait=True)
+
+    def _flush(self) -> None:
+        """Fence on the worker, then fold the host stripe into the ring."""
+        self._join_acc()
+        self._backend.flush_pending()
 
     # -- emission --------------------------------------------------------
     def _closable(self) -> int:
@@ -576,21 +743,39 @@ class StreamingWindowExec(ExecOperator):
         )
         return max(0, int(wm_win) - self._first_open)
 
+    def _drain_pending(self) -> Iterator[RecordBatch]:
+        """Materialize the emission blocks dispatched earlier (their copies
+        to the host ran meanwhile on the side stream), in window order."""
+        if not self._pending_emit:
+            return
+        pending, self._pending_emit = self._pending_emit, []
+        for j0, n, handle, is_finals in pending:
+            block = self._backend.read_reset_block_finish(handle)
+            if is_finals:
+                yield from self._emit_finals_block(j0, n, block)
+            else:
+                yield from self._emit_component_block(j0, n, block)
+
     def _trigger(self, force: bool = False) -> Iterator[RecordBatch]:
         """Emit every window whose end ≤ watermark (trigger_windows,
-        grouped_window_agg_stream.rs:220-253), synchronously.
+        grouped_window_agg_stream.rs:220-253).
 
-        With a host-accumulating backend the stripe is merged first, and
-        emission waits up to ``emit_lag_ms`` after the stripe began, while
-        it stays under ``partial_merge_rows`` and can take another slide
-        unit.  ``force`` skips the wait: ingest uses it to freeze closable
-        windows before a batch whose rows would otherwise leak into
-        them."""
+        Blocks a previous trigger dispatched drain first.  With a
+        host-accumulating backend the stripe is merged first, and emission
+        waits up to ``emit_lag_ms`` after the stripe began, while it stays
+        under ``partial_merge_rows`` and can take another slide unit;
+        ``force`` skips the wait (ingest uses it to freeze closable windows
+        before a batch whose rows would otherwise leak into them).  Row
+        shipping, and a zero emit lag, drain the blocks this trigger read
+        before it returns; otherwise they drain at the next trigger (or
+        marker, idle hint or end of stream), so their copy overlaps
+        ingest."""
+        yield from self._drain_pending()
         n_close = self._closable()
         if self._backend.accumulates_host:
             if n_close == 0:
                 if self._backend.pending_rows >= self._merge_rows:
-                    self._backend.flush_pending()
+                    self._flush()
                 return
             age = time.perf_counter() - (self._stripe_wall or 0.0)
             if (
@@ -600,29 +785,44 @@ class StreamingWindowExec(ExecOperator):
                 and self._stripe_fits_more()
             ):
                 return
-            self._backend.flush_pending()
+            self._flush()
+        if self._emission_compaction:
+            # one window at a time, each read through the compaction kernel
+            for _ in range(n_close):
+                b = self._emit_window(self._first_open)
+                self._first_open += 1
+                if b is not None:
+                    yield b
+            return
         while n_close > 0:
             # pow2 block sizes, as in the JAX package's program ladder
             n = 1 << min(3, (n_close).bit_length() - 1)
             n = min(n, self._spec.window_slots)
             live = len(self._interner) if self._grouped else 1
             first_slot = self._first_open % self._spec.window_slots
-            block = self._backend.read_reset_block_finals(
+            handle = self._backend.read_reset_block_finals_start(
                 first_slot, n, live_groups=live
             )
-            if block is not None:
-                yield from self._emit_finals_block(self._first_open, n, block)
-            else:
-                block = self._backend.read_reset_block(
+            is_finals = handle is not None
+            if not is_finals:
+                handle = self._backend.read_reset_block_start(
                     first_slot, n, live_groups=live,
                     lean=(
                         not self._any_nulls_seen
                         and sa.lean_possible(self._spec)
                     ),
                 )
-                yield from self._emit_component_block(self._first_open, n, block)
+            self._pending_emit.append((self._first_open, n, handle, is_finals))
+            self._metrics["emit_blocks"] += 1
             self._first_open += n
             n_close -= n
+        if not self._backend.accumulates_host or self._emit_lag_s == 0:
+            # row shipping emits in the same trigger; with a zero lag (the
+            # CPU's default) there is nothing to overlap, and deferring
+            # would hold a paused live stream's output until its next batch
+            yield from self._drain_pending()
+        else:
+            self._metrics["emit_blocks_deferred"] += len(self._pending_emit)
 
     def _stripe_fits_more(self) -> bool:
         """Can the stripe still take the next slide unit without
@@ -662,10 +862,30 @@ class StreamingWindowExec(ExecOperator):
                 yield b
 
     def _emit_window(self, j: int) -> RecordBatch | None:
+        """Read, reset and finalize one window's slot — under emission
+        compaction through the compaction kernel, so only the window's
+        active groups cross to the host."""
         slot = j % self._spec.window_slots
-        rows = self._backend.read_slot(slot)
+        if not self._emission_compaction:
+            rows = self._backend.read_slot(slot)
+            self._backend.reset_slot(slot)
+            return self._finalize_rows(j, rows)
+        gids, rows = self._backend.read_slot_compact(slot)
         self._backend.reset_slot(slot)
-        return self._finalize_rows(j, rows)
+        # rows hold only the active groups, in ascending gid; the interner
+        # bound guard of the full path applies
+        ngroups = len(self._interner) if self._grouped else 1
+        in_bounds = gids < ngroups
+        if not in_bounds.all():
+            gids = gids[in_bounds]
+            rows = {label: arr[in_bounds] for label, arr in rows.items()}
+        if len(gids) == 0:
+            return None
+        self._metrics["windows_emitted"] += 1
+        active = np.ones(len(gids), dtype=bool)
+        return self._assemble_emission(
+            j, gids.astype(np.int32), sa.finalize(self._agg_specs, rows, active)
+        )
 
     def _finalize_rows(self, j: int, rows: dict) -> RecordBatch | None:
         """Finalize one window's component planes into an emission batch."""
@@ -716,7 +936,7 @@ class StreamingWindowExec(ExecOperator):
         merge the host stripe (host state the ring does not hold yet),
         start the ring's export, and capture the host bookkeeping now —
         it changes with the very next batch."""
-        self._backend.flush_pending()
+        self._flush()
         meta = {
             "epoch": epoch,
             "first_open": self._first_open,
@@ -725,9 +945,9 @@ class StreamingWindowExec(ExecOperator):
             "window_slots": self._spec.window_slots,
             "group_capacity": self._backend.group_capacity,
             "interner": self._interner.snapshot() if self._grouped else None,
-            # the JAX package's variance pivots: none here (no variance
-            # aggregates), kept so its restore reads the same keys
-            "var_shift": {},
+            # variance pivots: shifted sums are only comparable under the
+            # same K, so K survives a restart with the state it shifted
+            "var_shift": dict(self._var_shift),
             "any_nulls_seen": self._any_nulls_seen,
         }
         self._pending_snapshot = (
@@ -786,10 +1006,17 @@ class StreamingWindowExec(ExecOperator):
             # the kill); unless the snapshot says otherwise, stay on full
             # gathers
             bool(meta.get("any_nulls_seen", True)),
+            meta.get("var_shift"),
         )
 
     # -- stream loop -----------------------------------------------------
     def run(self) -> Iterator[StreamItem]:
+        try:
+            yield from self._run_inner()
+        finally:
+            self._shutdown_acc()
+
+    def _run_inner(self) -> Iterator[StreamItem]:
         for item in self.input_op.run():
             if isinstance(item, RecordBatch):
                 # the batch's device work queues behind a pending export's
@@ -801,6 +1028,8 @@ class StreamingWindowExec(ExecOperator):
             elif isinstance(item, WatermarkHint):
                 yield from self._on_hint(item)
             elif isinstance(item, Marker):
+                # blocks read before the marker leave before it
+                yield from self._drain_pending()
                 yield from self._release_snapshot()  # an earlier epoch
                 if self._ckpt is not None:
                     self._snapshot(item.epoch)
@@ -808,23 +1037,29 @@ class StreamingWindowExec(ExecOperator):
                 else:
                     yield item
             elif isinstance(item, EndOfStream):
+                # pending blocks are closed windows: they emit first
+                yield from self._drain_pending()
                 yield from self._release_snapshot()
                 # bounded input: merge the stripe, flush every open window
                 if self._first_open is not None:
-                    self._backend.flush_pending()
+                    self._flush()
                     for j in range(self._first_open, self._max_win_seen + 1):
                         b = self._emit_window(j)
                         if b is not None:
                             yield b
                     self._first_open = self._max_win_seen + 1
+                else:
+                    # no flush ran: still fence the worker, so a failed
+                    # accumulation cannot be swallowed
+                    self._join_acc()
                 yield EOS
                 return
 
     def _on_hint(self, item: WatermarkHint) -> Iterator[StreamItem]:
         """Advance event time to the hint, close what is ready, and forward
         the hint clamped below this operator's lowest possible future
-        emission timestamp.  Emission is synchronous here (asynchronous
-        emission is not ported), so nothing is left to drain."""
+        emission timestamp.  An idle hint forces emission and drains the
+        blocks it read: no next item may come to drain them."""
         if item.kind == "partition":
             # authoritative watermark: from now on batch min-ts must not
             # advance it
@@ -839,7 +1074,10 @@ class StreamingWindowExec(ExecOperator):
             # partition hints arrive continuously (one per advancing
             # batch), so the emit-lag deferral keeps working; an idle
             # period delivers exactly ONE hint, so it forces emission
-            yield from self._trigger(force=item.kind != "partition")
+            idle = item.kind != "partition"
+            yield from self._trigger(force=idle)
+            if idle:
+                yield from self._drain_pending()
         yield WatermarkHint(
             min(item.ts_ms, self._output_low_watermark(item.ts_ms)),
             kind=item.kind,

@@ -3,7 +3,8 @@
 Counterpart of ``denormalized_tpu/planner/planner.py`` with the scan
 (with the idle timeout and partition-watermark mode of live sources),
 project, filter, window, join and sink routes.  The window route threads
-the engine config's explicit ``device`` and kernel strategy into
+the engine config's explicit ``device``, kernel strategy, ``accum_dtype``,
+``emission_compaction`` and ``host_pipeline`` into
 :class:`StreamingWindowExec`; the join route its band, retention, band
 slack and adaptation knobs into :class:`StreamingJoinExec`.  Sessions,
 UDAF windows, the slice path and meshes are not ported yet.
@@ -58,6 +59,8 @@ class Planner:
                 node.length_ms,
                 node.slide_ms,
                 device=c.device,
+                accum_dtype=c.accum_dtype,
+                emission_compaction=c.emission_compaction,
                 device_finalize=c.device_finalize,
                 min_group_capacity=c.min_group_capacity,
                 min_window_slots=c.min_window_slots,
@@ -66,6 +69,7 @@ class Planner:
                 compensated_sums=c.compensated_sums,
                 partial_merge_rows=c.partial_merge_rows,
                 emit_lag_ms=c.emit_lag_ms,
+                host_pipeline=c.host_pipeline,
             )
         if isinstance(node, lp.Join):
             c = self.config

@@ -3,8 +3,8 @@ physical plan.
 
 Counterpart of ``denormalized_tpu/state/checkpoint.py`` for one process:
 the same keys, framing, manifests, retention and fallback, so either
-package restores the other's store.  The cluster coordinator's hooks are
-not ported, nor is the join's snapshot: a plan holding a join is refused.
+package restores the other's store, windows' and joins' snapshots alike.
+The cluster coordinator's hooks are not ported.
 
 Mirrors the reference's checkpoint topology (SURVEY.md §3.4): sources persist
 their offsets when a barrier passes (kafka_stream_read.rs:275-289) and window
@@ -53,7 +53,7 @@ import time
 import zlib
 
 from denormalized_tpu_torch import obs
-from denormalized_tpu_torch.common.errors import PlanError, StateError
+from denormalized_tpu_torch.common.errors import StateError
 from denormalized_tpu_torch.physical.base import ExecOperator
 from denormalized_tpu_torch.runtime import faults
 from denormalized_tpu_torch.runtime.tracing import logger
@@ -537,15 +537,6 @@ class CheckpointCoordinator:
 def wire_checkpointing(
     root: ExecOperator, ctx, orch: Orchestrator
 ) -> CheckpointCoordinator:
-    from denormalized_tpu_torch.physical.join_exec import StreamingJoinExec
-
-    if any(isinstance(op, StreamingJoinExec) for op in walk(root)):
-        # committing epochs whose cut leaves out the join's retained rows
-        # would replay inconsistently after a restore: refuse the plan
-        raise PlanError(
-            "checkpointing a join is not yet ported to "
-            "denormalized_tpu_torch (the join's snapshot and restore)"
-        )
     path = ctx.config.state_backend_path
     if not path:
         raise StateError(

@@ -17,6 +17,7 @@ import torch
 
 import denormalized_tpu_torch as tt
 from denormalized_tpu_torch.common.errors import PlanError
+from denormalized_tpu_torch.ops import compact_slot as cs
 from denormalized_tpu_torch.ops import cuda_build
 from denormalized_tpu_torch.native import build as native_build
 from denormalized_tpu_torch.ops import dense_window as dw
@@ -29,8 +30,8 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "denormalized_tpu_torch"
 
 
-# modules of the partial_merge, checkpoint, join, expression and live-source
-# slices,
+# modules of the partial_merge, checkpoint, join, expression, live-source
+# and window-option slices,
 # named so a rename cannot drop them from the blocked-import check unseen
 NEW_MODULES = (
     "denormalized_tpu_torch.logical.scalar_functions",
@@ -65,6 +66,8 @@ NEW_MODULES = (
     "denormalized_tpu_torch.runtime.prefetch",
     "denormalized_tpu_torch.state.tiering",
     "denormalized_tpu_torch.testing.mock_kafka",
+    # the window options' slice: the compaction kernel's wrapper
+    "denormalized_tpu_torch.ops.compact_slot",
 )
 
 
@@ -119,6 +122,12 @@ def test_port_imports_with_jax_and_reference_blocked():
         "assert dec.flush().column('x').tolist() == [1]\n"
         "c.close()\n"
         "b.stop()\n"
+        # the compaction kernel's wrapper, on its plain version (CPU)
+        "import torch\n"
+        "from denormalized_tpu_torch.ops import compact_slot as cs\n"
+        "cnt = torch.tensor([0, 2, 0, 1], dtype=torch.int32)\n"
+        "n, g, (v,) = cs.compact_slot(cnt, [torch.arange(4.0)])\n"
+        "assert int(n) == 2 and g.tolist() == [1, 3] and v.tolist() == [1.0, 3.0]\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'denormalized_tpu' or m.startswith('denormalized_tpu.')]\n"
         "assert all(sys.modules[m] is None for m in bad), bad\n"
@@ -256,6 +265,35 @@ def test_merge_wrapper_checks_inputs(bad, match):
     spec, state, packed = _merge_args("cpu", **bad)
     with pytest.raises((TypeError, ValueError), match=match):
         mp.merge_partials(spec, 1, 1024, True, True, state, packed)
+
+
+def test_compact_wrapper_never_takes_the_plain_version_off_cpu(monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("plain version called for a non-CPU tensor")
+
+    monkeypatch.setattr(cs, "compact_slot_reference", refuse)
+    counts = torch.zeros(128, dtype=torch.int32, device="meta")
+    before = cs.compact_slot_launches
+    with pytest.raises(ValueError, match="no compact_slot kernel"):
+        cs.compact_slot(counts, [torch.zeros(128, device="meta")])
+    assert cs.compact_slot_launches == before
+
+
+@pytest.mark.parametrize(
+    "counts, planes, match",
+    [
+        (torch.zeros(128, dtype=torch.int64), [], "int32"),
+        (torch.zeros((2, 64), dtype=torch.int32), [], "1-D"),
+        (torch.zeros(128, dtype=torch.int32), [torch.zeros(64)], "contiguous"),
+        (torch.zeros(128, dtype=torch.int32),
+         [torch.zeros(128, dtype=torch.int16)], "4 or 8"),
+        (torch.zeros(128, dtype=torch.int32), [torch.zeros(128)] * 65,
+         "exceed"),
+    ],
+)
+def test_compact_wrapper_checks_inputs(counts, planes, match):
+    with pytest.raises((TypeError, ValueError), match=match):
+        cs.compact_slot(counts, planes)
 
 
 def test_failed_native_build_falls_back_logged(monkeypatch, tmp_path, caplog):

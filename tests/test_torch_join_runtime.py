@@ -1,7 +1,6 @@
 """What the join slice adds around the operator: watermark hints through
 the window and the stateless operators, two window operators on two pump
-threads, the refusal to checkpoint a join, and a kernel build that is safe
-from two threads.  Twins hold the port against the JAX package on the same
+threads, and a kernel build that is safe from two threads.  Twins hold the port against the JAX package on the same
 items."""
 
 import sys
@@ -27,7 +26,6 @@ from denormalized_tpu.physical.window_exec import StreamingWindowExec as JWindow
 from denormalized_tpu.sources.memory import MemorySource as JSource
 from denormalized_tpu_torch.api import functions as TF
 from denormalized_tpu_torch.common.constants import CANONICAL_TIMESTAMP_COLUMN as TTS
-from denormalized_tpu_torch.common.errors import PlanError
 from denormalized_tpu_torch.common.record_batch import RecordBatch as TBatch
 from denormalized_tpu_torch.common.schema import DataType as TType
 from denormalized_tpu_torch.common.schema import Field as TField
@@ -368,26 +366,7 @@ def test_native_host_code_has_no_shared_state_across_threads():
         np.testing.assert_array_equal(wp, gp)
 
 
-# -- checkpointing a join, and the kernel build ------------------------------
-
-
-def test_checkpointing_a_join_plan_is_refused(tmp_path):
-    ctx = tt.Context(tt.EngineConfig(
-        device="cpu", checkpoint=True, state_backend_path=str(tmp_path)))
-    S = TSchema([TField("ts", TType.INT64, nullable=False),
-                 TField("k", TType.STRING, nullable=False)])
-    S2 = TSchema([TField("ts2", TType.INT64, nullable=False),
-                  TField("k2", TType.STRING, nullable=False)])
-    rb = lambda s: TBatch(s, [np.array([T0], np.int64),  # noqa: E731
-                              np.array(["a"], object)])
-    ds = ctx.from_source(TSource.from_batches([rb(S)], timestamp_column="ts"),
-                         name="l").join(
-        ctx.from_source(TSource.from_batches([rb(S2)], timestamp_column="ts2"),
-                        name="r"), "inner", ["k"], ["k2"])
-    with pytest.raises(PlanError, match="checkpointing a join is not yet"):
-        ds.collect()
-    # nothing was opened or committed under the path
-    assert not any(tmp_path.iterdir())
+# -- the kernel build ---------------------------------------------------------
 
 
 def test_kernel_load_from_many_threads_builds_once(monkeypatch, tmp_path):

@@ -60,6 +60,16 @@ inline int __float_as_int(float f) {
   std::memcpy(&b, &f, 4);
   return b;
 }
+inline double __longlong_as_double(long long b) {
+  double f;
+  std::memcpy(&f, &b, 8);
+  return f;
+}
+inline long long __double_as_longlong(double f) {
+  long long b;
+  std::memcpy(&b, &f, 8);
+  return b;
+}
 inline unsigned __umulhi(unsigned a, unsigned b) {
   return static_cast<unsigned>((static_cast<unsigned long long>(a) * b) >> 32);
 }
@@ -119,8 +129,9 @@ def host_lib(tmp_path_factory):
     )
     lib = ctypes.CDLL(str(lib_path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.merge_partials_launch.argtypes = [p] + [i] * 10 + [p, p]
-    lib.merge_partials_launch.restype = i
+    for fn in (lib.merge_partials_launch, lib.merge_partials_launch_f64):
+        fn.argtypes = [p] + [i] * 10 + [p, p]
+        fn.restype = i
     return lib
 
 
@@ -158,10 +169,11 @@ def _ring(spec, rng, nan_cells: bool):
     return host
 
 
-def _case(seed: int):
+def _case(seed: int, accum=torch.float32):
     """A seeded spec, ring and stripe: window shape, ring size, shard,
     key spread, units (some before the ring, some past it), nulls, valid
-    NaNs and compensation all drawn from ``seed``."""
+    NaNs and compensation all drawn from ``seed``; the ring's float type is
+    ``accum``."""
     rng = np.random.default_rng(seed)
     L, S = SHAPES[rng.integers(0, len(SHAPES))]
     W = int(rng.choice([4, 8, 16]))
@@ -176,6 +188,7 @@ def _case(seed: int):
     spec = sa.WindowKernelSpec(
         components=tuple(comps), num_value_cols=2, window_slots=W,
         group_capacity=cap, length_ms=L, slide_ms=S, compensated=compensated,
+        accum_dtype=accum,
     )
     keys = (int(rng.integers(1, G_total + 1)) if rng.random() < 0.5
             else int(rng.integers(1, 20)))
@@ -213,7 +226,10 @@ def _host_fold(lib, spec, SUB, taken, G_total, g_shift, host):
     table, n_ops = mp._launch_table(spec, lean, got, cpu)
     branch = mp.merge_branch(spec, dense)
     stripe = torch.from_numpy(packed.copy())
-    rc = lib.merge_partials_launch(
+    launch = (lib.merge_partials_launch_f64
+              if spec.accum_dtype == torch.float64
+              else lib.merge_partials_launch)
+    rc = launch(
         stripe.data_ptr(), mp.BRANCHES[branch], a_pad, int(dense), SUB,
         spec.length_units, spec.window_slots, spec.group_capacity, G_total,
         g_shift, n_ops, table, None)
@@ -230,8 +246,9 @@ def _assert_rings(spec, branch, got, want, host):
             np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32),
                                           err_msg=f"{branch} {c.label}")
         elif c.kind in ("sum", "sumc"):
-            np.testing.assert_allclose(a, b, rtol=1e-5, atol=0,
-                                       err_msg=c.label)
+            np.testing.assert_allclose(
+                a, b, rtol=1e-12 if a.dtype == np.float64 else 1e-5, atol=0,
+                err_msg=c.label)
         else:
             np.testing.assert_array_equal(a, b, err_msg=c.label)
     return changed
@@ -285,3 +302,52 @@ def test_stripe_narrower_than_a_warp_tile(host_lib, width):
         if _assert_rings(spec, branch, got, want, host):
             folded.add(branch)
     assert folded == {"tumbling", "scatter"}
+
+
+@pytest.mark.parametrize("block", range(4))
+def test_f64_kernels_on_the_host_match_the_plain_version(host_lib, block):
+    """The float64 instantiation (``merge_partials_launch_f64``) on 25
+    seeded stripes a block: tumbling and gather bit for bit with the plain
+    version's f64 ring, scatter with sums to rtol=1e-12 and counts, min and
+    max (NaN where NaN) exact; every ring plane but the counts is float64."""
+    seen = set()
+    for seed in range(25 * block, 25 * (block + 1)):
+        spec, SUB, taken, G_total, g_shift, host = _case(seed, torch.float64)
+        branch, got, want = _host_fold(host_lib, spec, SUB, taken, G_total,
+                                       g_shift, host)
+        for c in spec.components:
+            assert got[c.label].dtype == (
+                torch.int32 if c.kind == "count" else torch.float64)
+        changed = _assert_rings(spec, branch, got, want, host)
+        seen.add((branch, changed))
+    assert any(changed for _b, changed in seen)
+
+
+def test_f64_ring_keeps_what_an_f32_ring_rounds_away(host_lib):
+    """One tumbling stripe of sums far above f32's 24 bits folded into an
+    f32 and an f64 ring: the f64 ring holds the host's f64 sum to ~1e-14
+    (the stripe's hi + lo pair), the f32 ring only to ~1e-7."""
+    rng = np.random.default_rng(5)
+    got = {}
+    for accum in (torch.float32, torch.float64):
+        spec = sa.WindowKernelSpec(
+            components=tuple(sa.components_for([("sum", 0)])),
+            num_value_cols=1, window_slots=4, group_capacity=128,
+            length_ms=1000, slide_ms=1000, accum_dtype=accum)
+        stripe = HostPartialStripe(spec, 128)
+        vals = rng.normal(1e9, 3.0, (5000, 1)) if not got else vals
+        stripe.add_batch(np.zeros(5000, np.int64), np.zeros(5000, np.int32),
+                         np.arange(5000, dtype=np.int32) % 7, vals, None,
+                         None)
+        taken = stripe.take_packed(0)
+        host = {c.label: np.zeros((4, 128), np.float32)
+                for c in spec.components}
+        host["count_star"] = host["count_star"].astype(np.int32)
+        branch, ring, _want = _host_fold(host_lib, spec, stripe.SUB, taken,
+                                         128, 0, host)
+        assert branch == "tumbling"
+        got[accum] = ring["sum_0"][0, :7].numpy().astype(np.float64)
+    exact = np.array([vals[np.arange(5000) % 7 == g, 0].sum()
+                      for g in range(7)])
+    assert np.abs(got[torch.float64] / exact - 1).max() < 1e-13
+    assert np.abs(got[torch.float32] / exact - 1).max() > 1e-9
