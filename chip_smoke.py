@@ -153,15 +153,20 @@ Phases:
     oracle, the time to recover, the join snapshot's bytes, pack, put and
     commit ms; then one snapshot and restore of the join's state at phase
     15's 100K keys a side, in this process, timed;
-25. the compaction kernel (``compact_slot``, ``csrc/compact_slot.cu``)
-    against its plain version (``compact_slot_reference``) on seeded rings
-    at G = 131,072 with 0, 0.1%, 10%, 76% (100K cells, config 3's shape;
-    also on a float64 ring) and 100% of the cells active, five planes with
-    nulls and NaNs: exact, with device time, wrapper time, bound and the
-    library sequence's time (nonzero + index_select a plane); then config
+25. the compaction kernel (``compact_slot``, ``csrc/compact_slot.cu``, one
+    single-pass launch with decoupled look-back) against its plain version
+    (``compact_slot_reference``) on seeded rings at G = 131,072 with 0,
+    0.1%, 10%, 76% (100K cells, config 3's shape; also on a float64 ring)
+    and 100% of the cells active, five planes with nulls and NaNs: exact,
+    one launch a call by the profiler's kernel names, with device time,
+    wrapper time, ``read_slot_compact``'s wall, bound and the library
+    sequence's time (nonzero + index_select a plane); then config
     3 with ``emission_compaction=True`` through ``auto`` and
     ``partial_merge`` against the oracle, beside phase 10's rows/s, the
-    kernel's launches equal to the windows emitted;
+    kernel's launches equal to the windows emitted; then config 4 at
+    config 3's key count (phase 15's streams) with compaction, where both
+    windows emit from their own threads, against the oracle, launches
+    equal to both windows' emissions;
 26. the variance family: phase 4's job with stddev, stddev_pop, var and
     var_pop of ``reading`` through ``auto`` and ``partial_merge``, against
     a numpy float64 oracle at rtol=1e-3 (counts, min and max exact; dense
@@ -178,14 +183,28 @@ Phases:
     ``partial_merge`` with ``host_pipeline=True`` and the card's default
     emit lag against the oracle, beside phases 8 and 10, with the emission
     blocks drained a trigger later counted and every merge (the worker
-    thread's included) launched on the main thread's stream.
+    thread's included) launched on the main thread's stream;
+29. phase 21 over Avro: phase 4's stream as ``Measurement`` Avro records
+    (tests/test_kafka.py's record, encoded with numpy: zigzag varints,
+    length-prefixed names, the union branch before each float64 reading)
+    in 4 partitions, ``from_topic(encoding="avro", avro_schema=...)`` →
+    the config-1 window through the native Avro parser: every closable
+    window against the oracle, late rows 0, no Python-decoded row, dense
+    launches = window batches; rows/s beside phase 21's;
+30. examples/csv_streaming.py's job through the port's ``CsvSource`` over
+    a CSV of phase 4's first 15 batches against the oracle (dense launches
+    = window batches); ``explain(analyze=True)`` of config 1 on the card
+    with checkpointing set through ``EngineConfig.set`` (the analyzed plan
+    carries the window's device steps, every one a dense launch; no epoch
+    committed: a checkpointed run after it restores nothing).
 
 Then one JSON line with each kernel's launches on its main path (phase 4
 for the dense kernel, phase 8 for the merge kernel, phase 25's config 3
 run for the compaction kernel, phase 27's for the f64 merge, each counted
 from 0 just before the run; for the dense kernel also its launches on
 phase 11's restored ring, both windows' launches under phase 14's join and
-phase 16's join_on, phase 19's window and phase 21's Kafka job), its
+phase 16's join_on, phase 19's window, phase 21's Kafka job, phase 29's
+Avro topic and phase 30's analyze run), its
 largest error against the plain version, its device time, the wrapper's
 time, the plain version's time, the library call's (for the compaction
 kernel the nonzero + index_select sequence) and the least time the card
@@ -2793,6 +2812,59 @@ def json_pieces(ts, kid, micro, key_names):
     ]
 
 
+#: the Avro record of phase 29 (tests/test_kafka.py:584-593's
+#: ``Measurement``)
+MEASUREMENT_AVRO = {
+    "type": "record",
+    "name": "Measurement",
+    "fields": [
+        {"name": "occurred_at_ms",
+         "type": {"type": "long", "logicalType": "timestamp-millis"}},
+        {"name": "sensor_name", "type": "string"},
+        {"name": "reading", "type": ["null", "double"]},
+    ],
+}
+
+
+def _zigzag_varints(x):
+    """Avro's zigzag varints of int64 ``x`` → ((n, 10) uint8, lengths)."""
+    z = (x.astype(np.int64) << 1) ^ (x.astype(np.int64) >> 63)
+    z = z.view(np.uint64)
+    lens = np.ones(len(z), np.int64)
+    for j in range(1, 10):
+        lens += z >= np.uint64(1) << np.uint64(7 * j)
+    out = np.zeros((len(z), 10), np.uint8)
+    for j in range(10):
+        more = lens > j + 1
+        out[:, j] = ((z >> np.uint64(7 * j)) & np.uint64(0x7F)).astype(
+            np.uint8) | (more.astype(np.uint8) << 7)
+    return out, lens
+
+
+def avro_pieces(ts, kid, val, key_names):
+    """The pieces (see :func:`_concat_pieces`) of ``Measurement`` Avro
+    records (MEASUREMENT_AVRO) for ``len(ts)`` rows at once: the event
+    time as a zigzag varint, the sensor name as a zigzag length and its
+    bytes, then the union's branch 1 (zigzag 1 = 0x02) and the reading as
+    8 little-endian bytes of its float64 — the bytes
+    ``avro_codec.encode_record`` writes (tests/test_torch_avro.py)."""
+    names = [k.encode() for k in key_names]
+    name_mat = np.zeros((len(names), max(map(len, names))), np.uint8)
+    for i, nb in enumerate(names):
+        name_mat[i, : len(nb)] = np.frombuffer(nb, np.uint8)
+    name_len = np.array([len(nb) for nb in names], np.int64)
+    nvar, nvar_len = _zigzag_varints(name_len)
+    reading = np.ascontiguousarray(val, dtype="<f8").view(np.uint8).reshape(
+        -1, 8)
+    return [
+        _zigzag_varints(ts),
+        (nvar[kid], nvar_len[kid]),
+        (name_mat[kid], name_len[kid]),
+        _const(b"\x02"),
+        (reading, 8),
+    ]
+
+
 def kafka_record_batches(payload, n: int, records_per_batch: int,
                          broker_ts: int, base_offset: int = 0):
     """Magic-2 record batches of ``n`` records whose values are the pieces
@@ -2854,8 +2926,9 @@ def micro_of(val):
 
 
 def encode_topic(stream, parts: int, records_per_batch: int,
-                 chunk_rows: int | None = None):
-    """The stream's JSON records, row i to partition i % parts (bench.py's
+                 chunk_rows: int | None = None, fmt: str = "json"):
+    """The stream's JSON records (``fmt="avro"``: its ``Measurement`` Avro
+    records, readings as their float64), row i to partition i % parts (bench.py's
     interleave, which keeps every partition's event-time range aligned),
     as broker entries → per partition a list of entry lists: one list for
     the whole partition, or one a ``chunk_rows // parts``-record chunk
@@ -2871,10 +2944,15 @@ def encode_topic(stream, parts: int, records_per_batch: int,
 
     def encode(p):
         t, k, m = ts[p::parts], kid[p::parts], micro[p::parts]
+        v = val[p::parts]
         per = []
         for a in range(0, len(t), span):
-            pieces = json_pieces(t[a:a + span], k[a:a + span],
-                                 m[a:a + span], names)
+            if fmt == "avro":
+                pieces = avro_pieces(t[a:a + span], k[a:a + span],
+                                     v[a:a + span], names)
+            else:
+                pieces = json_pieces(t[a:a + span], k[a:a + span],
+                                     m[a:a + span], names)
             per += kafka_record_batches(pieces, len(t[a:a + span]), step,
                                         EVENT_T0, a)
         if chunk_rows:
@@ -2979,9 +3057,10 @@ def e2e_schema():
 
 
 def kafka_stream(device, bootstrap, topic,
-                 aggs=("count", "min", "max", "avg"), **cfg):
-    """bench.py's ``kafka_e2e`` pipeline: ``from_topic`` (JSON, event time
-    from occurred_at_ms) → 1 s tumbling window by sensor_name, with a 1 s
+                 aggs=("count", "min", "max", "avg"), fmt="json", **cfg):
+    """bench.py's ``kafka_e2e`` pipeline: ``from_topic`` (JSON, or with
+    ``fmt="avro"`` MEASUREMENT_AVRO records; event time from
+    occurred_at_ms) → 1 s tumbling window by sensor_name, with a 1 s
     idleness policy → (ctx, DataStream)."""
     import denormalized_tpu_torch as tt
     from denormalized_tpu_torch.api import functions as F
@@ -2989,9 +3068,11 @@ def kafka_stream(device, bootstrap, topic,
     cfg.setdefault("source_idle_timeout_ms", 1000)
     ctx = tt.Context(tt.EngineConfig(device=str(device), **cfg))
     names = {"count": "count", "min": "min", "max": "max", "avg": "average"}
+    payload = (dict(encoding="avro", avro_schema=MEASUREMENT_AVRO)
+               if fmt == "avro" else dict(schema=e2e_schema()))
     ds = ctx.from_topic(
-        topic, schema=e2e_schema(), bootstrap_servers=bootstrap,
-        timestamp_column="occurred_at_ms",
+        topic, bootstrap_servers=bootstrap,
+        timestamp_column="occurred_at_ms", **payload,
     ).window(
         ["sensor_name"],
         [getattr(F, a)(tt.col("reading")).alias(names[a]) for a in aggs],
@@ -3031,49 +3112,57 @@ def closable_rows(stream, exp):
     return rows, max(k[0] for k in rows)
 
 
-def check_native_path(ctx, what: str):
-    """The native wire client and JSON parser carried every row: each
-    reader decodes through ``NativeJsonParser`` with no Python-decode or
-    salvaged row, and the client library is the one built from
-    ``native/kafka_client.cpp``."""
+def check_native_path(ctx, what: str, fmt: str = "json"):
+    """The native wire client and the native JSON (``fmt="avro"``: Avro)
+    parser carried every row: each reader decodes through
+    ``NativeJsonParser`` (``NativeAvroParser``) with no Python-decode or
+    salvaged row, and the client and parser libraries are the ones built
+    from ``native/kafka_client.cpp`` and ``native/<fmt>_parser.cpp``."""
+    from denormalized_tpu_torch.formats.native_avro import NativeAvroParser
     from denormalized_tpu_torch.formats.native_json import NativeJsonParser
     from denormalized_tpu_torch.native import build as native_build
 
+    parser = NativeAvroParser if fmt == "avro" else NativeJsonParser
     src = source_exec_of(ctx)
     readers = [w.reader for w in src._pump.workers]
     for r in readers:
-        if not isinstance(r._decoder._native, NativeJsonParser):
-            raise AssertionError(f"{what}: a reader decodes without the "
-                                 "native JSON parser")
+        if type(r._decoder._native) is not parser:
+            raise AssertionError(f"{what}: a reader decodes without "
+                                 f"{parser.__name__}")
         if r.decode_fallback_rows() or r.salvaged_rows:
             raise AssertionError(
                 f"{what}: {r.decode_fallback_rows()} rows through the Python "
                 f"decoder, {r.salvaged_rows} salvaged")
-    libs = [k for k in native_build._CACHE if k[0] in ("kafka_client",
-                                                       "json_parser")]
-    if {k[0] for k in libs} != {"kafka_client", "json_parser"}:
+    want = {"kafka_client", f"{fmt}_parser"}
+    libs = [k for k in native_build._CACHE if k[0] in want]
+    if {k[0] for k in libs} != want:
         raise AssertionError(f"{what}: native libraries loaded: {libs}")
     return src.metrics()
 
 
-def phase_kafka_e2e(device, stream, card):
+def phase_kafka_e2e(device, stream, card, fmt="json", phase=21):
     """Phase 21: bench.py's ``kafka_e2e`` on phase 4's stream: its JSON
     records produced into a 4-partition topic, interleaved by partition,
     then ``from_topic`` → the dense window on the card through the native
     client, the native parser and four prefetch workers, after a warm-up
     on a broker of its own.  Every closable window against the oracle;
     late rows 0, no Python-decoded row, dense launches = the window's
-    batches → rows/s."""
+    batches → rows/s.  Phase 29 runs it with ``fmt="avro"``: the stream
+    as MEASUREMENT_AVRO records (readings exact float64), decoded by the
+    native Avro parser."""
     from denormalized_tpu_torch.common.constants import WINDOW_START_COLUMN
     from denormalized_tpu_torch.ops import dense_window as dw
 
     ts, kid, val = stream
     t0 = time.perf_counter()
-    entries = encode_topic(stream, KAFKA_PARTITIONS, KAFKA_RECORDS_PER_BATCH)
+    entries = encode_topic(stream, KAFKA_PARTITIONS, KAFKA_RECORDS_PER_BATCH,
+                           fmt=fmt)
     warm = encode_topic(tuple(a[:KAFKA_WARM_ROWS] for a in stream),
-                        KAFKA_PARTITIONS, KAFKA_RECORDS_PER_BATCH)
+                        KAFKA_PARTITIONS, KAFKA_RECORDS_PER_BATCH, fmt=fmt)
     encode_s = time.perf_counter() - t0
-    exp = oracle(ts, kid, np.round(val, 6), 1000, 1000, NUM_KEYS)
+    # JSON carries readings to 6 decimals; Avro carries the float64
+    exp = oracle(ts, kid, val if fmt == "avro" else np.round(val, 6), 1000,
+                 1000, NUM_KEYS)
     need, last_ws = closable_rows(stream, exp)
     warm_last = closable_rows(tuple(a[:KAFKA_WARM_ROWS] for a in stream),
                               exp)[1]
@@ -3088,13 +3177,13 @@ def phase_kafka_e2e(device, stream, card):
                         return True
         finally:
             it.close()
-        raise AssertionError("phase 21: the stream ended")
+        raise AssertionError(f"phase {phase}: the stream ended")
 
     wbroker = make_broker("warm", warm)
     try:
-        _, wds = kafka_stream(device, wbroker.bootstrap, "warm")
+        _, wds = kafka_stream(device, wbroker.bootstrap, "warm", fmt=fmt)
         consume_bounded(lambda: drain(wds, warm_last, {}), 120.0,
-                        "phase 21 warm-up", on_timeout=wbroker.stop)
+                        f"phase {phase} warm-up", on_timeout=wbroker.stop)
     finally:
         wbroker.stop()
     del warm
@@ -3103,13 +3192,13 @@ def phase_kafka_e2e(device, stream, card):
     try:
         dw.dense_window_launches = 0
         t0 = time.perf_counter()
-        ctx, ds = kafka_stream(device, broker.bootstrap, "e2e")
+        ctx, ds = kafka_stream(device, broker.bootstrap, "e2e", fmt=fmt)
         consume_bounded(lambda: drain(ds, last_ws, got), KAFKA_DEADLINE_S,
-                        "phase 21", on_timeout=broker.stop)
+                        f"phase {phase}", on_timeout=broker.stop)
         sync(device)
         wall = time.perf_counter() - t0
         launches = dw.dense_window_launches
-        src = check_native_path(ctx, "phase 21")
+        src = check_native_path(ctx, f"phase {phase}", fmt)
     finally:
         broker.stop()
     check_tumbling_rows(got, need)
@@ -3117,16 +3206,16 @@ def phase_kafka_e2e(device, stream, card):
     m = op.metrics()
     b = op.backend
     if m["late_rows"]:
-        raise AssertionError(f"phase 21: {m['late_rows']} late rows")
+        raise AssertionError(f"phase {phase}: {m['late_rows']} late rows")
     if not (launches == m["batches_in"] == b.dense_updates > 0
             and b.scatter_updates == 0):
         raise AssertionError(
-            f"phase 21: {launches} dense launches, {m['batches_in']} window "
+            f"phase {phase}: {launches} dense launches, {m['batches_in']} window "
             f"batches, dense_updates={b.dense_updates}, scatter_updates="
             f"{b.scatter_updates}")
     rate = len(ts) / wall
-    log(f"phase 21 kafka_e2e (from_topic, {KAFKA_PARTITIONS} partitions, "
-        f"JSON, native client + parser, prefetch workers, auto): {len(ts)} "
+    log(f"phase {phase} kafka_e2e (from_topic, {KAFKA_PARTITIONS} partitions, "
+        f"{fmt.upper()}, native client + parser, prefetch workers, auto): {len(ts)} "
         f"rows produced ({encode_s:.1f} s to encode), {len(got)} window rows "
         f"of every closable window match the oracle, wall {wall:.3f} s to "
         f"the last closable window, {rate:.0f} rows/s (bench.py's measure: "
@@ -3802,14 +3891,16 @@ def compact_bound(counts_row, planes) -> float:
     return (4 * counts_row.numel() + k * per_cell) / HBM_BYTES_PER_S * 1e3
 
 
-def compact_pair_device_ms(fn, n: int = 50, warm: int = 20):
-    """Device time of one compaction (its two kernels, count and scatter)
-    by the profiler, apart from the wrapper → (ms, how); after
-    PROFILER_TRIES sessions short of n calls' kernels, by
-    ``queued_event_ms``.  The tracer can miss a session's first ~20
-    launches, hence the long warm-up."""
+def compact_device_ms(fn, n: int = 50, warm: int = 20):
+    """Device time of one compaction by the profiler, apart from the
+    wrapper → (ms, how, kernel names).  A compaction is ONE launch: the
+    profiler must record a single compaction kernel name and no more
+    compaction kernels than calls.  After PROFILER_TRIES sessions short of
+    n calls' kernels, by ``queued_event_ms``.  The tracer can miss a
+    session's first ~20 launches, hence the long warm-up."""
     fn()
     torch.cuda.synchronize()
+    names: set = set()
     for _ in range(PROFILER_TRIES):
         def run():
             for _ in range(warm):
@@ -3821,16 +3912,34 @@ def compact_pair_device_ms(fn, n: int = 50, warm: int = 20):
         evts = sorted((e for e in device_events(profile(run))
                        if COMPACT_KERNEL in e.name),
                       key=lambda e: e.time_range.start)
-        if len(evts) > 2 * (warm + n):
+        names |= {e.name for e in evts}
+        if len(names) > 1 or len(evts) > warm + n:
             raise AssertionError(f"the profiler recorded {len(evts)} "
-                                 f"compaction kernels for {warm + n} calls")
-        if len(evts) >= 2 * n:
-            last = evts[-2 * n:]
-            return sum(e.time_range.elapsed_us() for e in last) / n / 1e3, (
-                "profiler")
+                                 f"compaction kernels of {len(names)} names "
+                                 f"for {warm + n} calls: {sorted(names)}")
+        if len(evts) >= n:
+            last = evts[-n:]
+            return (sum(e.time_range.elapsed_us() for e in last) / n / 1e3,
+                    "profiler", sorted(names))
         log(f"the profiler recorded {len(evts)} compaction kernels of "
-            f"{2 * (warm + n)}, fewer than the {2 * n} timed")
-    return queued_event_ms(fn, n), "CUDA events"
+            f"{warm + n}, fewer than the {n} timed")
+    return queued_event_ms(fn, n), "CUDA events", sorted(names)
+
+
+def read_compact_ms(spec, state, slot: int, device, iters: int = 50
+                    ) -> float:
+    """Host wall of one ``segment_agg.read_slot_compact`` (the kernel, the
+    count's read, the prefix copies and their one synchronize), after a
+    warm-up, over ``iters`` calls."""
+    from denormalized_tpu_torch.ops import segment_agg as sa
+
+    for _ in range(5):
+        sa.read_slot_compact(spec, state, slot)
+    torch.cuda.synchronize(device)
+    t = time.perf_counter()
+    for _ in range(iters):
+        sa.read_slot_compact(spec, state, slot)
+    return (time.perf_counter() - t) / iters * 1e3
 
 
 def phase_compact_kernel(device, seed: int, card: str):
@@ -3877,10 +3986,11 @@ def phase_compact_kernel(device, seed: int, card: str):
             for p in planes:
                 p.index_select(0, idx)
 
-        ms, ms_by = compact_pair_device_ms(kernel)
+        ms, ms_by, names = compact_device_ms(kernel)
         out[name] = dict(
-            active=k, ms=ms, ms_by=ms_by,
+            active=k, ms=ms, ms_by=ms_by, kernel_names=names,
             host_ms=time_ms(kernel, device, iters=200),
+            read_ms=read_compact_ms(spec, state, 1, device),
             plain_ms=time_ms(plain, device), library_ms=time_ms(library, device),
             bound_ms=compact_bound(counts, planes), bound_by="bytes",
             max_abs_err=0.0)
@@ -3889,8 +3999,9 @@ def phase_compact_kernel(device, seed: int, card: str):
             f"({100 * k / COMPACT_G:.2f}%), {len(planes)} planes "
             f"({str(accum).replace('torch.', '')} ring): count, gids and "
             f"every plane equal the plain version bit for bit; device "
-            f"{c['ms']:.5f} ms ({ms_by}, both kernels), wrapper "
-            f"{c['host_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, library "
+            f"{c['ms']:.5f} ms ({ms_by}, one launch a call: {names}), "
+            f"wrapper {c['host_ms']:.4f} ms, read_slot_compact "
+            f"{c['read_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, library "
             f"sequence (nonzero + index_select a plane) "
             f"{c['library_ms']:.4f} ms, bound {c['bound_ms']:.6f} ms "
             f"(bytes) ({card})")
@@ -3928,6 +4039,31 @@ def phase_compact_highcard(device, batches, stream, rates, card):
             f"{len(ts) / wall:.0f} rows/s against phase 10's "
             f"{rates[strategy]:.0f} without compaction ({card})")
     return out
+
+
+def phase_compact_join(device, left, right, card) -> int:
+    """Phase 25, third part: config 4 at config 3's key count (phase 15's
+    streams) with ``emission_compaction=True`` through ``auto``.  Each
+    window emits on its own pump thread, both onto one stream, so the two
+    queue compactions at once.  Against the oracle, with the compaction
+    launches equal to both windows' emissions → launches."""
+    from denormalized_tpu_torch.ops import compact_slot as cs
+
+    cs.compact_slot_launches = 0
+    out = run_join(device, 25, "auto", left, right, HIGHCARD_KEYS, card,
+                   emission_compaction=True,
+                   min_group_capacity=2 * HIGHCARD_KEYS)
+    launches = cs.compact_slot_launches
+    _, windows = join_ops(out["ctx"])
+    emitted = [w.metrics()["windows_emitted"] for w in windows]
+    if launches == 0 or launches != sum(emitted):
+        raise AssertionError(f"phase 25 config 4: {launches} compaction "
+                             f"launches for {emitted} windows emitted")
+    log(f"phase 25 config 4 with emission_compaction: {launches} compaction "
+        f"launches = {emitted[0]} + {emitted[1]} windows emitted by the two "
+        f"sides' threads, joined rows match the oracle, "
+        f"{out['rows_per_s']:.0f} rows/s ({card})")
+    return launches
 
 
 # -- phase 26: the variance family ---------------------------------------------
@@ -4205,6 +4341,156 @@ def phase_host_pipeline(device, jobs, rates, card):
     return out
 
 
+# -- phase 30: CSV, explain(analyze=True), EngineConfig.set -------------------
+
+CSV_BATCHES = 15  # phase 4's first batches written to the CSV
+
+
+def csv_text(ts, kid, val) -> bytes:
+    """examples/csv_streaming.py's CSV (header, then
+    ``occurred_at_ms,sensor_name,reading`` a row) of the rows, readings to
+    6 decimals as bench.py's JSON writes them, encoded with numpy."""
+    names = [f"sensor_{i}" for i in range(int(kid.max()) + 1)]
+    reading = json_pieces(ts, kid, micro_of(val), names)[5:9]
+    name_mat = np.zeros((len(names), max(map(len, names))), np.uint8)
+    for i, nb in enumerate(n.encode() for n in names):
+        name_mat[i, : len(nb)] = np.frombuffer(nb, np.uint8)
+    name_len = np.array([len(n) for n in names], np.int64)
+    data, _ = _concat_pieces([
+        (_digits(ts, 13), 13), _const(b","),
+        (name_mat[kid], name_len[kid]), _const(b","),
+        *reading, _const(b"\n"),
+    ], len(ts))
+    return b"occurred_at_ms,sensor_name,reading\n" + data.tobytes()
+
+
+def phase_csv_explain(device, batches, stream, card):
+    """Phase 30: (1) examples/csv_streaming.py's job (1 s count/avg by
+    sensor_name) through the port's ``CsvSource`` over a CSV of phase 4's
+    first CSV_BATCHES batches, against the oracle, dense launches = the
+    window's batches; (2) ``explain(analyze=True)`` of config 1's job on
+    the card with checkpointing configured by ``EngineConfig.set``
+    (``denormalized_config.checkpoint``): the analyzed plan carries the
+    window's device steps, all of them dense launches, and no epoch is
+    committed — a checkpointed run on the same store afterwards restores
+    nothing and processes every batch → {csv_rows_per_s, launches}."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import denormalized_tpu_torch as tt
+    from denormalized_tpu_torch.api import functions as F
+    from denormalized_tpu_torch.ops import dense_window as dw
+    from denormalized_tpu_torch.sources.csv import CsvSource
+    from denormalized_tpu_torch.state.lsm import close_global_state_backend
+
+    n = CSV_BATCHES * BATCH_ROWS
+    ts, kid, val = (a[:n] for a in stream)
+    work = tempfile.mkdtemp(prefix="dnz_csv_")
+    try:
+        path = f"{work}/readings.csv"
+        t0 = time.perf_counter()
+        with open(path, "wb") as f:
+            f.write(csv_text(ts, kid, val))
+        write_s = time.perf_counter() - t0
+        exp = oracle(ts, kid, np.round(val, 6), 1000, 1000, NUM_KEYS)
+        dw.dense_window_launches = 0
+        t0 = time.perf_counter()
+        ctx = tt.Context(tt.EngineConfig(device=str(device)))
+        src = CsvSource(path, timestamp_column="occurred_at_ms")
+        load_s = time.perf_counter() - t0
+        res = ctx.from_source(src).window(
+            [tt.col("sensor_name")],
+            [F.count(tt.col("reading")).alias("count"),
+             F.avg(tt.col("reading")).alias("avg")], 1000).collect()
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = dw.dense_window_launches
+        got = {(ws, int(name[7:])): (c, a) for ws, name, c, a in zip(
+            res.column("window_start_time").tolist(),
+            res.column("sensor_name").tolist(),
+            res.column("count").tolist(), res.column("avg").tolist())}
+        if set(got) != set(exp):
+            raise AssertionError(f"phase 30 CSV: {len(got)} window rows, "
+                                 f"the oracle {len(exp)}")
+        keys = sorted(exp)
+        if [got[k][0] for k in keys] != [exp[k][0] for k in keys]:
+            raise AssertionError("phase 30 CSV: counts differ")
+        assert_close_rows(keys, [(got[k][1],) for k in keys],
+                          [(exp[k][3],) for k in keys])
+        op = window_exec_of(ctx)
+        m = op.metrics()
+        if not (launches == m["batches_in"] == op.backend.dense_updates > 0):
+            raise AssertionError(f"phase 30 CSV: {launches} dense launches "
+                                 f"for {m['batches_in']} window batches")
+        log(f"phase 30 csv_streaming job (CsvSource, {n} rows of phase 4's "
+            f"first {CSV_BATCHES} batches, {len(got)} window rows = the "
+            f"oracle): CSV written in {write_s:.2f} s, read and parsed in "
+            f"{load_s:.2f} s, wall {wall:.3f} s with the read "
+            f"({n / wall:.0f} rows/s), window batches {m['batches_in']} = "
+            f"dense launches {launches} ({card})")
+
+        # explain(analyze=True) with checkpointing set by its config name
+        store = f"{work}/state"
+
+        def checkpointed(ctx):
+            cfg = ctx.config
+            cfg.set("denormalized_config.checkpoint", True)
+            cfg.set("checkpoint_interval_s", 0.05)
+            cfg.set("state_backend_path", store)
+            if not (cfg.checkpoint is True
+                    and cfg.state_backend_path == store):
+                raise AssertionError("phase 30: EngineConfig.set did not "
+                                     "set")
+            return cfg
+
+        dw.dense_window_launches = 0
+        ctx, ds = job_stream(device, batches, "tumbling")
+        cfg = checkpointed(ctx)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            ds.explain(analyze=True)
+        sync(device)
+        explain_s = time.perf_counter() - t0
+        launches = dw.dense_window_launches
+        text = out.getvalue()
+        analyzed = text.split("== physical plan (analyzed) ==\n", 1)[1]
+        window_line = next(line for line in analyzed.splitlines()
+                           if "StreamingWindowExec" in line)
+        if (f"device_steps={len(batches)}" not in window_line
+                or launches != len(batches)
+                or window_exec_of(ctx).backend.dense_updates != launches):
+            raise AssertionError(f"phase 30 explain: {launches} dense "
+                                 f"launches, window line {window_line!r}")
+        if ctx.last_checkpointing() != (None, None) or cfg.checkpoint is not True:
+            raise AssertionError("phase 30 explain: the analyze run "
+                                 "checkpointed or changed the config")
+        close_global_state_backend()
+        ctx2, ds2 = job_stream(device, batches, "tumbling")
+        checkpointed(ctx2)
+        res = ds2.collect()
+        coord, _ = ctx2.last_checkpointing()
+        close_global_state_backend()
+        if coord is None or coord.restored_epoch is not None:
+            raise AssertionError("phase 30: the run after explain restored "
+                                 f"epoch {getattr(coord, 'restored_epoch', None)}")
+        if int(np.sum(res.column("count"))) != len(stream[0]):
+            raise AssertionError("phase 30: the run after explain did not "
+                                 "read the whole stream")
+        log(f"phase 30 explain(analyze=True) of config 1 on {device} "
+            f"({explain_s:.3f} s): {len(text.splitlines())} lines printed; "
+            f"the window's line {window_line.strip()!r}; {launches} dense "
+            f"launches; no epoch committed (the checkpointed run after it, "
+            f"set by EngineConfig.set('denormalized_config.checkpoint', "
+            f"True), restored nothing and counted all {len(stream[0])} rows)"
+            f" ({card})")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"csv_rows_per_s": n / wall, "launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4260,14 +4546,15 @@ def main(argv=None) -> int:
             load_native("lsmkv"), load_native("json_parser"),
             load_native("kafka_client", ("-lz",)),
             load_native("pyassemble", (
-                f"-I{sysconfig.get_paths()['include']}",), pydll=True)))
+                f"-I{sysconfig.get_paths()['include']}",), pydll=True),
+            load_native("avro_parser")))
         reports = cuda_build.build_all()
         interner = host.result()[1]
     if interner is None:
         raise AssertionError("the native interner did not build")
     log(f"phase 2: built {', '.join(sorted(reports))} and the host "
         f"libraries partial_agg, interner (lane {interner.lane}), lsmkv, "
-        f"json_parser, kafka_client (-lz) and pyassemble in "
+        f"json_parser, kafka_client (-lz), pyassemble and avro_parser in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in reports.items():
         for line in text.splitlines():
@@ -4324,6 +4611,8 @@ def main(argv=None) -> int:
     compact_runs = phase_compact_highcard(device, highcard_batches,
                                           highcard_stream, highcard_rates,
                                           card)
+    compact_join = phase_compact_join(
+        device, (highcard_batches, highcard_stream), highcard_right, card)
     phase_variance(device, batches, stream, card)
     f64 = phase_f64(device, highcard_batches, highcard_stream, card)
     phase_host_pipeline(
@@ -4332,6 +4621,10 @@ def main(argv=None) -> int:
          "highcard": (highcard_batches, highcard_stream, HIGHCARD_KEYS)},
         {"tumbling": cfg1_pm["rows_per_s"],
          "highcard": highcard_rates["partial_merge"]}, card)
+    avro = phase_kafka_e2e(device, stream, card, fmt="avro", phase=29)
+    log(f"phase 29 rows/s side by side: Avro {avro['rows_per_s']:.0f}, JSON "
+        f"(phase 21) {kafka['rows_per_s']:.0f} ({card})")
+    csv_run = phase_csv_explain(device, batches, stream, card)
 
     hot = kern["main_hot"]
     m1 = merge["cfg1_dense"]
@@ -4365,6 +4658,10 @@ def main(argv=None) -> int:
         "functions_launches": functions_launches,
         # launches on phase 21's kafka_e2e run, one a window batch
         "kafka_launches": kafka["launches"],
+        # ... on phase 29's Avro topic, and under phase 30's
+        # explain(analyze=True) of config 1
+        "avro_launches": avro["launches"],
+        "explain_launches": csv_run["launches"],
     }, {
         "name": "merge_partials",
         "route": "cuda",
@@ -4395,11 +4692,13 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "denormalized_tpu_torch/csrc/compact_slot.cu",
         "replaces": "denormalized_tpu/ops/segment_agg.py:623",
+        # the design since the two-launch kernel was replaced
+        "redesigned": "one single-pass launch, decoupled look-back",
         # launches on config 3 with emission_compaction (phase 25, auto):
         # one a window emitted
         "launches": compact_runs["auto"]["launches"],
         "max_abs_err": 0.0,
-        # device time of one compaction (both kernels) at config 3's shape:
+        # device time of one compaction (one launch) at config 3's shape:
         # 100K of 131,072 cells active, five planes
         "ms": c76["ms"],
         "ms_by": c76["ms_by"],
@@ -4409,10 +4708,14 @@ def main(argv=None) -> int:
         # nonzero + index_select a plane: no single torch call compacts
         "library_ms": c76["library_ms"],
         "host_ms": c76["host_ms"],
+        # one segment_agg.read_slot_compact: kernel, count, prefix copies
+        "read_ms": c76["read_ms"],
         "partial_merge_launches": compact_runs["partial_merge"]["launches"],
+        # both windows of config 4 at 100K keys, emitting from two threads
+        "join_launches": compact_join,
         "cases": {name: {key: case[key] for key in (
-            "active", "ms", "ms_by", "host_ms", "plain_ms", "library_ms",
-            "bound_ms")} for name, case in compact.items()},
+            "active", "ms", "ms_by", "host_ms", "read_ms", "plain_ms",
+            "library_ms", "bound_ms")} for name, case in compact.items()},
     }, {
         "name": "merge_partials_f64",
         "route": "cuda",

@@ -10,7 +10,9 @@ join knobs (``join_retention_ms``, ``join_adaptive``,
 ``join_adapt_interval_s``, ``join_band_slack_ms``),
 ``partition_watermarks``, ``source_idle_timeout_ms``, and the window
 operator's ``accum_dtype``, ``emission_compaction`` and ``host_pipeline``.
-:meth:`Context.from_topic` reads a Kafka topic (JSON payloads).
+:meth:`Context.from_topic` reads a Kafka topic (JSON or Avro payloads);
+:meth:`Context.table` returns a registered source and
+:meth:`EngineConfig.set` sets a knob by its ``denormalized_config.`` name.
 """
 
 from __future__ import annotations
@@ -137,6 +139,16 @@ class EngineConfig:
             raise PlanError(f"unsupported device {self.device!r}")
         return dev
 
+    def set(self, key: str, value) -> "EngineConfig":
+        """String-keyed setter, the reference's SessionConfig::set spelling
+        (``denormalized_config.checkpoint``): the prefix is optional; an
+        unknown key raises :class:`PlanError`."""
+        k = key.removeprefix("denormalized_config.")
+        if not hasattr(self, k):
+            raise PlanError(f"unknown config key {key!r}")
+        setattr(self, k, value)
+        return self
+
 
 class Context:
     """Session factory: registers sources, builds streams."""
@@ -153,6 +165,9 @@ class Context:
             f"Context(tables=[{', '.join(sorted(self._tables))}], "
             f"device={self.device})"
         )
+
+    def __str__(self) -> str:
+        return self.__repr__()
 
     def with_state_backend(self, path: str) -> "Context":
         """Checkpoint to the LSM store at ``path`` (turns checkpointing
@@ -196,13 +211,10 @@ class Context:
         parameter ORDER is the reference wrapper's (topic, sample_json,
         bootstrap_servers, timestamp_column, group_id), so a positional
         ``from_topic("t", sample, server, "occurred_at_ms")`` binds the
-        timestamp column.  Avro (``encoding="avro"``/``avro_schema=``)
-        raises: it is not ported yet."""
-        from denormalized_tpu_torch.formats import unported_avro
+        timestamp column.  For ``encoding="avro"`` the schema derives from
+        ``avro_schema`` (an Avro record declaration, JSON text or dict)."""
         from denormalized_tpu_torch.sources.kafka import KafkaTopicBuilder
 
-        if avro_schema is not None or encoding.lower() == "avro":
-            raise unported_avro()
         builder = (
             KafkaTopicBuilder(bootstrap_servers)
             .with_topic(topic)
@@ -213,8 +225,26 @@ class Context:
             builder = builder.with_timestamp_column(timestamp_column)
         if timestamp_unit:
             builder = builder.with_timestamp_unit(timestamp_unit)
-        if schema is not None:
+        if avro_schema is not None:
+            # conflicting arguments are errors, not silent overrides
+            if schema is not None:
+                raise PlanError(
+                    "pass either schema= or avro_schema=, not both (the "
+                    "Avro declaration defines the schema)"
+                )
+            if encoding.lower() != "avro":
+                raise PlanError(
+                    f"avro_schema= conflicts with encoding={encoding!r}"
+                )
+            builder = builder.with_avro_schema(avro_schema)
+        elif schema is not None:
             builder = builder.with_schema(schema)
         elif sample_json is not None:
             builder = builder.infer_schema_from_json(sample_json)
         return self.from_source(builder.build_reader(), name=topic)
+
+    def table(self, name: str) -> Source:
+        """The source registered under ``name``."""
+        if name not in self._tables:
+            raise PlanError(f"unknown table {name!r}")
+        return self._tables[name]

@@ -3,9 +3,11 @@
 Counterpart of ``denormalized_tpu/api/data_stream.py`` with the methods the
 window, join and Kafka jobs use: select / filter / column renames / window /
 join (equi keys, optionally banded) / join_on (expression keys, bands and
-residual filters), and collect / stream / print_stream / sink / sink_kafka
-to run them.  Plan building is lazy; execution happens in those last five.
-``collect`` needs a bounded stream: over a live source it raises.
+residual filters), the plan printers (print_schema, print_plan,
+print_physical_plan, explain, explain_analyze), and collect / stream /
+print_stream / sink / sink_kafka to run them.  Plan building is lazy;
+execution happens in those last five and in the analyze runs.  ``collect``
+needs a bounded stream: over a live source it raises.
 """
 
 from __future__ import annotations
@@ -33,6 +35,17 @@ class DataStream:
             f"{f.name}: {f.dtype.name.lower()}" for f in self.schema()
         )
         return f"DataStream[{type(self._plan).__name__}]({fields})"
+
+    def __str__(self) -> str:
+        return self.__repr__()
+
+    def print_schema(self) -> "DataStream":
+        """Print the schema and return self for chaining."""
+        print(self.schema())
+        return self
+
+    def logical_plan(self) -> lp.LogicalPlan:
+        return self._plan
 
     def _wrap(self, plan: lp.LogicalPlan) -> "DataStream":
         return DataStream(plan, self._ctx)
@@ -341,11 +354,69 @@ class DataStream:
         )
         return out.drop_columns(*hidden) if hidden else out
 
+    # -- introspection ---------------------------------------------------
+    def print_plan(self) -> "DataStream":
+        print(self._plan.display())
+        return self
+
+    def optimized_plan(self) -> lp.LogicalPlan:
+        """The logical plan after the optimizer pass (what will execute)."""
+        from denormalized_tpu_torch.logical.optimizer import optimize
+
+        return optimize(self._plan)
+
+    def _physical_display(self, plan: lp.LogicalPlan) -> str:
+        from denormalized_tpu_torch.planner.planner import Planner
+
+        return Planner(self._ctx.config).create_physical_plan(plan).display()
+
+    def print_physical_plan(self) -> "DataStream":
+        print(self._physical_display(self.optimized_plan()))
+        return self
+
+    def explain(self, analyze: bool = False) -> "DataStream":
+        """Print the logical plan, the optimized plan and the physical plan.
+        With ``analyze=True``, run the stream to completion into a discard
+        sink and print the physical plan with each operator's metrics
+        (rows, batches, device steps and launches).  Like ``collect``,
+        analyze needs a bounded source; it runs with checkpointing off, so
+        it commits no epoch under the real pipeline's node ids."""
+        opt = self.optimized_plan()
+        print("== logical plan ==")
+        print(self._plan.display())
+        print("== optimized plan ==")
+        print(opt.display())
+        if not analyze:
+            print("== physical plan ==")
+            print(self._physical_display(opt))
+            return self
+        from denormalized_tpu_torch.physical.simple_execs import CallbackSink
+
+        self._execute(CallbackSink(lambda _b: None), checkpoint=False)
+        print("== physical plan (analyzed) ==")
+        print(self._ctx._last_physical.display(with_metrics=True))
+        return self
+
+    def explain_analyze(self, print_output: bool = True) -> str:
+        """Run into a discard sink (checkpointing off, a bounded source)
+        and return the physical plan annotated with each operator's
+        metrics: the text the JAX package gives with its pipeline doctor
+        off.  The doctor's ranked bottleneck report
+        (``obs/doctor/attribution.py``) is not ported yet: it comes with
+        ROADMAP §A item 10."""
+        from denormalized_tpu_torch.physical.simple_execs import CallbackSink
+
+        self._execute(CallbackSink(lambda _b: None), checkpoint=False)
+        text = self._ctx._last_physical.display(with_metrics=True)
+        if print_output:
+            print(text)
+        return text
+
     # -- execution -------------------------------------------------------
-    def _execute(self, sink) -> None:
+    def _execute(self, sink, checkpoint=None) -> None:
         from denormalized_tpu_torch.runtime.executor import execute_plan
 
-        execute_plan(lp.Sink(self._plan, sink), self._ctx)
+        execute_plan(lp.Sink(self._plan, sink), self._ctx, checkpoint)
 
     def print_stream(self) -> None:
         """Execute, printing rows as JSON (datastream.rs:311-339)."""

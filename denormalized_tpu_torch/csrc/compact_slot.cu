@@ -14,27 +14,50 @@
 // What bounds it on the card: the bytes.  G x 4 B of the row-count plane,
 // plus, for each active cell, its gid written (4 B) and its value in every
 // plane read and written once (4 or 8 B each).  At config 3's emitted
-// window (100K of 131,072 cells active, three planes) that is ~3 MB, about
-// a microsecond at 3.35 TB/s; a launch's fixed cost is of that order, so
-// the design keeps the launches to two and every access coalesced.
+// window (100K of 131,072 cells active, five planes) that is ~4.5 MB,
+// about 1.4 us at 3.35 TB/s; a launch's fixed cost is of that order, so
+// the design makes ONE launch and reads the count plane once.
 //
-// The design.  A block takes ITEMS x 256 consecutive cells, as ITEMS
-// chunks of 256 (chunk i, thread t: cell base + i*256 + t), so neighbouring
-// threads touch neighbouring cells.
-//   1. compact_slot_count_kernel: each block counts its active cells
-//      (__syncthreads_count a chunk) into block_counts[b].
-//   2. compact_slot_scatter_kernel: each block sums the counts of the
-//      blocks before it (one warp, a strided pass and a shuffle reduction:
-//      G / 1024 counts, 128 at G = 131,072), then, chunk by chunk, ranks
-//      its active cells in order (a warp ballot and popcount for the rank
-//      inside the warp, a shared-memory scan of the 8 warps' totals) and
-//      writes each active cell's gid and its value in every plane at
-//      offset + rank.  The last block writes k.  Planes travel by value in
-//      a __grid_constant__ table (as in dense_window.cu), so one pass over
-//      the cells serves every plane, 4-byte and 8-byte alike.
-// A single pass with decoupled look-back would save the first launch; it
-// is later work.  No atomics: the output is a copy, exact and the same
-// from run to run.
+// The design: a single-pass stable compaction with decoupled look-back
+// (Merrill and Garland, "Single-pass Parallel Prefix Scan with Decoupled
+// Look-back", 2016).
+//   - A tile is TILE_CELLS = 1,024 consecutive cells, four a thread, read
+//     as one int4 (16 B) a thread, neighbouring threads on neighbouring
+//     addresses; a scalar tail covers G not a multiple of 4, and a slot
+//     row that is not 16-B aligned takes the scalar loads throughout.
+//     At config 3's G = 131,072 that is 128 tiles: one wave on 132 SMs.
+//     The grid is at most 4 blocks an SM; a larger G gives each block
+//     more tiles, taken in turn.
+//   - A block takes its tiles from an atomic ticket counter, so tiles
+//     start in ticket order whatever order the scheduler starts blocks
+//     in, and a tile only ever waits on tiles already running.
+//   - Ranks inside a warp come from four ballots (one per cell of the
+//     thread) and popcounts; the 8 warps' totals are scanned in shared
+//     memory.  Warp 0 then publishes the tile's aggregate, looks back over
+//     its predecessors' status words 32 tiles at a time (one lane a tile)
+//     until it meets an inclusive prefix, and publishes its own.  Two
+//     barriers a tile.
+//   - A status word is 64 bits: a 30-bit call tag, a 2-bit flag
+//     (aggregate or inclusive prefix) and a 32-bit count, stored and
+//     loaded as one word, so no fence orders a flag against its value.
+//     The tag makes the scratch self-resetting: a word of an earlier call
+//     reads as "not yet published", so no memset runs between calls.  The
+//     ticket counter is never reset either: a call takes exactly
+//     tiles + blocks tickets (each block stops on its first ticket past
+//     the last tile), so the wrapper passes the call's first ticket.
+//     Calls on one scratch must therefore reach its stream in call-number
+//     order: the wrapper hands out the number and queues the launch under
+//     one lock.  (A memset of the scratch before each launch, in the
+//     call's own memory, needs no order and no cache, but measured 0.97 us
+//     of device time a call, the kernel's own being ~4-5 us; PERF.md §6.)
+//   - The last tile writes k.
+//   - Planes travel by value in a __grid_constant__ table, 4-byte planes
+//     first, then 8-byte ones: two plain loops, no branch on a plane's
+//     width.  An active cell's value is read with the thread's 16-B (or
+//     two 16-B, for 8-byte planes) load of its four cells where the rows
+//     are aligned, and written at its rank.
+// No atomics on the data: the output is a copy, exact and the same from
+// run to run.
 
 #include <cuda_runtime.h>
 
@@ -42,133 +65,263 @@ namespace {
 
 constexpr int BLOCK_THREADS = 256;
 constexpr int WARPS = BLOCK_THREADS / 32;
-constexpr int ITEMS = 4;  // chunks of BLOCK_THREADS cells a block
-constexpr int BLOCK_CELLS = ITEMS * BLOCK_THREADS;
+constexpr int CELLS = 4;  // cells a thread: one int4 of the count plane
+constexpr int TILE_CELLS = CELLS * BLOCK_THREADS;
 constexpr int MAX_PLANES = 64;
+constexpr unsigned FULL = 0xffffffffu;
+
+constexpr unsigned long long FLAG_AGGREGATE = 1ull;
+constexpr unsigned long long FLAG_PREFIX = 2ull;
+constexpr unsigned TAG_BITS = 30;
 
 // One component plane: the slot's row of the ring and the output buffer,
-// both of G elements of ``bytes`` (4 or 8) each.
+// both of G elements (4 or 8 bytes each, by the plane's place in the table).
 struct Plane {
   const void* src;
   void* dst;
-  int bytes;
 };
 
 struct PlaneTable {
   Plane p[MAX_PLANES];
 };
 
-__global__ void __launch_bounds__(BLOCK_THREADS)
-    compact_slot_count_kernel(const int* __restrict__ counts, int G,
-                              int* __restrict__ block_counts) {
-  const long long base = static_cast<long long>(blockIdx.x) * BLOCK_CELLS;
-  int total = 0;
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    const long long c = base + i * BLOCK_THREADS + threadIdx.x;
-    const bool active = c < G && __ldg(counts + c) > 0;
-    total += __syncthreads_count(active);
-  }
-  if (threadIdx.x == 0) block_counts[blockIdx.x] = total;
+__device__ __forceinline__ unsigned long long status_word(
+    unsigned tag, unsigned long long flag, unsigned value) {
+  return (static_cast<unsigned long long>(tag) << 34) | (flag << 32) | value;
 }
 
-__global__ void __launch_bounds__(BLOCK_THREADS) compact_slot_scatter_kernel(
-    const int* __restrict__ counts, int G,
-    const int* __restrict__ block_counts, int* __restrict__ gids_out,
-    int* __restrict__ n_active, int n_planes,
-    const __grid_constant__ PlaneTable table) {
+__device__ __forceinline__ void publish(unsigned long long* status, int tile,
+                                        unsigned long long word) {
+  *reinterpret_cast<volatile unsigned long long*>(status + tile) = word;
+}
+
+// The exclusive prefix of ``tile`` (> 0), by warp 0 of its block, after it
+// published its aggregate: look back over the predecessors' status words,
+// a window of 32 tiles at a time (lane l reads tile - 1 - l - 32 r), until
+// an inclusive prefix turns up; the counts of the window up to and
+// including that prefix are summed.  Tiles below 0 read as prefix 0.
+// (A window of 128 tiles, four loads a lane, measured slower on the card:
+// a window waits for its slowest tile's aggregate.)
+__device__ __forceinline__ unsigned look_back(
+    const unsigned long long* status, int tile, unsigned tag, int lane) {
+  unsigned exclusive = 0;
+  long long j = static_cast<long long>(tile) - 1 - lane;
+  while (true) {
+    unsigned long long w;
+    unsigned flag;
+    do {
+      w = j >= 0 ? *reinterpret_cast<const volatile unsigned long long*>(
+                       status + j)
+                 : status_word(tag, FLAG_PREFIX, 0);
+      flag = (w >> 34) == tag ? static_cast<unsigned>((w >> 32) & 3ull) : 0u;
+    } while (__any_sync(FULL, flag == 0));
+    const unsigned prefixes = __ballot_sync(FULL, flag == FLAG_PREFIX);
+    const int stop = prefixes ? __ffs(prefixes) - 1 : 31;
+    unsigned v = lane <= stop ? static_cast<unsigned>(w) : 0u;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(FULL, v, d);
+    exclusive += v;
+    if (prefixes) return exclusive;
+    j -= 32;
+  }
+}
+
+// A thread's four values of one plane (T is int or long long: the bits of
+// 4- or 8-byte elements): one 16-B load (two for 8 bytes) where ``vec``,
+// else a load of each active cell.
+template <typename T>
+__device__ __forceinline__ void load_quad(const T* __restrict__ src,
+                                          long long c0, bool vec,
+                                          const bool (&a)[CELLS],
+                                          T (&v)[CELLS]) {
+  if (vec) {
+    if constexpr (sizeof(T) == 4) {
+      const int4 q = __ldg(reinterpret_cast<const int4*>(src + c0));
+      v[0] = q.x;
+      v[1] = q.y;
+      v[2] = q.z;
+      v[3] = q.w;
+    } else {
+      const longlong2* s = reinterpret_cast<const longlong2*>(src + c0);
+      const longlong2 q0 = __ldg(s);
+      const longlong2 q1 = __ldg(s + 1);
+      v[0] = q0.x;
+      v[1] = q0.y;
+      v[2] = q1.x;
+      v[3] = q1.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < CELLS; ++i) v[i] = a[i] ? __ldg(src + c0 + i) : T(0);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void copy_plane(const Plane& pl, long long c0,
+                                           bool vec, const bool (&a)[CELLS],
+                                           const int (&rank)[CELLS]) {
+  T v[CELLS];
+  load_quad(static_cast<const T*>(pl.src), c0, vec, a, v);
+  T* dst = static_cast<T*>(pl.dst);
+#pragma unroll
+  for (int i = 0; i < CELLS; ++i) {
+    if (a[i]) dst[rank[i]] = v[i];
+  }
+}
+
+__global__ void __launch_bounds__(BLOCK_THREADS) compact_slot_kernel(
+    const int* __restrict__ counts, int G, int tiles, int aligned,
+    unsigned long long* status,
+    unsigned long long* __restrict__ tickets, unsigned long long first_ticket,
+    unsigned tag, int* __restrict__ gids_out, int* __restrict__ n_active,
+    int n4, int n8, const __grid_constant__ PlaneTable table) {
   __shared__ int s_warp[WARPS];
-  __shared__ int s_offset;
+  __shared__ int s_prefix;
+  __shared__ int s_tile[2];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  // the active cells of every block before this one
-  if (warp == 0) {
-    int sum = 0;
-    for (int b = lane; b < static_cast<int>(blockIdx.x); b += 32) {
-      sum += __ldg(block_counts + b);
-    }
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) sum += __shfl_down_sync(0xffffffffu, sum, d);
-    if (lane == 0) s_offset = sum;
+  const unsigned lanes_below = (1u << lane) - 1u;
+
+  if (threadIdx.x == 0) {
+    s_tile[0] = static_cast<int>(atomicAdd(tickets, 1ull) - first_ticket);
   }
   __syncthreads();
-  int offset = s_offset;
-  const long long base = static_cast<long long>(blockIdx.x) * BLOCK_CELLS;
-  const unsigned lanes_below = (1u << lane) - 1u;
-  for (int i = 0; i < ITEMS; ++i) {
-    const long long c = base + i * BLOCK_THREADS + threadIdx.x;
-    const bool active = c < G && __ldg(counts + c) > 0;
-    const unsigned ballot = __ballot_sync(0xffffffffu, active);
-    if (lane == 0) s_warp[warp] = __popc(ballot);
-    __syncthreads();
-    // exclusive scan of the warps' totals, by every thread (8 adds)
-    int below = 0, chunk = 0;
+  int tile = s_tile[0];
+  // unsigned: a ticket below the call's first reads as past the last tile
+  for (int n = 0; static_cast<unsigned>(tile) < static_cast<unsigned>(tiles);
+       ++n) {
+    // 1. this thread's four cells: one 16-B load where the whole quad is
+    //    in the row and the row is aligned, else a scalar load a cell
+    const long long c0 = static_cast<long long>(tile) * TILE_CELLS +
+                         static_cast<long long>(threadIdx.x) * CELLS;
+    const bool vec = aligned && c0 + CELLS <= G;
+    bool a[CELLS];
+    if (vec) {
+      const int4 q = __ldg(reinterpret_cast<const int4*>(counts + c0));
+      a[0] = q.x > 0;
+      a[1] = q.y > 0;
+      a[2] = q.z > 0;
+      a[3] = q.w > 0;
+    } else {
+#pragma unroll
+      for (int i = 0; i < CELLS; ++i) {
+        a[i] = c0 + i < G && __ldg(counts + c0 + i) > 0;
+      }
+    }
+    // ranks inside the warp: the cells of the lanes below, then own order
+    int below = 0, warp_total = 0;
+#pragma unroll
+    for (int i = 0; i < CELLS; ++i) {
+      const unsigned b = __ballot_sync(FULL, a[i]);
+      below += __popc(b & lanes_below);
+      warp_total += __popc(b);
+    }
+    if (lane == 0) s_warp[warp] = warp_total;
+    if (threadIdx.x == 0) {  // the next tile's ticket, read after barrier 2
+      s_tile[(n + 1) & 1] =
+          static_cast<int>(atomicAdd(tickets, 1ull) - first_ticket);
+    }
+    __syncthreads();  // barrier 1: the warps' totals
+    int warp_prefix = 0, aggregate = 0;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) {
       const int t = s_warp[w];
-      below += w < warp ? t : 0;
-      chunk += t;
+      warp_prefix += w < warp ? t : 0;
+      aggregate += t;
     }
-    if (active) {
-      const int rank = offset + below + __popc(ballot & lanes_below);
-      gids_out[rank] = static_cast<int>(c);
-      for (int p = 0; p < n_planes; ++p) {
-        const Plane& pl = table.p[p];
-        if (pl.bytes == 8) {
-          static_cast<long long*>(pl.dst)[rank] =
-              __ldg(static_cast<const long long*>(pl.src) + c);
-        } else {
-          static_cast<int*>(pl.dst)[rank] =
-              __ldg(static_cast<const int*>(pl.src) + c);
+    // 2. warp 0 publishes the aggregate, looks back, publishes the prefix
+    if (warp == 0) {
+      unsigned exclusive = 0;
+      if (tile == 0) {
+        if (lane == 0) {
+          publish(status, 0, status_word(tag, FLAG_PREFIX, aggregate));
+        }
+      } else {
+        if (lane == 0) {
+          publish(status, tile, status_word(tag, FLAG_AGGREGATE, aggregate));
+        }
+        exclusive = look_back(status, tile, tag, lane);
+        if (lane == 0) {
+          publish(status, tile,
+                  status_word(tag, FLAG_PREFIX, exclusive + aggregate));
+        }
+      }
+      if (lane == 0) {
+        s_prefix = static_cast<int>(exclusive);
+        if (tile == tiles - 1) {
+          *n_active = static_cast<int>(exclusive) + aggregate;
         }
       }
     }
-    offset += chunk;
-    __syncthreads();  // s_warp is rewritten by the next chunk
+    __syncthreads();  // barrier 2: the tile's prefix, the next ticket
+    // 3. scatter the active cells: gid, then every plane
+    int rank[CELLS];
+    int r = s_prefix + warp_prefix + below;
+#pragma unroll
+    for (int i = 0; i < CELLS; ++i) {
+      rank[i] = r;
+      r += a[i] ? 1 : 0;
+    }
+    if (a[0] | a[1] | a[2] | a[3]) {
+#pragma unroll
+      for (int i = 0; i < CELLS; ++i) {
+        if (a[i]) gids_out[rank[i]] = static_cast<int>(c0 + i);
+      }
+      for (int p = 0; p < n4; ++p) {
+        copy_plane<int>(table.p[p], c0, vec, a, rank);
+      }
+      for (int p = n4; p < n4 + n8; ++p) {
+        copy_plane<long long>(table.p[p], c0, vec, a, rank);
+      }
+    }
+    tile = s_tile[(n + 1) & 1];
   }
-  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) *n_active = offset;
 }
 
 }  // namespace
 
 extern "C" {
 
+// The number of 1,024-cell tiles for G cells: the status words a call
+// needs.
+int compact_slot_tiles(int G) { return (G + TILE_CELLS - 1) / TILE_CELLS; }
+
 // Compact one slot of G cells on ``stream`` (a cudaStream_t passed as a
-// pointer): ``counts`` is the slot's row-count plane (int32), ``planes`` a
-// HOST array of n_planes Plane (device pointers, 4- or 8-byte elements),
-// copied into the kernel's parameters; ``gids_out`` takes G int32,
-// ``n_active`` one int32 and ``block_counts`` (scratch) one int32 per
-// 1,024 cells.  Allocates nothing; returns cudaGetLastError() after the
-// launches (0 = success), so a refused launch reaches the caller.
-int compact_slot_launch(const int* counts, int G, int n_planes,
-                        const void* planes, int* gids_out, int* n_active,
-                        int* block_counts, void* stream) {
-  if (G < 1 || n_planes < 0 || n_planes > MAX_PLANES) {
+// pointer) in one launch of ``blocks`` blocks (at most the tiles).
+// ``counts`` is the slot's row-count plane (int32); ``planes`` a HOST array
+// of n4 + n8 (src, dst) device-pointer pairs, the n4 planes of 4-byte
+// elements first, copied into the kernel's parameters; ``aligned`` says
+// that ``counts`` and every src are 16-B aligned.  ``gids_out`` takes G
+// int32, ``n_active`` one int32.  ``status`` holds one 64-bit word a tile
+// and ``tickets`` one 64-bit counter, both zeroed once when allocated and
+// never reset: ``call`` (1, 2, ... on this scratch, below 2^30) tags the
+// status words, and the call's tickets start at (call - 1) x (tiles +
+// blocks).  Allocates nothing; returns cudaGetLastError() after the
+// launch (0 = success), so a refused launch reaches the caller.
+int compact_slot_launch(const int* counts, int G, int n4, int n8,
+                        const void* planes, int aligned, int* gids_out,
+                        int* n_active, unsigned long long* status,
+                        unsigned long long* tickets, unsigned long long call,
+                        int blocks, void* stream) {
+  const int tiles = compact_slot_tiles(G);
+  if (G < 1 || n4 < 0 || n8 < 0 || n4 + n8 > MAX_PLANES || blocks < 1 ||
+      blocks > tiles || call < 1 || call >= (1ull << TAG_BITS)) {
     return (int)cudaErrorInvalidValue;
   }
   PlaneTable table{};
-  for (int p = 0; p < n_planes; ++p) {
+  for (int p = 0; p < n4 + n8; ++p) {
     table.p[p] = static_cast<const Plane*>(planes)[p];
-    if (table.p[p].bytes != 4 && table.p[p].bytes != 8) {
-      return (int)cudaErrorInvalidValue;
-    }
   }
-  const cudaStream_t st = (cudaStream_t)stream;
-  const int blocks = (G + BLOCK_CELLS - 1) / BLOCK_CELLS;
-  compact_slot_count_kernel<<<blocks, BLOCK_THREADS, 0, st>>>(counts, G,
-                                                              block_counts);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  compact_slot_scatter_kernel<<<blocks, BLOCK_THREADS, 0, st>>>(
-      counts, G, block_counts, gids_out, n_active, n_planes, table);
+  const unsigned long long first =
+      (call - 1) * static_cast<unsigned long long>(tiles + blocks);
+  compact_slot_kernel<<<blocks, BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
+      counts, G, tiles, aligned, status, tickets, first,
+      static_cast<unsigned>(call), gids_out, n_active, n4, n8, table);
   return (int)cudaGetLastError();
 }
 
 const char* compact_slot_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
-
-// The number of 1,024-cell blocks (and block_counts entries) for G cells.
-int compact_slot_blocks(int G) { return (G + BLOCK_CELLS - 1) / BLOCK_CELLS; }
 
 }  // extern "C"

@@ -1,16 +1,15 @@
 """Stream payload formats.
 
 Counterpart of ``denormalized_tpu/formats/__init__.py``: the ``Decoder``
-seam (push raw payload bytes, flush one RecordBatch), the JSON decoder and
-the ``StreamEncoding`` enum.  Avro decoding is not ported yet:
-:func:`make_decoder` raises for it, naming the ROADMAP item that brings it.
+seam (push raw payload bytes, flush one RecordBatch), the JSON and Avro
+decoders and the ``StreamEncoding`` enum.
 """
 
 from __future__ import annotations
 
 import enum
 
-from denormalized_tpu_torch.common.errors import FormatError, PlanError
+from denormalized_tpu_torch.common.errors import FormatError
 from denormalized_tpu_torch.common.record_batch import RecordBatch
 from denormalized_tpu_torch.common.schema import Schema
 
@@ -60,19 +59,11 @@ def _warn_native_unavailable(fmt: str, err: BaseException) -> None:
     )
 
 
-def unported_avro() -> PlanError:
-    """The refusal for Avro payloads, naming the ROADMAP item that ports
-    them."""
-    return PlanError(
-        "Avro decoding is not yet ported to denormalized_tpu_torch: it "
-        "comes with ROADMAP §A item 5 (formats/avro_codec.py, "
-        "formats/native_avro.py, native/avro_parser.cpp); JSON topics run"
-    )
-
-
 def make_decoder(encoding: StreamEncoding, schema: Schema, avro_schema=None):
     if encoding is StreamEncoding.JSON:
         from denormalized_tpu_torch.formats.json_codec import JsonDecoder
 
         return JsonDecoder(schema)
-    raise unported_avro()
+    from denormalized_tpu_torch.formats.avro_codec import AvroDecoder
+
+    return AvroDecoder(schema, avro_schema)

@@ -552,19 +552,48 @@ def read_slot_compact(
     moves the slot's active cells to the front on the device; the scalar
     active count k crosses first, then a power-of-two prefix (capped at
     ``capacity``, default G) of the compacted buffers, cut to k on the
-    host."""
-    from denormalized_tpu_torch.ops.compact_slot import compact_slot
+    host.  On the card the prefixes of each dtype's buffer cross in one
+    ``non_blocking`` copy into pinned host memory, and the stream is
+    synchronized once for all of them."""
+    from denormalized_tpu_torch.ops.compact_slot import compact_slot_groups
 
     comps = spec.components
-    n, gids, outs = compact_slot(
+    n, groups = compact_slot_groups(
         state[ROW_COUNT.label][slot], [state[c.label][slot] for c in comps]
     )
     k = int(n.item())
     bucket = 0 if k == 0 else min(
         1 << (k - 1).bit_length(), capacity or spec.group_capacity
     )
-    rows = {c.label: to_host(o[:bucket])[:k] for c, o in zip(comps, outs)}
-    return to_host(gids[:bucket])[:k], rows
+    host = _prefixes_to_host(groups, bucket, k, len(comps))
+    return host[0], {c.label: h for c, h in zip(comps, host[1:])}
+
+
+def _prefixes_to_host(groups, bucket: int, k: int, n_planes: int
+                      ) -> list[np.ndarray]:
+    """The first ``bucket`` columns of each (rows, L) buffer on the host,
+    cut to k → [gids, each plane's row].  From the card, one
+    ``non_blocking`` copy a buffer into pinned memory on the current
+    stream, then one synchronize for all of them (the rows are numpy
+    views that keep the pinned memory alive); on the CPU, copies."""
+    cuda = groups[0][0].device.type == "cuda"
+    host = []
+    for buf, idx in groups:
+        if cuda:
+            dst = torch.empty((len(idx), bucket), dtype=buf.dtype,
+                              pin_memory=True)
+            dst.copy_(buf[:, :bucket], non_blocking=True)
+        else:
+            dst = buf[:, :bucket].clone()
+        host.append((dst, idx))
+    if cuda:
+        torch.cuda.current_stream(groups[0][0].device).synchronize()
+    out: list = [None] * (n_planes + 1)
+    for dst, idx in host:
+        rows = dst.numpy()
+        for r, i in enumerate(idx):
+            out[i + 1] = rows[r, :k]
+    return out
 
 
 def export_state(state: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:

@@ -1,6 +1,7 @@
 """Physical operator protocol — counterpart of
 ``denormalized_tpu/physical/base.py`` without the observability, doctor and
-state-observatory hooks.
+state-observatory hooks; ``display`` prints the operator tree, with each
+operator's metrics on request.
 
 The physical layer is a pull-based pipeline of Python generators flowing
 :class:`StreamItem`s:
@@ -94,3 +95,23 @@ class ExecOperator:
 
     def metrics(self) -> dict[str, float]:
         return {}
+
+    def display(self, indent: int = 0, with_metrics: bool = False) -> str:
+        """This operator and its inputs, one indented line each; with
+        ``with_metrics`` each line carries the operator's metrics (the
+        plan ``explain(analyze=True)`` prints)."""
+        line = "  " * indent + self._label()
+        if with_metrics:
+            m = self.metrics()
+            if m:
+                parts = ", ".join(
+                    f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+                    for k, v in m.items()
+                )
+                line += f"  [{parts}]"
+        return "\n".join(
+            [line] + [c.display(indent + 1, with_metrics) for c in self.children]
+        )
+
+    def _label(self) -> str:
+        return type(self).__name__

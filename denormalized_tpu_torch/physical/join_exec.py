@@ -825,6 +825,10 @@ class StreamingJoinExec(ExecOperator):
     def children(self):
         return [self.left, self.right]
 
+    def _label(self):
+        on = ", ".join(f"{l}={r}" for l, r in zip(self.left_keys, self.right_keys))
+        return f"StreamingJoinExec({self.kind.value} on {on})"
+
     def metrics(self):
         m = dict(self._metrics)
         sides = self._sides

@@ -291,6 +291,9 @@ class SourceExec(ExecOperator):
         for r, s in zip(readers, parts):
             r.offset_restore(s)
 
+    def _label(self):
+        return f"SourceExec({self.source.name})"
+
     def metrics(self):
         m = dict(self._metrics)
         # fetch and decode seconds of the readers in use (a Kafka reader
@@ -513,6 +516,8 @@ class ProjectExec(ExecOperator):
     def children(self):
         return [self.input_op]
 
+    def _label(self):
+        return f"ProjectExec({', '.join(e.name for e in self.exprs)})"
 
     def run(self) -> Iterator[StreamItem]:
         def passthrough_name(e: Expr) -> str | None:
@@ -544,6 +549,8 @@ class FilterExec(ExecOperator):
     def children(self):
         return [self.input_op]
 
+    def _label(self):
+        return f"FilterExec({self.predicate!r})"
 
     def run(self) -> Iterator[StreamItem]:
         for item in self.input_op.run():
@@ -569,6 +576,8 @@ class SinkExec(ExecOperator):
     def children(self):
         return [self.input_op]
 
+    def _label(self):
+        return f"SinkExec({type(self.sink).__name__})"
 
     def run(self) -> Iterator[StreamItem]:
         for item in self.input_op.run():

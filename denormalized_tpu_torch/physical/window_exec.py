@@ -340,6 +340,15 @@ class StreamingWindowExec(ExecOperator):
         """The window-state backend currently holding the ring."""
         return self._backend
 
+    def _label(self):
+        w = f"{self.window_type.value} {self.length_ms}ms"
+        if self.slide_ms != self.length_ms:
+            w += f"/{self.slide_ms}ms"
+        return (
+            f"StreamingWindowExec({w}, groups=[{', '.join(g.name for g in self.group_exprs)}], "
+            f"aggs=[{', '.join(a.name for a in self.aggr_exprs)}])"
+        )
+
     def metrics(self):
         m = dict(self._metrics)
         if self._backend.accumulates_host:

@@ -30,11 +30,16 @@ def build_physical(plan: lp.LogicalPlan, ctx) -> ExecOperator:
     return Planner(ctx.config).create_physical_plan(optimize(plan))
 
 
-def _attach_checkpointing(root: ExecOperator, ctx):
+def _attach_checkpointing(root: ExecOperator, ctx, checkpoint=None):
     """When ``checkpoint`` is on, start the barrier orchestrator and wire
     every source and stateful operator to the coordinator (which restores
-    them) → (orchestrator, coordinator), or (None, None)."""
-    if not ctx.config.checkpoint:
+    them) → (orchestrator, coordinator), or (None, None).  ``checkpoint``
+    overrides ``ctx.config.checkpoint`` for this execution only
+    (``explain(analyze=True)`` runs with it False, so an introspection
+    run commits no epoch under the real pipeline's node ids and leaves the
+    shared EngineConfig alone)."""
+    on = checkpoint if checkpoint is not None else ctx.config.checkpoint
+    if not on:
         return None, None
     from denormalized_tpu_torch.state.checkpoint import wire_checkpointing
     from denormalized_tpu_torch.state.orchestrator import Orchestrator
@@ -49,10 +54,10 @@ def _attach_checkpointing(root: ExecOperator, ctx):
     return orch, coord
 
 
-def execute_plan(plan: lp.LogicalPlan, ctx) -> None:
+def execute_plan(plan: lp.LogicalPlan, ctx, checkpoint=None) -> None:
     root = build_physical(plan, ctx)
     ctx._last_physical = root  # post-run metrics access
-    orch, coord = _attach_checkpointing(root, ctx)
+    orch, coord = _attach_checkpointing(root, ctx, checkpoint)
     ctx._checkpointing = (coord, orch)  # Context.last_checkpointing()
     it = root.run()
     try:

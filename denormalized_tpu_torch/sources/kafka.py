@@ -16,8 +16,8 @@ it.  JSON payload decode goes through the native one-pass columnar parser
 (``native/json_parser.cpp``), straight from the fetch arena.
 
 Copy of ``denormalized_tpu/sources/kafka.py`` (the client and parser
-sources are the JAX package's, unchanged).  Avro topics raise
-(``formats.unported_avro``).
+sources are the JAX package's, unchanged).  Avro topics decode through
+the native Avro parser (``native/avro_parser.cpp``) the same way.
 """
 
 from __future__ import annotations
@@ -31,11 +31,7 @@ from denormalized_tpu_torch.common.errors import FormatError, SourceError
 from denormalized_tpu_torch.common.record_batch import RecordBatch
 from denormalized_tpu_torch.common.schema import DataType, Field, Schema
 from denormalized_tpu_torch.common.constants import CANONICAL_TIMESTAMP_COLUMN
-from denormalized_tpu_torch.formats import (
-    StreamEncoding,
-    make_decoder,
-    unported_avro,
-)
+from denormalized_tpu_torch.formats import StreamEncoding, make_decoder
 from denormalized_tpu_torch.formats.json_codec import (
     JsonRowEncoder,
     infer_schema_from_json,
@@ -467,7 +463,12 @@ class KafkaTopicBuilder:
         return self
 
     def with_avro_schema(self, decl) -> "KafkaTopicBuilder":
-        raise unported_avro()
+        from denormalized_tpu_torch.formats.avro_codec import parse_avro_schema
+
+        self.avro_schema = parse_avro_schema(decl)
+        self.encoding = StreamEncoding.AVRO
+        self.user_schema = self.avro_schema.to_engine_schema()
+        return self
 
     def with_option(self, key: str, value: str) -> "KafkaTopicBuilder":
         # option-string spelling of the typed builder knobs (the reference

@@ -68,6 +68,11 @@ NEW_MODULES = (
     "denormalized_tpu_torch.testing.mock_kafka",
     # the window options' slice: the compaction kernel's wrapper
     "denormalized_tpu_torch.ops.compact_slot",
+    # the API surface slice: Avro, CSV, Feast
+    "denormalized_tpu_torch.formats.avro_codec",
+    "denormalized_tpu_torch.formats.native_avro",
+    "denormalized_tpu_torch.sources.csv",
+    "denormalized_tpu_torch.api.feast_data_stream",
 )
 
 

@@ -7,8 +7,9 @@ Steps (default: all, in this order): ``25k`` the compaction kernel against
 its plain version, ``7`` the merge kernels' cases (float64 ones included),
 ``24`` the checkpointed join SIGKILLed and restored, ``24h`` a join
 snapshot and restore at 100K keys a side, ``25`` config 3 with emission
-compaction, ``26`` the variance family, ``27`` config 3 in float64, ``28``
-the host pipeline.  It builds every kernel (printing ptxas' register and
+compaction, ``25j`` config 4 at 100K keys with emission compaction, ``26`` the variance family, ``27`` config 3 in float64, ``28``
+the host pipeline, ``29`` phase 21's job over an Avro topic, ``30`` the
+CSV job and ``explain(analyze=True)``.  It builds every kernel (printing ptxas' register and
 shared-memory lines), makes phase 4's and phase 10's streams from seed 0,
 and calls the same ``chip_smoke`` functions as the full script, each
 step checked as there.  A failing step is printed with its traceback and
@@ -26,7 +27,7 @@ import traceback
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-STEPS = ("25k", "7", "24", "24h", "25", "26", "27", "28")
+STEPS = ("25k", "7", "24", "24h", "25", "25j", "26", "27", "28", "29", "30")
 
 
 def main(argv: list[str]) -> int:
@@ -82,12 +83,18 @@ def main(argv: list[str]) -> int:
             side(seed + 6, cs.HIGHCARD_BATCH_ROWS, cs.HIGHCARD_KEYS), card),
         "25": lambda: cs.phase_compact_highcard(device, hb, hs, no_rates,
                                                 card),
+        "25j": lambda: cs.phase_compact_join(
+            device, (hb, hs),
+            side(seed + 6, cs.HIGHCARD_BATCH_ROWS, cs.HIGHCARD_KEYS), card),
         "26": lambda: cs.phase_variance(device, batches, stream, card),
         "27": lambda: cs.phase_f64(device, hb, hs, card),
         "28": lambda: cs.phase_host_pipeline(
             device, {"tumbling": (batches, stream, cs.NUM_KEYS),
                      "highcard": (hb, hs, cs.HIGHCARD_KEYS)}, no_rates,
             card),
+        "29": lambda: cs.phase_kafka_e2e(device, stream, card, fmt="avro",
+                                         phase=29),
+        "30": lambda: cs.phase_csv_explain(device, batches, stream, card),
     }
     failed = []
     for step in steps:
