@@ -196,7 +196,40 @@ Phases:
     = window batches); ``explain(analyze=True)`` of config 1 on the card
     with checkpointing set through ``EngineConfig.set`` (the analyzed plan
     carries the window's device steps, every one a dense launch; no epoch
-    committed: a checkpointed run after it restores nothing).
+    committed: a checkpointed run after it restores nothing); then config
+    1 over the same 15 batches with ``EngineConfig(optimizer=False)``
+    against the default: the optimized plan is the logical one, the
+    differing plan lines are printed, and the rows equal the oracle's both
+    ways;
+31. user-defined aggregates (the host operator ``UdafWindowExec``):
+    ``examples/udaf_example.py``'s job (a ``ReadingSpread`` accumulator
+    and count, 1 s tumbling by sensor_name) over phase 4's stream through
+    ``MemorySource`` and over phase 21's 4-partition JSON topic
+    (``decode_fallback_rows`` 0), then one window holding median,
+    count_distinct, approx_distinct, first_value, string_agg, corr and
+    percentile_cont over phase 4's first 15 batches, each against a numpy
+    oracle (approx_distinct within 5 standard errors of the exact count):
+    rows/s, rows in, late rows;
+32. session windows: bench.py's ``session`` shape (each event-second's
+    rows in its first 600 ms, 300 ms gap, count/min/max/avg by
+    sensor_name) over phase 4's size and key count, then its
+    ``session_scale`` point at 100K keys (1,966,080 rows) through the
+    vectorized operator and its first 262,144 rows through
+    ``DENORMALIZED_SESSION_REFERENCE=1``'s operator, each against the
+    interval oracle: rows/s, sessions emitted, late rows, the interner's
+    live keys and free gids;
+33. config 5 over phase 31's UDAF job and phase 32's session job: the
+    script re-invoked as a checkpointed child (``--host-child``) is
+    SIGKILLed after two commits with more than a third of its stream
+    unread, a second child restores on the same store and runs to the
+    end; the union of their rows against the oracle, the operator's
+    snapshot bytes, spawn → restore;
+34. graceful SIGTERM (ROADMAP C3): phase 22's chunks fed at its pace into
+    a fresh topic, the script re-invoked (``--sigterm-child``) runs phase
+    21's job through ``print_stream()`` checkpointed every 0.5 s and gets
+    SIGTERM after its third window; it must exit 0 with its orchestrator
+    stopped, its store holding committed offsets short of the topic's
+    end, and every window it printed equal to the oracle.
 
 Then one JSON line with each kernel's launches on its main path (phase 4
 for the dense kernel, phase 8 for the merge kernel, phase 25's config 3
@@ -204,7 +237,8 @@ run for the compaction kernel, phase 27's for the f64 merge, each counted
 from 0 just before the run; for the dense kernel also its launches on
 phase 11's restored ring, both windows' launches under phase 14's join and
 phase 16's join_on, phase 19's window, phase 21's Kafka job, phase 29's
-Avro topic and phase 30's analyze run), its
+Avro topic, phase 30's analyze run and phase 34's child up to its
+SIGTERM; phases 31-33 run host operators only), its
 largest error against the plain version, its device time, the wrapper's
 time, the plain version's time, the library call's (for the compaction
 kernel the nonzero + index_select sequence) and the least time the card
@@ -323,13 +357,19 @@ def time_ms(fn, device, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def node_of(ctx, cls):
+    """The first operator of class ``cls`` (or of one of a tuple of
+    classes) below the last run's root."""
+    node = ctx._last_physical
+    while not isinstance(node, cls):
+        (node,) = node.children
+    return node
+
+
 def window_exec_of(ctx):
     from denormalized_tpu_torch.physical.window_exec import StreamingWindowExec
 
-    node = ctx._last_physical
-    while not isinstance(node, StreamingWindowExec):
-        (node,) = node.children
-    return node
+    return node_of(ctx, StreamingWindowExec)
 
 
 # -- profiler helpers ------------------------------------------------------
@@ -1501,23 +1541,20 @@ def ckpt_child(args) -> int:
     return 0
 
 
-def phase_ckpt_sigkill(device, seed: int, batches, stream, tumbling, card):
-    """Phase 11: config 5 on config 1's stream.  A child commits two epochs
-    and is SIGKILLed with more than a third of the stream unread; a second
-    child restores on the same store and runs to the end.  The union of
-    their rows against the oracle; the restart's reads, dense launches and
-    time to recover; then one uninterrupted checkpointed run in this
-    process against phase 4's rows/s → the restart's dense launches."""
+def sigkill_and_restore(what: str, child_argv, pause_flag: str,
+                        n_batches: int, prefix: str):
+    """Config 5's kill and restart, shared by phases 11, 24 and 33: child
+    A (this script re-invoked with ``child_argv(state, out)`` and
+    ``pause_flag 2``) commits two epochs, pauses and is SIGKILLed with
+    more than a third of its ``n_batches`` unread; child B restores on the
+    same store and runs to its end.  → (A's lines, B's lines, A's commit
+    lines, batches A left unread, B's spawn time)."""
     import os
     import shutil
     import signal
     import tempfile
 
-    from denormalized_tpu_torch.state.lsm import close_global_state_backend
-
-    n_batches = len(batches)
-    exp = oracle(*stream, 1000, 1000, NUM_KEYS)
-    work = tempfile.mkdtemp(prefix="dnz_ckpt_")
+    work = tempfile.mkdtemp(prefix=prefix)
     state = os.path.join(work, "state")
     procs = []
 
@@ -1526,9 +1563,8 @@ def phase_ckpt_sigkill(device, seed: int, batches, stream, tumbling, card):
         err = open(os.path.join(work, f"{name}.err"), "w")
         t = time.time()
         p = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
-             "--ckpt-device", str(device), "--ckpt-child", state,
-             "--ckpt-out", out, *extra],
+            [sys.executable, os.path.abspath(__file__),
+             *child_argv(state, out), *extra],
             stdout=subprocess.DEVNULL, stderr=err,
         )
         procs.append(p)
@@ -1539,29 +1575,32 @@ def phase_ckpt_sigkill(device, seed: int, batches, stream, tumbling, card):
             return f.read()[-3000:]
 
     try:
-        pa, out_a, _ = spawn("a", "--ckpt-pause-after", "2")
+        pa, out_a, _ = spawn("a", pause_flag, "2")
         deadline = time.time() + 300
         while not any(d["event"] == "paused" for d in read_jsonl(out_a)):
             if pa.poll() is not None:
                 raise AssertionError(
-                    f"phase 11: child A exited ({pa.returncode}) before its "
+                    f"{what}: child A exited ({pa.returncode}) before its "
                     f"second commit: {tail('a')}")
             if time.time() > deadline:
-                raise AssertionError("phase 11: child A never paused")
+                raise AssertionError(f"{what}: child A never paused")
             time.sleep(0.05)
         os.kill(pa.pid, signal.SIGKILL)
         pa.wait(60)
         a = read_jsonl(out_a)
         commits = [d for d in a if d["event"] == "commit"]
-        unread = n_batches - a[-1]["read"]  # paused before that read
+        # paused before that read (rows of batches read before the pause
+        # may still follow the line)
+        unread = n_batches - next(
+            d["read"] for d in a if d["event"] == "paused")
         if pa.returncode != -signal.SIGKILL or len(commits) != 2 or (
                 unread < n_batches / 3):
             raise AssertionError(
-                f"phase 11: child A rc {pa.returncode}, {len(commits)} "
+                f"{what}: child A rc {pa.returncode}, {len(commits)} "
                 f"commits, {unread} of {n_batches} batches unread")
         pb, out_b, t_spawn = spawn("b")
         if pb.wait(600) != 0:
-            raise AssertionError(f"phase 11: child B failed: {tail('b')}")
+            raise AssertionError(f"{what}: child B failed: {tail('b')}")
         b = read_jsonl(out_b)
     finally:
         for p in procs:
@@ -1569,6 +1608,29 @@ def phase_ckpt_sigkill(device, seed: int, batches, stream, tumbling, card):
                 p.kill()
                 p.wait(60)
         shutil.rmtree(work, ignore_errors=True)
+    return a, b, commits, unread, t_spawn
+
+
+def phase_ckpt_sigkill(device, seed: int, batches, stream, tumbling, card):
+    """Phase 11: config 5 on config 1's stream.  A child commits two epochs
+    and is SIGKILLed with more than a third of the stream unread; a second
+    child restores on the same store and runs to the end.  The union of
+    their rows against the oracle; the restart's reads, dense launches and
+    time to recover; then one uninterrupted checkpointed run in this
+    process against phase 4's rows/s → the restart's dense launches."""
+    import shutil
+    import tempfile
+
+    from denormalized_tpu_torch.state.lsm import close_global_state_backend
+
+    n_batches = len(batches)
+    exp = oracle(*stream, 1000, 1000, NUM_KEYS)
+    a, b, commits, unread, t_spawn = sigkill_and_restore(
+        "phase 11",
+        lambda state, out: ("--seed", str(seed), "--ckpt-device",
+                            str(device), "--ckpt-child", state,
+                            "--ckpt-out", out),
+        "--ckpt-pause-after", n_batches, "dnz_ckpt_")
 
     restored, done = b[0], b[-1]
     first = next(d for d in b if d["event"] == "first_row")
@@ -3097,10 +3159,7 @@ def make_broker(topic, entries=None):
 def source_exec_of(ctx):
     from denormalized_tpu_torch.physical.simple_execs import SourceExec
 
-    node = ctx._last_physical
-    while not isinstance(node, SourceExec):
-        (node,) = node.children
-    return node
+    return node_of(ctx, SourceExec)
 
 
 def closable_rows(stream, exp):
@@ -3627,68 +3686,14 @@ def phase_join_ckpt(device, seed: int, left, right, card):
     onto the card, the join's retained rows re-interned) and runs to the
     end.  The union of their joined rows against phase 14's oracle; the
     time to recover; the snapshot's bytes and pack, put and commit times."""
-    import os
-    import shutil
-    import signal
-    import tempfile
-
     (lb, ls), (_rb, rs) = left, right
     n_batches = len(lb)
-    work = tempfile.mkdtemp(prefix="dnz_join_ckpt_")
-    state = os.path.join(work, "state")
-    procs = []
-
-    def spawn(name, *extra):
-        out = os.path.join(work, f"{name}.jsonl")
-        err = open(os.path.join(work, f"{name}.err"), "w")
-        t = time.time()
-        p = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
-             "--ckpt-device", str(device), "--join-child", state,
-             "--join-out", out, *extra],
-            stdout=subprocess.DEVNULL, stderr=err,
-        )
-        procs.append(p)
-        return p, out, t
-
-    def tail(name):
-        with open(os.path.join(work, f"{name}.err")) as f:
-            return f.read()[-3000:]
-
-    try:
-        pa, out_a, _ = spawn("a", "--join-pause-after", "2")
-        deadline = time.time() + 300
-        while not any(d["event"] == "paused" for d in read_jsonl(out_a)):
-            if pa.poll() is not None:
-                raise AssertionError(
-                    f"phase 24: child A exited ({pa.returncode}) before its "
-                    f"second commit: {tail('a')}")
-            if time.time() > deadline:
-                raise AssertionError("phase 24: child A never paused")
-            time.sleep(0.05)
-        os.kill(pa.pid, signal.SIGKILL)
-        pa.wait(60)
-        a = read_jsonl(out_a)
-        commits = [d for d in a if d["event"] == "commit"]
-        # paused before that left read (rows of batches read before the
-        # pause may still follow the line)
-        unread = n_batches - next(
-            d["read"] for d in a if d["event"] == "paused")
-        if pa.returncode != -signal.SIGKILL or len(commits) != 2 or (
-                unread < n_batches / 3):
-            raise AssertionError(
-                f"phase 24: child A rc {pa.returncode}, {len(commits)} "
-                f"commits, {unread} of {n_batches} left batches unread")
-        pb, out_b, t_spawn = spawn("b")
-        if pb.wait(600) != 0:
-            raise AssertionError(f"phase 24: child B failed: {tail('b')}")
-        b = read_jsonl(out_b)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait(60)
-        shutil.rmtree(work, ignore_errors=True)
+    a, b, commits, unread, t_spawn = sigkill_and_restore(
+        "phase 24",
+        lambda state, out: ("--seed", str(seed), "--ckpt-device",
+                            str(device), "--join-child", state,
+                            "--join-out", out),
+        "--join-pause-after", n_batches, "dnz_join_ckpt_")
 
     restored, done = b[0], b[-1]
     first = next(d for d in b if d["event"] == "first_row")
@@ -4488,7 +4493,752 @@ def phase_csv_explain(device, batches, stream, card):
             f" ({card})")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+    # ROADMAP §C2: EngineConfig(optimizer=False) runs the plan as written
+    import difflib
+
+    texts, rowsets = {}, {}
+    for on in (True, False):
+        octx, ods = job_stream(device, batches[:CSV_BATCHES], "tumbling",
+                               optimizer=on)
+        ods = ods.filter(tt.col("count") > 0)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            ods.explain()
+        texts[on] = out.getvalue()
+        if (ods.optimized_plan().display() == ods.logical_plan().display()
+                ) is on:
+            raise AssertionError(f"phase 30 optimizer={on}: the optimized "
+                                 f"plan is{' not' if not on else ''} the "
+                                 f"logical one")
+        rowsets[on] = tumbling_rows(ods.collect())
+    # the same rows both ways and as the oracle: counts, min and max exact,
+    # avg to rtol=1e-4 (the dense kernel's f32 sums fold in atomic order)
+    n_opt = CSV_BATCHES * BATCH_ROWS
+    check_tumbling_rows(rowsets[False], rowsets[True])
+    check_tumbling_rows(rowsets[False], oracle(
+        *(a[:n_opt] for a in stream), 1000, 1000, NUM_KEYS))
+    changed = [d for d in difflib.unified_diff(
+        texts[True].splitlines(), texts[False].splitlines(), n=0, lineterm="")
+        if d[:1] in "+-" and d[:3] not in ("+++", "---")]
+    log(f"phase 30 optimizer off (ROADMAP C2): explain() of config 1 + a "
+        f"filter over phase 4's first {CSV_BATCHES} batches, "
+        f"EngineConfig(optimizer=False) against the default: the optimized "
+        f"plan is the logical one, {len(changed)} plan lines differ "
+        f"({' | '.join(x.strip() for x in changed)}), the same "
+        f"{len(rowsets[True])} rows ({card})")
     return {"csv_rows_per_s": n / wall, "launches": launches}
+
+
+# -- phases 31-34: UDAFs, sessions, their checkpoints, graceful SIGTERM ------
+
+UDAF_AGG_BATCHES = 15  # phase 4's first batches under the seven accumulators
+SESSION_GAP_MS = 300  # bench.py's session gap
+SESSION_SCALE_KEYS = 100_000  # bench.py's session_scale point
+SESSION_SCALE_ROWS = 2_000_000  # → 15 batches, 1,966,080 rows
+SESSION_REF_ROWS = 262_144  # bench.py's BENCH_SESSION_REF_ROWS
+
+
+def spread_accumulator():
+    """examples/udaf_example.py's accumulator: max − min of the readings
+    of a (sensor, window)."""
+    from denormalized_tpu_torch.api.udaf import Accumulator
+
+    class ReadingSpread(Accumulator):
+        def __init__(self):
+            self.lo = float("inf")
+            self.hi = float("-inf")
+
+        def update(self, values):
+            if len(values):
+                self.lo = min(self.lo, float(values.min()))
+                self.hi = max(self.hi, float(values.max()))
+
+        def merge(self, states):
+            self.lo = min(self.lo, states[0])
+            self.hi = max(self.hi, states[1])
+
+        def state(self):
+            return [self.lo, self.hi]
+
+        def evaluate(self):
+            return self.hi - self.lo if self.hi >= self.lo else 0.0
+
+    return ReadingSpread
+
+
+def udaf_job(ds):
+    """examples/udaf_example.py's window: reading_spread and count, 1 s
+    tumbling by sensor_name."""
+    import denormalized_tpu_torch as tt
+    from denormalized_tpu_torch.api import functions as F
+    from denormalized_tpu_torch.common.schema import DataType
+
+    spread = F.udaf(spread_accumulator(), DataType.FLOAT64, "reading_spread")
+    return ds.window(
+        [tt.col("sensor_name")],
+        [spread(tt.col("reading")).alias("spread"),
+         F.count(tt.col("reading")).alias("count")],
+        1000,
+    )
+
+
+def group_starts(code):
+    """(order, run starts, run lengths) of ``code`` sorted stably."""
+    order = np.argsort(code, kind="stable")
+    c = code[order]
+    starts = np.flatnonzero(np.r_[True, c[1:] != c[:-1]])
+    return order, starts, np.diff(np.r_[starts, len(c)])
+
+
+def spread_oracle(ts, kid, val, num_keys) -> dict:
+    """{(window start, key index): (spread, count)} of the 1 s tumbling
+    windows."""
+    code = (ts // 1000) * num_keys + kid
+    order, starts, cnt = group_starts(code)
+    v = val[order]
+    spread = np.maximum.reduceat(v, starts) - np.minimum.reduceat(v, starts)
+    out = {}
+    for c, s, n in zip(code[order][starts].tolist(), spread.tolist(),
+                       cnt.tolist()):
+        j, k = divmod(c, num_keys)
+        out[(j * 1000, k)] = (s, n)
+    return out
+
+
+def spread_rows(res) -> dict:
+    return {(ws, int(name[7:])): (s, c) for ws, name, s, c in zip(
+        res.column("window_start_time").tolist(),
+        res.column("sensor_name").tolist(),
+        res.column("spread").tolist(), res.column("count").tolist())}
+
+
+def check_spread(got: dict, exp: dict, what: str) -> None:
+    """Window rows equal to the oracle: the same windows, counts exact,
+    spreads to rtol=1e-9 (host float64 both sides; the decimal text of a
+    topic's reading parses to within an ulp of np.round's)."""
+    if set(got) != set(exp):
+        raise AssertionError(f"{what}: {len(got)} window rows, the oracle "
+                             f"{len(exp)}")
+    keys = sorted(exp)
+    if [got[k][1] for k in keys] != [exp[k][1] for k in keys]:
+        raise AssertionError(f"{what}: counts differ from the oracle")
+    g = np.array([got[k][0] for k in keys])
+    e = np.array([exp[k][0] for k in keys])
+    if not np.allclose(g, e, rtol=1e-9, atol=0.0):
+        i = int(np.argmax(np.abs(g - e)))
+        raise AssertionError(f"{what}: spread {g[i]} != {e[i]} at "
+                             f"{keys[i]}")
+
+
+def phase_udaf(device, batches, stream, card):
+    """Phase 31: user-defined and accumulator aggregates on the card's
+    host (``physical/udaf_exec.py``; host numpy, as in the JAX package).
+    (1) examples/udaf_example.py's job over phase 4's stream through
+    ``MemorySource``; (2) the same job over phase 21's 4-partition JSON
+    topic through the native client and parser; (3) one window holding
+    median, count_distinct, approx_distinct, first_value, string_agg,
+    corr and percentile_cont over phase 4's first UDAF_AGG_BATCHES
+    batches.  Each against a numpy oracle → {"rows_per_s": ...}."""
+    import denormalized_tpu_torch as tt
+    from denormalized_tpu_torch.api import functions as F
+    from denormalized_tpu_torch.common.constants import WINDOW_START_COLUMN
+    from denormalized_tpu_torch.physical.udaf_exec import UdafWindowExec
+    from denormalized_tpu_torch.sources.memory import MemorySource
+
+    ts, kid, val = stream
+    exp = spread_oracle(ts, kid, val, NUM_KEYS)
+    t0 = time.perf_counter()
+    ctx = tt.Context(tt.EngineConfig(device=str(device)))
+    res = udaf_job(ctx.from_source(MemorySource.from_batches(
+        batches, timestamp_column="occurred_at_ms"))).collect()
+    wall = time.perf_counter() - t0
+    check_spread(spread_rows(res), exp, "phase 31 udaf_example")
+    m = node_of(ctx, UdafWindowExec).metrics()
+    if m["rows_in"] != len(ts) or m["late_rows"]:
+        raise AssertionError(f"phase 31 udaf_example: {m}")
+    mem_rate = len(ts) / wall
+    log(f"phase 31 udaf_example job (ReadingSpread + count, 1 s tumbling by "
+        f"sensor_name, MemorySource, UdafWindowExec on the host): "
+        f"{len(ts)} rows, {res.num_rows} window rows = the oracle, wall "
+        f"{wall:.3f} s, {mem_rate:.0f} rows/s, rows_in {m['rows_in']}, "
+        f"late_rows {m['late_rows']}, windows_emitted "
+        f"{m['windows_emitted']} ({card})")
+
+    # (2) over the topic
+    t0 = time.perf_counter()
+    entries = encode_topic(stream, KAFKA_PARTITIONS, KAFKA_RECORDS_PER_BATCH)
+    encode_s = time.perf_counter() - t0
+    texp = spread_oracle(ts, kid, np.round(val, 6), NUM_KEYS)
+    max_ts = int(ts.max())
+    need = {k: v for k, v in texp.items() if k[0] + 1000 <= max_ts}
+    last_ws = max(k[0] for k in need)
+    broker = make_broker("udaf", entries)
+    del entries
+    got: dict = {}
+    try:
+        t0 = time.perf_counter()
+        tctx = tt.Context(tt.EngineConfig(device=str(device),
+                                          source_idle_timeout_ms=1000))
+        ds = udaf_job(tctx.from_topic(
+            "udaf", bootstrap_servers=broker.bootstrap,
+            timestamp_column="occurred_at_ms", schema=e2e_schema()))
+
+        def drain():
+            it = ds.stream()
+            try:
+                for b in it:
+                    if b.num_rows and b.schema.has(WINDOW_START_COLUMN):
+                        got.update(spread_rows(b))
+                        if int(np.max(b.column(WINDOW_START_COLUMN))) >= (
+                                last_ws):
+                            return True
+            finally:
+                it.close()
+            raise AssertionError("phase 31 topic: the stream ended")
+
+        consume_bounded(drain, KAFKA_DEADLINE_S, "phase 31 topic",
+                        on_timeout=broker.stop)
+        topic_wall = time.perf_counter() - t0
+        src = check_native_path(tctx, "phase 31 topic")
+    finally:
+        broker.stop()
+    check_spread({k: v for k, v in got.items() if k in need}, need,
+                 "phase 31 topic")
+    tm = node_of(tctx, UdafWindowExec).metrics()
+    if tm["late_rows"] or src["decode_fallback_rows"]:
+        raise AssertionError(f"phase 31 topic: late_rows {tm['late_rows']}, "
+                             f"decode_fallback_rows "
+                             f"{src['decode_fallback_rows']}")
+    topic_rate = len(ts) / topic_wall
+    log(f"phase 31 udaf_example job over phase 21's topic ({KAFKA_PARTITIONS} "
+        f"partitions, JSON, native client + parser, {encode_s:.1f} s to "
+        f"encode): {len(need)} window rows of every closable window = the "
+        f"oracle, wall {topic_wall:.3f} s to the last closable window, "
+        f"{topic_rate:.0f} rows/s (every produced row over that wall), "
+        f"rows_in {tm['rows_in']}, late_rows {tm['late_rows']}, "
+        f"decode_fallback_rows {src['decode_fallback_rows']} ({card})")
+
+    # (3) seven accumulator kinds in one window
+    n = UDAF_AGG_BATCHES * BATCH_ROWS
+    sts, skid, sval = (a[:n] for a in stream)
+    col = tt.col
+    t0 = time.perf_counter()
+    actx = tt.Context(tt.EngineConfig(device=str(device)))
+    res = actx.from_source(MemorySource.from_batches(
+        batches[:UDAF_AGG_BATCHES], timestamp_column="occurred_at_ms"),
+    ).window(
+        ["sensor_name"],
+        [F.median(col("reading")).alias("med"),
+         F.count_distinct(col("occurred_at_ms")).alias("cd"),
+         F.approx_distinct(col("occurred_at_ms")).alias("ad"),
+         F.first_value(col("reading")).alias("fv"),
+         F.string_agg(col("sensor_name")).alias("sa"),
+         F.corr(col("reading"), col("reading") * col("reading")).alias("r"),
+         F.percentile_cont(col("reading"), 0.9).alias("p90"),
+         F.count(col("reading")).alias("n")],
+        1000,
+    ).collect()
+    agg_wall = time.perf_counter() - t0
+    code = (sts // 1000) * NUM_KEYS + skid
+    order, starts, cnt = group_starts(code)
+    want = {}
+    for s, c in zip(starts.tolist(), cnt.tolist()):
+        idx = order[s:s + c]
+        v = sval[idx]
+        j, k = divmod(int(code[idx[0]]), NUM_KEYS)
+        want[(j * 1000, k)] = (
+            float(np.median(v)), len(np.unique(sts[idx])), float(v[0]),
+            float(np.corrcoef(v, v * v)[0, 1]), float(np.quantile(v, 0.9)), c)
+    rows = {}
+    for i in range(res.num_rows):
+        name = res.column("sensor_name")[i]
+        k = int(name[7:])
+        rows[(int(res.column("window_start_time")[i]), k)] = i
+    if set(rows) != set(want):
+        raise AssertionError(f"phase 31 aggregates: {len(rows)} window rows,"
+                             f" the oracle {len(want)}")
+    worst_hll = 0.0
+    for key, (med, cd, fv, r, p90, c) in want.items():
+        i = rows[key]
+        got_row = tuple(res.column(nm)[i] for nm in (
+            "med", "cd", "ad", "fv", "sa", "r", "p90", "n"))
+        if (got_row[0] != med or got_row[1] != cd or got_row[3] != fv
+                or got_row[7] != c or got_row[6] != p90):
+            raise AssertionError(f"phase 31 aggregates: {key}: {got_row[:2]}"
+                                 f" {got_row[3]} {got_row[6:]} != {med} {cd} "
+                                 f"{fv} {p90} {c}")
+        if got_row[4] != ",".join([f"sensor_{key[1]}"] * c):
+            raise AssertionError(f"phase 31 aggregates: string_agg at {key}")
+        if abs(got_row[5] - r) > 1e-9 * max(1.0, abs(r)):
+            raise AssertionError(f"phase 31 aggregates: corr {got_row[5]} != "
+                                 f"{r} at {key}")
+        # HyperLogLog with 2^11 registers: 2.3% standard error; 5 sigma
+        err = abs(got_row[2] - cd) / cd
+        worst_hll = max(worst_hll, err)
+        if err > 0.115:
+            raise AssertionError(f"phase 31 aggregates: approx_distinct "
+                                 f"{got_row[2]} for {cd} at {key}")
+    am = node_of(actx, UdafWindowExec).metrics()
+    if am["rows_in"] != n or am["late_rows"]:
+        raise AssertionError(f"phase 31 aggregates: {am}")
+    log(f"phase 31 accumulator aggregates (median, count_distinct, "
+        f"approx_distinct, first_value, string_agg, corr, percentile_cont "
+        f"and count in one window over phase 4's first {UDAF_AGG_BATCHES} "
+        f"batches): {n} rows, {res.num_rows} window rows = the oracle "
+        f"(approx_distinct within {worst_hll:.4f} of the exact count, the "
+        f"rest exact or to 1e-9), wall {agg_wall:.3f} s, "
+        f"{n / agg_wall:.0f} rows/s, rows_in {am['rows_in']}, late_rows "
+        f"{am['late_rows']} ({card})")
+    return {"rows_per_s": mem_rate, "topic_rows_per_s": topic_rate}
+
+
+def session_stream(total_rows, batch_rows, num_keys, seed):
+    """bench.py's ``gen_session_batches``: phase 4's stream with every
+    event-second's rows squeezed into its first 600 ms, so each key's
+    sessions (300 ms gap) close once a second."""
+    ts, kid, val = gen_stream(total_rows, batch_rows, num_keys, seed)
+    sec = (ts // 1000) * 1000
+    return sec + ((ts - sec) * 3) // 5, kid, val
+
+
+def session_job(ds):
+    """bench.py's ``session`` query: count/min/max/avg by sensor_name,
+    300 ms gap."""
+    import denormalized_tpu_torch as tt
+    from denormalized_tpu_torch.api import functions as F
+
+    col = tt.col
+    return ds.session_window(
+        ["sensor_name"],
+        [F.count(col("reading")).alias("count"),
+         F.min(col("reading")).alias("min"),
+         F.max(col("reading")).alias("max"),
+         F.avg(col("reading")).alias("average")],
+        SESSION_GAP_MS,
+    )
+
+
+def session_oracle(ts, kid, val) -> dict:
+    """The interval oracle over a stream in event-time order (no late
+    row): per key, rows sorted by time split where two rows lie more than
+    the gap apart → {(key index, start): (count, min, max, avg, end)}."""
+    order = np.lexsort((ts, kid))
+    t, k, v = ts[order], kid[order], val[order]
+    brk = np.r_[True, (k[1:] != k[:-1]) | (np.diff(t) > SESSION_GAP_MS)]
+    starts = np.flatnonzero(brk)
+    ends = np.r_[starts[1:], len(t)] - 1
+    cnt = np.diff(np.r_[starts, len(t)])
+    sums = np.add.reduceat(v, starts)
+    return {
+        (kk, st): (c, mn, mx, s / c, la + SESSION_GAP_MS)
+        for kk, st, la, c, mn, mx, s in zip(
+            k[starts].tolist(), t[starts].tolist(), t[ends].tolist(),
+            cnt.tolist(), np.minimum.reduceat(v, starts).tolist(),
+            np.maximum.reduceat(v, starts).tolist(), sums.tolist())
+    }
+
+
+def session_rows(res) -> dict:
+    return {
+        (int(name[7:]), st): (c, mn, mx, a, en)
+        for name, st, en, c, mn, mx, a in zip(
+            res.column("sensor_name").tolist(),
+            res.column("window_start_time").tolist(),
+            res.column("window_end_time").tolist(),
+            res.column("count").tolist(), res.column("min").tolist(),
+            res.column("max").tolist(), res.column("average").tolist())
+    }
+
+
+def check_sessions(got: dict, exp: dict, what: str) -> None:
+    """The same sessions as the oracle: counts, bounds, min and max exact
+    (float64 on both sides), averages to rtol=1e-9 (segment sums merged
+    in another order)."""
+    if set(got) != set(exp):
+        raise AssertionError(
+            f"{what}: {len(got)} sessions, the oracle {len(exp)} (extra "
+            f"{sorted(set(got) - set(exp))[:3]}, missing "
+            f"{sorted(set(exp) - set(got))[:3]})")
+    keys = sorted(exp)
+    for i in (0, 1, 2, 4):
+        if [got[k][i] for k in keys] != [exp[k][i] for k in keys]:
+            raise AssertionError(f"{what}: column {i} differs")
+    g = np.array([got[k][3] for k in keys])
+    e = np.array([exp[k][3] for k in keys])
+    if not np.allclose(g, e, rtol=1e-9, atol=0.0):
+        raise AssertionError(f"{what}: averages differ")
+
+
+def run_sessions(device, batches, stream, what, card, reference=False):
+    """One session job through Context → collect against the oracle →
+    (rows/s, the operator)."""
+    import os
+
+    import denormalized_tpu_torch as tt
+    from denormalized_tpu_torch.physical.session_exec import (
+        SessionWindowExec,
+    )
+    from denormalized_tpu_torch.physical.session_reference import (
+        ReferenceSessionWindowExec,
+    )
+    from denormalized_tpu_torch.sources.memory import MemorySource
+
+    env = "DENORMALIZED_SESSION_REFERENCE"
+    prev = os.environ.pop(env, None)
+    if reference:
+        os.environ[env] = "1"
+    try:
+        t0 = time.perf_counter()
+        ctx = tt.Context(tt.EngineConfig(device=str(device)))
+        res = session_job(ctx.from_source(MemorySource.from_batches(
+            batches, timestamp_column="occurred_at_ms"))).collect()
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop(env, None)
+        if prev is not None:
+            os.environ[env] = prev
+    check_sessions(session_rows(res), session_oracle(*stream), what)
+    op = node_of(ctx, (SessionWindowExec, ReferenceSessionWindowExec))
+    m = op.metrics()
+    if m["rows_in"] != len(stream[0]) or m["late_rows"]:
+        raise AssertionError(f"{what}: {m}")
+    keys = ""
+    if not reference:
+        from denormalized_tpu_torch.ops.interner import interner_accounting
+
+        acc = interner_accounting(op._interner)
+        keys = (f", interner live keys {acc['live_keys']} of "
+                f"{acc['key_capacity']} ids, free gids {acc['free_gids']}")
+    log(f"{what} ({type(op).__name__}): {len(stream[0])} rows, "
+        f"{m['sessions_emitted']} sessions emitted = the oracle, wall "
+        f"{wall:.3f} s, {len(stream[0]) / wall:.0f} rows/s, late_rows "
+        f"{m['late_rows']}{keys} ({card})")
+    return len(stream[0]) / wall, op
+
+
+def phase_sessions(device, seed, card):
+    """Phase 32: session windows on the card's host (vectorized
+    ``physical/session_exec.py``; host numpy, as in the JAX package).
+    bench.py's ``session`` shape at phase 4's size and key count, then
+    its ``session_scale`` point at 100K keys through the vectorized
+    operator and, on its first SESSION_REF_ROWS rows, through the
+    pre-vectorization ``session_reference``; every run against the
+    interval oracle → {"rows_per_s": ...}."""
+    stream = session_stream(TOTAL_ROWS, BATCH_ROWS, NUM_KEYS, seed)
+    batches = to_batches(*stream, BATCH_ROWS, NUM_KEYS)
+    rate, _ = run_sessions(device, batches, stream,
+                           "phase 32 session (bench.py's shape, 10 keys)",
+                           card)
+    scale = session_stream(SESSION_SCALE_ROWS, BATCH_ROWS,
+                           SESSION_SCALE_KEYS, seed + 11)
+    sbatches = to_batches(*scale, BATCH_ROWS, SESSION_SCALE_KEYS)
+    scale_rate, _ = run_sessions(
+        device, sbatches, scale,
+        f"phase 32 session_scale ({SESSION_SCALE_KEYS} keys)", card)
+    n_ref = SESSION_REF_ROWS // BATCH_ROWS
+    ref = tuple(a[: n_ref * BATCH_ROWS] for a in scale)
+    ref_rate, _ = run_sessions(
+        device, sbatches[:n_ref], ref,
+        f"phase 32 session_scale ({SESSION_SCALE_KEYS} keys), "
+        f"DENORMALIZED_SESSION_REFERENCE=1", card, reference=True)
+    log(f"phase 32 session_scale rows/s side by side at {SESSION_SCALE_KEYS} "
+        f"keys: "
+        f"vectorized {scale_rate:.0f}, reference {ref_rate:.0f} "
+        f"({scale_rate / ref_rate:.1f}x) ({card})")
+    return {"rows_per_s": rate, "scale_rows_per_s": scale_rate,
+            "reference_rows_per_s": ref_rate}
+
+
+def host_ckpt_child(args) -> int:
+    """Phase 33's child: the UDAF job (phase 31's, over phase 4's stream)
+    or the session job (phase 32's, over its session stream), made from
+    --seed, checkpointed to ``--host-state`` with a barrier every
+    CKPT_EVERY reads.  One flushed JSON line per emitted row, per
+    committed epoch (with the operator's snapshot bytes) and for the
+    restore; with ``--ckpt-pause-after N`` it stops reading
+    CKPT_PAUSE_READS reads after its N-th commit and waits for its
+    SIGKILL."""
+    import denormalized_tpu_torch as tt
+    from denormalized_tpu_torch.physical.session_exec import (
+        SessionWindowExec,
+    )
+    from denormalized_tpu_torch.physical.udaf_exec import UdafWindowExec
+    from denormalized_tpu_torch.state import checkpoint as ck
+
+    t_main = time.time()
+    device = torch.device(args.ckpt_device)
+    job = args.host_child
+    if job == "udaf":
+        stream = gen_stream(TOTAL_ROWS, BATCH_ROWS, NUM_KEYS, args.seed)
+    else:
+        stream = session_stream(TOTAL_ROWS, BATCH_ROWS, NUM_KEYS, args.seed)
+    batches = to_batches(*stream, BATCH_ROWS, NUM_KEYS)
+    t_data = time.time()
+    out = open(args.host_out, "a", buffering=1)
+
+    def line(**kw):
+        out.write(json.dumps(kw) + "\n")
+
+    cls = UdafWindowExec if job == "udaf" else SessionWindowExec
+    st = {"restored": False, "commits": [], "after": 0}
+
+    def on_read(ctx, i):
+        coord = ctx.last_checkpointing()[0]
+        op = node_of(ctx, cls)
+        if not st["restored"]:
+            st["restored"] = True
+            root = ctx._last_physical
+            ids = ck.assign_node_ids(root)
+            src = next(ids[id(o)] for o in ck.walk(root) if not o.children)
+            offsets = ck.get_json(coord, f"offsets_{src}")
+            line(event="restored", t=time.time(), t_start=T_START,
+                 t_main=t_main, t_data=t_data, epoch=coord.restored_epoch,
+                 pos=offsets["partitions"][0]["pos"] if offsets else 0)
+        e = coord.committed_epoch
+        if e is not None and e != coord.restored_epoch and (
+                e not in st["commits"]):
+            st["commits"].append(e)
+            line(event="commit", epoch=e, read=i,
+                 bytes=len(coord.get_snapshot(op._ckpt[1])))
+        if args.ckpt_pause_after and len(st["commits"]) >= (
+                args.ckpt_pause_after):
+            st["after"] += 1
+            if st["after"] > CKPT_PAUSE_READS:
+                line(event="paused", read=i)
+                while True:  # until the parent's SIGKILL
+                    time.sleep(1)
+        if i % CKPT_EVERY == CKPT_EVERY - 1:
+            ctx.last_checkpointing()[1].trigger_now()
+
+    ctx = tt.Context(tt.EngineConfig(device=str(device),
+                                     **ckpt_config(args.host_state)))
+    src = ctx.from_source(hooked_source(batches, lambda i: on_read(ctx, i)))
+    ds = udaf_job(src) if job == "udaf" else session_job(src)
+    rows_of = spread_rows if job == "udaf" else session_rows
+    first = True
+    for b in ds.stream():
+        rows = rows_of(b)
+        if first and rows:
+            first = False
+            line(event="first_row", t=time.time())
+        for key, v in rows.items():
+            line(event="row", key=list(key), v=list(v))
+    m = node_of(ctx, cls).metrics()
+    line(event="done", rows_in=m["rows_in"], late_rows=m["late_rows"])
+    return 0
+
+
+def phase_host_ckpt(device, seed, job, card):
+    """Phase 33 (config 5 over the host operators): for ``job`` "udaf"
+    (phase 31's job) or "session" (phase 32's), a checkpointed child is
+    SIGKILLed after two commits with more than a third of the stream
+    unread; a second child restores on the same store and runs to the
+    end.  The union of both children's rows against the oracle, the
+    restart's rows in, the time from its spawn to the restore and the
+    operator's snapshot bytes."""
+    if job == "udaf":
+        stream = gen_stream(TOTAL_ROWS, BATCH_ROWS, NUM_KEYS, seed)
+        exp = spread_oracle(*stream, NUM_KEYS)
+    else:
+        stream = session_stream(TOTAL_ROWS, BATCH_ROWS, NUM_KEYS, seed)
+        exp = session_oracle(*stream)
+    a, b, commits, unread, t_spawn = sigkill_and_restore(
+        f"phase 33 {job}",
+        lambda state, out: ("--seed", str(seed), "--ckpt-device",
+                            str(device), "--host-child", job,
+                            "--host-state", state, "--host-out", out),
+        "--ckpt-pause-after", len(stream[0]) // BATCH_ROWS,
+        f"dnz_{job}_ckpt_")
+    n_batches = len(stream[0]) // BATCH_ROWS
+
+    def rows(lines):
+        return {tuple(d["key"]): tuple(d["v"]) for d in lines
+                if d["event"] == "row"}
+
+    restored, done = b[0], b[-1]
+    rows_a, rows_b = rows(a), rows(b)
+    union = dict(rows_a)
+    union.update(rows_b)
+    if job == "udaf":
+        check_spread(union, exp, f"phase 33 {job}")
+    else:
+        check_sessions(union, exp, f"phase 33 {job}")
+    if restored["epoch"] != commits[-1]["epoch"] or restored["pos"] <= 0:
+        raise AssertionError(f"phase 33 {job}: restored {restored}, last "
+                             f"commit {commits[-1]}")
+    rows_in_b = done["rows_in"]
+    if rows_in_b != len(stream[0]) - restored["pos"] * BATCH_ROWS or (
+            done["late_rows"] or not len(rows_b) < len(exp)):
+        raise AssertionError(f"phase 33 {job}: restart {done}, "
+                             f"{len(rows_b)} of {len(exp)} rows")
+    log(f"phase 33 config 5 over the {job} job (barrier every {CKPT_EVERY} "
+        f"batches): child A committed epochs "
+        f"{[d['epoch'] for d in commits]} ({commits[-1]['bytes']} snapshot "
+        f"bytes of the operator at the last) and was SIGKILLed with "
+        f"{unread} of {n_batches} batches unread, {len(rows_a)} rows "
+        f"emitted; child B restored epoch {restored['epoch']} at batch "
+        f"{restored['pos']}, read {rows_in_b} rows, emitted {len(rows_b)} "
+        f"rows; the union = the oracle ({len(exp)} rows); spawn to restore "
+        f"done {restored['t'] - t_spawn:.3f} s ({restored['t_start'] - t_spawn:.3f}"
+        f" s to the script's first line, {restored['t_main'] - restored['t_start']:.3f}"
+        f" s of imports, {restored['t_data'] - restored['t_main']:.3f} s making "
+        f"the stream, {restored['t'] - restored['t_data']:.3f} s of start and "
+        f"restore) ({card})")
+    return {"recover_s": restored["t"] - t_spawn,
+            "snapshot_bytes": commits[-1]["bytes"]}
+
+
+def sigterm_child(args) -> int:
+    """Phase 34's child: phase 21's window job over the parent's broker as
+    a user runs it — ``print_stream()``, checkpointed every 0.5 s.  When
+    ``print_stream`` returns (SIGTERM), one ``{"stopped": ...}`` line:
+    the orchestrators started and those still running, and the dense
+    kernel's launches."""
+    from denormalized_tpu_torch.ops import dense_window as dw
+    from denormalized_tpu_torch.state import orchestrator
+
+    started = []
+    start = orchestrator.Orchestrator.start
+
+    def tracked_start(self):
+        started.append(self)
+        start(self)
+
+    orchestrator.Orchestrator.start = tracked_start
+    device = torch.device(args.ckpt_device)
+    _, ds = kafka_stream(device, args.kafka_broker, args.kafka_topic,
+                         checkpoint=True, checkpoint_interval_s=0.5,
+                         state_backend_path=args.sigterm_child)
+    dw.dense_window_launches = 0
+    ds.print_stream()
+    sync(device)
+    print(json.dumps({
+        "stopped": True, "t": time.time(), "orchestrators": len(started),
+        "running": sum(o._thread is not None for o in started),
+        "launches": dw.dense_window_launches,
+    }), flush=True)
+    return 0
+
+
+def phase_sigterm(device, pace, staged, stream, card):
+    """Phase 34 (ROADMAP §C3): phase 22's chunks fed at its pace into a
+    fresh topic; a child runs phase 21's window job through
+    ``print_stream()`` checkpointed every 0.5 s, and gets SIGTERM after
+    its third window, mid-stream.  It must stop after the current item,
+    stop its orchestrator, return from print_stream and exit 0; its store
+    holds committed offsets short of the topic's end, and every window it
+    printed equals the oracle."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    from denormalized_tpu_torch.state import checkpoint as ck
+    from denormalized_tpu_torch.state.lsm import (
+        close_global_state_backend,
+        initialize_global_state_backend,
+    )
+
+    n_chunks = max(len(s) for s in staged)
+    due_ms = stream[0][LAT_CHUNK - 1::LAT_CHUNK]
+    clock = FeedClock(pace)
+    broker = make_broker("sig")
+    stop = threading.Event()
+    produced = [0]
+
+    def feed():
+        clock.start()
+        for ci in range(n_chunks):
+            if stop.wait(max(0.0, clock.wall_of(float(due_ms[ci]))
+                             - time.perf_counter())):
+                return
+            for p in range(KAFKA_PARTITIONS):
+                if ci < len(staged[p]):
+                    broker.append_staged("sig", p, staged[p][ci])
+            produced[0] = ci + 1
+
+    work = tempfile.mkdtemp(prefix="dnz_sigterm_")
+    state = os.path.join(work, "state")
+    out_path = os.path.join(work, "out.jsonl")
+    proc = None
+    feeder = threading.Thread(target=feed, daemon=True)
+    try:
+        with open(out_path, "w") as out, open(f"{out_path}.err", "w") as err:
+            # unbuffered: each printed row reaches the file at once
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--ckpt-device", str(device), "--sigterm-child", state,
+                 "--kafka-broker", broker.bootstrap, "--kafka-topic", "sig"],
+                stdout=out, stderr=err,
+                env=dict(os.environ, PYTHONUNBUFFERED="1"))
+            feeder.start()
+            deadline = time.time() + 240
+            while len({d["window_start_time"] for d in read_jsonl(out_path)
+                       if "window_start_time" in d}) < 3:
+                if proc.poll() is not None or time.time() > deadline:
+                    raise AssertionError(
+                        f"phase 34: the child printed no third window (rc "
+                        f"{proc.poll()})")
+                time.sleep(0.05)
+            time.sleep(1.2)  # two barrier intervals: a commit lands
+            sent_at = produced[0]
+            t_sig = time.time()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(60)
+        if rc != 0:
+            with open(f"{out_path}.err") as f:
+                raise AssertionError(f"phase 34: exit {rc}: {f.read()[-3000:]}")
+        lines = read_jsonl(out_path)
+    finally:
+        stop.set()
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(60)
+        broker.stop()
+        feeder.join(30)
+    try:
+        coord = ck.CheckpointCoordinator(
+            initialize_global_state_backend(state))
+        epoch = coord.committed_epoch
+        snap = next((s for s in (ck.get_json(coord, f"offsets_{i}_SourceExec")
+                                 for i in range(6)) if s is not None), None)
+    finally:
+        close_global_state_backend()
+        shutil.rmtree(work, ignore_errors=True)
+    stopped = [d for d in lines if d.get("stopped")]
+    if not stopped or stopped[-1]["orchestrators"] != 1 or (
+            stopped[-1]["running"] != 0):
+        raise AssertionError(f"phase 34: stop line {stopped}")
+    if epoch is None or snap is None:
+        raise AssertionError("phase 34: no committed offsets")
+    committed = sum(int(p["offset"]) for p in snap["partitions"])
+    if not 0 < committed < len(stream[0]) or sent_at >= n_chunks:
+        raise AssertionError(f"phase 34: committed offsets {committed} of "
+                             f"{len(stream[0])}, {sent_at} of {n_chunks} "
+                             f"chunks sent at the signal")
+    got = {(d["window_start_time"], int(d["sensor_name"][7:])):
+           (d["count"], d["min"], d["max"], d["average"])
+           for d in lines if "window_start_time" in d}
+    # the oracle of the windows printed (the stream is in time order)
+    n = int(np.searchsorted(stream[0], max(k[0] for k in got) + 1000))
+    exp = oracle(stream[0][:n], stream[1][:n], np.round(stream[2][:n], 6),
+                 1000, 1000, NUM_KEYS)
+    if not set(got) <= set(exp):
+        raise AssertionError("phase 34: a printed window row the oracle "
+                             "does not have")
+    check_tumbling_rows(got, {k: exp[k] for k in got})
+    log(f"phase 34 graceful SIGTERM (ROADMAP C3): a print_stream child over "
+        f"a paced {KAFKA_PARTITIONS}-partition topic got SIGTERM after "
+        f"{len({k[0] for k in got})} windows ({len(got)} rows = the oracle),"
+        f" with {sent_at} of {n_chunks} chunks produced; it returned from "
+        f"print_stream {stopped[-1]['t'] - t_sig:.3f} s later and exited 0, "
+        f"its orchestrator stopped (1 started, 0 running), {stopped[-1]['launches']}"
+        f" dense launches; the store's committed epoch {epoch} holds offsets "
+        f"{sorted((p['partition'], p['offset']) for p in snap['partitions'])}"
+        f" ({committed} of {len(stream[0])} rows) ({card})")
+    return {"stop_s": stopped[-1]["t"] - t_sig,
+            "launches": stopped[-1]["launches"]}
 
 
 def main(argv=None) -> int:
@@ -4510,6 +5260,12 @@ def main(argv=None) -> int:
     ap.add_argument("--join-out", help=argparse.SUPPRESS)
     ap.add_argument("--join-pause-after", type=int, default=0,
                     help=argparse.SUPPRESS)
+    # phase 33's child (the script re-invoked on a state path)
+    ap.add_argument("--host-child", help=argparse.SUPPRESS)
+    ap.add_argument("--host-state", help=argparse.SUPPRESS)
+    ap.add_argument("--host-out", help=argparse.SUPPRESS)
+    # phase 34's child (print_stream over the parent's broker)
+    ap.add_argument("--sigterm-child", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.ckpt_child:
         return ckpt_child(args)
@@ -4517,6 +5273,10 @@ def main(argv=None) -> int:
         return kafka_child(args)
     if args.join_child:
         return join_child(args)
+    if args.host_child:
+        return host_ckpt_child(args)
+    if args.sigterm_child:
+        return sigterm_child(args)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -4625,6 +5385,11 @@ def main(argv=None) -> int:
     log(f"phase 29 rows/s side by side: Avro {avro['rows_per_s']:.0f}, JSON "
         f"(phase 21) {kafka['rows_per_s']:.0f} ({card})")
     csv_run = phase_csv_explain(device, batches, stream, card)
+    phase_udaf(device, batches, stream, card)
+    phase_sessions(device, args.seed + 12, card)
+    phase_host_ckpt(device, args.seed, "udaf", card)
+    phase_host_ckpt(device, args.seed + 12, "session", card)
+    sigterm = phase_sigterm(device, pace, staged, lat_stream, card)
 
     hot = kern["main_hot"]
     m1 = merge["cfg1_dense"]
@@ -4662,6 +5427,8 @@ def main(argv=None) -> int:
         # explain(analyze=True) of config 1
         "avro_launches": avro["launches"],
         "explain_launches": csv_run["launches"],
+        # ... in phase 34's print_stream child until its SIGTERM
+        "sigterm_launches": sigterm["launches"],
     }, {
         "name": "merge_partials",
         "route": "cuda",

@@ -4,8 +4,10 @@ Counterpart of ``denormalized_tpu/api/context.py``: builds the session,
 registers sources as named tables and hands out :class:`DataStream`
 builders.  :class:`EngineConfig` carries the knobs the ported window path
 reads, plus an explicit ``device``: the device rule of the whole package,
-and the checkpoint knobs (``checkpoint``, ``checkpoint_interval_s``,
-``state_backend_path``, or :meth:`Context.with_state_backend`) and the
+``optimizer`` (the logical optimizer on or off), ``emit_on_close`` (flush
+the open windows and sessions at end of stream), the checkpoint knobs
+(``checkpoint``, ``checkpoint_interval_s``, ``state_backend_path``, or
+:meth:`Context.with_state_backend`) and the
 join knobs (``join_retention_ms``, ``join_adaptive``,
 ``join_adapt_interval_s``, ``join_band_slack_ms``),
 ``partition_watermarks``, ``source_idle_timeout_ms``, and the window
@@ -36,6 +38,9 @@ class EngineConfig:
     # on on the CPU.  "cpu" runs the same programs with the kernels' plain
     # PyTorch versions (the tests use it); "cuda:N" picks a card.
     device: str = "cuda"
+    # logical optimizer (projection pruning, filter pushdown, project
+    # merge): False runs the plan as written
+    optimizer: bool = True
     # checkpointing (denormalized_config.checkpoint): barriers every
     # checkpoint_interval_s (orchestrator.rs:58), snapshots in the LSM
     # store at state_backend_path
@@ -120,6 +125,9 @@ class EngineConfig:
     min_batch_bucket: int = 256
     min_group_capacity: int = 128
     min_window_slots: int = 16
+    # end of a bounded stream: flush every window (and session) still
+    # open; False emits only what the watermark closed
+    emit_on_close: bool = True
     # on-device finalization: emission ships the FINAL output columns
     # (count/sum/min/max/avg) plus the active-group mask instead of the raw
     # component planes

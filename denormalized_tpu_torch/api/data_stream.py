@@ -1,13 +1,13 @@
 """DataStream — the fluent user API.
 
 Counterpart of ``denormalized_tpu/api/data_stream.py`` with the methods the
-window, join and Kafka jobs use: select / filter / column renames / window /
-join (equi keys, optionally banded) / join_on (expression keys, bands and
-residual filters), the plan printers (print_schema, print_plan,
-print_physical_plan, explain, explain_analyze), and collect / stream /
-print_stream / sink / sink_kafka to run them.  Plan building is lazy;
-execution happens in those last five and in the analyze runs.  ``collect``
-needs a bounded stream: over a live source it raises.
+window, join and Kafka jobs use: select / filter / column renames / window
+/ session_window / join (equi keys, optionally banded) / join_on
+(expression keys, bands and residual filters), the plan printers
+(print_schema, print_plan, print_physical_plan, explain, explain_analyze),
+and collect / stream / print_stream / sink / sink_kafka to run them.  Plan
+building is lazy; execution happens in those last five and in the analyze
+runs.  ``collect`` needs a bounded stream: over a live source it raises.
 """
 
 from __future__ import annotations
@@ -117,6 +117,31 @@ class DataStream:
                 wt,
                 int(window_length_ms),
                 int(slide_ms) if slide_ms is not None else None,
+            )
+        )
+
+    def session_window(
+        self,
+        group_exprs: Sequence[Expr | str],
+        aggr_exprs: Sequence[AggregateExpr],
+        gap_ms: int,
+    ) -> "DataStream":
+        """Session windows: per key, a maximal run of events no more than
+        ``gap_ms`` apart, emitted when the watermark passes the last
+        event + gap.  The reference declares them but leaves the operator
+        ``todo!()`` (streaming_window.rs session arm)."""
+        group_exprs = [col(g) if isinstance(g, str) else g for g in group_exprs]
+        for a in aggr_exprs:
+            if not isinstance(a, AggregateExpr):
+                raise PlanError(f"{a!r} is not an aggregate expression")
+        return self._wrap(
+            lp.StreamingWindow(
+                self._plan,
+                list(group_exprs),
+                list(aggr_exprs),
+                lp.WindowType.SESSION,
+                int(gap_ms),
+                None,
             )
         )
 
@@ -363,7 +388,7 @@ class DataStream:
         """The logical plan after the optimizer pass (what will execute)."""
         from denormalized_tpu_torch.logical.optimizer import optimize
 
-        return optimize(self._plan)
+        return optimize(self._plan, self._ctx.config.optimizer)
 
     def _physical_display(self, plan: lp.LogicalPlan) -> str:
         from denormalized_tpu_torch.planner.planner import Planner

@@ -8,9 +8,7 @@ methods), plus ``write_feast_feature`` pushing each emitted batch to a Feast
 push source.  Feast itself is an optional dependency — any object with
 ``push(push_source_name, df)`` works (tests use a fake store).
 
-Copy of ``denormalized_tpu/api/feast_data_stream.py`` for the port; the
-metaclass rewraps the transforms the port's DataStream has
-(``session_window`` comes with sessions, ROADMAP §A item 6).
+Copy of ``denormalized_tpu/api/feast_data_stream.py`` for the port.
 """
 
 from __future__ import annotations
@@ -34,6 +32,7 @@ class _FeastMeta(type):
             "with_column_renamed",
             "drop_columns",
             "window",
+            "session_window",
             "join",
             "join_on",
         ):

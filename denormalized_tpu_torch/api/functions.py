@@ -11,10 +11,15 @@ scalar UDFs, and the aggregates the device ring accumulates
 family: ``stddev``, ``stddev_pop``, ``var``, ``var_pop`` and the aliases
 ``stddev_samp``, ``var_samp``, ``var_sample``).
 
-``__all__`` lists the JAX package's names.  The aggregates the port cannot
-run yet — every UDAF- or sketch-backed one (median, array_agg,
-approx_distinct, corr, bit_and, ``udaf``, ...) — exist by the same names
-and raise a ``PlanError`` naming the ROADMAP item that brings them.
+``__all__`` lists the JAX package's names.  The aggregates that cannot
+decompose onto the ring — median, array_agg, first/last/nth_value,
+string_agg, count_distinct, percentile_cont, the bit/bool family, corr,
+covar and the regr_* family, and user accumulators (``udaf``) — run in the
+host accumulator operator (``physical/udaf_exec.py``) through the
+accumulators of :mod:`denormalized_tpu_torch.api.builtin_accumulators`;
+the approximate kinds (approx_distinct, approx_median, approx_top_k,
+approx_percentile_cont) carry their exact accumulator, which the planner
+lowers them to.
 """
 
 from __future__ import annotations
@@ -30,7 +35,6 @@ from denormalized_tpu_torch.logical.expr import (
     ScalarUDFExpr,
     col,
     lit,
-    unported_aggregate,
 )
 from denormalized_tpu_torch.logical.scalar_functions import REGISTRY, lookup
 
@@ -121,57 +125,244 @@ def var_pop(expr: Expr | str) -> AggregateExpr:
     return AggregateExpr("var_pop", _e(expr))
 
 
-def _unported(name: str, kind: str | None = None):
-    """A constructor the port has by name but cannot run yet: calling it
-    raises the ``PlanError`` that names its ROADMAP item."""
-    kind = kind or name
+def _builtin_udaf(acc_cls, return_type: DataType, name: str):
+    from denormalized_tpu_torch.api.udaf import UDAF
 
-    def make(*args, **kwargs) -> AggregateExpr:
-        raise unported_aggregate(kind)
+    def make(expr: Expr | str) -> AggregateExpr:
+        e = _e(expr)
+        u = UDAF(acc_cls, (e,), return_type, name)
+        return AggregateExpr("udaf", e, None, u)
 
     make.__name__ = name
+    make.__doc__ = f"{name} aggregate (host accumulator frame path)."
+    return make
+
+
+def _builtin_accs():
+    from denormalized_tpu_torch.api import builtin_accumulators as b
+
+    return b
+
+
+def array_agg(expr: Expr | str) -> AggregateExpr:
+    """Collect values into a list per group-window; checkpoints through
+    accumulator state (reference serializable_accumulator.rs:10-68)."""
+    b = _builtin_accs()
+    return _builtin_udaf(b.ArrayAggAccumulator, DataType.LIST, "array_agg")(expr)
+
+
+def median(expr: Expr | str) -> AggregateExpr:
+    b = _builtin_accs()
+    return _builtin_udaf(b.MedianAccumulator, DataType.FLOAT64, "median")(expr)
+
+
+def approx_median(expr: Expr | str) -> AggregateExpr:
+    """Approximate median: a first-class mergeable quantile sketch on
+    the multi-query slice path (documented rank-error bound, O(1) state
+    per group — ops/sketches.py KllSpec); lowers to the exact
+    MedianAccumulator on every other path."""
+    from denormalized_tpu_torch.api.udaf import UDAF
+
+    b = _builtin_accs()
+    e = _e(expr)
+    u = UDAF(b.MedianAccumulator, (e,), DataType.FLOAT64, "approx_median")
+    return AggregateExpr("approx_median", e, None, u)
+
+
+def first_value(expr: Expr | str) -> AggregateExpr:
+    """First value in arrival order; result type follows the argument."""
+    b = _builtin_accs()
+    return _builtin_udaf(b.FirstValueAccumulator, None, "first_value")(expr)
+
+
+def last_value(expr: Expr | str) -> AggregateExpr:
+    """Last value in arrival order; result type follows the argument."""
+    b = _builtin_accs()
+    return _builtin_udaf(b.LastValueAccumulator, None, "last_value")(expr)
+
+
+def approx_distinct(expr: Expr | str) -> AggregateExpr:
+    """HyperLogLog distinct count (~1.6% error, mergeable sketch state).
+
+    First-class on the multi-query slice path: a vectorized (G, 4096)
+    int8 register plane per slice unit, shared across concurrent
+    queries, byte-identical through kill/restore (stable blake2b /
+    splitmix64 hashing).  Lowers to the accumulator-frame HLL shim on
+    every other path."""
+    from denormalized_tpu_torch.api.udaf import UDAF
+
+    b = _builtin_accs()
+    e = _e(expr)
+    u = UDAF(
+        b.ApproxDistinctAccumulator, (e,), DataType.INT64, "approx_distinct"
+    )
+    return AggregateExpr("approx_distinct", e, None, u)
+
+
+def approx_top_k(expr: Expr | str, k: int = 10) -> AggregateExpr:
+    """Top-k most frequent values as ``[value, count]`` pairs,
+    count-descending — Space-Saving planes on the multi-query slice
+    path (``count - err <= true <= count`` per reported value, O(k)
+    state per group); exact dict counting on the fallback path."""
+    from denormalized_tpu_torch.api.udaf import UDAF
+
+    b = _builtin_accs()
+    e = _e(expr)
+    k = int(k)
+
+    class _Bound(b.ApproxTopKAccumulator):
+        def __init__(self):
+            super().__init__(k)
+
+    _Bound.__name__ = f"ApproxTopK[{k}]"
+    u = UDAF(_Bound, (e,), DataType.LIST, f"approx_top_k_{k}")
+    return AggregateExpr("approx_top_k", e, None, u, (k,))
+
+
+def count_distinct(expr: Expr | str) -> AggregateExpr:
+    """Exact distinct count (DataFusion ``count(distinct x)``)."""
+    b = _builtin_accs()
+    return _builtin_udaf(
+        b.CountDistinctAccumulator, DataType.INT64, "count_distinct"
+    )(expr)
+
+
+def percentile_cont(expr: Expr | str, q: float) -> AggregateExpr:
+    """Exact continuous percentile with linear interpolation (covers
+    DataFusion's approx_percentile_cont use cases exactly)."""
+    b = _builtin_accs()
+
+    class _Bound(b.PercentileContAccumulator):
+        def __init__(self):
+            super().__init__(q)
+
+    _Bound.__name__ = f"PercentileCont[{q}]"
+    return _builtin_udaf(
+        _Bound, DataType.FLOAT64, f"percentile_cont_{q}"
+    )(expr)
+
+
+def approx_percentile_cont(expr: Expr | str, q: float) -> AggregateExpr:
+    """Approximate continuous percentile: compactor quantile sketch on
+    the multi-query slice path (self-reported rank-error bound, O(1)
+    state per group); lowers to the exact interpolating
+    :func:`percentile_cont` accumulator on every other path."""
+    from denormalized_tpu_torch.api.udaf import UDAF
+
+    b = _builtin_accs()
+
+    class _Bound(b.PercentileContAccumulator):
+        def __init__(self):
+            super().__init__(q)
+
+    _Bound.__name__ = f"PercentileCont[{q}]"
+    e = _e(expr)
+    u = UDAF(_Bound, (e,), DataType.FLOAT64, f"percentile_cont_{q}")
+    return AggregateExpr(
+        "approx_percentile_cont", e, None, u, (float(q),)
+    )
+
+
+def approx_percentile_cont_with_weight(
+    expr: Expr | str, weight: Expr | str, q: float
+) -> AggregateExpr:
+    """Weighted continuous percentile (reference functions.py
+    approx_percentile_cont_with_weight; exact here)."""
+    b = _builtin_accs()
+
+    class _Bound(b.WeightedPercentileAccumulator):
+        def __init__(self):
+            super().__init__(q)
+
+    _Bound.__name__ = f"WeightedPercentile[{q}]"
+    from denormalized_tpu_torch.api.udaf import UDAF
+
+    e, w = _e(expr), _e(weight)
+    u = UDAF(_Bound, (e, w), DataType.FLOAT64, f"percentile_weight_{q}")
+    return AggregateExpr("udaf", e, None, u)
+
+
+def string_agg(expr: Expr | str, delimiter: str = ",") -> AggregateExpr:
+    """Concatenate values with a delimiter (reference ``string_agg``)."""
+    b = _builtin_accs()
+
+    class _Bound(b.StringAggAccumulator):
+        def __init__(self):
+            super().__init__(delimiter)
+
+    _Bound.__name__ = f"StringAgg[{delimiter!r}]"
+    return _builtin_udaf(_Bound, DataType.STRING, "string_agg")(expr)
+
+
+def nth_value(expr: Expr | str, n: int) -> AggregateExpr:
+    """N-th value in arrival order, 1-based (reference ``nth_value``)."""
+    b = _builtin_accs()
+
+    class _Bound(b.NthValueAccumulator):
+        def __init__(self):
+            super().__init__(n)
+
+    _Bound.__name__ = f"NthValue[{n}]"
+    return _builtin_udaf(_Bound, None, f"nth_value_{n}")(expr)
+
+
+def _bool_bit_agg(acc_attr: str, name: str, rt: DataType):
+    def make(expr: Expr | str) -> AggregateExpr:
+        b = _builtin_accs()
+        return _builtin_udaf(getattr(b, acc_attr), rt, name)(expr)
+
+    make.__name__ = name
+    make.__doc__ = f"{name} aggregate (reference functions.py exports it)."
+    return make
+
+
+bit_and = _bool_bit_agg("BitAndAccumulator", "bit_and", DataType.INT64)
+bit_or = _bool_bit_agg("BitOrAccumulator", "bit_or", DataType.INT64)
+bit_xor = _bool_bit_agg("BitXorAccumulator", "bit_xor", DataType.INT64)
+bool_and = _bool_bit_agg("BoolAndAccumulator", "bool_and", DataType.BOOL)
+bool_or = _bool_bit_agg("BoolOrAccumulator", "bool_or", DataType.BOOL)
+
+
+def _bivariate(stat: str, rt: DataType = DataType.FLOAT64):
+    """Two-column aggregate over shared sufficient statistics (reference
+    functions.py:1658-2066 corr/covar/regr_* — DataFusion's argument
+    order ``(value_y, value_x)``)."""
+
+    def make(value_y: Expr | str, value_x: Expr | str) -> AggregateExpr:
+        b = _builtin_accs()
+
+        class _Bound(b.TwoColStatsAccumulator):
+            pass
+
+        _Bound.stat = stat
+        _Bound.__name__ = f"TwoColStats[{stat}]"
+        from denormalized_tpu_torch.api.udaf import UDAF
+
+        ey, ex = _e(value_y), _e(value_x)
+        u = UDAF(_Bound, (ey, ex), rt, stat)
+        return AggregateExpr("udaf", ey, None, u)
+
+    make.__name__ = stat
     make.__doc__ = (
-        f"{name} aggregate — not ported yet: raises PlanError naming the "
-        f"ROADMAP item that brings it."
+        f"{stat}(value_y, value_x) bivariate aggregate "
+        "(sufficient-statistics decomposition, mergeable for checkpoints)."
     )
     return make
 
 
-# UDAF- and sketch-backed aggregates (the JAX package's host accumulator
-# frame path)
-median = _unported("median")
-approx_median = _unported("approx_median")
-array_agg = _unported("array_agg")
-first_value = _unported("first_value")
-last_value = _unported("last_value")
-nth_value = _unported("nth_value")
-string_agg = _unported("string_agg")
-approx_distinct = _unported("approx_distinct")
-approx_top_k = _unported("approx_top_k")
-count_distinct = _unported("count_distinct")
-percentile_cont = _unported("percentile_cont")
-approx_percentile_cont = _unported("approx_percentile_cont")
-approx_percentile_cont_with_weight = _unported(
-    "approx_percentile_cont_with_weight"
-)
-bit_and = _unported("bit_and")
-bit_or = _unported("bit_or")
-bit_xor = _unported("bit_xor")
-bool_and = _unported("bool_and")
-bool_or = _unported("bool_or")
-corr = _unported("corr")
-covar = _unported("covar")
-covar_pop = _unported("covar_pop")
-covar_samp = _unported("covar_samp")
-regr_avgx = _unported("regr_avgx")
-regr_avgy = _unported("regr_avgy")
-regr_count = _unported("regr_count")
-regr_intercept = _unported("regr_intercept")
-regr_r2 = _unported("regr_r2")
-regr_slope = _unported("regr_slope")
-regr_sxx = _unported("regr_sxx")
-regr_sxy = _unported("regr_sxy")
-regr_syy = _unported("regr_syy")
+corr = _bivariate("corr")
+covar = _bivariate("covar")
+covar_pop = _bivariate("covar_pop")
+covar_samp = _bivariate("covar_samp")
+regr_avgx = _bivariate("regr_avgx")
+regr_avgy = _bivariate("regr_avgy")
+regr_count = _bivariate("regr_count", DataType.INT64)
+regr_intercept = _bivariate("regr_intercept")
+regr_r2 = _bivariate("regr_r2")
+regr_slope = _bivariate("regr_slope")
+regr_sxx = _bivariate("regr_sxx")
+regr_sxy = _bivariate("regr_sxy")
+regr_syy = _bivariate("regr_syy")
 
 
 # -- CASE ----------------------------------------------------------------
@@ -408,6 +599,17 @@ def udf(fn: Callable, return_type: DataType, name: str | None = None):
 
 
 def udaf(accumulator_cls, return_type: DataType, name: str | None = None):
-    """User-defined aggregate — not ported yet: raises the ``PlanError``
-    that names ROADMAP §A item 6 (the UDAF executor)."""
-    raise unported_aggregate("udaf")
+    """User-defined aggregate: ``accumulator_cls`` subclasses
+    :class:`denormalized_tpu_torch.api.udaf.Accumulator` (reference
+    py-denormalized python/denormalized/datafusion/udf.py Accumulator +
+    python/examples/udaf_example.py)."""
+    from denormalized_tpu_torch.api.udaf import UDAF
+
+    name = name or getattr(accumulator_cls, "__name__", "udaf")
+
+    def make(*args: Expr | str) -> AggregateExpr:
+        exprs = [col(a) if isinstance(a, str) else a for a in args]
+        u = UDAF(accumulator_cls, tuple(exprs), return_type, name)
+        return AggregateExpr("udaf", exprs[0] if exprs else None, None, u)
+
+    return make

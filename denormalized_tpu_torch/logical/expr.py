@@ -15,8 +15,9 @@ A batch column is a numpy array or an Arrow-layout ``Column``
 (``common/columns.py``): the columnar fast paths read a ``StringColumn``'s
 or ``NestedColumn``'s buffers, and every other node materializes it
 through ``as_numpy``, as the JAX package does.  Aggregates are the ones the
-device ring finalizes (count/sum/min/max/avg); the others raise a
-``PlanError`` that names the ROADMAP item bringing them.
+device ring finalizes (count/sum/min/max/avg and the variance family),
+accumulator aggregates (``"udaf"``, run on the host) and the approximate
+kinds, which carry an exact accumulator to lower to.
 """
 
 from __future__ import annotations
@@ -1128,46 +1129,60 @@ AGG_KINDS = (
 )
 VAR_KINDS = ("stddev", "stddev_pop", "var", "var_pop")
 
-
-def unported_aggregate(kind: str) -> PlanError:
-    """The refusal for an aggregate the port cannot run yet, naming the
-    ROADMAP item that brings it: every UDAF-backed or sketch-backed
-    aggregate comes with the UDAF executor (§A item 6)."""
-    return PlanError(
-        f"aggregate {kind!r} not yet ported to denormalized_tpu_torch: it "
-        f"comes with ROADMAP §A item 6, the UDAF executor (ported: "
-        f"{', '.join(AGG_KINDS)})"
-    )
+#: sketch-backed approximate aggregates: each carries its exact
+#: accumulator fallback (``AggregateExpr.udaf``), which the planner lowers
+#: it to (the JAX package plans them natively only on its multi-query
+#: slice path, not ported yet)
+SKETCH_AGG_KINDS = (
+    "approx_distinct", "approx_top_k",
+    "approx_percentile_cont", "approx_median",
+)
 
 
 @dataclass(frozen=True, eq=False)
 class AggregateExpr(Expr):
-    """An aggregate call inside window(): count/sum/min/max/avg or the
-    variance family."""
+    """An aggregate call inside window(): one of ``AGG_KINDS``, a
+    ``SKETCH_AGG_KINDS`` kind, or ``"udaf"`` (an accumulator)."""
 
-    kind: str  # one of AGG_KINDS
+    kind: str  # one of AGG_KINDS, SKETCH_AGG_KINDS, or "udaf"
     arg: Expr | None  # None for count(*)
     _alias: str | None = None
+    udaf: Any = None  # api.udaf.UDAF instance when kind == "udaf";
+    # for SKETCH_AGG_KINDS: the exact accumulator the planner lowers to
+    params: tuple = ()  # sketch kind parameters (k, quantile q, ...)
 
     def __post_init__(self):
-        if self.kind not in AGG_KINDS:
-            raise unported_aggregate(self.kind)
+        if self.kind not in AGG_KINDS + SKETCH_AGG_KINDS + ("udaf",):
+            raise PlanError(f"unknown aggregate kind {self.kind!r}")
 
     @property
     def name(self) -> str:
         if self._alias:
             return self._alias
         argname = self.arg.name if self.arg is not None else "*"
+        if self.kind in ("approx_percentile_cont", "approx_top_k") and (
+            self.params
+        ):
+            return f"{self.kind}({argname}, {self.params[0]})"
         return f"{self.kind}({argname})"
 
     def alias(self, name: str) -> "AggregateExpr":
-        return AggregateExpr(self.kind, self.arg, name)
+        return AggregateExpr(self.kind, self.arg, name, self.udaf, self.params)
 
     def out_field(self, schema: Schema) -> Field:
-        if self.kind == "count":
+        if self.kind in ("count", "approx_distinct"):
             return Field(self.name, DataType.INT64, nullable=False)
+        if self.kind == "approx_top_k":
+            # list of [value, count] pairs, count-descending
+            return Field(self.name, DataType.LIST)
+        if self.kind in ("approx_percentile_cont", "approx_median"):
+            return Field(self.name, DataType.FLOAT64)
         if self.kind == "avg" or self.kind in VAR_KINDS:
             return Field(self.name, DataType.FLOAT64)
+        if self.kind == "udaf":
+            if self.udaf.return_type is None:  # same type as the argument
+                return Field(self.name, self.arg.out_field(schema).dtype)
+            return Field(self.name, self.udaf.return_type)
         f = self.arg.out_field(schema)
         if self.kind == "sum":
             if f.dtype in (DataType.INT32, DataType.INT64, DataType.BOOL):

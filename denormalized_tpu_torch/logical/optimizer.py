@@ -148,7 +148,10 @@ class ProjectionPruning:
             for g in node.group_exprs:
                 need |= g.columns_referenced()
             for a in node.aggr_exprs:
-                if a.arg is not None:
+                if a.kind == "udaf" and a.udaf is not None:
+                    for arg in a.udaf.args:
+                        need |= arg.columns_referenced()
+                elif a.arg is not None:
                     need |= a.arg.columns_referenced()
             return lp.StreamingWindow(
                 self._walk(node.input, need),
@@ -304,8 +307,11 @@ DEFAULT_RULES = (ProjectionPruning(), FilterPushdown(), MergeProjects())
 _MAX_PASSES = 5
 
 
-def optimize(plan: lp.LogicalPlan) -> lp.LogicalPlan:
-    """Run the rules to a bounded fixpoint."""
+def optimize(plan: lp.LogicalPlan, enabled: bool = True) -> lp.LogicalPlan:
+    """Run the rules to a bounded fixpoint; ``enabled=False``
+    (``EngineConfig.optimizer``) returns the plan untouched."""
+    if not enabled:
+        return plan
     prev = None
     for _ in range(_MAX_PASSES):
         for rule in DEFAULT_RULES:

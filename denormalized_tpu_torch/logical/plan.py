@@ -100,7 +100,8 @@ class Filter(LogicalPlan):
 
 class WindowType(enum.Enum):
     """Mirror of StreamingWindowType (streaming_window.rs:69-74).  Session
-    windows are not ported yet: the planner refuses them."""
+    windows are declared-but-unimplemented in the reference (`todo!()`);
+    the session-window operator implements them."""
 
     TUMBLING = "tumbling"
     SLIDING = "sliding"

@@ -1,9 +1,10 @@
 """State & skew observatory — counterpart of
-``denormalized_tpu/obs/statewatch.py`` with what the join reads:
+``denormalized_tpu/obs/statewatch.py`` with what the join, the UDAF
+operator and the session operators read:
 
-1. **Exact state accounting** helpers (:func:`rb_nbytes` and the
-   documented per-object estimates) that a stateful operator's pull-only
-   ``state_info()`` sums;
+1. **Exact state accounting** helpers (:func:`rb_nbytes`,
+   :func:`acc_nbytes` and the documented per-object estimates) that a
+   stateful operator's pull-only ``state_info()`` sums;
 2. **A streaming key-distribution sketch** per join side:
    :class:`StateWatch` feeds one batch's dense gids into a Space-Saving
    heavy-hitter sketch right after intern time; the join's adaptation
@@ -21,13 +22,26 @@ import numpy as np
 
 from denormalized_tpu_torch.ops.sketches import SpaceSaving, _aggregate_gids
 
-__all__ = ["SpaceSaving", "StateWatch", "rb_nbytes"]
+__all__ = ["SpaceSaving", "StateWatch", "acc_nbytes", "rb_nbytes"]
 
 
 #: documented per-object estimates for state that lives in Python objects;
 #: being constants, they make the accounting restore-invariant
 KEY_EST_BYTES = 64  # one interned key: dict entry + row tuple + id
+ACC_EST_BYTES = 512  # one accumulator object (UDAF/builtin, amortized)
 OBJ_CELL_EST_BYTES = 56  # one object-dtype cell (string ref + header)
+
+
+def acc_nbytes(acc) -> int:
+    """Accounting bytes of one accumulator: its own ``state_nbytes()``
+    when it reports one (the unbounded exact accumulators — median,
+    count_distinct, percentile, array_agg — derive it from their element
+    counts, so it is restore-invariant and grows with them), else the
+    constant :data:`ACC_EST_BYTES` estimate."""
+    fn = getattr(acc, "state_nbytes", None)
+    if fn is None:
+        return ACC_EST_BYTES
+    return int(fn())
 
 
 def rb_nbytes(batch) -> int:

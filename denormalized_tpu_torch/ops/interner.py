@@ -15,6 +15,8 @@ its own offsets and bytes through ``intern_offsets``, with no Python
 ``str`` made for a key.
 Numeric columns, and every column when the native build fails (logged),
 take the dict lane.  A column keeps the lane of its first batch.
+:class:`RecyclingGroupInterner` (the session operator's) hands the ids of
+released keys to new ones, over the same column interners.
 
 Ids and value identity are the same on every lane and in both packages —
 first-seen order, ``None`` its own key, non-string objects normalized via
@@ -483,3 +485,120 @@ class GroupInterner:
         g._gid_rows = [tuple(r) for r in snap["rows"]]
         g._tuple_to_gid = {r: i for i, r in enumerate(g._gid_rows)}
         return g
+
+
+def interner_accounting(interner) -> dict:
+    """Free-list / id-space accounting of either interner class (the state
+    observatory's key-capacity view): live ids, total dense id space, and
+    the recycling free-list depth (0 for :class:`GroupInterner`)."""
+    return {
+        "live_keys": len(interner),
+        "key_capacity": getattr(
+            interner, "capacity", len(interner._gid_rows)
+        ),
+        "free_gids": len(getattr(interner, "_free", ())),
+    }
+
+
+class RecyclingGroupInterner:
+    """Composite key -> dense group id WITH gid recycling.
+
+    Same ``intern``/``keys_of`` contract as :class:`GroupInterner`, plus
+    ``release(gids)``: a released gid goes onto a free list and is handed
+    to the next first-seen key, so the dense-id space stays proportional
+    to the number of LIVE keys rather than all keys ever seen.  Built for
+    the session operator, whose key population churns (a key with no open
+    session holds no state); the window and join interners keep gids
+    forever because their ids index device rings.
+
+    Two deliberate deviations from GroupInterner:
+
+    - no single-column ``cid == gid`` fast path — recycling breaks that
+      identity, so every shape goes through the row dedup;
+    - per-COLUMN value ids (inside ColumnInterner, every lane included:
+      a ``StringColumn`` interns off its offsets and bytes) are never
+      recycled: they deduplicate values, and the composite-key cross
+      product is what the free list caps.
+    """
+
+    def __init__(self, num_columns: int) -> None:
+        self.num_columns = num_columns
+        self._col_interners = [ColumnInterner() for _ in range(num_columns)]
+        self._row_to_gid: dict = {}
+        # per gid: tuple of per-column value ids, or None when freed
+        self._gid_rows: list[tuple | None] = []
+        self._free: list[int] = []
+
+    def __len__(self) -> int:
+        """Number of LIVE (unreleased) keys."""
+        return len(self._gid_rows) - len(self._free)
+
+    @property
+    def capacity(self) -> int:
+        """Dense-id space size (live + free) — sizes gid-indexed arrays."""
+        return len(self._gid_rows)
+
+    @property
+    def lanes(self) -> list[str]:
+        """The interning lane of each key column."""
+        return [it.lane for it in self._col_interners]
+
+    def intern(self, key_columns: list[np.ndarray]) -> np.ndarray:
+        if len(key_columns) != self.num_columns:
+            raise ValueError(
+                f"{len(key_columns)} key columns for a "
+                f"{self.num_columns}-column interner"
+            )
+        per_col = [
+            it.intern_array(as_key_column(c))
+            for it, c in zip(self._col_interners, key_columns)
+        ]
+        if self.num_columns == 1:
+            uniq, inv = np.unique(
+                per_col[0].astype(np.int64), return_inverse=True
+            )
+            rows = [(int(c),) for c in uniq.tolist()]
+            inv = inv.reshape(-1)
+        else:
+            rows, inv = _dedup_rows(per_col)
+        gids_for_uniq = np.empty(len(rows), dtype=np.int32)
+        row_to_gid = self._row_to_gid
+        gid_rows = self._gid_rows
+        free = self._free
+        for i, row in enumerate(rows):
+            g = row_to_gid.get(row)
+            if g is None:
+                if free:
+                    g = free.pop()
+                    gid_rows[g] = row
+                else:
+                    g = len(gid_rows)
+                    gid_rows.append(row)
+                row_to_gid[row] = g
+            gids_for_uniq[i] = g
+        return gids_for_uniq[inv]
+
+    def release(self, gids) -> None:
+        """Return gids to the free list (idempotent per gid).  The caller
+        guarantees no state remains keyed by a released gid."""
+        gid_rows = self._gid_rows
+        for g in np.asarray(gids).tolist():
+            row = gid_rows[g]
+            if row is None:
+                continue  # already free
+            del self._row_to_gid[row]
+            gid_rows[g] = None
+            self._free.append(g)
+
+    def keys_of(self, gids: np.ndarray) -> list[np.ndarray]:
+        """Reconstruct each key column's values for the given LIVE gids."""
+        rows = np.array(
+            [self._gid_rows[g] for g in np.asarray(gids).tolist()],
+            dtype=np.int64,
+        )
+        if len(rows) == 0:
+            rows = rows.reshape(0, self.num_columns)
+        return [
+            it.value_of(rows[:, c])
+            for c, it in enumerate(self._col_interners)
+        ]

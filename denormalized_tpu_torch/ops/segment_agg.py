@@ -123,8 +123,8 @@ def components_for(aggs: list[tuple]) -> list[AggComponent]:
             wanted = [AggComponent(kind, col)]
         else:
             raise PlanError(
-                f"aggregate kind {kind!r} not yet ported to "
-                "denormalized_tpu_torch"
+                f"aggregate kind {kind!r} has no ring component (accumulator "
+                "aggregates run in UdafWindowExec)"
             )
         for c in wanted:
             if c not in comps:

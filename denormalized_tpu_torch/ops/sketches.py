@@ -1,7 +1,9 @@
 """Streaming heavy-hitter sketch over dense gids — counterpart of the
 Space-Saving part of ``denormalized_tpu/ops/sketches.py`` (the intern-time
-sketch the join's adaptation policy reads).  The HyperLogLog and the slice
-store's sketch planes wait for the slices that port their readers.
+sketch the join's adaptation policy reads) — and the stable hashing helpers
+the ``approx_distinct`` accumulator calls (``blake2b64``,
+``u64_bit_length``).  The HyperLogLog planes and the slice store's sketch
+kinds wait for the slices that port their readers.
 
 The sketch is fed DENSE GIDS a batch at a time; updates are numpy (one
 per-gid aggregation + scatter adds), never per-row Python.
@@ -9,7 +11,48 @@ per-gid aggregation + scatter adds), never per-row Python.
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
+
+_M1 = np.uint64(0x5555555555555555)
+_M2 = np.uint64(0x3333333333333333)
+_M4 = np.uint64(0x0F0F0F0F0F0F0F0F)
+_H01 = np.uint64(0x0101010101010101)
+
+
+def popcount64(x: np.ndarray) -> np.ndarray:
+    """Vectorized 64-bit population count (SWAR), exact over uint64."""
+    x = x - ((x >> np.uint64(1)) & _M1)
+    x = (x & _M2) + ((x >> np.uint64(2)) & _M2)
+    x = (x + (x >> np.uint64(4))) & _M4
+    return (x * _H01) >> np.uint64(56)
+
+
+def u64_bit_length(x: np.ndarray) -> np.ndarray:
+    """Exact vectorized ``int.bit_length`` for uint64 arrays (0 → 0):
+    bit-smear then popcount, no float log2."""
+    x = x | (x >> np.uint64(1))
+    x = x | (x >> np.uint64(2))
+    x = x | (x >> np.uint64(4))
+    x = x | (x >> np.uint64(8))
+    x = x | (x >> np.uint64(16))
+    x = x | (x >> np.uint64(32))
+    return popcount64(x)
+
+
+def blake2b64(v) -> int:
+    """Stable 8-byte blake2b digest of one Python value (bytes as they are,
+    ``str`` as UTF-8, anything else through ``repr``) — the same hash the
+    JAX package's ``approx_distinct`` accumulator takes, so both packages'
+    estimates agree exactly."""
+    if isinstance(v, bytes):
+        b = v
+    elif isinstance(v, str):
+        b = v.encode()
+    else:
+        b = repr(v).encode()
+    return int.from_bytes(hashlib.blake2b(b, digest_size=8).digest(), "little")
 
 
 def _aggregate_gids(g: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

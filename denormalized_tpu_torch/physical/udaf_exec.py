@@ -1,0 +1,546 @@
+"""Windowed aggregation with user-defined (Python) accumulators —
+counterpart of ``denormalized_tpu/physical/udaf_exec.py``.
+
+The reference evaluates Python UDAFs through its vendored datafusion-python
+layer — each group's accumulator is a Python object called under the GIL
+(py-denormalized python/denormalized/datafusion/udf.py).  Such state cannot
+live on the card, so this operator keeps the windowing semantics of
+:class:`StreamingWindowExec` (slide-index windows, monotonic min-ts
+watermark, late-data drop, ``kind="partition"`` hints) but holds
+per-(window, group) ``Accumulator`` instances on the host.  Built-in
+aggregates mixed into the same ``window()`` call run as numpy running
+aggregates beside them (:class:`_BuiltinAcc`); the planner routes a window
+with ANY accumulator aggregate here.  In the JAX package this operator is
+host numpy too: the port runs the same code.
+
+Checkpoints write the JAX package's JSON blob under ``udafwin_{node_id}``
+(key values, not gids, so a restore re-interns them), and restore either
+package's.  The cold tier (``_UdafTier``) is not ported: ``enable_spill``
+and a snapshot holding spilled groups raise, naming ROADMAP §A item 7.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator
+
+import numpy as np
+
+from denormalized_tpu_torch.common.columns import as_key_column
+from denormalized_tpu_torch.common.constants import (
+    CANONICAL_TIMESTAMP_COLUMN,
+    WINDOW_END_COLUMN,
+    WINDOW_START_COLUMN,
+)
+from denormalized_tpu_torch.common.errors import PlanError, StateError
+from denormalized_tpu_torch.common.record_batch import RecordBatch
+from denormalized_tpu_torch.common.schema import DataType, Field, Schema
+from denormalized_tpu_torch.logical.expr import (
+    VAR_KINDS,
+    AggregateExpr,
+    Expr,
+    column_validity,
+)
+from denormalized_tpu_torch.logical.plan import WindowType
+from denormalized_tpu_torch.obs import statewatch as swm
+from denormalized_tpu_torch.ops.interner import GroupInterner
+from denormalized_tpu_torch.ops.segment_agg import chan_merge, variance_from_m2
+from denormalized_tpu_torch.physical.base import (
+    EOS,
+    EndOfStream,
+    ExecOperator,
+    Marker,
+    StreamItem,
+    WatermarkHint,
+)
+from denormalized_tpu_torch.physical.window_exec import (
+    watermark_floor,
+    window_output_low_watermark,
+)
+from denormalized_tpu_torch.state.checkpoint import get_json, put_json
+
+
+def spill_not_ported(what: str) -> str:
+    return (
+        f"{what}: the cold tier (state/tiering.py spill) is not ported to "
+        "denormalized_tpu_torch yet; it comes with ROADMAP §A item 7"
+    )
+
+
+class _BuiltinAcc:
+    """numpy running aggregate for builtin kinds inside the UDAF exec.
+    Variance keeps Welford/Chan moments (mean, M2) — stable at any value
+    magnitude — merged via ``segment_agg.chan_merge``."""
+
+    __slots__ = ("kind", "count", "sum", "mean", "m2", "min", "max")
+
+    def __init__(self, kind: str):
+        self.kind = kind
+        self.count = 0
+        self.sum = 0.0
+        self.mean = 0.0
+        self.m2 = 0.0
+        self.min = np.inf
+        self.max = -np.inf
+
+    def update(self, v: np.ndarray):
+        self.count += len(v)
+        if self.kind in ("sum", "avg") or self.kind in VAR_KINDS:
+            self.sum += float(v.sum())
+            if self.kind in VAR_KINDS and len(v):
+                x = v.astype(np.float64)
+                cm = float(x.mean())
+                cm2 = float(((x - cm) ** 2).sum())
+                n_prev = self.count - len(v)
+                _, self.mean, self.m2 = chan_merge(
+                    n_prev, self.mean, self.m2, len(v), cm, cm2
+                )
+        elif self.kind == "min" and len(v):
+            self.min = min(self.min, float(v.min()))
+        elif self.kind == "max" and len(v):
+            self.max = max(self.max, float(v.max()))
+
+    def evaluate(self):
+        if self.kind in VAR_KINDS:
+            return float(variance_from_m2(self.kind, self.count, self.m2))
+        return {
+            "count": self.count,
+            "sum": self.sum,
+            "avg": self.sum / self.count if self.count else np.nan,
+            "min": self.min if np.isfinite(self.min) else np.nan,
+            "max": self.max if np.isfinite(self.max) else np.nan,
+        }[self.kind]
+
+    def state(self):
+        return [
+            self.count, self.sum, float(self.min), float(self.max),
+            self.mean, self.m2,
+        ]
+
+    def merge(self, s):
+        _, self.mean, self.m2 = chan_merge(
+            self.count, self.mean, self.m2,
+            s[0], s[4] if len(s) > 4 else 0.0, s[5] if len(s) > 5 else 0.0,
+        )
+        self.count += s[0]
+        self.sum += s[1]
+        self.min = min(self.min, s[2])
+        self.max = max(self.max, s[3])
+
+
+class UdafWindowExec(ExecOperator):
+    def __init__(
+        self,
+        input_op: ExecOperator,
+        group_exprs: list[Expr],
+        aggr_exprs: list[AggregateExpr],
+        window_type: WindowType,
+        length_ms: int,
+        slide_ms: int | None,
+        *,
+        emit_on_close: bool = True,
+        name: str = "udaf_window",
+    ) -> None:
+        if window_type is WindowType.SESSION:
+            raise PlanError(
+                "session windows route to SessionWindowExec (which handles "
+                "accumulator aggregates directly)"
+            )
+        self.input_op = input_op
+        self.group_exprs = list(group_exprs)
+        self.aggr_exprs = list(aggr_exprs)
+        self.window_type = window_type
+        self.length_ms = int(length_ms)
+        self.slide_ms = int(slide_ms) if slide_ms else self.length_ms
+        self.emit_on_close = emit_on_close
+        self.name = name
+        self._k = -(-self.length_ms // self.slide_ms)
+
+        in_schema = input_op.schema
+        fields = [g.out_field(in_schema) for g in self.group_exprs]
+        fields += [a.out_field(in_schema) for a in self.aggr_exprs]
+        fields += [
+            Field(WINDOW_START_COLUMN, DataType.TIMESTAMP_MS, nullable=False),
+            Field(WINDOW_END_COLUMN, DataType.TIMESTAMP_MS, nullable=False),
+            Field(CANONICAL_TIMESTAMP_COLUMN, DataType.TIMESTAMP_MS, nullable=False),
+        ]
+        self.schema = Schema(fields)
+
+        # frames: window index j -> { dense group id -> [acc per agg] }.
+        # Keys intern through a GroupInterner (the machinery the device
+        # window uses) so per-batch grouping is one lexsort over int
+        # arrays; checkpoints store the key VALUES, re-interned on restore
+        self._interner = (
+            GroupInterner(len(self.group_exprs)) if self.group_exprs else None
+        )
+        self._frames: dict[int, dict[int, list]] = {}
+        self._ckpt: tuple | None = None
+        self._first_open: int | None = None
+        self._max_win_seen = -1
+        self._watermark: int | None = None
+        # True once a kind="partition" hint arrived: batch min-ts no
+        # longer advances the watermark (replay-skew safety)
+        self._src_watermarks = False
+        self._metrics = {"rows_in": 0, "windows_emitted": 0, "late_rows": 0}
+        # heavy-hitter sketch fed the dense gids of every batch
+        self._sw = swm.StateWatch()
+
+    @property
+    def children(self):
+        return [self.input_op]
+
+    def metrics(self):
+        return dict(self._metrics)
+
+    def _label(self):
+        return f"UdafWindowExec({self.window_type.value} {self.length_ms}ms)"
+
+    def enable_spill(self, node_id: str, controller) -> None:
+        raise PlanError(spill_not_ported("UdafWindowExec.enable_spill"))
+
+    def state_info(self) -> dict:
+        """Exact group and accumulator counts; bytes from each
+        accumulator's own ``state_nbytes()`` (the documented flat
+        estimate for accumulators without one) plus the per-key and
+        per-frame estimates — the JAX operator's accounting."""
+        frames = self._frames
+        groups_total = 0
+        acc_bytes = 0
+        live_gids: set[int] = set()
+        for f in list(frames.values()):
+            for g, accs in list(f.items()):
+                groups_total += 1
+                live_gids.add(g)
+                for acc in accs:
+                    acc_bytes += swm.acc_nbytes(acc)
+        live_keys = len(live_gids)
+        oldest = (
+            self._first_open * self.slide_ms
+            if self._first_open is not None and frames
+            else None
+        )
+        wm = self._watermark
+        info = {
+            "op": "udaf",
+            "state_bytes": (
+                acc_bytes + live_keys * swm.KEY_EST_BYTES + len(frames) * 64
+            ),
+            "live_keys": live_keys,
+            "slot_capacity": groups_total,
+            "slot_live": groups_total,
+            "open_windows": len(frames),
+            "acc_objects": groups_total * len(self.aggr_exprs),
+            "retention_unit_ms": self.length_ms,
+            "oldest_event_ms": oldest,
+            "watermark_ms": wm,
+        }
+        if self._interner is not None:
+            info["interner_keys_total"] = len(self._interner)
+        if wm is not None and oldest is not None:
+            info["oldest_event_lag_ms"] = max(0, int(wm) - int(oldest))
+        return info
+
+    def _make_accs(self) -> list:
+        return [
+            a.udaf.make() if a.kind == "udaf" else _BuiltinAcc(a.kind)
+            for a in self.aggr_exprs
+        ]
+
+    def _process_batch(self, batch: RecordBatch) -> Iterator[RecordBatch]:
+        n = batch.num_rows
+        if n == 0:
+            return
+        self._metrics["rows_in"] += n
+        S = self.slide_ms
+        ts = np.asarray(batch.column(CANONICAL_TIMESTAMP_COLUMN), dtype=np.int64)
+        units = ts // S
+        anchor = int(units.min()) - self._k + 1
+        if self._first_open is None:
+            self._first_open = anchor
+        elif self._src_watermarks and anchor < self._first_open:
+            # per-partition watermarks: a slower partition's earlier
+            # windows stay legitimate until the min-driven watermark
+            # closes them (frames are dicts keyed by absolute window
+            # index, so lowering the cursor just re-admits them); anything
+            # below the watermark floor was closed and stays late
+            wm_floor = (
+                watermark_floor(self._watermark, self.length_ms, self.slide_ms)
+                if self._watermark is not None
+                else anchor
+            )
+            self._first_open = max(anchor, int(wm_floor))
+        self._max_win_seen = max(self._max_win_seen, int(units.max()))
+
+        if self._interner is not None:
+            # raw dtypes (the device window's calling convention): numeric
+            # and bool keys take the interner's exact-value path, string
+            # columns its offsets-and-bytes lane
+            gids = self._interner.intern(
+                [as_key_column(g.eval(batch)) for g in self.group_exprs]
+            ).astype(np.int64)
+        else:
+            gids = np.zeros(n, dtype=np.int64)
+        self._sw.update(gids)
+
+        arg_cols: list[list[np.ndarray]] = []
+        arg_masks: list[np.ndarray | None] = []
+        for a in self.aggr_exprs:
+            if a.kind == "udaf":
+                arg_cols.append([np.asarray(e.eval(batch)) for e in a.udaf.args])
+                arg_masks.append(
+                    column_validity(a.udaf.args[0], batch)
+                    if a.udaf.args else None
+                )
+            elif a.arg is not None:
+                arg_cols.append([np.asarray(a.arg.eval(batch), dtype=np.float64)])
+                arg_masks.append(column_validity(a.arg, batch))
+            else:
+                arg_cols.append([np.zeros(n)])
+                arg_masks.append(None)
+
+        # group rows by (window fan-out, dense gid): one lexsort per
+        # fan-out step, runs found by boundary diff — no per-row Python
+        for i in range(self._k):
+            win = units - i
+            in_window = (win >= self._first_open) & (
+                (ts - win * S) < self.length_ms
+            )
+            if i == 0:
+                late = (win < self._first_open) & (
+                    (ts - win * S) < self.length_ms
+                )
+                self._metrics["late_rows"] += int(late.sum())
+            idx = np.nonzero(in_window)[0]
+            if len(idx) == 0:
+                continue
+            wsel = win[idx]
+            gsel = gids[idx]
+            order = np.lexsort((gsel, wsel))
+            ws = wsel[order]
+            gs = gsel[order]
+            m = len(order)
+            bounds = np.nonzero(
+                np.concatenate(
+                    ([True], (ws[1:] != ws[:-1]) | (gs[1:] != gs[:-1]))
+                )
+            )[0]
+            ends = np.append(bounds[1:], m)
+            for b0, b1 in zip(bounds, ends):
+                rows = idx[order[b0:b1]]
+                frame = self._frames.setdefault(int(ws[b0]), {})
+                gid = int(gs[b0])
+                accs = frame.get(gid)
+                if accs is None:
+                    accs = self._make_accs()
+                    frame[gid] = accs
+                for a, acc, cols, am in zip(
+                    self.aggr_exprs, accs, arg_cols, arg_masks
+                ):
+                    chunk = [c[rows] for c in cols]
+                    if am is not None:
+                        valid = am[rows]
+                        chunk = [c[valid] for c in chunk]
+                    if a.kind == "udaf":
+                        acc.update(*chunk)
+                    else:
+                        acc.update(chunk[0])
+
+        if not self._src_watermarks:
+            bmin = int(ts.min())
+            if self._watermark is None or bmin > self._watermark:
+                self._watermark = bmin
+        yield from self._trigger()
+
+    def _trigger(self) -> Iterator[RecordBatch]:
+        if self._watermark is None or self._first_open is None:
+            return
+        while self._first_open * self.slide_ms + self.length_ms <= self._watermark:
+            b = self._emit(self._first_open)
+            self._first_open += 1
+            if b is not None:
+                yield b
+        self._maybe_reintern()
+
+    # re-keying threshold (tests lower it to force the path)
+    _reintern_min = 262_144
+
+    def _maybe_reintern(self) -> None:
+        """Frames free their accumulators when windows emit, but the
+        interner only ever grows — re-key from the LIVE groups when
+        distinct-keys-ever-seen dwarfs them, so host memory follows open
+        windows, not stream lifetime (the join's policy too)."""
+        if self._interner is None:
+            return
+        # cheap threshold first: do not build the live set on every
+        # trigger just to no-op
+        if len(self._interner) <= self._reintern_min:
+            return
+        live: set[int] = set()
+        for frame in self._frames.values():
+            live.update(frame.keys())
+        if len(self._interner) <= 4 * max(len(live), 1):
+            return
+        # the gid space is about to reset: the sketch restarts
+        self._sw.reset_sketches()
+        old = self._interner
+        new = GroupInterner(len(self.group_exprs))
+        gids_sorted = sorted(live)
+        if gids_sorted:
+            key_arrays = old.keys_of(np.asarray(gids_sorted, dtype=np.int64))
+            in_schema = self.input_op.schema
+            cols = []
+            for g, arr in zip(self.group_exprs, key_arrays):
+                f = g.out_field(in_schema)
+                # keys_of yields object arrays; restore the column's real
+                # dtype so numeric keys re-enter the exact-value path
+                cols.append(
+                    np.asarray(arr.tolist(), dtype=f.dtype.to_numpy())
+                    if f.dtype.is_numeric
+                    else arr
+                )
+            new_gids = new.intern(cols)
+            remap = dict(zip(gids_sorted, (int(x) for x in new_gids)))
+            self._frames = {
+                j: {remap[g]: accs for g, accs in fr.items()}
+                for j, fr in self._frames.items()
+            }
+        self._interner = new
+
+    def _emit(self, j: int) -> RecordBatch | None:
+        frame = self._frames.pop(j, None)
+        if not frame:
+            return None
+        self._metrics["windows_emitted"] += 1
+        m = len(frame)
+        items = list(frame.items())
+        cols: list[np.ndarray] = []
+        in_schema = self.input_op.schema
+        if self.group_exprs:
+            key_arrays = self._interner.keys_of(
+                np.asarray([g for g, _ in items], dtype=np.int64)
+            )
+            for g, vals in zip(self.group_exprs, key_arrays):
+                f = g.out_field(in_schema)
+                if f.dtype.is_numeric:
+                    vals = np.asarray(vals.tolist(), dtype=f.dtype.to_numpy())
+                cols.append(vals)
+        for ai, a in enumerate(self.aggr_exprs):
+            f = a.out_field(in_schema)
+            # element-wise fill: np.array(list_of_lists, dtype=object) would
+            # build a 2-D array when every list has the same length
+            arr = np.empty(m, dtype=object)
+            for vi, (_, accs) in enumerate(items):
+                arr[vi] = accs[ai].evaluate()
+            if f.dtype.is_numeric:
+                arr = arr.astype(f.dtype.to_numpy())
+            cols.append(arr)
+        start = np.full(m, j * self.slide_ms, dtype=np.int64)
+        end = np.full(m, j * self.slide_ms + self.length_ms, dtype=np.int64)
+        cols += [start, end, start.copy()]
+        return RecordBatch(self.schema, cols)
+
+    # -- checkpointing: accumulator state() lists, the capability the
+    # reference prototypes in SerializableAccumulator
+    # (accumulators/serializable_accumulator.rs:10-68) ------------------
+    def enable_checkpointing(self, node_id: str, coord, orch) -> None:
+        self._ckpt = (coord, f"udafwin_{node_id}")
+        snap = get_json(coord, self._ckpt[1])
+        if snap is None:
+            return
+        if snap.get("spill_blocks") or any(
+            states is None
+            for groups in snap["frames"].values()
+            for _keys, states in groups
+        ):
+            raise StateError(
+                spill_not_ported(
+                    f"snapshot {self._ckpt[1]!r} holds accumulators spilled "
+                    "to the cold tier"
+                )
+            )
+        self._first_open = snap["first_open"]
+        self._max_win_seen = snap["max_win_seen"]
+        self._watermark = snap["watermark"]
+        self._frames = {}
+        for j_str, groups in snap["frames"].items():
+            frame: dict[int, list] = {}
+            for key_list, states in groups:
+                if self._interner is not None:
+                    gid = int(
+                        self._interner.intern(
+                            [np.asarray([v]) for v in key_list]
+                        )[0]
+                    )
+                else:
+                    gid = 0
+                accs = self._make_accs()
+                for acc, st in zip(accs, states):
+                    acc.merge(st)
+                frame[gid] = accs
+            self._frames[int(j_str)] = frame
+
+    def _snapshot(self, epoch: int) -> None:
+        # put_json's `jsonable` converts numpy scalars and arrays in both
+        # keys and user accumulator state() payloads
+        coord, key = self._ckpt
+        # frames persist key VALUES (stable across restarts), not gids;
+        # one keys_of call a frame.  Dict order IS emission row order, so
+        # each frame's groups are recorded in position
+        frames = {}
+        for j, frame in self._frames.items():
+            gids = list(frame.keys())
+            if self._interner is not None and gids:
+                key_arrays = self._interner.keys_of(
+                    np.asarray(gids, dtype=np.int64)
+                )
+                keys_per_gid = [
+                    [col[i] for col in key_arrays] for i in range(len(gids))
+                ]
+            else:
+                keys_per_gid = [[] for _ in gids]
+            frames[str(j)] = [
+                [kv, [acc.state() for acc in frame[g]]]
+                for g, kv in zip(gids, keys_per_gid)
+            ]
+        put_json(coord, key, epoch, {
+            "epoch": epoch,
+            "first_open": self._first_open,
+            "max_win_seen": self._max_win_seen,
+            "watermark": self._watermark,
+            "frames": frames,
+        })
+
+    def run(self) -> Iterator[StreamItem]:
+        for item in self.input_op.run():
+            if isinstance(item, RecordBatch):
+                yield from self._process_batch(item)
+            elif isinstance(item, WatermarkHint):
+                if item.kind == "partition":
+                    self._src_watermarks = True
+                    if item.is_announcement:
+                        yield item  # pure mode announcement
+                        continue
+                if self._watermark is None or item.ts_ms > self._watermark:
+                    self._watermark = item.ts_ms
+                    yield from self._trigger()
+                # emissions stamp canonical ts with the window START:
+                # forward clamped below the lowest still-emittable start
+                # so downstream never late-drops our output
+                low = window_output_low_watermark(
+                    self._first_open, self.slide_ms, self.length_ms,
+                    item.ts_ms,
+                    wm_ms=self._watermark if self._src_watermarks else None,
+                )
+                yield WatermarkHint(min(item.ts_ms, low), kind=item.kind)
+            elif isinstance(item, Marker):
+                if self._ckpt is not None:
+                    self._snapshot(item.epoch)
+                yield item
+            elif isinstance(item, EndOfStream):
+                if self.emit_on_close and self._first_open is not None:
+                    for j in range(self._first_open, self._max_win_seen + 1):
+                        b = self._emit(j)
+                        if b is not None:
+                            yield b
+                    self._first_open = self._max_win_seen + 1
+                yield EOS
+                return

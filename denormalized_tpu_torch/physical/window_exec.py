@@ -24,8 +24,10 @@ degenerate case).  Per input batch (host side, all vectorized):
    read alone through the compaction kernel: only its active groups (a
    power-of-two prefix of them) cross to the host.
 
-Options: ``accum_dtype`` (float32 or float64 rings; float64 row shipping
-takes the scatter path, the dense kernel being f32 only), the variance
+Options: ``emit_on_close`` (False: end of stream emits only the windows
+the watermark closed, not every open one), ``accum_dtype`` (float32 or
+float64 rings; float64 row shipping takes the scatter path, the dense
+kernel being f32 only), the variance
 family (``stddev``/``var`` and their ``_pop`` forms: two value columns a
 variance argument, (x−K) and (x−K)² for a pivot K taken from the first
 finite value seen, finalized on the host in f64), and ``host_pipeline``
@@ -159,11 +161,13 @@ class StreamingWindowExec(ExecOperator):
         partial_merge_rows: int = 4_000_000,
         emit_lag_ms: int | None = None,
         host_pipeline: bool = False,
+        emit_on_close: bool = True,
     ) -> None:
         if window_type is WindowType.SESSION:
             raise PlanError(
-                "session windows not yet ported to denormalized_tpu_torch"
+                "session windows are handled by SessionWindowExec"
             )
+        self.emit_on_close = emit_on_close
         self.input_op = input_op
         self.group_exprs = list(group_exprs)
         self.aggr_exprs = list(aggr_exprs)
@@ -1050,7 +1054,9 @@ class StreamingWindowExec(ExecOperator):
                 yield from self._drain_pending()
                 yield from self._release_snapshot()
                 # bounded input: merge the stripe, flush every open window
-                if self._first_open is not None:
+                # (unless emit_on_close is off: then only the windows the
+                # watermark closed, drained above, leave)
+                if self.emit_on_close and self._first_open is not None:
                     self._flush()
                     for j in range(self._first_open, self._max_win_seen + 1):
                         b = self._emit_window(j)

@@ -2,18 +2,27 @@
 
 Counterpart of ``denormalized_tpu/planner/planner.py`` with the scan
 (with the idle timeout and partition-watermark mode of live sources),
-project, filter, window, join and sink routes.  The window route threads
-the engine config's explicit ``device``, kernel strategy, ``accum_dtype``,
-``emission_compaction`` and ``host_pipeline`` into
-:class:`StreamingWindowExec`; the join route its band, retention, band
-slack and adaptation knobs into :class:`StreamingJoinExec`.  Sessions,
-UDAF windows, the slice path and meshes are not ported yet.
+project, filter, window, session, join and sink routes.  A window picks its
+operator: a session window the vectorized :class:`SessionWindowExec` (or,
+with ``DENORMALIZED_SESSION_REFERENCE=1``, the pre-vectorization
+``ReferenceSessionWindowExec``, the JAX package's differential oracle);
+a window holding any accumulator aggregate :class:`UdafWindowExec`; every
+other window :class:`StreamingWindowExec`, with the engine config's
+explicit ``device``, kernel strategy, ``accum_dtype``,
+``emission_compaction`` and ``host_pipeline``.  Approximate aggregates
+lower to their exact accumulators first (the JAX package plans them as
+sketches only on its slice path, not ported yet).  The join route threads
+its band, retention, band slack and adaptation knobs into
+:class:`StreamingJoinExec`.  The slice path and meshes are not ported yet.
 """
 
 from __future__ import annotations
 
+import os
+
 from denormalized_tpu_torch.common.errors import PlanError
 from denormalized_tpu_torch.logical import plan as lp
+from denormalized_tpu_torch.logical.expr import SKETCH_AGG_KINDS, AggregateExpr
 from denormalized_tpu_torch.physical.base import ExecOperator
 from denormalized_tpu_torch.physical.join_exec import StreamingJoinExec
 from denormalized_tpu_torch.physical.simple_execs import (
@@ -22,7 +31,30 @@ from denormalized_tpu_torch.physical.simple_execs import (
     SinkExec,
     SourceExec,
 )
+from denormalized_tpu_torch.physical.session_exec import SessionWindowExec
+from denormalized_tpu_torch.physical.session_reference import (
+    ReferenceSessionWindowExec,
+)
+from denormalized_tpu_torch.physical.udaf_exec import UdafWindowExec
 from denormalized_tpu_torch.physical.window_exec import StreamingWindowExec
+
+
+def route_approx(aggs: list[AggregateExpr]) -> list[AggregateExpr]:
+    """Lower each approximate aggregate to the exact accumulator UDAF it
+    carries — what the JAX package does off its slice path, which includes
+    its default configuration."""
+    lowered = []
+    for a in aggs:
+        if a.kind in SKETCH_AGG_KINDS:
+            if a.udaf is None:
+                raise PlanError(
+                    f"approximate aggregate {a.name!r} has no accumulator "
+                    "fallback (sketch aggregates plan natively only on the "
+                    "multi-query slice path, ROADMAP §A item 8)"
+                )
+            a = AggregateExpr("udaf", a.arg, a._alias, a.udaf)
+        lowered.append(a)
+    return lowered
 
 
 class Planner:
@@ -46,15 +78,39 @@ class Planner:
                 self.create_physical_plan(node.input), node.predicate
             )
         if isinstance(node, lp.StreamingWindow):
-            if node.window_type is lp.WindowType.SESSION:
-                raise PlanError(
-                    "session windows not yet ported to denormalized_tpu_torch"
-                )
             c = self.config
+            child = self.create_physical_plan(node.input)
+            aggr_exprs = route_approx(node.aggr_exprs)
+            if node.window_type is lp.WindowType.SESSION:
+                # sessions take builtin AND accumulator aggregates in one
+                # operator; the switch selects the JAX package's
+                # differential oracle
+                cls = (
+                    ReferenceSessionWindowExec
+                    if os.environ.get("DENORMALIZED_SESSION_REFERENCE") == "1"
+                    else SessionWindowExec
+                )
+                return cls(
+                    child,
+                    node.group_exprs,
+                    aggr_exprs,
+                    gap_ms=node.length_ms,
+                    emit_on_close=c.emit_on_close,
+                )
+            if any(a.kind == "udaf" for a in aggr_exprs):
+                return UdafWindowExec(
+                    child,
+                    node.group_exprs,
+                    aggr_exprs,
+                    node.window_type,
+                    node.length_ms,
+                    node.slide_ms,
+                    emit_on_close=c.emit_on_close,
+                )
             return StreamingWindowExec(
-                self.create_physical_plan(node.input),
+                child,
                 node.group_exprs,
-                node.aggr_exprs,
+                aggr_exprs,
                 node.window_type,
                 node.length_ms,
                 node.slide_ms,
@@ -70,6 +126,7 @@ class Planner:
                 partial_merge_rows=c.partial_merge_rows,
                 emit_lag_ms=c.emit_lag_ms,
                 host_pipeline=c.host_pipeline,
+                emit_on_close=c.emit_on_close,
             )
         if isinstance(node, lp.Join):
             c = self.config

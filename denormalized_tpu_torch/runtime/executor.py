@@ -1,16 +1,22 @@
 """Execution: plan → physical tree → run to completion.
 
 Counterpart of ``denormalized_tpu/runtime/executor.py`` with the logical
-optimizer and checkpointing: with ``EngineConfig(checkpoint=True)`` the
-barrier orchestrator starts, every operator with ``enable_checkpointing``
-is wired to a :class:`CheckpointCoordinator` over the state backend (and
-restores from its committed epoch), and each :class:`Marker` that reaches
-the root commits its epoch.  The doctor, exporters and signal handling are
-not ported.
+optimizer (``EngineConfig.optimizer``), checkpointing and graceful
+shutdown: with ``EngineConfig(checkpoint=True)`` the barrier orchestrator
+starts, every operator with ``enable_checkpointing`` is wired to a
+:class:`CheckpointCoordinator` over the state backend (and restores from
+its committed epoch), and each :class:`Marker` that reaches the root
+commits its epoch.  ``execute_plan`` turns SIGINT and SIGTERM into a
+:class:`ShutdownFlag` (on the main thread only): the loop stops after the
+current item, the orchestrator stops, the old handlers come back and the
+call returns normally, so the sources' ``finally`` blocks close their
+clients.  The doctor and the exporters are not ported.
 """
 
 from __future__ import annotations
 
+import signal
+import threading
 from typing import Iterator
 
 from denormalized_tpu_torch.common.record_batch import RecordBatch
@@ -24,10 +30,46 @@ from denormalized_tpu_torch.physical.base import (
 from denormalized_tpu_torch.planner.planner import Planner
 
 
+class ShutdownFlag:
+    """Cooperative shutdown, set by the signal handlers."""
+
+    def __init__(self) -> None:
+        self._event = threading.Event()
+
+    def set(self) -> None:
+        self._event.set()
+
+    def is_set(self) -> bool:
+        return self._event.is_set()
+
+
+def _install_signal_handlers(flag: ShutdownFlag):
+    """Install SIGINT/SIGTERM → ``flag.set()``; returns a function that
+    restores the previous handlers.  Only the main thread may install
+    handlers: elsewhere this installs none."""
+    if threading.current_thread() is not threading.main_thread():
+        return lambda: None
+    prev_int = signal.getsignal(signal.SIGINT)
+    prev_term = signal.getsignal(signal.SIGTERM)
+
+    def handler(signum, frame):
+        flag.set()
+
+    signal.signal(signal.SIGINT, handler)
+    signal.signal(signal.SIGTERM, handler)
+
+    def restore():
+        signal.signal(signal.SIGINT, prev_int)
+        signal.signal(signal.SIGTERM, prev_term)
+
+    return restore
+
+
 def build_physical(plan: lp.LogicalPlan, ctx) -> ExecOperator:
     # the JAX package's rules: the same physical plan, so the same
     # checkpoint node ids, as the JAX package builds for the query
-    return Planner(ctx.config).create_physical_plan(optimize(plan))
+    plan = optimize(plan, ctx.config.optimizer)
+    return Planner(ctx.config).create_physical_plan(plan)
 
 
 def _attach_checkpointing(root: ExecOperator, ctx, checkpoint=None):
@@ -59,6 +101,8 @@ def execute_plan(plan: lp.LogicalPlan, ctx, checkpoint=None) -> None:
     ctx._last_physical = root  # post-run metrics access
     orch, coord = _attach_checkpointing(root, ctx, checkpoint)
     ctx._checkpointing = (coord, orch)  # Context.last_checkpointing()
+    flag = ShutdownFlag()
+    restore = _install_signal_handlers(flag)
     it = root.run()
     try:
         for item in it:
@@ -66,9 +110,10 @@ def execute_plan(plan: lp.LogicalPlan, ctx, checkpoint=None) -> None:
                 # the marker drained at the root: every operator has
                 # snapshotted this epoch → make it the recovery point
                 coord.commit(item.epoch)
-            elif isinstance(item, EndOfStream):
+            if flag.is_set() or isinstance(item, EndOfStream):
                 break
     finally:
+        restore()
         it.close()
         if orch is not None:
             orch.stop()

@@ -131,8 +131,26 @@ def q_join(pkg, ctx):
                      ["r_sensor", "r_ws"])
 
 
+def q_udaf(pkg, ctx):
+    """A window holding accumulator aggregates (the UDAF operator)."""
+    F, col = pkg.F, pkg.mod.col
+    return pkg.stream(ctx, _batches(pkg)).with_column(
+        "r2", col("reading") * 2.0).window(
+        ["sensor_name"], [F.median(col("reading")).alias("med"),
+                          F.count(col("r2")).alias("n")], 1000)
+
+
+def q_session(pkg, ctx):
+    F, col = pkg.F, pkg.mod.col
+    return pkg.stream(ctx, _batches(pkg)).filter(
+        col("reading") > 40.0).session_window(
+        ["sensor_name"], [F.count(col("reading")).alias("n"),
+                          F.array_agg(col("reading")).alias("arr")], 150)
+
+
 QUERIES = {"tumbling": q_tumbling, "sliding_filter": q_sliding_filter,
-           "projection": q_projection, "join": q_join}
+           "projection": q_projection, "join": q_join, "udaf": q_udaf,
+           "session": q_session}
 
 
 def _tree(text: str) -> list[tuple[int, str]]:
@@ -187,6 +205,53 @@ def test_engine_config_set_as_the_jax_package():
         assert cfg.checkpoint_interval_s == 2.5
         with pytest.raises(err, match="unknown config key"):
             cfg.set("denormalized_config.no_such_knob", 1)
+
+
+def _rows(res):
+    names = res.schema.without_internal().names
+    return sorted(
+        tuple(repr(np.asarray(res.column(n)[i]).tolist()) if isinstance(
+            res.column(n)[i], (list, np.ndarray)) else res.column(n)[i]
+              for n in names)
+        for i in range(res.num_rows)
+    )
+
+
+def _close(a, b):
+    if isinstance(a, float) or isinstance(b, float):
+        return a == pytest.approx(b, rel=1e-5, nan_ok=True)
+    return a == b
+
+
+@pytest.mark.parametrize("name", sorted(QUERIES))
+def test_optimizer_off_as_the_jax_package(name, capsys):
+    """ROADMAP §C2: ``EngineConfig(optimizer=False)`` (or its
+    ``denormalized_config.optimizer`` key) runs the plan as written.  With
+    it off both packages print the same plan texts (the optimized plan is
+    the logical one), the physical plans agree, and the rows equal the
+    optimizer-on run's: exactly within a package, to the f32 ring's
+    rtol=1e-5 across packages."""
+    q = QUERIES[name]
+    out = {}
+    for pkg in (PORT, JAX):
+        off = pkg.context(optimizer=False)
+        assert pkg.context().config.set(
+            "denormalized_config.optimizer", False).optimizer is False
+        ds = q(pkg, off)
+        assert ds.optimized_plan().display() == ds.logical_plan().display()
+        ds.explain()
+        text = capsys.readouterr().out
+        on_rows = _rows(q(pkg, pkg.context()).collect())
+        off_ctx = pkg.context(optimizer=False)
+        off_rows = _rows(q(pkg, off_ctx).collect())
+        assert off_rows == on_rows
+        # the operator tree the executor built for the run
+        out[pkg] = (text, off_rows, off_ctx._last_physical.display())
+    assert out[PORT][0] == out[JAX][0]
+    assert out[PORT][2] == out[JAX][2]
+    assert len(out[PORT][1]) == len(out[JAX][1]) > 0
+    for a, b in zip(out[PORT][1], out[JAX][1]):
+        assert all(_close(x, y) for x, y in zip(a, b)), (a, b)
 
 
 def test_context_table_and_str_as_the_jax_package():
@@ -248,73 +313,96 @@ def test_csv_streaming_example(tmp_path, capsys):
         assert rows[PORT][k][1] == pytest.approx(a, rel=1e-6)
 
 
+def _tour(pkg, broker, capsys):
+    """examples/functions_tour.py's query over ``broker``'s topic: explain,
+    then stream every closable window (start + 1 s <= max ts) → rows by
+    (window, sensor, band)."""
+    col, lit, F = pkg.mod.col, pkg.mod.lit, pkg.F
+    ctx = pkg.context(source_idle_timeout_ms=400)
+    ds = (
+        ctx.from_topic(
+            "readings",
+            sample_json=json.dumps({"occurred_at_ms": 1,
+                                    "sensor_name": "a", "reading": 1.0}),
+            bootstrap_servers=broker.bootstrap,
+            timestamp_column="occurred_at_ms")
+        .with_column("sensor",
+                     F.lower(F.replace("sensor_name", "Sensor_", "s")))
+        .with_column("band", F.when(col("reading") > 25.0, lit("hot"))
+                     .when(col("reading") < 15.0, lit("cold"))
+                     .otherwise(lit("mild")))
+        .with_column("minute",
+                     F.date_trunc("minute", col("occurred_at_ms")))
+        .filter(F.length("sensor") >= 2)
+        .window(["sensor", "band"],
+                [F.count(col("reading")).alias("n"),
+                 F.avg(col("reading")).alias("mean"),
+                 F.stddev(col("reading")).alias("sd"),
+                 F.median(col("reading")).alias("med"),
+                 F.approx_distinct(col("reading")).alias("distinct")], 1000)
+        .filter(col("n") > 1)
+    )
+    ds.explain()
+    rows = {}
+    it = ds.stream()
+    deadline = time.time() + 30
+    for batch in it:
+        for i in range(batch.num_rows):
+            rows[(int(batch.column("window_start_time")[i]),
+                  str(batch.column("sensor")[i]),
+                  str(batch.column("band")[i]))] = tuple(
+                batch.column(c)[i] for c in ("n", "mean", "sd", "med",
+                                             "distinct"))
+            print(f"sd={rows[max(rows)][2]:5.2f} med={rows[max(rows)][3]:6.2f}"
+                  f" distinct={rows[max(rows)][4]}")
+        if {k[0] for k in rows} >= set(range(T0, T0 + 7000, 1000)) or (
+                time.time() > deadline):
+            break
+    it.close()
+    print(f"{len(rows)} window rows emitted")
+    return rows
+
+
 def test_functions_tour_example(capsys):
-    """Twin of tests/test_examples_and_misc.py:55: the tour's query over
-    the port's mock broker, with the aggregates the port runs (count, avg,
-    stddev), through ``explain()`` and the stream; its median and
-    approx_distinct raise PlanError naming ROADMAP §A item 6 (UDAFs)."""
+    """Twin of tests/test_examples_and_misc.py:55: the tour's query,
+    median and approx_distinct included (the UDAF operator carries the
+    whole window once an accumulator aggregate is in it), over each
+    package's mock broker holding the same 800 records, through
+    ``explain()`` and the stream.  Every closable window has the same rows
+    in both packages: counts, medians and HyperLogLog estimates exactly,
+    avg and stddev to rtol=1e-12 (both fold the same f64 host moments)."""
+    from denormalized_tpu.testing.mock_kafka import (
+        MockKafkaBroker as JBroker,
+    )
     from denormalized_tpu_torch.testing.mock_kafka import MockKafkaBroker
 
-    with pytest.raises(PlanError, match="item 6"):
-        TF.median(tt.col("reading"))
-    broker = MockKafkaBroker().start()
-    try:
-        broker.create_topic("readings", partitions=1)
-        rng = np.random.default_rng(0)
-
-        def feed():
-            for chunk in range(8):
-                msgs = [json.dumps({
-                    "occurred_at_ms": T0 + i * 10,
-                    "sensor_name": f"Sensor_{i % 4}",
-                    "reading": float(rng.normal(20, 5)),
-                }).encode() for i in range(chunk * 100, (chunk + 1) * 100)]
-                broker.produce("readings", 0, msgs, ts_ms=T0 + chunk)
-                time.sleep(0.05)
-
-        threading.Thread(target=feed, daemon=True).start()
-        col, lit, F = tt.col, tt.lit, TF
-        ctx = tt.Context(tt.EngineConfig(device="cpu",
-                                         source_idle_timeout_ms=400))
-        ds = (
-            ctx.from_topic(
-                "readings",
-                sample_json=json.dumps({"occurred_at_ms": 1,
-                                        "sensor_name": "a", "reading": 1.0}),
-                bootstrap_servers=broker.bootstrap,
-                timestamp_column="occurred_at_ms")
-            .with_column("sensor",
-                         F.lower(F.replace("sensor_name", "Sensor_", "s")))
-            .with_column("band", F.when(col("reading") > 25.0, lit("hot"))
-                         .when(col("reading") < 15.0, lit("cold"))
-                         .otherwise(lit("mild")))
-            .with_column("minute",
-                         F.date_trunc("minute", col("occurred_at_ms")))
-            .filter(F.length("sensor") >= 2)
-            .window(["sensor", "band"],
-                    [F.count(col("reading")).alias("n"),
-                     F.avg(col("reading")).alias("mean"),
-                     F.stddev(col("reading")).alias("sd")], 1000)
-            .filter(col("n") > 1)
-        )
-        ds.explain()
-        emitted = 0
-        it = ds.stream()
-        deadline = time.time() + 20
-        for batch in it:
-            for sd in batch.column("sd").tolist():
-                print(f"sd={sd:5.2f}")
-                emitted += 1
-            if emitted >= 12 or time.time() > deadline:
-                break
-        it.close()
-        print(f"{emitted} window rows emitted")
-    finally:
-        broker.stop()
-    out = capsys.readouterr().out
-    assert "window rows emitted" in out and emitted > 0
-    assert "== optimized plan ==" in out
-    assert "sd=" in out
+    rng = np.random.default_rng(0)
+    msgs = [json.dumps({
+        "occurred_at_ms": T0 + i * 10,
+        "sensor_name": f"Sensor_{i % 4}",
+        "reading": float(np.round(rng.normal(20, 5), 3)),
+    }).encode() for i in range(800)]
+    rows = {}
+    for pkg, broker_cls in ((PORT, MockKafkaBroker), (JAX, JBroker)):
+        broker = broker_cls().start()
+        try:
+            broker.create_topic("readings", partitions=1)
+            broker.produce("readings", 0, msgs, ts_ms=T0)
+            rows[pkg] = _tour(pkg, broker, capsys)
+        finally:
+            broker.stop()
+        out = capsys.readouterr().out
+        assert "window rows emitted" in out
+        assert "== optimized plan ==" in out
+        assert "sd=" in out and "med=" in out and "distinct=" in out
+    closable = {k for k in rows[JAX] if k[0] + 1000 <= T0 + 7990}
+    assert closable and closable <= set(rows[PORT])
+    for k in closable:
+        (n, mean, sd, med, d), (jn, jmean, jsd, jmed, jd) = (
+            rows[PORT][k], rows[JAX][k])
+        assert (n, med, d) == (jn, jmed, jd), k
+        assert mean == pytest.approx(jmean, rel=1e-12), k
+        assert sd == pytest.approx(jsd, rel=1e-12), k
 
 
 def test_csv_source_inference(tmp_path):

@@ -26,6 +26,7 @@ import denormalized_tpu as jt
 import denormalized_tpu_torch as tt
 from denormalized_tpu.api import functions as JF
 from denormalized_tpu.api.context import EngineConfig as JConfig
+from denormalized_tpu.api.udaf import Accumulator as JAccumulator
 from denormalized_tpu.common.errors import PlanError as JPlanError
 from denormalized_tpu.common.record_batch import RecordBatch as JBatch
 from denormalized_tpu.common.schema import DataType as JType
@@ -33,6 +34,7 @@ from denormalized_tpu.common.schema import Field as JField
 from denormalized_tpu.common.schema import Schema as JSchema
 from denormalized_tpu.sources.memory import MemorySource as JSource
 from denormalized_tpu_torch.api import functions as TF
+from denormalized_tpu_torch.api.udaf import Accumulator as TAccumulator
 from denormalized_tpu_torch.common.errors import PlanError as TPlanError
 from denormalized_tpu_torch.common.record_batch import RecordBatch as TBatch
 from denormalized_tpu_torch.common.schema import DataType as TType
@@ -614,7 +616,7 @@ def test_window_function_in_a_pipeline_ranks_each_arrival_batch():
     assert got[0] == got[1]
 
 
-# -- export parity and the aggregates still to port (round3 :554) -----------
+# -- export parity and the accumulator aggregates (round3 :554) ------------
 
 
 def test_functions_export_parity():
@@ -622,31 +624,93 @@ def test_functions_export_parity():
     assert [n for n in TF.__all__ if not hasattr(TF, n)] == []
 
 
-UNPORTED = {
-    "median": "item 6", "approx_median": "item 6", "array_agg": "item 6",
-    "first_value": "item 6", "last_value": "item 6", "string_agg": "item 6",
-    "approx_distinct": "item 6", "count_distinct": "item 6",
-    "bit_and": "item 6", "bool_or": "item 6", "corr": "item 6",
-    "regr_slope": "item 6",
+#: the aggregates the port refused before its accumulator operator: each
+#: now builds and runs in a window, rows equal to the JAX package's
+ACCUMULATOR_AGGS = {
+    "median": lambda F, c: F.median(c("v")),
+    "approx_median": lambda F, c: F.approx_median(c("v")),
+    "array_agg": lambda F, c: F.array_agg(c("v")),
+    "first_value": lambda F, c: F.first_value(c("v")),
+    "last_value": lambda F, c: F.last_value(c("v")),
+    "string_agg": lambda F, c: F.string_agg(c("g"), ";"),
+    "approx_distinct": lambda F, c: F.approx_distinct(c("v")),
+    "count_distinct": lambda F, c: F.count_distinct(c("g")),
+    "bit_and": lambda F, c: F.bit_and(c("i")),
+    "bool_or": lambda F, c: F.bool_or(c("i") > 5),
+    "corr": lambda F, c: F.corr(c("v"), c("i")),
+    "regr_slope": lambda F, c: F.regr_slope(c("v"), c("i")),
+    "percentile_cont": lambda F, c: F.percentile_cont(c("v"), 0.5),
+    "nth_value": lambda F, c: F.nth_value(c("v"), 2),
+    "udaf": None,  # a user accumulator, built per package below
 }
 
 
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_aggregates_raise_naming_their_roadmap_item(name):
-    with pytest.raises(TPlanError, match=f"ROADMAP §A {UNPORTED[name]}"):
-        getattr(TF, name)(tt.col("v"))
+class _SumSquares:
+    """A user accumulator: the sum of squares of its argument."""
+
+    def __init__(self):
+        self.total = 0.0
+
+    def update(self, values):
+        self.total += float((np.asarray(values, np.float64) ** 2).sum())
+
+    def merge(self, states):
+        self.total += states[0]
+
+    def state(self):
+        return [self.total]
+
+    def evaluate(self):
+        return self.total
 
 
-def test_udaf_and_parametrised_aggregates_raise():
-    with pytest.raises(TPlanError, match="§A item 6"):
-        TF.udaf(object, TType.FLOAT64)
-    with pytest.raises(TPlanError, match="§A item 6"):
-        TF.percentile_cont(tt.col("v"), 0.5)
-    with pytest.raises(TPlanError, match="§A item 6"):
-        TF.nth_value(tt.col("v"), 2)
-    # the ported ones build
-    assert TF.count_star().name == "count(*)"
-    assert TF.mean(tt.col("v")).kind == "avg"
+def _agg(p, name):
+    if name != "udaf":
+        return ACCUMULATOR_AGGS[name](p.F, p.col)
+    base = (TAccumulator if p.F is TF else JAccumulator)
+    acc = type("SumSquares", (_SumSquares, base), {})
+    return p.F.udaf(acc, p.DT.FLOAT64, "sum_squares")(p.col("v"))
+
+
+@pytest.mark.parametrize("name", sorted(ACCUMULATOR_AGGS))
+def test_accumulator_aggregates_match_jax(name):
+    """Each builds (no PlanError any more) and runs in a 1 s tumbling
+    window over seeded batches with nulls; both packages run the same
+    accumulator code, so rows are compared exactly (NaN equal to NaN)."""
+    got = []
+    for pkg in PKGS:
+        p = ns(pkg)
+        s = p.Schema([p.Field("ts", p.DT.INT64, nullable=False),
+                      p.Field("g", p.DT.STRING, nullable=False),
+                      p.Field("v", p.DT.FLOAT64),
+                      p.Field("i", p.DT.INT64, nullable=False)])
+        rng = np.random.default_rng(17)
+        batches = []
+        for b in range(4):
+            n = 60
+            valid = rng.random(n) > 0.15
+            batches.append(p.Batch(s, [
+                np.sort(1_700_000_000_000 + b * 600
+                        + rng.integers(0, 800, n)).astype(np.int64),
+                np.array(["a", "b", "c"], object)[rng.integers(0, 3, n)],
+                np.round(rng.normal(0, 1, n), 4),
+                rng.integers(0, 10, n).astype(np.int64),
+            ], [None, None, valid, None]))
+        out = (
+            p.ctx().from_source(
+                p.Source.from_batches(batches, timestamp_column="ts"))
+            .window(["g"], [_agg(p, name).alias("a"),
+                            p.F.count(p.col("v")).alias("n")], 1000)
+            .collect()
+        )
+        got.append([
+            (str(g), int(ws), int(n), repr(np.asarray(a).tolist()))
+            for g, ws, n, a in zip(out.column("g"),
+                                   out.column("window_start_time"),
+                                   out.column("n"), out.column("a"))
+        ])
+    assert got[0] == got[1]
+    assert len(got[1]) >= 9
 
 
 def test_scalar_constructor_checks_arity():

@@ -73,6 +73,14 @@ NEW_MODULES = (
     "denormalized_tpu_torch.formats.native_avro",
     "denormalized_tpu_torch.sources.csv",
     "denormalized_tpu_torch.api.feast_data_stream",
+    # the UDAF and session slice
+    "denormalized_tpu_torch.api.udaf",
+    "denormalized_tpu_torch.api.builtin_accumulators",
+    "denormalized_tpu_torch.datafusion",
+    "denormalized_tpu_torch.physical.udaf_exec",
+    "denormalized_tpu_torch.physical.session_exec",
+    "denormalized_tpu_torch.physical.session_reference",
+    "denormalized_tpu_torch.ops.session_table",
 )
 
 

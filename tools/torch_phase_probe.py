@@ -9,7 +9,10 @@ its plain version, ``7`` the merge kernels' cases (float64 ones included),
 snapshot and restore at 100K keys a side, ``25`` config 3 with emission
 compaction, ``25j`` config 4 at 100K keys with emission compaction, ``26`` the variance family, ``27`` config 3 in float64, ``28``
 the host pipeline, ``29`` phase 21's job over an Avro topic, ``30`` the
-CSV job and ``explain(analyze=True)``.  It builds every kernel (printing ptxas' register and
+CSV job, ``explain(analyze=True)`` and the optimizer-off run, ``31``
+UDAFs, ``32`` sessions, ``33u``/``33s`` the UDAF and session jobs
+SIGKILLed and restored, ``34`` SIGTERM to a live ``print_stream`` child
+(over phase 22's chunks, made here at 1M rows/s).  It builds every kernel (printing ptxas' register and
 shared-memory lines), makes phase 4's and phase 10's streams from seed 0,
 and calls the same ``chip_smoke`` functions as the full script, each
 step checked as there.  A failing step is printed with its traceback and
@@ -22,12 +25,14 @@ from __future__ import annotations
 
 import os
 import sys
+import sysconfig
 import time
 import traceback
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-STEPS = ("25k", "7", "24", "24h", "25", "25j", "26", "27", "28", "29", "30")
+STEPS = ("25k", "7", "24", "24h", "25", "25j", "26", "27", "28", "29", "30",
+         "31", "32", "33u", "33s", "34")
 
 
 def main(argv: list[str]) -> int:
@@ -54,6 +59,13 @@ def main(argv: list[str]) -> int:
     load_native("partial_agg")
     native_interner()
     load_native("lsmkv")
+    # the live path's libraries too, as chip_smoke.py's phase 2 builds
+    # them, so no step times a g++ build
+    load_native("json_parser")
+    load_native("kafka_client", ("-lz",))
+    load_native("pyassemble", (f"-I{sysconfig.get_paths()['include']}",),
+                pydll=True)
+    load_native("avro_parser")
     for name, text in cuda_build.build_all().items():
         for line in text.splitlines():
             if "registers" in line or "smem" in line:
@@ -67,6 +79,11 @@ def main(argv: list[str]) -> int:
     hb = cs.to_batches(*hs, cs.HIGHCARD_BATCH_ROWS, cs.HIGHCARD_KEYS)
     no_rates = {"auto": 1.0, "partial_merge": 1.0, "tumbling": 1.0,
                 "highcard": 1.0}
+
+    def lat_chunks():
+        lat = cs.gen_stream(cs.LAT_ROWS, cs.LAT_CHUNK, cs.NUM_KEYS, seed + 7)
+        return cs.encode_topic(lat, cs.KAFKA_PARTITIONS, None,
+                               cs.LAT_CHUNK), lat
 
     def side(s, batch_rows, keys):
         st = cs.gen_stream(cs.TOTAL_ROWS, batch_rows, keys, s)
@@ -95,6 +112,13 @@ def main(argv: list[str]) -> int:
         "29": lambda: cs.phase_kafka_e2e(device, stream, card, fmt="avro",
                                          phase=29),
         "30": lambda: cs.phase_csv_explain(device, batches, stream, card),
+        "31": lambda: cs.phase_udaf(device, batches, stream, card),
+        "32": lambda: cs.phase_sessions(device, seed + 12, card),
+        "33u": lambda: cs.phase_host_ckpt(device, seed, "udaf", card),
+        "33s": lambda: cs.phase_host_ckpt(device, seed + 12, "session",
+                                          card),
+        "34": lambda: cs.phase_sigterm(device, cs.EVENTS_PER_SEC,
+                                       *lat_chunks(), card),
     }
     failed = []
     for step in steps:
