@@ -229,7 +229,37 @@ Phases:
     21's job through ``print_stream()`` checkpointed every 0.5 s and gets
     SIGTERM after its third window; it must exit 0 with its orchestrator
     stopped, its store holding committed offsets short of the topic's
-    end, and every window it printed equal to the oracle.
+    end, and every window it printed equal to the oracle;
+35. the cold tier at full width: config 3 (100K keys, sum and avg) over
+    120 s of event time in 15 batches of 524,288 rows, on a topic whose
+    second partition stalls 60 s behind the head (one heartbeat record a
+    batch, no reading, dropped by the query's filter: its watermark holds
+    ~60 windows open), with one burst of 131,072 rows 50 s behind the head
+    after 3/4 of the batches.  Through ``partial_merge`` and through
+    ``auto`` with ``emission_compaction``, each with no budget and with
+    ``EngineConfig(state_backend_path=…, state_budget_bytes=48 MiB)``:
+    the budgeted window spills its watermark-deferred slots off the card
+    into the LSM, shrinks the ring, reloads the windows the burst lands in
+    (one indexed copy a plane) and emits the others from storage.  Every
+    run against the oracle, budgeted rows against unbudgeted (rtol=1e-5),
+    spills and reloads > 0, none left at the end; W with and without the
+    budget, bytes spilled and read back, the reloads' times, rows/s both
+    ways, and the kernels' launches (merges = launches; compactions = the
+    windows emitted from the ring);
+36. config 1 (phase 4's stream, the dense kernel) held 4 s behind its
+    head, under a budget sized against its ring as the JAX package's test
+    sizes its 20,000 bytes: against the oracle, every batch a dense
+    launch, spills > 0;
+37. config 5 mid-spill: phase 35's budgeted ``partial_merge`` job in a
+    checkpointed child (``--spill-child``), SIGKILLed after two commits
+    whose snapshots reference spilled windows; its store restores in this
+    process under the budget (the tier map re-armed from the epoch's
+    blocks) and, from a copy, with no budget (the planes written back into
+    the ring): each union with the child's rows against the oracle.  Then
+    phase 15's config 4 at 100K keys, the UDAF job and the session job
+    (phase 32's session_scale stream, its first 2 batches) each under a
+    budget and not: the same rows (the join's averages to rtol=1e-5, the
+    host jobs' in the same order) and spills > 0.
 
 Then one JSON line with each kernel's launches on its main path (phase 4
 for the dense kernel, phase 8 for the merge kernel, phase 25's config 3
@@ -238,7 +268,9 @@ from 0 just before the run; for the dense kernel also its launches on
 phase 11's restored ring, both windows' launches under phase 14's join and
 phase 16's join_on, phase 19's window, phase 21's Kafka job, phase 29's
 Avro topic, phase 30's analyze run and phase 34's child up to its
-SIGTERM; phases 31-33 run host operators only), its
+SIGTERM; phases 31-33 run host operators only; for each kernel its
+launches under a state budget, ``budget_launches``: phase 36's dense
+launches, phase 35's merges and compactions), its
 largest error against the plain version, its device time, the wrapper's
 time, the plain version's time, the library call's (for the compaction
 kernel the nonzero + index_select sequence) and the least time the card
@@ -287,15 +319,16 @@ def log(msg: str) -> None:
 # -- data ------------------------------------------------------------------
 
 
-def gen_stream(total_rows: int, batch_rows: int, num_keys: int, seed: int):
+def gen_stream(total_rows: int, batch_rows: int, num_keys: int, seed: int,
+               events_per_sec: float = EVENTS_PER_SEC):
     """The emit_measurements stream as bench.py's ``gen_batches`` makes it:
     per batch, sorted event times over the batch's share of event time at
-    1M events/s, uniformly drawn sensor names, normal(50, 10) readings.
-    → (ts int64, key index int64, reading float64) arrays over the whole
-    stream."""
+    ``events_per_sec`` (1M by default), uniformly drawn sensor names,
+    normal(50, 10) readings.  → (ts int64, key index int64, reading
+    float64) arrays over the whole stream."""
     rng = np.random.default_rng(seed)
     n_batches = total_rows // batch_rows
-    ms_per_batch = max(1, int(batch_rows / EVENTS_PER_SEC * 1000))
+    ms_per_batch = max(1, int(batch_rows / events_per_sec * 1000))
     ts, kid, val = [], [], []
     for b in range(n_batches):
         base = EVENT_T0 + b * ms_per_batch
@@ -722,23 +755,28 @@ def _oracle(ts, kid, val, length_ms, slide_ms, num_keys):
 
 
 def job_stream(device, batches, job: str, on_read=None, strategy="auto",
-               **cfg):
+               heartbeats=None, **cfg):
     """The ``tumbling``, ``sliding`` or ``highcard`` job over ``batches``
     through ``device_strategy=strategy``, not yet run → (ctx, DataStream).
-    ``on_read(ctx, i)``, where given, runs before batch i is read."""
+    ``on_read(ctx, i)``, where given, runs before batch i is read.  With
+    ``heartbeats`` (phases 35-37) the topic has a second partition holding
+    them, and the job drops their rows (no reading) before the window."""
     import denormalized_tpu_torch as tt
     from denormalized_tpu_torch.api import functions as F
     from denormalized_tpu_torch.sources.memory import MemorySource
 
     ctx = tt.Context(tt.EngineConfig(device=str(device),
                                      device_strategy=strategy, **cfg))
+    parts = [batches] if heartbeats is None else [batches, heartbeats]
     if on_read is None:
-        source = MemorySource.from_batches(
-            batches, timestamp_column="occurred_at_ms")
+        source = MemorySource(parts, timestamp_column="occurred_at_ms")
     else:
-        source = hooked_source(batches, lambda i: on_read(ctx, i))
+        source = hooked_source(batches, lambda i: on_read(ctx, i),
+                               heartbeats)
     src = ctx.from_source(source)
     col = tt.col
+    if heartbeats is not None:
+        src = src.filter(col("reading").is_not_null())
     if job == "highcard":
         ds = src.window(
             ["sensor_name"],
@@ -990,14 +1028,19 @@ class HookedReader:
         self._reader.offset_restore(snap)
 
 
-def hooked_source(batches, on_read):
+def hooked_source(batches, on_read, heartbeats=None):
+    """A MemorySource over ``batches`` whose reader calls ``on_read(i)``
+    before batch i; ``heartbeats``, where given, form a second partition,
+    read without the hook."""
     from denormalized_tpu_torch.sources.memory import MemorySource
 
     class HookedSource(MemorySource):
         def partitions(self):
-            return [HookedReader(r, on_read) for r in super().partitions()]
+            first, *rest = super().partitions()
+            return [HookedReader(first, on_read), *rest]
 
-    return HookedSource([batches], timestamp_column="occurred_at_ms")
+    parts = [batches] if heartbeats is None else [batches, heartbeats]
+    return HookedSource(parts, timestamp_column="occurred_at_ms")
 
 
 def union_us(intervals) -> float:
@@ -1542,19 +1585,24 @@ def ckpt_child(args) -> int:
 
 
 def sigkill_and_restore(what: str, child_argv, pause_flag: str,
-                        n_batches: int, prefix: str):
-    """Config 5's kill and restart, shared by phases 11, 24 and 33: child
-    A (this script re-invoked with ``child_argv(state, out)`` and
+                        n_batches: int, prefix: str, work: str | None = None):
+    """Config 5's kill and restart, shared by phases 11, 24, 33 and 37:
+    child A (this script re-invoked with ``child_argv(state, out)`` and
     ``pause_flag 2``) commits two epochs, pauses and is SIGKILLed with
     more than a third of its ``n_batches`` unread; child B restores on the
     same store and runs to its end.  → (A's lines, B's lines, A's commit
-    lines, batches A left unread, B's spawn time)."""
+    lines, batches A left unread, B's spawn time).  Given ``work`` (a
+    directory the caller owns and removes), only child A runs: the store
+    it left is ``work/state``, its output ``work/a.jsonl``, and B's lines
+    and spawn time are None."""
     import os
     import shutil
     import signal
     import tempfile
 
-    work = tempfile.mkdtemp(prefix=prefix)
+    owned = work is None
+    if owned:
+        work = tempfile.mkdtemp(prefix=prefix)
     state = os.path.join(work, "state")
     procs = []
 
@@ -1598,6 +1646,8 @@ def sigkill_and_restore(what: str, child_argv, pause_flag: str,
             raise AssertionError(
                 f"{what}: child A rc {pa.returncode}, {len(commits)} "
                 f"commits, {unread} of {n_batches} batches unread")
+        if not owned:
+            return a, None, commits, unread, None
         pb, out_b, t_spawn = spawn("b")
         if pb.wait(600) != 0:
             raise AssertionError(f"{what}: child B failed: {tail('b')}")
@@ -1607,7 +1657,8 @@ def sigkill_and_restore(what: str, child_argv, pause_flag: str,
             if p.poll() is None:
                 p.kill()
                 p.wait(60)
-        shutil.rmtree(work, ignore_errors=True)
+        if owned:
+            shutil.rmtree(work, ignore_errors=True)
     return a, b, commits, unread, t_spawn
 
 
@@ -5241,6 +5292,606 @@ def phase_sigterm(device, pace, staged, stream, card):
             "launches": stopped[-1]["launches"]}
 
 
+# -- phases 35-37: the cold tier (state_budget_bytes) --------------------------
+
+SPILL_EVENT_S = 120  # event time phase 35's topic spans
+SPILL_LAG_MS = 60_000  # the stalled partition's watermark behind the head
+SPILL_BURST_LAG_MS = 50_000  # phase 35's burst behind the head, at 3/4
+SPILL_BURST_ROWS = 131_072
+SPILL_BUDGET = 48 * 2**20  # phase 35's state budget, bytes
+CFG1_LAG_MS = 4_000  # phase 36: the stalled partition's lag on config 1
+SPILL_CKPT_EVERY = 4  # phase 37's child: partition-0 reads between barriers
+JOIN_SPILL_BUDGET = 160 * 2**20  # phase 37: config 4 at 100K keys
+HOST_SPILL_BATCHES = 2  # phase 37: session_scale batches under the host jobs
+UDAF_SPILL_BUDGET = 32 * 2**20
+SESSION_SPILL_BUDGET = 8 * 2**20
+
+
+def heartbeats(batches, lag_ms: int) -> list:
+    """The stalled partition of a held-back topic: one record for each
+    batch of ``batches``, ``lag_ms`` behind the head they reached, with no
+    reading (the query drops it).  Its watermark, the smaller of the two
+    partitions', holds the topic's ``lag_ms`` behind its head: a span of
+    open windows whose rows have stopped arriving, the cold tier's work."""
+    from denormalized_tpu_torch.common.record_batch import RecordBatch
+
+    schema = batches[0].schema
+    head = EVENT_T0
+    out = []
+    for b in batches:
+        head = max(head, int(np.max(b.column("occurred_at_ms"))))
+        out.append(RecordBatch(
+            schema,
+            [np.asarray([max(EVENT_T0, head - lag_ms)], np.int64),
+             np.asarray(["sensor_0"], object), np.zeros(1)],
+            [None, None, np.zeros(1, bool)],
+        ))
+    return out
+
+
+def spill_feed(seed: int):
+    """Phase 35's topic: config 3's rows (100K keys, 15 batches of
+    524,288) over SPILL_EVENT_S of event time on partition 0, with one
+    burst of SPILL_BURST_ROWS rows SPILL_BURST_LAG_MS behind the head after
+    three quarters of the batches (rows that land in spilled windows);
+    partition 1 stalled SPILL_LAG_MS behind → (partition-0 batches,
+    heartbeats, (ts, kid, val) of every reading)."""
+    n_batches = TOTAL_ROWS // HIGHCARD_BATCH_ROWS
+    ts, kid, val = gen_stream(
+        TOTAL_ROWS, HIGHCARD_BATCH_ROWS, HIGHCARD_KEYS, seed,
+        events_per_sec=n_batches * HIGHCARD_BATCH_ROWS / SPILL_EVENT_S)
+    cut = (3 * n_batches // 4) * HIGHCARD_BATCH_ROWS
+    rng = np.random.default_rng(seed + 1)
+    head = int(ts[cut - 1])
+    b_ts = np.sort(head - SPILL_BURST_LAG_MS
+                   + rng.integers(0, 1000, SPILL_BURST_ROWS))
+    b_kid = rng.integers(0, HIGHCARD_KEYS, SPILL_BURST_ROWS)
+    b_val = rng.normal(50.0, 10.0, SPILL_BURST_ROWS)
+    stream = tuple(np.concatenate([a[:cut], b, a[cut:]]) for a, b in (
+        (ts, b_ts), (kid, b_kid), (val, b_val)))
+    batches = (to_batches(ts[:cut], kid[:cut], val[:cut],
+                          HIGHCARD_BATCH_ROWS, HIGHCARD_KEYS)
+               + to_batches(b_ts, b_kid, b_val, SPILL_BURST_ROWS,
+                            HIGHCARD_KEYS)
+               + to_batches(ts[cut:], kid[cut:], val[cut:],
+                            HIGHCARD_BATCH_ROWS, HIGHCARD_KEYS))
+    return batches, heartbeats(batches, SPILL_LAG_MS), stream
+
+
+_KEY_INDEX: dict[str, int] = {}
+
+
+def key_indices(names: list) -> np.ndarray:
+    """The index i of each "sensor_<i>" name (one dict lookup a row)."""
+    if len(_KEY_INDEX) < HIGHCARD_KEYS:
+        _KEY_INDEX.update((f"sensor_{i}", i) for i in range(HIGHCARD_KEYS))
+    return np.fromiter(map(_KEY_INDEX.__getitem__, names), np.int64,
+                       count=len(names))
+
+
+def sorted_table(cols) -> np.ndarray:
+    """Columns (window start, key index, value, ...) as one float64 array
+    of rows sorted by window and key (window starts stay exact: < 2^53)."""
+    t = np.stack([np.asarray(c, np.float64) for c in cols])
+    return t[:, np.lexsort((t[1], t[0]))]
+
+
+def highcard_table(res) -> np.ndarray:
+    """Config 3's rows as a (4, n) table: window start, key index, sum,
+    avg — the vectorized form of ``highcard_rows`` for millions of rows."""
+    return sorted_table([
+        res.column("window_start_time"),
+        key_indices(res.column("sensor_name").tolist()),
+        res.column("sum"), res.column("avg"),
+    ])
+
+
+def highcard_oracle_table(ts, kid, val, num_keys) -> np.ndarray:
+    """The numpy float64 oracle of config 3's 1 s tumbling windows as a
+    (4, n) table sorted like ``highcard_table``."""
+    code = (ts // 1000) * num_keys + kid
+    order = np.argsort(code, kind="stable")
+    c, v = code[order], val[order]
+    starts = np.flatnonzero(np.r_[True, c[1:] != c[:-1]])
+    n = np.diff(np.r_[starts, len(c)])
+    sums = np.add.reduceat(v, starts)
+    cs = c[starts]
+    return sorted_table([(cs // num_keys) * 1000, cs % num_keys, sums,
+                         sums / n])
+
+
+def check_table(got, want, what: str, rtol: float = 1e-4) -> int:
+    """Two tables: the same (window, key) rows, every value within
+    ``rtol`` → rows."""
+    if got.shape != want.shape or not np.array_equal(got[:2], want[:2]):
+        raise AssertionError(f"{what}: {got.shape[1]} rows against "
+                             f"{want.shape[1]}, or other windows or keys")
+    ok = np.isclose(got[2:], want[2:], rtol=rtol, atol=0).all(axis=0)
+    if not ok.all():
+        i = int(np.flatnonzero(~ok)[0])
+        raise AssertionError(f"{what}: row {tuple(got[:, i])} against "
+                             f"{tuple(want[:, i])}")
+    return got.shape[1]
+
+
+def union_table(first, then) -> np.ndarray:
+    """Rows of two runs, keyed by (window, key), ``then``'s winning where
+    both emitted one (a restart re-emits the windows after its cut)."""
+    t = np.concatenate([first, then], axis=1)
+    src = np.r_[np.zeros(first.shape[1]), np.ones(then.shape[1])]
+    t = t[:, np.lexsort((src, t[1], t[0]))]
+    last = np.r_[(t[0, 1:] != t[0, :-1]) | (t[1, 1:] != t[1, :-1]), True]
+    return t[:, last]
+
+
+def run_held_back(device, job, strategy, batches, beats, budget=None,
+                  on_read=None, **cfg):
+    """One held-back job (``job_stream`` with the heartbeat partition),
+    every kernel count set to 0 just before it, under ``budget`` on a
+    fresh store when given → (ctx, result, wall s, {kernel: launches},
+    the window's state_info)."""
+    import shutil
+    import tempfile
+
+    from denormalized_tpu_torch.ops import compact_slot as cs
+    from denormalized_tpu_torch.ops import dense_window as dw
+    from denormalized_tpu_torch.ops import merge_partials as mp
+    from denormalized_tpu_torch.state.lsm import close_global_state_backend
+
+    path = None
+    if budget is not None:
+        path = tempfile.mkdtemp(prefix="dnz_spill_")
+        cfg = dict(cfg, state_backend_path=path, state_budget_bytes=budget)
+    try:
+        ctx, ds = job_stream(device, batches, job, on_read, strategy,
+                             heartbeats=beats, **cfg)
+        dw.dense_window_launches = 0
+        mp.merge_partials_launches = 0
+        cs.compact_slot_launches = 0
+        t0 = time.perf_counter()
+        res = ds.collect()
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = {"dense_window": dw.dense_window_launches,
+                    "merge_partials": mp.merge_partials_launches,
+                    "compact_slot": cs.compact_slot_launches}
+        info = window_exec_of(ctx).state_info()
+    finally:
+        if path is not None:
+            close_global_state_backend()
+            shutil.rmtree(path, ignore_errors=True)
+    return ctx, res, wall, launches, info
+
+
+def check_spill_run(what, ctx, info, launches, strategy, compaction):
+    """The budgeted window's tier spilled and reloaded, and its kernels
+    ran on the ring windows: merges = launches under partial_merge, one
+    compaction a window emitted from the ring under compaction."""
+    op = window_exec_of(ctx)
+    st = info["spill"]
+    if not (st["spill_blocks_total"] > 0 and st["reload_blocks_total"] > 0
+            and op._tier.reload_ms):
+        raise AssertionError(f"{what}: no spill and reload: {st}")
+    if info["spilled_blocks"]:
+        raise AssertionError(f"{what}: {info['spilled_blocks']} windows "
+                             "left in the LSM at the end")
+    ring_windows = op.metrics()["windows_emitted"] - info[
+        "windows_emitted_from_store"]
+    if strategy == "partial_merge" and (
+            launches["merge_partials"] != op.backend.merges
+            or not op.backend.merges):
+        raise AssertionError(f"{what}: {launches} for "
+                             f"{op.backend.merges} merges")
+    if compaction and launches["compact_slot"] != ring_windows:
+        raise AssertionError(f"{what}: {launches['compact_slot']} "
+                             f"compactions for {ring_windows} ring windows")
+    return ring_windows
+
+
+def phase_spill_highcard(device, seed: int, card: str):
+    """Phase 35: config 3 under a 48 MiB state budget at full width.  The
+    topic's second partition holds the watermark SPILL_LAG_MS behind the
+    head, so ~60 windows stay open: unbudgeted the ring grows to hold them
+    all, budgeted the tier spills the watermark-deferred windows off the
+    card into the LSM, shrinks the ring, reloads the windows the burst
+    lands in, and emits the rest from storage as the watermark closes
+    them.  Through partial_merge and through auto with
+    emission_compaction, each budgeted and not, against the oracle and
+    each other → {launches by strategy, rows/s, feed} for phase 37."""
+    batches, beats, stream = spill_feed(seed)
+    exp = highcard_oracle_table(*stream, HIGHCARD_KEYS)
+    n = len(stream[0])
+    cap = dict(min_group_capacity=2 * HIGHCARD_KEYS)
+    out = {"feed": (batches, beats, stream), "launches": {}}
+    for strategy, compaction in (("partial_merge", False), ("auto", True)):
+        name = f"{strategy}{' + emission_compaction' if compaction else ''}"
+        runs = {}
+        for budget in (None, SPILL_BUDGET):
+            ctx, res, wall, launches, info = run_held_back(
+                device, "highcard", strategy, batches, beats, budget,
+                emission_compaction=compaction, **cap)
+            got = highcard_table(res)
+            check_table(got, exp, f"phase 35 {name}, budget {budget}")
+            runs[budget] = (ctx, got, wall, launches, info)
+        (_c0, free, wall0, _l0, info0), (ctx, got, wall, launches, info) = (
+            runs[None], runs[SPILL_BUDGET])
+        check_table(got, free, f"phase 35 {name}: budgeted against "
+                    "unbudgeted", rtol=1e-5)
+        ring_windows = check_spill_run(f"phase 35 {name}", ctx, info,
+                                       launches, strategy, compaction)
+        op = window_exec_of(ctx)
+        st = info["spill"]
+        reload_ms = sorted(op._tier.reload_ms)
+        out["launches"][strategy] = launches
+        out[f"rows_per_s_{strategy}"] = n / wall
+        log(f"phase 35 config 3 under a {SPILL_BUDGET} B budget via {name}: "
+            f"{n} rows (a burst of {SPILL_BURST_ROWS} {SPILL_BURST_LAG_MS} ms"
+            f" behind the head), watermark {SPILL_LAG_MS} ms behind; "
+            f"{got.shape[1]} window rows = the oracle and the unbudgeted "
+            f"run's; "
+            f"W {info0['window_slots']} unbudgeted, {info['window_slots']} "
+            f"at the end budgeted (G {info['slot_capacity']}, "
+            f"{info['device_state_bytes']} B of ring, "
+            f"{info0['device_state_bytes']} B unbudgeted); spilled "
+            f"{st['spill_blocks_total']} windows ({st['spill_bytes_total']} "
+            f"B), read back {st['reload_blocks_total']} "
+            f"({st['reload_bytes_total']} B): {len(reload_ms)} reloads into "
+            f"the ring (median {reload_ms[len(reload_ms) // 2]:.3f} ms, max "
+            f"{reload_ms[-1]:.3f} ms, host wall: LSM reads, unpack, slot "
+            f"writes queued), {info['windows_emitted_from_store']} windows "
+            f"emitted from storage, {ring_windows} from the ring; "
+            f"backpressure engagements {st['backpressure_engagements']}; "
+            f"kernel launches {launches}; rows/s {n / wall:.0f} budgeted, "
+            f"{n / wall0:.0f} unbudgeted (wall {wall:.3f} / {wall0:.3f} s) "
+            f"({card})")
+    return out
+
+
+def phase_spill_cfg1(device, batches, stream, card):
+    """Phase 36: config 1 (10 keys, count/min/max/avg, the dense kernel)
+    with its watermark held CFG1_LAG_MS behind the head and a budget sized
+    against its ring as tests/test_state_spill.py's 20,000 bytes is against
+    its own (20,000 of 44,160 accounted bytes at W = 16: the ring never
+    fits, so every window leaving the hot zone spills) → the run's dense
+    launches."""
+    from denormalized_tpu_torch.ops import segment_agg as sa
+
+    ring16 = (len(sa.components_for(MAIN_AGGS)) * 16 * 128 * 4
+              + NUM_KEYS * 64)
+    budget = ring16 * 20_000 // 44_160
+    ctx, res, wall, launches, info = run_held_back(
+        device, "tumbling", "auto", batches,
+        heartbeats(batches, CFG1_LAG_MS), budget)
+    rows = check_tumbling(res, oracle(*stream, 1000, 1000, NUM_KEYS),
+                          NUM_KEYS)
+    check_dispatch(ctx, len(batches), "phase 36")
+    st = info["spill"]
+    if launches["dense_window"] != len(batches) or not (
+            st["spill_blocks_total"] > 0):
+        raise AssertionError(f"phase 36: {launches}, {st}")
+    log(f"phase 36 config 1 under a {budget} B budget (its ring accounts "
+        f"{ring16} B at W = 16), watermark {CFG1_LAG_MS} ms behind: "
+        f"{len(stream[0])} rows, {rows} window rows = the oracle, "
+        f"{launches['dense_window']} dense kernel launches for "
+        f"{len(batches)} batches, spilled {st['spill_blocks_total']} "
+        f"windows ({st['spill_bytes_total']} B), "
+        f"{info['windows_emitted_from_store']} emitted from storage, read "
+        f"back {st['reload_blocks_total']}, backpressure engagements "
+        f"{st['backpressure_engagements']}, {len(stream[0]) / wall:.0f} "
+        f"rows/s ({card})")
+    return launches["dense_window"]
+
+
+def read_row_records(path) -> np.ndarray:
+    """Phase 37's child's rows: ``highcard_table`` records, each flushed
+    as one ``np.save``; a record torn by the kill ends the read → one
+    table (a later record's row wins)."""
+    recs = [np.zeros((4, 0))]
+    try:
+        f = open(path, "rb")
+    except FileNotFoundError:
+        return recs[0]
+    with f:
+        while True:
+            try:
+                recs.append(np.load(f, allow_pickle=False))
+            except (EOFError, ValueError, OSError):
+                return union_table(recs[0], np.concatenate(recs, axis=1))
+
+
+def spill_child(args) -> int:
+    """Phase 37's child: phase 35's budgeted job through partial_merge,
+    made from --seed, checkpointed to ``--spill-child`` with a barrier
+    every SPILL_CKPT_EVERY partition-0 reads.  Flushed JSON lines per
+    committed epoch (with the windows its snapshot references in the
+    LSM) and for the pause; rows as records in ``--spill-out``.rows; with
+    ``--ckpt-pause-after N`` it stops reading CKPT_PAUSE_READS reads after
+    its N-th commit and waits for its SIGKILL."""
+    from denormalized_tpu_torch.state.serialization import unpack_snapshot
+
+    device = torch.device(args.ckpt_device)
+    batches, beats, _stream = spill_feed(args.seed)
+    out = open(args.spill_out, "a", buffering=1)
+    rows_f = open(args.spill_out + ".rows", "ab")
+
+    def line(**kw):
+        out.write(json.dumps(kw) + "\n")
+
+    st = {"commits": [], "after": 0}
+
+    def on_read(ctx, i):
+        coord = ctx.last_checkpointing()[0]
+        e = coord.committed_epoch
+        if e is not None and e not in st["commits"]:
+            st["commits"].append(e)
+            op = window_exec_of(ctx)
+            meta, _ = unpack_snapshot(coord.get_snapshot(op._ckpt[1]))
+            line(event="commit", epoch=e, read=i,
+                 spilled=len(meta.get("spill_windows") or {}))
+        if args.ckpt_pause_after and len(st["commits"]) >= (
+                args.ckpt_pause_after):
+            st["after"] += 1
+            if st["after"] > CKPT_PAUSE_READS:
+                line(event="paused", read=i)
+                while True:  # until the parent's SIGKILL
+                    time.sleep(1)
+        if i % SPILL_CKPT_EVERY == SPILL_CKPT_EVERY - 1:
+            ctx.last_checkpointing()[1].trigger_now()
+
+    _ctx, ds = job_stream(
+        device, batches, "highcard", on_read, "partial_merge",
+        heartbeats=beats, min_group_capacity=2 * HIGHCARD_KEYS,
+        state_budget_bytes=SPILL_BUDGET, **ckpt_config(args.spill_child))
+    for b in ds.stream():
+        np.save(rows_f, highcard_table(b))
+        rows_f.flush()
+    line(event="done")
+    return 0
+
+
+def restore_held_back(device, state, batches, beats, budget):
+    """Restore phase 35's partial_merge job from ``state`` (under
+    ``budget``, or none) and run it to the end in this process, through
+    ``stream()`` as the child ran it (the same plan, so the same node ids)
+    → (rows, what the restore left before the first read: epoch,
+    partition-0 position, the tier's blocks and first_open, the run's
+    window state_info)."""
+    from denormalized_tpu_torch.state import checkpoint as ck
+    from denormalized_tpu_torch.state.lsm import close_global_state_backend
+
+    seen = {}
+
+    def on_read(ctx, i):
+        if not seen:
+            coord = ctx.last_checkpointing()[0]
+            root = ctx._last_physical
+            ids = ck.assign_node_ids(root)
+            src = next(ids[id(o)] for o in ck.walk(root) if not o.children)
+            offsets = ck.get_json(coord, f"offsets_{src}")
+            op = window_exec_of(ctx)
+            seen["epoch"] = coord.restored_epoch
+            seen["pos"] = offsets["partitions"][0]["pos"] if offsets else 0
+            seen["tier_blocks"] = (len(op._tier._blocks)
+                                   if op._tier is not None else None)
+            seen["first_open"] = op._first_open
+
+    cfg = ckpt_config(state)
+    if budget is not None:
+        cfg["state_budget_bytes"] = budget
+    try:
+        ctx, ds = job_stream(device, batches, "highcard", on_read,
+                             "partial_merge", heartbeats=beats,
+                             min_group_capacity=2 * HIGHCARD_KEYS, **cfg)
+        tables = [np.zeros((4, 0))]
+        for b in ds.stream():
+            tables.append(highcard_table(b))
+        sync(device)
+        rows = union_table(tables[0], np.concatenate(tables, axis=1))
+        info = window_exec_of(ctx).state_info()
+    finally:
+        close_global_state_backend()
+    return rows, seen, info
+
+
+def phase_spill_ckpt(device, seed: int, feed, card):
+    """Phase 37 (a): phase 35's budgeted job checkpointed in a child that is
+    SIGKILLed after two commits whose snapshots reference windows in the
+    LSM; the store it left restores in this process under the budget (the
+    tier map re-armed from the epoch's blocks) and, from a copy, with no
+    budget (the spilled planes written back into the ring).  Each union of
+    rows with the child's against the oracle."""
+    import os
+    import shutil
+    import tempfile
+
+    batches, beats, stream = feed
+    exp = highcard_oracle_table(*stream, HIGHCARD_KEYS)
+    work = tempfile.mkdtemp(prefix="dnz_spill_ckpt_")
+    try:
+        a, _b, commits, unread, _t = sigkill_and_restore(
+            "phase 37",
+            lambda state, out: ("--seed", str(seed), "--ckpt-device",
+                                str(device), "--spill-child", state,
+                                "--spill-out", out),
+            "--ckpt-pause-after", len(batches), "dnz_spill_ckpt_",
+            work=work)
+        if not all(c["spilled"] > 0 for c in commits):
+            raise AssertionError(f"phase 37: a commit referenced no spilled "
+                                 f"window: {commits}")
+        rows_a = read_row_records(os.path.join(work, "a.jsonl.rows"))
+        state = os.path.join(work, "state")
+        copy = os.path.join(work, "state_no_budget")
+        shutil.copytree(state, copy)
+        t0 = time.perf_counter()
+        rows_b, seen_b, info_b = restore_held_back(device, state, batches,
+                                                   beats, SPILL_BUDGET)
+        wall_b = time.perf_counter() - t0
+        rows_c, seen_c, _info_c = restore_held_back(device, copy, batches,
+                                                    beats, None)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    last = commits[-1]
+    for what, seen, rows in (("budgeted", seen_b, rows_b),
+                             ("unbudgeted", seen_c, rows_c)):
+        # the restart reads from the cut on: the windows before it can only
+        # come from the restored ring and tier
+        if seen["epoch"] != last["epoch"] or seen["pos"] <= 0 or (
+                seen["first_open"] is None):
+            raise AssertionError(f"phase 37 {what}: restored {seen}, last "
+                                 f"commit {last}")
+        check_table(union_table(rows_a, rows), exp,
+                    f"phase 37 {what}: the union")
+    if seen_b["tier_blocks"] != last["spilled"] or seen_c["tier_blocks"] \
+            is not None:
+        raise AssertionError(f"phase 37: tier after restore {seen_b}, "
+                             f"{seen_c}; the cut referenced {last}")
+    log(f"phase 37 config 5 on phase 35's budgeted job (partial_merge, "
+        f"barrier every {SPILL_CKPT_EVERY} batches): child A committed "
+        f"epochs {[c['epoch'] for c in commits]} referencing "
+        f"{[c['spilled'] for c in commits]} windows in the LSM, SIGKILLed "
+        f"with {unread} of {len(batches)} batches unread, {rows_a.shape[1]} "
+        f"rows emitted; restored epoch {last['epoch']} at partition-0 batch "
+        f"{seen_b['pos']} under the budget "
+        f"({seen_b['tier_blocks']} windows re-armed in the tier, "
+        f"{rows_b.shape[1]} rows, {info_b['spill']['spill_blocks_total']} "
+        f"spills after it, wall {wall_b:.3f} s) and with no budget (the "
+        f"{last['spilled']} windows written back into the ring, first_open "
+        f"{seen_c['first_open']} vs {seen_b['first_open']} budgeted, "
+        f"{rows_c.shape[1]} rows); both unions = the oracle "
+        f"({exp.shape[1]} rows) "
+        f"({card})")
+
+
+def phase_spill_join(device, highcard, right, card):
+    """Phase 37 (b): phase 15's config 4 at 100K keys a side through auto,
+    under JOIN_SPILL_BUDGET and not: the join spills retained window
+    batches (and both windows' tiers stand by), and the joined rows equal
+    the unbudgeted run's and the oracle's."""
+    import shutil
+    import tempfile
+
+    from denormalized_tpu_torch.state.lsm import close_global_state_backend
+
+    cap = dict(min_group_capacity=2 * HIGHCARD_KEYS)
+    lo = highcard_oracle_table(*highcard[1], HIGHCARD_KEYS)
+    ro = highcard_oracle_table(*right[1], HIGHCARD_KEYS)
+    def codes(t):  # (window index, key) as one exact int64
+        return (t[0].astype(np.int64) // 1000) * HIGHCARD_KEYS + t[1].astype(
+            np.int64)
+
+    # windows both sides hold: rows of lo and ro with the same (ws, key)
+    _both, li, ri = np.intersect1d(codes(lo), codes(ro), assume_unique=True,
+                                   return_indices=True)
+    exp = sorted_table([lo[0, li], lo[1, li], lo[3, li], ro[3, ri]])
+    got = {}
+
+    def keep(key):
+        def check(res, _ls, _rs, _nk):
+            names = res.column("sensor_name").tolist()
+            if res.column("hs").tolist() != names or not np.array_equal(
+                    res.column("hws"), res.column("window_start_time")):
+                raise AssertionError("joined rows disagree on their keys")
+            got[key] = sorted_table([
+                res.column("window_start_time"), key_indices(names),
+                res.column("avg_t"), res.column("avg_h")])
+            return check_table(got[key], exp, f"phase 37 join ({key})")
+        return check
+
+    run_join(device, 37, "auto", highcard, right, HIGHCARD_KEYS, card,
+             check=keep("free"), **cap)
+    path = tempfile.mkdtemp(prefix="dnz_spill_join_")
+    try:
+        out = run_join(device, 37, "auto", highcard, right, HIGHCARD_KEYS,
+                       card, check=keep("budget"), state_backend_path=path,
+                       state_budget_bytes=JOIN_SPILL_BUDGET, **cap)
+        join, windows = join_ops(out["ctx"])
+        info = join.state_info()
+    finally:
+        close_global_state_backend()
+        shutil.rmtree(path, ignore_errors=True)
+    check_table(got["budget"], got["free"],
+                "phase 37 join: budgeted against unbudgeted", rtol=1e-5)
+    st = info["spill"]
+    if not st["spill_blocks_total"] or any(w._tier is None for w in windows):
+        raise AssertionError(f"phase 37 join: {st}")
+    log(f"phase 37 config 4 at {HIGHCARD_KEYS} keys a side under a "
+        f"{JOIN_SPILL_BUDGET} B budget: {got['budget'].shape[1]} joined "
+        f"rows = the oracle and the "
+        f"unbudgeted run's; the join spilled {st['spill_blocks_total']} "
+        f"retained batches ({st['spill_bytes_total']} B), read back "
+        f"{st['reload_blocks_total']}, {info['spilled_blocks']} in the LSM "
+        f"at the end ({info['spilled_keys']} rows), {out['rows_per_s']:.0f} "
+        f"rows/s ({card})")
+
+
+def phase_spill_host(device, seed: int, card):
+    """Phase 37 (c, d): the UDAF job (phase 31's) and the session job
+    (phase 32's) over the first HOST_SPILL_BATCHES batches of phase 32's
+    session_scale stream (100K keys: a quarter of them absent from any one
+    batch, so there are cold keys to spill), each under a budget and not:
+    the same rows, in the same order, and the oracle's."""
+    import shutil
+    import tempfile
+
+    import denormalized_tpu_torch as tt
+    from denormalized_tpu_torch.physical.session_exec import (
+        SessionWindowExec,
+    )
+    from denormalized_tpu_torch.physical.udaf_exec import UdafWindowExec
+    from denormalized_tpu_torch.sources.memory import MemorySource
+    from denormalized_tpu_torch.state.lsm import close_global_state_backend
+
+    full = session_stream(SESSION_SCALE_ROWS, BATCH_ROWS, SESSION_SCALE_KEYS,
+                          seed + 11)
+    stream = tuple(a[: HOST_SPILL_BATCHES * BATCH_ROWS] for a in full)
+    batches = to_batches(*stream, BATCH_ROWS, SESSION_SCALE_KEYS)
+    jobs = (("udaf", udaf_job, UdafWindowExec, UDAF_SPILL_BUDGET, spread_rows,
+             lambda got: check_spread(got, spread_oracle(
+                 *stream, SESSION_SCALE_KEYS), "phase 37 udaf")),
+            ("session", session_job, SessionWindowExec, SESSION_SPILL_BUDGET,
+             session_rows, lambda got: check_sessions(
+                 got, session_oracle(*stream), "phase 37 session")))
+    for name, job, cls, budget, rows_of, check in jobs:
+        runs = {}
+        for b in (None, budget):
+            cfg = {}
+            path = None
+            if b is not None:
+                path = tempfile.mkdtemp(prefix=f"dnz_spill_{name}_")
+                cfg = dict(state_backend_path=path, state_budget_bytes=b)
+            try:
+                ctx = tt.Context(tt.EngineConfig(device=str(device), **cfg))
+                t0 = time.perf_counter()
+                res = job(ctx.from_source(MemorySource.from_batches(
+                    batches, timestamp_column="occurred_at_ms"))).collect()
+                wall = time.perf_counter() - t0
+                info = node_of(ctx, cls).state_info()
+            finally:
+                if path is not None:
+                    close_global_state_backend()
+                    shutil.rmtree(path, ignore_errors=True)
+            cols = res.schema.without_internal().names
+            runs[b] = ([tuple(res.column(c)[i] for c in cols)
+                        for i in range(res.num_rows)], wall, info, res)
+        free, wall0, _i0, _r0 = runs[None]
+        got, wall, info, res = runs[budget]
+        if got != free:
+            raise AssertionError(f"phase 37 {name}: budgeted rows differ")
+        check(rows_of(res))
+        st = info["spill"]
+        if not (st["spill_blocks_total"] and st["reload_blocks_total"]):
+            raise AssertionError(f"phase 37 {name}: {st}")
+        log(f"phase 37 the {name} job over {len(stream[0])} rows at "
+            f"{SESSION_SCALE_KEYS} keys under a {budget} B budget: "
+            f"{len(got)} rows = the unbudgeted run's, in order, and the "
+            f"oracle's; spilled {st['spill_blocks_total']} blocks "
+            f"({st['spill_bytes_total']} B), reloaded "
+            f"{st['reload_blocks_total']}, backpressure engagements "
+            f"{st['backpressure_engagements']}; rows/s "
+            f"{len(stream[0]) / wall:.0f} budgeted, "
+            f"{len(stream[0]) / wall0:.0f} unbudgeted ({card})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5266,6 +5917,9 @@ def main(argv=None) -> int:
     ap.add_argument("--host-out", help=argparse.SUPPRESS)
     # phase 34's child (print_stream over the parent's broker)
     ap.add_argument("--sigterm-child", help=argparse.SUPPRESS)
+    # phase 37's child (the script re-invoked on a state path)
+    ap.add_argument("--spill-child", help=argparse.SUPPRESS)
+    ap.add_argument("--spill-out", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.ckpt_child:
         return ckpt_child(args)
@@ -5277,6 +5931,8 @@ def main(argv=None) -> int:
         return host_ckpt_child(args)
     if args.sigterm_child:
         return sigterm_child(args)
+    if args.spill_child:
+        return spill_child(args)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -5390,6 +6046,12 @@ def main(argv=None) -> int:
     phase_host_ckpt(device, args.seed, "udaf", card)
     phase_host_ckpt(device, args.seed + 12, "session", card)
     sigterm = phase_sigterm(device, pace, staged, lat_stream, card)
+    spill = phase_spill_highcard(device, args.seed + 13, card)
+    cfg1_spill_launches = phase_spill_cfg1(device, batches, stream, card)
+    phase_spill_ckpt(device, args.seed + 13, spill["feed"], card)
+    phase_spill_join(device, (highcard_batches, highcard_stream),
+                     highcard_right, card)
+    phase_spill_host(device, args.seed + 12, card)
 
     hot = kern["main_hot"]
     m1 = merge["cfg1_dense"]
@@ -5429,6 +6091,8 @@ def main(argv=None) -> int:
         "explain_launches": csv_run["launches"],
         # ... in phase 34's print_stream child until its SIGTERM
         "sigterm_launches": sigterm["launches"],
+        # ... on config 1 under a state budget that forces spills (phase 36)
+        "budget_launches": cfg1_spill_launches,
     }, {
         "name": "merge_partials",
         "route": "cuda",
@@ -5445,6 +6109,11 @@ def main(argv=None) -> int:
         "bound_by": m1["bound_by"],
         "library_ms": None,
         "host_ms": m1["host_ms"],
+        # launches on config 3 under a 48 MiB state budget (phase 35,
+        # partial_merge): one a merge, the tier's flushes before slot
+        # reads included
+        "budget_launches": spill["launches"]["partial_merge"][
+            "merge_partials"],
         "cfg3_ms": merge["cfg3_compact"]["ms"],
         "cfg3_bound_ms": merge["cfg3_compact"]["bound_ms"],
         # every phase-7 case: its kernel, device time, bound, wrapper and
@@ -5478,6 +6147,10 @@ def main(argv=None) -> int:
         # one segment_agg.read_slot_compact: kernel, count, prefix copies
         "read_ms": c76["read_ms"],
         "partial_merge_launches": compact_runs["partial_merge"]["launches"],
+        # config 3 under a 48 MiB budget with compaction (phase 35, auto):
+        # one a window emitted from the ring (spilled windows emit from
+        # their stored planes)
+        "budget_launches": spill["launches"]["auto"]["compact_slot"],
         # both windows of config 4 at 100K keys, emitting from two threads
         "join_launches": compact_join,
         "cases": {name: {key: case[key] for key in (

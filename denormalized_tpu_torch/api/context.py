@@ -7,7 +7,8 @@ reads, plus an explicit ``device``: the device rule of the whole package,
 ``optimizer`` (the logical optimizer on or off), ``emit_on_close`` (flush
 the open windows and sessions at end of stream), the checkpoint knobs
 (``checkpoint``, ``checkpoint_interval_s``, ``state_backend_path``, or
-:meth:`Context.with_state_backend`) and the
+:meth:`Context.with_state_backend`), the cold tier's
+``state_budget_bytes`` and ``state_spill``, the
 join knobs (``join_retention_ms``, ``join_adaptive``,
 ``join_adapt_interval_s``, ``join_band_slack_ms``),
 ``partition_watermarks``, ``source_idle_timeout_ms``, and the window
@@ -47,6 +48,16 @@ class EngineConfig:
     checkpoint: bool = False
     checkpoint_interval_s: float = 10.0
     state_backend_path: str | None = None
+    # tiered state (state/tiering.py): with a budget AND a state backend,
+    # stateful operators evict their coldest window slots (off the card),
+    # retained join batches, sessions and accumulators to the LSM once
+    # their accounted state crosses state_budget_bytes, and reload them on
+    # touch.  state_spill 'auto' (default) = active exactly when both are
+    # set; False keeps the budget inert; True additionally REQUIRES a
+    # backend path (a loud error instead of an inert budget).  One
+    # budgeted query per backend path
+    state_budget_bytes: int | None = None
+    state_spill: bool | str = "auto"
     # per-batch device step:
     #   'scatter'       — ship rows, scatter them into the window ring
     #   'pallas_dense'  — ship rows, the dense low-cardinality kernel
@@ -167,6 +178,9 @@ class Context:
         self._tables: dict[str, Source] = {}
         # set by the executor when a job starts
         self._checkpointing: tuple = (None, None)
+        # the last job's SpillController (None without a budgeted tier);
+        # spill_stats(node_id) reads a node's spill and reload counts
+        self._last_spill = None
 
     def __repr__(self) -> str:
         return (

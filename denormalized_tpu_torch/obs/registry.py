@@ -88,6 +88,24 @@ INSTRUMENTS: dict[str, tuple[str, str]] = {
         "transient produce errors absorbed by the Kafka sink's bounded "
         "exp-backoff retry",
     ),
+    # -- the cold tier (state/tiering.py) --------------------------------
+    "dnz_spill_op_ms": (
+        "histogram",
+        "latency of one cold-tier block operation, labeled "
+        "op=spill|reload (spill = LSM put of one evicted block; reload = "
+        "LSM get on touch, excluding re-merge)",
+    ),
+    "dnz_spill_blocks_total": (
+        "counter",
+        "cold-tier blocks moved, labeled op=spill|reload — a reload "
+        "rate tracking the spill rate is the spill-thrashing signal",
+    ),
+    "dnz_spill_backpressure_total": (
+        "counter",
+        "escalations to end-of-line prefetch backpressure because "
+        "accounted state exceeded the hard ceiling with no evictable "
+        "cold state left",
+    ),
 }
 
 

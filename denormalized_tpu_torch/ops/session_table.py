@@ -22,9 +22,7 @@ UDAF/collection accumulators are inherently per-session Python objects;
 they live OUTSIDE the arrays in a ``{slot: [Accumulator, ...]}`` dict that
 follows slot alloc/free.
 
-Copy of ``denormalized_tpu/ops/session_table.py`` for the port, without
-the cold tier's extract/inject hooks (they come with the spill tiers,
-ROADMAP §A item 7).
+Copy of ``denormalized_tpu/ops/session_table.py`` for the port.
 """
 
 from __future__ import annotations
@@ -239,6 +237,38 @@ class SessionTable:
                 self.gid, self.link, self.live, self.head,
             )
         )
+
+    # -- cold-tier eviction hooks (state/tiering.py) ---------------------
+    #: the per-slot payload arrays a spill block carries (gid/link/live
+    #: are structural and re-derived at reload; accs ride the block meta)
+    SPILL_FIELDS = (
+        "start", "last", "row_count", "counts", "sums", "mins", "maxs",
+        "means", "m2s",
+    )
+
+    def extract_slots(self, slots: np.ndarray) -> dict[str, np.ndarray]:
+        """Gather the payload arrays of ``slots`` (one vectorized take
+        per field) for cold-tier serialization.  The caller follows up
+        with :meth:`remove_slots` — extract is read-only."""
+        return {
+            name: getattr(self, name)[slots].copy()
+            for name in self.SPILL_FIELDS
+        }
+
+    def inject_slots(
+        self, gids: np.ndarray, fields: dict[str, np.ndarray]
+    ) -> np.ndarray:
+        """Re-admit previously extracted sessions: allocate slots,
+        scatter every payload field, and chain them into their gids'
+        lists.  Returns the slot indices (for accumulator re-attach)."""
+        n = len(gids)
+        slots = self.alloc(n)
+        for name in self.SPILL_FIELDS:
+            getattr(self, name)[slots] = fields[name]
+        self.gid[slots] = gids
+        self.live[slots] = True
+        self.chain(np.asarray(gids, dtype=np.int64), slots)
+        return slots
 
     # -- scans -----------------------------------------------------------
     def live_slots(self) -> np.ndarray:

@@ -111,6 +111,10 @@ class WindowStateBackend:
     def reset_slot(self, slot: int) -> None:
         raise NotImplementedError
 
+    def write_slots(self, slots: list[int], planes: dict[str, np.ndarray]) -> None:
+        """Overwrite whole ring slots from ``(len(slots), G)`` host planes."""
+        raise NotImplementedError
+
     def export(self) -> dict[str, np.ndarray]:
         """(W, G) host snapshot for growth and for carrying state across."""
         raise NotImplementedError
@@ -230,6 +234,21 @@ class SingleDeviceWindowState(WindowStateBackend):
 
     def reset_slot(self, slot: int) -> None:
         sa.reset_slot(self.spec, self._state, slot)
+
+    def write_slots(self, slots: list[int], planes: dict[str, np.ndarray]) -> None:
+        """Overwrite whole ring slots from the host: ``planes[label]`` is
+        ``(len(slots), G)``, row i going to slot ``slots[i]`` — one copy to
+        the device and one indexed copy a plane, on the current stream (the
+        cold tier's reload writes only the slots it brings back, never the
+        whole ring)."""
+        idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
+        for label, arr in planes.items():
+            ring = self._state[label]
+            self.bytes_h2d += int(arr.nbytes)
+            src = torch.from_numpy(np.ascontiguousarray(arr)).to(
+                device=self.device, dtype=ring.dtype
+            )
+            ring.index_copy_(0, idx, src)
 
     def _side_stream(self) -> torch.cuda.Stream:
         if self._side is None:

@@ -47,9 +47,16 @@ watermarks, band state and hot-block representatives under
 package restores the other's snapshot; a restore re-interns the keys and
 rebuilds the chains and hot blocks.
 
-Not ported yet: the cold tier (spilling retained batches; a snapshot
-holding spilled blocks is refused), shared-group cost attribution and the
-doctor's lineage hooks.
+Cold tier (``enable_spill``, under a state budget): :class:`_JoinTier`
+spills whole retained batches a side to the LSM — the chained index arrays
+stay resident, they are the probe structure — and reloads a batch only
+when a probe hit, an unmatched emission or a checkpoint needs its rows.
+While any batch is spilled the snapshot takes the JAX package's v2 layout
+(per-row gids and the interner ride along; spilled batches are referenced
+blocks), which either package restores, with a budget or without one.
+
+Not ported yet: shared-group cost attribution and the doctor's lineage
+hooks.
 """
 
 from __future__ import annotations
@@ -81,6 +88,8 @@ from denormalized_tpu_torch.physical.base import (
     StreamItem,
     WatermarkHint,
 )
+from denormalized_tpu_torch.runtime.tracing import logger
+from denormalized_tpu_torch.state import tiering
 
 
 def band_evict_mask(
@@ -694,6 +703,266 @@ class _SideState:
         return merged.take(inv)
 
 
+class _JoinTier:
+    """Cold tier of one streaming join: spills whole retained batches (the
+    row payload — the chained index arrays stay resident, they ARE the
+    probe structure) per side into the LSM, reloading a batch only when a
+    probe hit, an outer-join unmatched emission, or a checkpoint needs its
+    rows.  Cold rank: least-recently reloaded first, oldest event time as
+    the tiebreak — retention-horizon rows evicted cold can die in the LSM
+    without ever being read back.
+
+    The newest batch of each side is never spilled (it is the batch the
+    operator is processing)."""
+
+    __slots__ = (
+        "op", "node_id", "ctrl", "clock", "touch", "est", "blocks",
+        "spilled_bytes", "spilled_rows", "_next",
+    )
+
+    #: estimated row-array overhead per retained row (link/bi/ri/gid/
+    #: matched across the chained arrays)
+    ROW_OVERHEAD = 32
+
+    def __init__(self, op: "StreamingJoinExec", node_id: str, ctrl) -> None:
+        self.op = op
+        self.node_id = node_id
+        self.ctrl = ctrl
+        self.clock = 0
+        # per side, aligned with side.batches: touch stamp + cached
+        # accounting-bytes estimate; spilled-block map {bi: {...}}
+        self.touch: list[list[int]] = [[], []]
+        self.est: list[list[int]] = [[], []]
+        self.blocks: list[dict[int, dict]] = [{}, {}]
+        self.spilled_bytes = 0
+        self.spilled_rows = 0
+        self._next = 0
+        ctrl.register(node_id, op, self.resident_bytes)
+
+    def _side_idx(self, side) -> int:
+        return 0 if side is self.op._sides[0] else 1
+
+    def resident_bytes(self) -> int:
+        """Cheap per-batch budget input: cached per-batch estimates of the
+        RESIDENT batches plus the row-array overhead.  May run on another
+        operator's thread: the list references are read once and the index
+        bounded, so racing an append tears to a one-batch underestimate,
+        never an IndexError."""
+        sides = self.op._sides
+        if sides is None:
+            return 0
+        total = 0
+        for sid, side in enumerate(sides):
+            est = self.est[sid]
+            batches = side.batches
+            for bi in range(min(len(batches), len(est))):
+                if batches[bi] is not None:
+                    total += est[bi]
+            total += side.count * self.ROW_OVERHEAD
+        return total
+
+    @property
+    def any_spilled(self) -> bool:
+        return bool(self.blocks[0]) or bool(self.blocks[1])
+
+    def note_insert(self, side_id: int, batch: RecordBatch) -> None:
+        self.clock += 1
+        self.touch[side_id].append(self.clock)
+        self.est[side_id].append(statewatch.rb_nbytes(batch))
+
+    # -- reload-on-touch --------------------------------------------------
+    def ensure_rows_resident(self, side, build_rows: np.ndarray) -> None:
+        """Reload every spilled batch the given build rows live in — called
+        right before ``gather`` materializes them."""
+        sid = self._side_idx(side)
+        if not self.blocks[sid] or len(build_rows) == 0:
+            return
+        for bi in np.unique(side.row_bi[build_rows]).tolist():
+            if int(bi) in self.blocks[sid]:
+                self._reload(sid, side, int(bi))
+        self._write_manifest()
+
+    def _reload(self, sid: int, side, bi: int) -> None:
+        meta = self.blocks[sid].pop(bi)
+        raw = self.ctrl.get_block(self.node_id, meta["id"])
+        schema = (self.op.left if sid == 0 else self.op.right).schema
+        side.batches[bi] = tiering.rb_from_blob(raw, schema)[0]
+        self.clock += 1
+        self.touch[sid][bi] = self.clock
+        self.spilled_bytes -= meta["bytes"]
+        self.spilled_rows -= meta["rows"]
+        self.ctrl.note_reload(self.node_id, 1, len(raw))
+        self.ctrl.delete_block(self.node_id, meta["id"])
+
+    # -- eviction interplay ----------------------------------------------
+    def evict_prepare(self, side, drop_bi: np.ndarray, um: np.ndarray | None) -> None:
+        """Before the eviction gather: reload dropped spilled batches that
+        still owe unmatched emissions; DELETE the rest unread (cold rows
+        dying at the horizon never come back from the LSM)."""
+        sid = self._side_idx(side)
+        if not self.blocks[sid]:
+            return
+        n = side.count
+        needed: set[int] = set()
+        if um is not None and um.any():
+            needed = set(np.unique(side.row_bi[:n][um]).tolist())
+        for bi in drop_bi.tolist():
+            if int(bi) not in self.blocks[sid]:
+                continue
+            if int(bi) in needed:
+                self._reload(sid, side, int(bi))
+            else:
+                meta = self.blocks[sid].pop(int(bi))
+                self.spilled_bytes -= meta["bytes"]
+                self.spilled_rows -= meta["rows"]
+                self.ctrl.delete_block(self.node_id, meta["id"])
+        self._write_manifest()
+
+    def evict_remap(self, side, drop_set: np.ndarray, remap_bi) -> None:
+        """After ``rebuild`` renumbered batch indices, renumber the touch
+        stamps, estimates and block map the same way."""
+        sid = self._side_idx(side)
+        self.touch[sid] = [
+            t for bi, t in enumerate(self.touch[sid]) if not drop_set[bi]
+        ]
+        self.est[sid] = [
+            e for bi, e in enumerate(self.est[sid]) if not drop_set[bi]
+        ]
+        if self.blocks[sid]:
+            self.blocks[sid] = {
+                int(remap_bi[bi]): meta
+                for bi, meta in self.blocks[sid].items()
+            }
+
+    # -- eviction ---------------------------------------------------------
+    def maybe_spill(self) -> None:
+        need = self.ctrl.over_budget()
+        if need <= 0:
+            self.ctrl.relax(self.node_id)
+            return
+        sides = self.op._sides
+        # (stamp, max_ts, sid, bi) of every resident, spillable batch — the
+        # NEWEST batch of each side stays resident, and a batch holding hot
+        # sub-partition rows is a LAST RESORT: a hot block is probed every
+        # batch, so spilling it would thrash, but a key present in every
+        # batch must not make the budget unenforceable either
+        cands = []
+        hot_cands = []
+        for sid, side in enumerate(sides):
+            newest = len(side.batches) - 1
+            hot_bis: set[int] = set()
+            if side.hot.nslots:
+                ra = side.hot.rows_all()
+                if len(ra):
+                    hot_bis = set(np.unique(side.row_bi[ra]).tolist())
+            for bi, b in enumerate(side.batches):
+                if b is None or bi == newest or b.num_rows == 0:
+                    continue
+                target = hot_cands if bi in hot_bis else cands
+                target.append(
+                    (self.touch[sid][bi], side.batch_max_ts[bi], sid, bi)
+                )
+        cands.sort()
+        hot_cands.sort()
+        cands += hot_cands
+        freed = 0
+        spilled_any = False
+        for _stamp, _mx, sid, bi in cands:
+            if freed >= need:
+                break
+            try:
+                self._spill(sid, sides[sid], bi)
+            except StateError as e:
+                # failed eviction put: the batch stays resident; degrade
+                # rather than kill the query
+                logger.warning(
+                    "spill: join eviction put failed (%s) — batch stays "
+                    "resident", e,
+                )
+                break
+            freed += self.blocks[sid][bi]["est"]
+            spilled_any = True
+        if spilled_any:
+            self._write_manifest()
+        self.ctrl.check_pressure(self.node_id)
+
+    def _spill(self, sid: int, side, bi: int) -> None:
+        batch = side.batches[bi]
+        blob = tiering.rb_to_blob(
+            batch, extra_meta={"max_ts": int(side.batch_max_ts[bi])}
+        )
+        block_id = f"s{sid}b{self._next}"
+        self._next += 1
+        nbytes = self.ctrl.put_block(self.node_id, block_id, blob)
+        self.blocks[sid][bi] = {
+            "id": block_id,
+            "bytes": nbytes,
+            "rows": batch.num_rows,
+            "est": statewatch.rb_nbytes(batch),
+        }
+        side.batches[bi] = None
+        self.spilled_bytes += nbytes
+        self.spilled_rows += batch.num_rows
+        self.ctrl.note_spill(self.node_id, 1, nbytes)
+
+    def _write_manifest(self) -> None:
+        self.ctrl.write_manifest(
+            self.node_id,
+            [m["id"] for s in self.blocks for m in s.values()],
+        )
+
+    def info(self) -> dict:
+        return {
+            "spilled_bytes": self.spilled_bytes,
+            "spilled_keys": self.spilled_rows,
+            "spilled_blocks": len(self.blocks[0]) + len(self.blocks[1]),
+            "spill": self.ctrl.spill_stats(self.node_id),
+        }
+
+    # -- checkpoint integration -------------------------------------------
+    def snapshot_refs(self, coord, key: str, epoch: int) -> list[dict]:
+        refs = []
+        for sid in (0, 1):
+            for bi in sorted(self.blocks[sid]):
+                meta = self.blocks[sid][bi]
+                self.ctrl.copy_block_to_epoch(
+                    coord, key, epoch, self.node_id, meta["id"]
+                )
+                refs.append({
+                    "side": sid, "bi": bi, "id": meta["id"],
+                    "bytes": meta["bytes"], "rows": meta["rows"],
+                    "est": meta["est"],
+                })
+        return refs
+
+    def restore_block(self, coord, key: str, ref: dict) -> None:
+        """Epoch blob → spill namespace; the tier map entry re-armed
+        without materializing the rows."""
+        raw = self.ctrl.restore_block_from_epoch(
+            coord, key, self.node_id, ref["id"]
+        )
+        sid, bi = int(ref["side"]), int(ref["bi"])
+        self.blocks[sid][bi] = {
+            "id": ref["id"], "bytes": len(raw),
+            "rows": int(ref["rows"]), "est": int(ref["est"]),
+        }
+        self.spilled_bytes += len(raw)
+        self.spilled_rows += int(ref["rows"])
+        self._next = max(self._next, int(ref["id"].rsplit("b", 1)[1]) + 1)
+
+    def align_touch(self, sides) -> None:
+        """After a restore rebuilt the batch lists, re-seed the touch
+        stamps (everything equally cold; reload order then follows event
+        time) and the per-batch byte estimates."""
+        for sid, side in enumerate(sides):
+            self.touch[sid] = [0] * len(side.batches)
+            self.est[sid] = [
+                self.blocks[sid][bi]["est"] if b is None
+                else statewatch.rb_nbytes(b)
+                for bi, b in enumerate(side.batches)
+            ]
+
+
 class StreamingJoinExec(ExecOperator):
     def __init__(
         self,
@@ -778,6 +1047,8 @@ class StreamingJoinExec(ExecOperator):
         self._sides = None  # run()'s live (_SideState, _SideState) pair
         # checkpointing (enable_checkpointing): (coordinator, state key)
         self._ckpt: tuple | None = None
+        # cold tier (state/tiering.py): set by enable_spill
+        self._tier: _JoinTier | None = None
         # closed-loop skew adaptation: the policy runs on the join's own
         # thread between batches
         self._policy = None
@@ -829,6 +1100,10 @@ class StreamingJoinExec(ExecOperator):
         on = ", ".join(f"{l}={r}" for l, r in zip(self.left_keys, self.right_keys))
         return f"StreamingJoinExec({self.kind.value} on {on})"
 
+    # -- cold tier (state/tiering.py) -----------------------------------
+    def enable_spill(self, node_id: str, controller) -> None:
+        self._tier = _JoinTier(self, node_id, controller)
+
     def metrics(self):
         m = dict(self._metrics)
         sides = self._sides
@@ -847,7 +1122,11 @@ class StreamingJoinExec(ExecOperator):
         )
         if side.row_band is not None:
             per_row += int(side.row_band.itemsize)
-        batch_bytes = sum(statewatch.rb_nbytes(b) for b in side.batches)
+        # spilled batches sit as None placeholders: their rows cost the
+        # LSM, not RAM
+        batch_bytes = sum(
+            statewatch.rb_nbytes(b) for b in side.batches if b is not None
+        )
         # hot sub-partitions, counted apart (hot_bytes): hot row ids + each
         # hot row's proportional share of its batch's bytes
         hot_keys = int(side.hot.nslots)
@@ -859,7 +1138,7 @@ class StreamingJoinExec(ExecOperator):
             )
             for bi in np.nonzero(cnt)[0]:
                 b = side.batches[int(bi)]
-                if b.num_rows:
+                if b is not None and b.num_rows:
                     hot_bytes += int(
                         statewatch.rb_nbytes(b) * (int(cnt[bi]) / b.num_rows)
                     )
@@ -904,6 +1183,8 @@ class StreamingJoinExec(ExecOperator):
             "retention_unit_ms": self.retention_ms,
             "sides": {"left": L, "right": R},
         }
+        if self._tier is not None:
+            info.update(self._tier.info())
         if self._policy is not None:
             info["adaptations"] = {
                 "total": self._policy.adaptations_total,
@@ -992,6 +1273,10 @@ class StreamingJoinExec(ExecOperator):
                 probe_base, probe_side, build,
             )
         tg = time.perf_counter()
+        if self._tier is not None:
+            # membership pre-probe: any spilled batch a hit landed in
+            # reloads before the gather (nothing spilled: one check)
+            self._tier.ensure_rows_resident(build, b_rows)
         p_take = probe_batch.take(p_idx)
         b_take = build.gather(b_rows)
         if probe_is_left:
@@ -1046,6 +1331,8 @@ class StreamingJoinExec(ExecOperator):
         if self.kind is JoinKind.LEFT_SEMI:
             newly = np.unique(bk[~pre])
             if len(newly):
+                if self._tier is not None:
+                    self._tier.ensure_rows_resident(build, newly)
                 return build.gather(newly)
         return None
 
@@ -1077,8 +1364,16 @@ class StreamingJoinExec(ExecOperator):
         n = side.count
         row_dropped = drop_set[side.row_bi[:n]]
         unmatched: list[RecordBatch] = []
-        if self._emits_unmatched(is_left):
-            um = row_dropped & ~side.matched[:n]
+        um = (
+            row_dropped & ~side.matched[:n]
+            if self._emits_unmatched(is_left)
+            else None
+        )
+        if self._tier is not None:
+            # dropped spilled batches owing unmatched emissions reload; the
+            # rest die in the LSM without ever being read back
+            self._tier.evict_prepare(side, drop_bi, um)
+        if um is not None:
             for bi in drop_bi:
                 sel = um & (side.row_bi[:n] == bi)
                 if sel.any():
@@ -1112,6 +1407,8 @@ class StreamingJoinExec(ExecOperator):
             # eviction renumbered rows but not gids: re-adopt each hot key's
             # (possibly now empty) block so it stays hot
             side.rehot(hot_gids)
+        if self._tier is not None:
+            self._tier.evict_remap(side, drop_set, remap_bi)
         return unmatched
 
     def _evict_horizon(self, sides) -> Iterator[RecordBatch]:
@@ -1149,7 +1446,13 @@ class StreamingJoinExec(ExecOperator):
         # dwarfs the retained rows (UUID-style keys), re-key from scratch
         # so memory stays bounded by retention, not stream lifetime
         retained = sides[0].count + sides[1].count
-        if len(self._interner) > max(self._reintern_min, 4 * retained):
+        if len(self._interner) > max(self._reintern_min, 4 * retained) and not (
+            # re-interning reads every retained batch's key columns:
+            # reloading the cold tier for it would defeat the spill, so it
+            # waits until the cold set drains (eviction keeps the interner
+            # bounded by retention regardless)
+            self._tier is not None and self._tier.any_spilled
+        ):
             self._reintern(sides)
         self._metrics["evict_s"] += time.perf_counter() - t0
         yield from out
@@ -1231,13 +1534,24 @@ class StreamingJoinExec(ExecOperator):
 
         coord, key = self._ckpt
         t0 = time.perf_counter()
+        spilled = self._tier is not None and self._tier.any_spilled
         meta: dict = {"epoch": epoch, "sides": []}
         arrays: dict[str, np.ndarray] = {}
+        if spilled:
+            # v2 (cold tier active): spilled blocks are referenced from
+            # this snapshot and their payloads committed under the SAME
+            # epoch; per-row gids + the shared interner ride along so a
+            # restore never materializes cold rows to re-intern them
+            meta["interner"] = self._interner.snapshot()
+            meta["spill"] = {
+                "blocks": self._tier.snapshot_refs(coord, key, epoch)
+            }
         for sid, (side, schema) in enumerate(
             zip(sides, (self.left.schema, self.right.schema))
         ):
             n = side.count
-            rows = RecordBatch.concat(side.batches) if side.batches else None
+            resident = [b for b in side.batches if b is not None]
+            rows = RecordBatch.concat(resident) if resident else None
             side_meta = {
                 "watermark": side.watermark,
                 "count": n,
@@ -1250,9 +1564,9 @@ class StreamingJoinExec(ExecOperator):
                 # persisted per-row band values
                 side_meta["band_wm"] = side.band_wm
             if rows is not None:
-                # insert order == row-array order
+                # insert order == row-array order (v2: resident rows only)
                 self._pack_side_cols(sid, rows, schema, side_meta, arrays)
-            if n and rows is not None:
+            if n and (rows is not None or spilled):
                 arrays[f"s{sid}_matched"] = side.matched[:n].copy()
                 # per-batch boundaries: restore keeps the original batch
                 # granularity, or whole-batch eviction by max ts would
@@ -1261,6 +1575,8 @@ class StreamingJoinExec(ExecOperator):
                 arrays[f"s{sid}_batch_max_ts"] = np.asarray(
                     side.batch_max_ts, dtype=np.int64
                 )
+                if spilled:
+                    arrays[f"s{sid}_row_gid"] = side.row_gid[:n].copy()
                 if side.row_band is not None:
                     arrays[f"s{sid}_band"] = side.row_band[:n].copy()
             if side.hot.nslots:
@@ -1278,9 +1594,10 @@ class StreamingJoinExec(ExecOperator):
         m["snapshot_put_s"] += time.perf_counter() - t1
 
     def _restore(self, sides) -> None:
-        """Continue from the committed epoch's snapshot, if there is one.
-        A snapshot of the JAX package's cold tier (``meta["spill"]``) is
-        refused whole, never restored in part."""
+        """Continue from the committed epoch's snapshot, if there is one:
+        the v1 layout re-interns the retained rows, the cold tier's v2
+        layout (``meta["spill"]``) takes its interner and per-row gids from
+        the blob (:meth:`_restore_v2`)."""
         from denormalized_tpu_torch.state.serialization import unpack_snapshot
 
         coord, key = self._ckpt
@@ -1290,13 +1607,14 @@ class StreamingJoinExec(ExecOperator):
             return
         meta, arrays = unpack_snapshot(blob)
         if meta.get("spill") is not None:
-            raise StateError(
-                f"snapshot {key!r} references join blocks spilled to the "
-                "cold tier (state/tiering.py and the join's _JoinTier, "
-                "ROADMAP §A item 7), which denormalized_tpu_torch does not "
-                "port yet"
-            )
-        self._restore_v1(meta, arrays, sides)
+            self._restore_v2(coord, key, meta, arrays, sides)
+        else:
+            self._restore_v1(meta, arrays, sides)
+            if self._tier is not None:
+                # a v1 snapshot restored into a budgeted run: the tier's
+                # per-batch touch/est lists must cover the rebuilt batch
+                # lists, or the first budget check indexes past them
+                self._tier.align_touch(sides)
         self._metrics["restore_s"] += time.perf_counter() - t0
 
     @staticmethod
@@ -1421,6 +1739,92 @@ class StreamingJoinExec(ExecOperator):
                 side.rehot(
                     np.unique(gids[np.asarray(reps, dtype=np.int64)])
                 )
+
+    def _restore_v2(self, coord, key, meta, arrays, sides) -> None:
+        """Restore a cold-tier snapshot: the interner and per-row gids come
+        from the blob (no re-intern), resident batches rebuild from the
+        resident-row concat, and spilled batches re-arm as tier-map
+        placeholders — their payloads stream epoch → spill namespace one at
+        a time.  Without a tier (the budget was removed since) spilled
+        batches materialize resident instead."""
+        self._interner = GroupInterner.restore(meta["interner"])
+        by_side: list[dict[int, dict]] = [{}, {}]
+        for ref in meta["spill"]["blocks"]:
+            by_side[int(ref["side"])][int(ref["bi"])] = ref
+        for sid, (side, schema) in enumerate(
+            zip(sides, (self.left.schema, self.right.schema))
+        ):
+            side_meta = meta["sides"][sid]
+            side.watermark = side_meta["watermark"]
+            side.band_wm = side_meta.get("band_wm")
+            n = int(side_meta["count"])
+            if n == 0:
+                continue
+            bis = arrays[f"s{sid}_row_bi"].astype(np.int32)
+            batch_max_ts = [int(x) for x in arrays[f"s{sid}_batch_max_ts"]]
+            gids = arrays[f"s{sid}_row_gid"].astype(np.int32)
+            # the resident-row concat (absent when every batch spilled)
+            resident_rows = n - sum(
+                int(r["rows"]) for r in by_side[sid].values()
+            )
+            merged = (
+                self._unpack_side_cols(sid, schema, side_meta, arrays)
+                if resident_rows > 0 else None
+            )
+            starts = np.concatenate(([True], bis[1:] != bis[:-1]))
+            bounds = np.nonzero(starts)[0]
+            ends = np.append(bounds[1:], n)
+            batches: list[RecordBatch | None] = []
+            cursor = 0
+            for new_bi, (b0, b1) in enumerate(zip(bounds, ends)):
+                ref = by_side[sid].get(int(bis[b0]))
+                if ref is None:
+                    ln = int(b1 - b0)
+                    batches.append(merged.take(
+                        np.arange(cursor, cursor + ln, dtype=np.int64)
+                    ))
+                    cursor += ln
+                elif self._tier is not None:
+                    self._tier.restore_block(coord, key, {**ref, "bi": new_bi})
+                    batches.append(None)
+                else:
+                    raw = coord.get_snapshot(f"{key}:spill:{ref['id']}")
+                    if raw is None:
+                        raise StateError(
+                            "checkpoint references spilled join block "
+                            f"{ref['id']!r} but the epoch holds no such "
+                            "snapshot"
+                        )
+                    batches.append(tiering.rb_from_blob(raw, schema)[0])
+            ris = np.concatenate(
+                [np.arange(b1 - b0, dtype=np.int32)
+                 for b0, b1 in zip(bounds, ends)]
+            )
+            band = None
+            if self.band is not None:
+                band = arrays.get(f"s{sid}_band")
+                if band is None:
+                    raise StateError(
+                        "banded join restoring a cold-tier snapshot "
+                        "without band values — the snapshot predates the "
+                        "band predicate and spilled rows cannot be "
+                        "re-evaluated"
+                    )
+            side.rebuild(
+                batches,
+                [batch_max_ts[int(bis[b0])] for b0 in bounds],
+                gids,
+                (np.cumsum(starts) - 1).astype(np.int32),
+                ris,
+                arrays[f"s{sid}_matched"].astype(bool),
+                band=band,
+            )
+            reps = side_meta.get("hot_reps") or []
+            if reps:
+                side.rehot(np.unique(gids[np.asarray(reps, dtype=np.int64)]))
+        if self._tier is not None:
+            self._tier.align_touch(sides)
+            self._tier._write_manifest()
 
     # ------------------------------------------------------------------
     def run(self) -> Iterator[StreamItem]:
@@ -1558,6 +1962,8 @@ class StreamingJoinExec(ExecOperator):
                 # this batch's rows must not be cleared by a later insert
                 probe_base = side.count
                 side.insert(batch, gids, band_vals)
+                if self._tier is not None:
+                    self._tier.note_insert(side_id, batch)
                 t1 = time.perf_counter()
                 m["build_s"] += t1 - t0_batch
                 g0 = m["gather_s"]
@@ -1601,6 +2007,8 @@ class StreamingJoinExec(ExecOperator):
                     if wm_emitted is None or low > wm_emitted:
                         wm_emitted = low
                         yield WatermarkHint(low, kind="partition")
+                if self._tier is not None:
+                    self._tier.maybe_spill()
                 if self._policy is not None:
                     # closed loop: layout mutations run on the join's own
                     # thread between batches, never racing the probe

@@ -49,9 +49,9 @@ selects it) and serves as the differential oracle.
 Counterpart of ``denormalized_tpu/physical/session_exec.py``: host numpy in
 both packages, so the port runs the same code.  Checkpoints write the JAX
 package's JSON blob under ``session_{node_id}`` and restore either
-package's (or the reference operator's).  The cold tier (``_SessionTier``)
-is not ported: ``enable_spill`` and a snapshot holding spilled blocks
-raise, naming ROADMAP §A item 7.
+package's (or the reference operator's).  Under a state budget
+(``enable_spill``) :class:`_SessionTier` moves the coldest keys' open
+sessions to the LSM and back, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -89,8 +89,13 @@ from denormalized_tpu_torch.physical.base import (
     StreamItem,
     WatermarkHint,
 )
-from denormalized_tpu_torch.physical.udaf_exec import spill_not_ported
-from denormalized_tpu_torch.state.checkpoint import get_json, put_json
+from denormalized_tpu_torch.runtime.tracing import logger
+from denormalized_tpu_torch.state import tiering
+from denormalized_tpu_torch.state.checkpoint import get_json, jsonable, put_json
+from denormalized_tpu_torch.state.serialization import (
+    pack_snapshot,
+    unpack_snapshot,
+)
 
 
 def _segmented_cummax(vals: np.ndarray, seg_start: np.ndarray) -> np.ndarray:
@@ -116,6 +121,276 @@ def _segmented_cummax(vals: np.ndarray, seg_start: np.ndarray) -> np.ndarray:
     for b0, b1 in zip(bounds, np.append(bounds[1:], n)):
         out[b0:b1] = np.maximum.accumulate(vals[b0:b1])
     return out
+
+
+class _SessionTier:
+    """Cold tier of one session operator: evicts the coldest gids' open
+    sessions (whole-gid granularity, blocks of up to
+    ``tiering.SPILL_BLOCK_SLOTS`` slots) out of the SoA table into the
+    LSM, and reloads them when a batch touches their keys, the watermark
+    reaches their gap, or the stream ends.
+
+    Invariant: a gid is either fully resident or fully spilled — touch
+    reloads BEFORE any merge, so the table never holds a partial view of a
+    spilled key.  Spilled gids keep their interner entries (the key → gid
+    mapping is the membership filter's index), and the operator's release
+    sites filter them out so a spilled gid is never recycled out from
+    under its block (reload re-interns key VALUES, so even a restore —
+    which rebuilds the gid space — maps blocks back correctly)."""
+
+    __slots__ = (
+        "op", "node_id", "ctrl", "cold", "any_spilled", "spilled_bytes",
+        "spilled_keys", "_block_of", "_blocks", "_next",
+    )
+
+    def __init__(self, op: "SessionWindowExec", node_id: str, ctrl) -> None:
+        self.op = op
+        self.node_id = node_id
+        self.ctrl = ctrl
+        self.cold = tiering.ColdTracker()
+        self.any_spilled = False
+        self.spilled_bytes = 0
+        self.spilled_keys = 0
+        self._block_of = np.full(1024, -1, dtype=np.int64)
+        self._blocks: dict[int, dict] = {}
+        self._next = 0
+        ctrl.register(node_id, op, self.resident_bytes)
+
+    def resident_bytes(self) -> int:
+        """O(1) resident estimate for the per-batch budget check (live
+        slots x exact per-slot bytes + the per-object estimates — the
+        state_info formula without its live-slot scans)."""
+        op = self.op
+        T = op._table
+        return (
+            len(T) * T.per_slot_nbytes()
+            + len(T.accs) * swm.ACC_EST_BYTES
+            + len(op._interner) * swm.KEY_EST_BYTES
+        )
+
+    def _ensure_maps(self, n: int) -> None:
+        self.cold.ensure(n)
+        cap = len(self._block_of)
+        if n <= cap:
+            return
+        while cap < n:
+            cap *= 2
+        new = np.full(cap, -1, dtype=np.int64)
+        new[: len(self._block_of)] = self._block_of
+        self._block_of = new
+
+    # -- hot path: membership filter + touch stamp -----------------------
+    def touch_and_reload(self, gids: np.ndarray) -> None:
+        """Stamp the batch's gids hot and reload every block any of them
+        lives in (with nothing spilled: one scatter and one attribute
+        check)."""
+        self._ensure_maps(self.op._interner.capacity)
+        self.cold.touch(gids)
+        if not self.any_spilled:
+            return
+        b = self._block_of[gids]
+        hit = b[b >= 0]
+        if len(hit) == 0:
+            return
+        for bid in np.unique(hit).tolist():
+            self._reload_block(int(bid))
+        self._write_manifest()
+
+    # -- eviction ---------------------------------------------------------
+    def maybe_spill(self, protect_gids: np.ndarray) -> None:
+        need = self.ctrl.over_budget()
+        if need <= 0:
+            self.ctrl.relax(self.node_id)
+            return
+        op = self.op
+        T = op._table
+        live = T.live_slots()
+        spilled_any = False
+        if len(live):
+            per_slot = max(T.per_slot_nbytes(), 1)
+            self._ensure_maps(op._interner.capacity)
+            protect = np.zeros(len(self._block_of), dtype=bool)
+            protect[protect_gids] = True
+            live_gids = T.gid[live].astype(np.int64)
+            cand = live_gids[~protect[live_gids]]
+            if len(cand):
+                u, counts = np.unique(cand, return_counts=True)
+                order = np.argsort(self.cold.last_touch[u], kind="stable")
+                u = u[order]
+                counts = counts[order]
+                csum = np.cumsum(counts)
+                need_slots = -(-need // per_slot)
+                k = int(np.searchsorted(csum, need_slots)) + 1
+                k = min(k, len(u))
+                chosen, chosen_counts = u[:k], counts[:k]
+                # chunk the chosen gids into <= SPILL_BLOCK_SLOTS-slot
+                # blocks (spill cadence, never per row)
+                start = 0
+                acc = 0
+                for i in range(len(chosen)):
+                    acc += int(chosen_counts[i])
+                    if acc >= tiering.SPILL_BLOCK_SLOTS or i == len(chosen) - 1:
+                        try:
+                            self._spill_chunk(chosen[start : i + 1])
+                        except StateError as e:
+                            # a failed eviction put leaves the chunk
+                            # resident: degrade, never kill the query over
+                            # a spill write
+                            logger.warning(
+                                "spill: session eviction put failed "
+                                "(%s) — chunk stays resident", e,
+                            )
+                            break
+                        spilled_any = True
+                        start, acc = i + 1, 0
+                if spilled_any:
+                    self._write_manifest()
+        self.ctrl.check_pressure(self.node_id)
+
+    def _spill_chunk(self, gids_chunk: np.ndarray) -> None:
+        op = self.op
+        T = op._table
+        slots, owner = T.open_slots_of(gids_chunk)
+        if len(slots) == 0:
+            return
+        fields = T.extract_slots(slots)
+        accs_meta = None
+        if op._udafs:
+            accs_meta = [
+                [acc.state() for acc in T.accs[int(s)]]
+                if int(s) in T.accs
+                else None
+                for s in slots.tolist()
+            ]
+        keys = op._interner.keys_of(gids_chunk)
+        meta = {
+            "keys": jsonable([list(c) for c in keys]),
+            "accs": jsonable(accs_meta),
+            "n": int(len(slots)),
+            "min_start": int(fields["start"].min()),
+            "min_last": int(fields["last"].min()),
+            "max_last": int(fields["last"].max()),
+        }
+        arrays = dict(fields)
+        arrays["owner"] = owner.astype(np.int32)
+        bid = self._next
+        self._next += 1
+        # durable FIRST: the slots leave the table only once the block is
+        # in the LSM
+        nbytes = self.ctrl.put_block(
+            self.node_id, f"b{bid}", pack_snapshot(meta, arrays)
+        )
+        T.remove_slots(slots)  # freed gids stay interned (spilled)
+        self._block_of[gids_chunk] = bid
+        self._blocks[bid] = {
+            "gids": gids_chunk.copy(),
+            "bytes": nbytes,
+            "min_start": meta["min_start"],
+            "min_last": meta["min_last"],
+            "max_last": meta["max_last"],
+        }
+        self.any_spilled = True
+        self.spilled_bytes += nbytes
+        self.spilled_keys += int(len(gids_chunk))
+        self.ctrl.note_spill(self.node_id, 1, nbytes)
+
+    # -- reload -----------------------------------------------------------
+    def _reload_block(self, bid: int) -> None:
+        meta = self._blocks.pop(bid)
+        raw = self.ctrl.get_block(self.node_id, f"b{bid}")
+        chunk_gids = self.op._inject_block(*unpack_snapshot(raw))
+        self._ensure_maps(self.op._interner.capacity)
+        self._block_of[meta["gids"]] = -1
+        self._block_of[chunk_gids] = -1  # restore path: gids re-assigned
+        self.any_spilled = bool(self._blocks)
+        self.spilled_bytes -= meta["bytes"]
+        self.spilled_keys -= int(len(meta["gids"]))
+        self.ctrl.note_reload(self.node_id, 1, len(raw))
+        self.ctrl.delete_block(self.node_id, f"b{bid}")
+
+    def reload_for_watermark(self, watermark: int) -> None:
+        """Blocks holding ANY gap-expired session reload so the close sweep
+        sees them — emission timing (and so output) stays that of the
+        unbudgeted run."""
+        if not self.any_spilled:
+            return
+        gap = self.op.gap_ms
+        due = [
+            bid for bid, m in self._blocks.items()
+            if m["min_last"] + gap <= watermark
+        ]
+        for bid in due:
+            self._reload_block(bid)
+        if due:
+            self._write_manifest()
+
+    def reload_all(self) -> None:
+        for bid in list(self._blocks):
+            self._reload_block(bid)
+        self._write_manifest()
+
+    def _write_manifest(self) -> None:
+        self.ctrl.write_manifest(
+            self.node_id, [f"b{b}" for b in self._blocks]
+        )
+
+    # -- guards + accounting ---------------------------------------------
+    def filter_releasable(self, gids: np.ndarray) -> np.ndarray:
+        """Never recycle a gid whose sessions live in the cold tier."""
+        if not self.any_spilled or len(gids) == 0:
+            return gids
+        return gids[self._block_of[gids] < 0]
+
+    def min_start(self) -> int | None:
+        if not self._blocks:
+            return None
+        return min(m["min_start"] for m in self._blocks.values())
+
+    def info(self) -> dict:
+        return {
+            "spilled_bytes": self.spilled_bytes,
+            "spilled_keys": self.spilled_keys,
+            "spilled_blocks": len(self._blocks),
+            "spill": self.ctrl.spill_stats(self.node_id),
+        }
+
+    # -- checkpoint integration -------------------------------------------
+    def snapshot_refs(self, coord, key: str, epoch: int) -> list[int]:
+        bids = sorted(self._blocks)
+        for bid in bids:
+            self.ctrl.copy_block_to_epoch(
+                coord, key, epoch, self.node_id, f"b{bid}"
+            )
+        return bids
+
+    def restore_refs(self, coord, key: str, bids: list[int]) -> None:
+        """Rebuild the tier map from a committed epoch: each block's
+        payload streams back into the spill namespace (one at a time), its
+        keys re-intern into the fresh gid space, and the membership maps
+        re-arm — the cold tier is never materialized in RAM."""
+        op = self.op
+        for bid in bids:
+            raw = self.ctrl.restore_block_from_epoch(
+                coord, key, self.node_id, f"b{bid}"
+            )
+            bmeta = unpack_snapshot(raw)[0]
+            key_cols = tiering.key_columns_from_meta(bmeta["keys"])
+            chunk_gids = op._interner.intern(key_cols).astype(np.int64)
+            self._ensure_maps(op._interner.capacity)
+            op._table.ensure_gids(op._interner.capacity)
+            self._block_of[chunk_gids] = bid
+            self._blocks[bid] = {
+                "gids": chunk_gids,
+                "bytes": len(raw),
+                "min_start": int(bmeta["min_start"]),
+                "min_last": int(bmeta["min_last"]),
+                "max_last": int(bmeta["max_last"]),
+            }
+            self.spilled_bytes += len(raw)
+            self.spilled_keys += int(len(chunk_gids))
+            self._next = max(self._next, bid + 1)
+        self.any_spilled = bool(self._blocks)
+        self._write_manifest()
 
 
 class SessionWindowExec(ExecOperator):
@@ -180,6 +455,9 @@ class SessionWindowExec(ExecOperator):
         # longer advances the watermark (replay-skew safety)
         self._src_watermarks = False
         self._ckpt: tuple | None = None
+        # cold tier (state/tiering.py): installed by enable_spill when a
+        # state budget + backend are configured; None = all-resident
+        self._tier: _SessionTier | None = None
         self._metrics = {
             "rows_in": 0,
             "sessions_emitted": 0,
@@ -203,7 +481,7 @@ class SessionWindowExec(ExecOperator):
         )
 
     def enable_spill(self, node_id: str, controller) -> None:
-        raise PlanError(spill_not_ported("SessionWindowExec.enable_spill"))
+        self._tier = _SessionTier(self, node_id, controller)
 
     # -- state observatory (obs/statewatch.py) --------------------------
     def state_info(self) -> dict:
@@ -216,6 +494,10 @@ class SessionWindowExec(ExecOperator):
         keys = interner_accounting(self._interner)
         wm = self._watermark
         oldest = int(T.start[live].min()) if n_live else None
+        if self._tier is not None:
+            tmin = self._tier.min_start()
+            if tmin is not None:
+                oldest = tmin if oldest is None else min(oldest, tmin)
         info = {
             "op": "session",
             # live accounting only (restore-invariant by construction):
@@ -245,6 +527,8 @@ class SessionWindowExec(ExecOperator):
         }
         if wm is not None and oldest is not None:
             info["oldest_event_lag_ms"] = max(0, int(wm) - oldest)
+        if self._tier is not None:
+            info.update(self._tier.info())
         return info
 
     # ------------------------------------------------------------------
@@ -311,6 +595,10 @@ class SessionWindowExec(ExecOperator):
         key_cols = [g.eval(batch) for g in self.group_exprs]
         gids = self._interner.intern(key_cols)
         self._sw.update(gids)
+        if self._tier is not None:
+            # membership pre-probe + reload-on-touch: any spilled gid of
+            # this batch comes back resident BEFORE merging
+            self._tier.touch_and_reload(gids)
         self._table.ensure_gids(self._interner.capacity)
         vals = (
             np.stack(
@@ -434,8 +722,12 @@ class SessionWindowExec(ExecOperator):
             # a key whose only-ever rows were dropped-late holds no state:
             # recycle its gid immediately instead of leaking it
             idle = dropped_gids[self._table.head[dropped_gids] == -1]
+            if self._tier is not None:
+                idle = self._tier.filter_releasable(idle)
             if len(idle):
                 self._interner.release(idle)
+        if self._tier is not None:
+            self._tier.maybe_spill(gids)
 
     def _merge_segments(
         self,
@@ -598,6 +890,10 @@ class SessionWindowExec(ExecOperator):
         WatermarkHint handling.  One vectorized scan of the live slots."""
         if self._watermark is None or candidate_wm > self._watermark:
             self._watermark = candidate_wm
+        if self._tier is not None:
+            # gap-expired cold blocks come back resident so this sweep
+            # closes them on the watermark the all-resident run does
+            self._tier.reload_for_watermark(self._watermark)
         expired = self._table.expired_slots(self.gap_ms, self._watermark)
         if len(expired) == 0:
             return
@@ -607,6 +903,8 @@ class SessionWindowExec(ExecOperator):
         expired = expired[order]
         out = self._emit_slots(expired)
         freed = self._table.remove_slots(expired)
+        if self._tier is not None:
+            freed = self._tier.filter_releasable(freed)
         if len(freed):
             # closed keys' dense ids go back to the interner free list
             self._interner.release(freed)
@@ -690,15 +988,51 @@ class SessionWindowExec(ExecOperator):
         snap = get_json(coord, self._ckpt[1])
         if snap is None:
             return
-        if snap.get("spill_blocks"):
-            raise StateError(
-                spill_not_ported(
-                    f"snapshot {self._ckpt[1]!r} holds sessions spilled to "
-                    "the cold tier"
-                )
-            )
         self._watermark = snap["watermark"]
         self._restore_sessions(snap["sessions"])
+        bids = snap.get("spill_blocks") or []
+        if bids:
+            if self._tier is not None:
+                # rebuild the tier map (blocks stream epoch → spill
+                # namespace one at a time; cold state stays cold)
+                self._tier.restore_refs(coord, self._ckpt[1], bids)
+            else:
+                # budget removed since the checkpoint: load the cold tier
+                # back resident
+                self._restore_spilled_resident(coord, self._ckpt[1], bids)
+
+    def _restore_spilled_resident(self, coord, key: str, bids: list) -> None:
+        for bid in bids:
+            raw = coord.get_snapshot(f"{key}:spill:b{bid}")
+            if raw is None:
+                raise StateError(
+                    f"checkpoint references spilled session block b{bid} "
+                    "but the epoch holds no such snapshot"
+                )
+            self._inject_block(*unpack_snapshot(raw))
+
+    def _inject_block(self, bmeta: dict, arrays: dict) -> np.ndarray:
+        """Re-admit one spilled block's sessions: re-intern its key values
+        (the gid space may have been rebuilt, or a gid recycled, since),
+        inject its slots and re-merge its accumulator states → the block's
+        gids in this run."""
+        key_cols = tiering.key_columns_from_meta(bmeta["keys"])
+        chunk_gids = self._interner.intern(key_cols).astype(np.int64)
+        T = self._table
+        T.ensure_gids(self._interner.capacity)
+        slots = T.inject_slots(
+            chunk_gids[arrays["owner"]],
+            {k: arrays[k] for k in T.SPILL_FIELDS},
+        )
+        if bmeta.get("accs"):
+            for s, states in zip(slots.tolist(), bmeta["accs"]):
+                if states is None:
+                    continue
+                accs = self._make_accs()
+                for acc, st in zip(accs, states):
+                    acc.merge(st)
+                T.accs[int(s)] = accs
+        return chunk_gids
 
     def _restore_sessions(self, entries: list) -> None:
         self._interner = RecyclingGroupInterner(len(self.group_exprs))
@@ -776,10 +1110,18 @@ class SessionWindowExec(ExecOperator):
                     else None,
                 ]
             )
-        put_json(coord, key, epoch, {
+        snap = {
             "epoch": epoch, "watermark": self._watermark,
             "sessions": sessions,
-        })
+        }
+        if self._tier is not None and self._tier.any_spilled:
+            # spilled + resident state commit under ONE epoch: block
+            # payloads re-put (CRC-framed, manifest-listed) under
+            # epoch-suffixed keys, referenced here by id
+            snap["spill_blocks"] = self._tier.snapshot_refs(
+                coord, key, epoch
+            )
+        put_json(coord, key, epoch, snap)
 
     def run(self) -> Iterator[StreamItem]:
         for item in self.input_op.run():
@@ -807,12 +1149,22 @@ class SessionWindowExec(ExecOperator):
                 lows = [item.ts_ms, floor]
                 if len(live):
                     lows.append(int(self._table.start[live].min()) - 1)
+                if self._tier is not None:
+                    tmin = self._tier.min_start()
+                    if tmin is not None:
+                        # spilled sessions are still open sessions: the
+                        # forward promise stays below their starts too
+                        lows.append(tmin - 1)
                 yield WatermarkHint(min(lows), kind=item.kind)
             elif isinstance(item, Marker):
                 if self._ckpt is not None:
                     self._snapshot(item.epoch)
                 yield item
             elif isinstance(item, EndOfStream):
+                if self._tier is not None:
+                    # the final flush emits EVERY open session, cold ones
+                    # included
+                    self._tier.reload_all()
                 live = self._table.live_slots()
                 if self.emit_on_close and len(live):
                     order = np.lexsort(

@@ -15,8 +15,10 @@ host numpy too: the port runs the same code.
 
 Checkpoints write the JAX package's JSON blob under ``udafwin_{node_id}``
 (key values, not gids, so a restore re-interns them), and restore either
-package's.  The cold tier (``_UdafTier``) is not ported: ``enable_spill``
-and a snapshot holding spilled groups raise, naming ROADMAP §A item 7.
+package's.  Under a state budget (``enable_spill``) :class:`_UdafTier`
+moves the coldest groups' accumulator states to the LSM, leaving
+order-keeping :data:`SPILLED` markers in the frames, as the JAX package's
+does.
 """
 
 from __future__ import annotations
@@ -56,14 +58,13 @@ from denormalized_tpu_torch.physical.window_exec import (
     watermark_floor,
     window_output_low_watermark,
 )
-from denormalized_tpu_torch.state.checkpoint import get_json, put_json
-
-
-def spill_not_ported(what: str) -> str:
-    return (
-        f"{what}: the cold tier (state/tiering.py spill) is not ported to "
-        "denormalized_tpu_torch yet; it comes with ROADMAP §A item 7"
-    )
+from denormalized_tpu_torch.runtime.tracing import logger
+from denormalized_tpu_torch.state import tiering
+from denormalized_tpu_torch.state.checkpoint import get_json, jsonable, put_json
+from denormalized_tpu_torch.state.serialization import (
+    pack_snapshot,
+    unpack_snapshot,
+)
 
 
 class _BuiltinAcc:
@@ -127,6 +128,294 @@ class _BuiltinAcc:
         self.max = max(self.max, s[3])
 
 
+class _Spilled:
+    """In-place marker for a frame group whose accumulators live in the
+    cold tier.  The dict ENTRY stays (so reload restores the group at its
+    original position and emission row order matches the all-resident
+    run); only the accumulator objects leave RAM."""
+
+    __slots__ = ()
+
+    def __repr__(self) -> str:  # pragma: no cover — debugging aid
+        return "<spilled>"
+
+
+SPILLED = _Spilled()
+
+
+class _UdafTier:
+    """Cold tier of one UDAF window operator: evicts the coldest gids'
+    accumulator states (across every open window they appear in) to the
+    LSM, leaving order-preserving markers in the frames; reloads when a
+    batch touches the key or the window emits."""
+
+    __slots__ = (
+        "op", "node_id", "ctrl", "cold", "any_spilled", "spilled_bytes",
+        "spilled_groups", "_block_of", "_blocks", "_next",
+    )
+
+    def __init__(self, op: "UdafWindowExec", node_id: str, ctrl) -> None:
+        self.op = op
+        self.node_id = node_id
+        self.ctrl = ctrl
+        self.cold = tiering.ColdTracker()
+        self.any_spilled = False
+        self.spilled_bytes = 0
+        self.spilled_groups = 0  # (window, gid) entries in the cold tier
+        self._block_of = np.full(1024, -1, dtype=np.int64)
+        self._blocks: dict[int, dict] = {}
+        self._next = 0
+        ctrl.register(node_id, op, self.resident_bytes)
+
+    def resident_bytes(self) -> int:
+        """Real accumulator sizes (``state_nbytes`` where implemented, so
+        unbounded collectors report their true growth) plus the per-key
+        and per-frame estimates.  ``list()`` copies: this may run on
+        another operator's thread while this one inserts or pops frames."""
+        op = self.op
+        acc_bytes = 0
+        try:
+            for f in list(op._frames.values()):
+                for accs in list(f.values()):
+                    if accs is SPILLED:
+                        continue
+                    for acc in accs:
+                        acc_bytes += swm.acc_nbytes(acc)
+        except RuntimeError:
+            # torn read mid-mutation: the flat estimate for this sample
+            groups = sum(len(f) for f in list(op._frames.values()))
+            acc_bytes = (
+                (groups - self.spilled_groups)
+                * max(len(op.aggr_exprs), 1)
+                * swm.ACC_EST_BYTES
+            )
+        keys = len(op._interner) if op._interner is not None else 0
+        return acc_bytes + keys * swm.KEY_EST_BYTES + len(op._frames) * 64
+
+    def _ensure_maps(self, n: int) -> None:
+        self.cold.ensure(n)
+        cap = len(self._block_of)
+        if n <= cap:
+            return
+        while cap < n:
+            cap *= 2
+        new = np.full(cap, -1, dtype=np.int64)
+        new[: len(self._block_of)] = self._block_of
+        self._block_of = new
+
+    def _capacity(self) -> int:
+        return len(self.op._interner) if self.op._interner is not None else 1
+
+    # -- hot path ---------------------------------------------------------
+    def touch_and_reload(self, gids: np.ndarray) -> None:
+        self._ensure_maps(self._capacity())
+        self.cold.touch(gids)
+        if not self.any_spilled:
+            return
+        b = self._block_of[gids]
+        hit = b[b >= 0]
+        if len(hit) == 0:
+            return
+        for bid in np.unique(hit).tolist():
+            self._reload_block(int(bid))
+        self._write_manifest()
+
+    def reload_gid(self, gid: int) -> None:
+        """Lazy reload for a marker met outside the batched touch path."""
+        bid = int(self._block_of[gid]) if gid < len(self._block_of) else -1
+        if bid >= 0:
+            self._reload_block(bid)
+            self._write_manifest()
+
+    def reload_for_window(self, j: int) -> None:
+        """Reload every block holding entries of window ``j`` before it
+        emits — emission content and row order match the all-resident run
+        exactly."""
+        if not self.any_spilled:
+            return
+        due = [bid for bid, m in self._blocks.items() if j in m["windows"]]
+        for bid in due:
+            self._reload_block(bid)
+        if due:
+            self._write_manifest()
+
+    # -- eviction ---------------------------------------------------------
+    def maybe_spill(self, protect_gids: np.ndarray) -> None:
+        need = self.ctrl.over_budget()
+        if need <= 0:
+            self.ctrl.relax(self.node_id)
+            return
+        op = self.op
+        # live resident groups + REAL bytes a gid (spill cadence only):
+        # evicting by true size frees the budget in as few blocks as
+        # possible when accumulator growth is skewed
+        per_gid: dict[int, int] = {}
+        per_gid_bytes: dict[int, int] = {}
+        for frame in op._frames.values():
+            for g, accs in frame.items():
+                if accs is not SPILLED:
+                    per_gid[g] = per_gid.get(g, 0) + 1
+                    per_gid_bytes[g] = per_gid_bytes.get(g, 0) + sum(
+                        swm.acc_nbytes(a) for a in accs
+                    )
+        self._ensure_maps(self._capacity())
+        protect = np.zeros(len(self._block_of), dtype=bool)
+        protect[protect_gids] = True
+        cand = np.asarray(
+            [g for g in per_gid if not protect[g]], dtype=np.int64
+        )
+        spilled_any = False
+        if len(cand):
+            cand = self.cold.order_cold(cand)
+            counts = np.asarray([per_gid[int(g)] for g in cand])
+            csum = np.cumsum(np.asarray([per_gid_bytes[int(g)] for g in cand]))
+            k = min(int(np.searchsorted(csum, need)) + 1, len(cand))
+            # chunk into blocks of <= SPILL_BLOCK_SLOTS entries
+            start = 0
+            acc = 0
+            for i in range(k):
+                acc += int(counts[i])
+                if acc >= tiering.SPILL_BLOCK_SLOTS or i == k - 1:
+                    try:
+                        self._spill_chunk(cand[start : i + 1])
+                    except StateError as e:
+                        # failed eviction put: the accumulators stay
+                        # resident; degrade, never kill the query
+                        logger.warning(
+                            "spill: udaf eviction put failed (%s) — "
+                            "chunk stays resident", e,
+                        )
+                        break
+                    spilled_any = True
+                    start, acc = i + 1, 0
+        if spilled_any:
+            self._write_manifest()
+        self.ctrl.check_pressure(self.node_id)
+
+    def _spill_chunk(self, gids_chunk: np.ndarray) -> None:
+        op = self.op
+        chunk_set = set(int(g) for g in gids_chunk)
+        entries: dict[str, list] = {}
+        to_mark: list[tuple[dict, int]] = []
+        windows: set[int] = set()
+        n_groups = 0
+        for j, frame in op._frames.items():
+            row = []
+            for g in frame:
+                if int(g) in chunk_set and frame[g] is not SPILLED:
+                    row.append([int(g), [acc.state() for acc in frame[g]]])
+                    to_mark.append((frame, int(g)))
+            if row:
+                entries[str(j)] = row
+                windows.add(int(j))
+                n_groups += len(row)
+        if n_groups == 0:
+            return
+        if op._interner is not None:
+            keys = op._interner.keys_of(np.asarray(gids_chunk, dtype=np.int64))
+            keys_meta = jsonable([list(c) for c in keys])
+        else:
+            keys_meta = None
+        # entries name gids by CHUNK POSITION, so a restore (fresh gid
+        # space) maps them through the re-interned keys
+        pos = {int(g): i for i, g in enumerate(gids_chunk)}
+        for row in entries.values():
+            for e in row:
+                e[0] = pos[e[0]]
+        meta = {
+            "keys": keys_meta,
+            "entries": jsonable(entries),
+            "windows": sorted(windows),
+            "groups": n_groups,
+        }
+        bid = self._next
+        # durable FIRST: the accumulators are replaced by markers only once
+        # their states are in the LSM
+        nbytes = self.ctrl.put_block(
+            self.node_id, f"b{bid}", pack_snapshot(meta, {})
+        )
+        self._next += 1
+        for frame, g in to_mark:
+            frame[g] = SPILLED
+        self._block_of[gids_chunk] = bid
+        self._blocks[bid] = {
+            "gids": np.asarray(gids_chunk, dtype=np.int64).copy(),
+            "windows": windows,
+            "bytes": nbytes,
+            "groups": n_groups,
+        }
+        self.any_spilled = True
+        self.spilled_bytes += nbytes
+        self.spilled_groups += n_groups
+        self.ctrl.note_spill(self.node_id, 1, nbytes)
+
+    # -- reload -----------------------------------------------------------
+    def _reload_block(self, bid: int) -> None:
+        meta = self._blocks.pop(bid)
+        raw = self.ctrl.get_block(self.node_id, f"b{bid}")
+        chunk_gids = self.op._merge_block(unpack_snapshot(raw)[0])
+        self._ensure_maps(self._capacity())
+        self._block_of[meta["gids"]] = -1
+        self._block_of[chunk_gids] = -1  # restore path: fresh gid space
+        self.any_spilled = bool(self._blocks)
+        self.spilled_bytes -= meta["bytes"]
+        self.spilled_groups -= meta["groups"]
+        self.ctrl.note_reload(self.node_id, 1, len(raw))
+        self.ctrl.delete_block(self.node_id, f"b{bid}")
+
+    def _write_manifest(self) -> None:
+        self.ctrl.write_manifest(
+            self.node_id, [f"b{b}" for b in self._blocks]
+        )
+
+    def info(self) -> dict:
+        return {
+            "spilled_bytes": self.spilled_bytes,
+            "spilled_keys": self.spilled_groups,
+            "spilled_blocks": len(self._blocks),
+            "spill": self.ctrl.spill_stats(self.node_id),
+        }
+
+    # -- checkpoint integration -------------------------------------------
+    def snapshot_refs(self, coord, key: str, epoch: int) -> list[int]:
+        bids = sorted(self._blocks)
+        for bid in bids:
+            self.ctrl.copy_block_to_epoch(
+                coord, key, epoch, self.node_id, f"b{bid}"
+            )
+        return bids
+
+    def restore_refs(self, coord, key: str, bids: list[int]) -> None:
+        op = self.op
+        for bid in bids:
+            raw = self.ctrl.restore_block_from_epoch(
+                coord, key, self.node_id, f"b{bid}"
+            )
+            bmeta = unpack_snapshot(raw)[0]
+            chunk_gids = op._block_gids(bmeta)
+            self._ensure_maps(self._capacity())
+            windows: set[int] = set()
+            groups = 0
+            for j_str, row in bmeta["entries"].items():
+                frame = op._frames.setdefault(int(j_str), {})
+                windows.add(int(j_str))
+                for posi, _states in row:
+                    frame[int(chunk_gids[int(posi)])] = SPILLED
+                    groups += 1
+            self._block_of[chunk_gids] = bid
+            self._blocks[bid] = {
+                "gids": chunk_gids.copy(),
+                "windows": windows,
+                "bytes": len(raw),
+                "groups": groups,
+            }
+            self.spilled_bytes += len(raw)
+            self.spilled_groups += groups
+            self._next = max(self._next, bid + 1)
+        self.any_spilled = bool(self._blocks)
+        self._write_manifest()
+
+
 class UdafWindowExec(ExecOperator):
     def __init__(
         self,
@@ -174,6 +463,8 @@ class UdafWindowExec(ExecOperator):
         )
         self._frames: dict[int, dict[int, list]] = {}
         self._ckpt: tuple | None = None
+        # cold tier (state/tiering.py): set by enable_spill
+        self._tier: _UdafTier | None = None
         self._first_open: int | None = None
         self._max_win_seen = -1
         self._watermark: int | None = None
@@ -195,7 +486,7 @@ class UdafWindowExec(ExecOperator):
         return f"UdafWindowExec({self.window_type.value} {self.length_ms}ms)"
 
     def enable_spill(self, node_id: str, controller) -> None:
-        raise PlanError(spill_not_ported("UdafWindowExec.enable_spill"))
+        self._tier = _UdafTier(self, node_id, controller)
 
     def state_info(self) -> dict:
         """Exact group and accumulator counts; bytes from each
@@ -207,7 +498,11 @@ class UdafWindowExec(ExecOperator):
         acc_bytes = 0
         live_gids: set[int] = set()
         for f in list(frames.values()):
+            # spilled markers keep their entries, but their accumulators
+            # live in the LSM (reported as spilled_keys and spilled_bytes)
             for g, accs in list(f.items()):
+                if accs is SPILLED:
+                    continue
                 groups_total += 1
                 live_gids.add(g)
                 for acc in accs:
@@ -237,6 +532,8 @@ class UdafWindowExec(ExecOperator):
             info["interner_keys_total"] = len(self._interner)
         if wm is not None and oldest is not None:
             info["oldest_event_lag_ms"] = max(0, int(wm) - int(oldest))
+        if self._tier is not None:
+            info.update(self._tier.info())
         return info
 
     def _make_accs(self) -> list:
@@ -280,6 +577,10 @@ class UdafWindowExec(ExecOperator):
         else:
             gids = np.zeros(n, dtype=np.int64)
         self._sw.update(gids)
+        if self._tier is not None:
+            # membership pre-probe + reload-on-touch BEFORE the frame loop:
+            # touched markers come back resident
+            self._tier.touch_and_reload(gids)
 
         arg_cols: list[list[np.ndarray]] = []
         arg_masks: list[np.ndarray | None] = []
@@ -329,6 +630,11 @@ class UdafWindowExec(ExecOperator):
                 frame = self._frames.setdefault(int(ws[b0]), {})
                 gid = int(gs[b0])
                 accs = frame.get(gid)
+                if accs is SPILLED:
+                    # the touch-time reload covers every batch gid; a
+                    # marker here means the block map missed it
+                    self._tier.reload_gid(gid)
+                    accs = frame.get(gid)
                 if accs is None:
                     accs = self._make_accs()
                     frame[gid] = accs
@@ -349,6 +655,8 @@ class UdafWindowExec(ExecOperator):
             if self._watermark is None or bmin > self._watermark:
                 self._watermark = bmin
         yield from self._trigger()
+        if self._tier is not None:
+            self._tier.maybe_spill(gids)
 
     def _trigger(self) -> Iterator[RecordBatch]:
         if self._watermark is None or self._first_open is None:
@@ -369,6 +677,10 @@ class UdafWindowExec(ExecOperator):
         distinct-keys-ever-seen dwarfs them, so host memory follows open
         windows, not stream lifetime (the join's policy too)."""
         if self._interner is None:
+            return
+        if self._tier is not None and self._tier.any_spilled:
+            # re-keying would strand the blocks' gid maps; it waits until
+            # the cold set drains (emission drains it steadily)
             return
         # cheap threshold first: do not build the live set on every
         # trigger just to no-op
@@ -406,6 +718,10 @@ class UdafWindowExec(ExecOperator):
         self._interner = new
 
     def _emit(self, j: int) -> RecordBatch | None:
+        if self._tier is not None:
+            # blocks holding entries of this window reload first — markers
+            # resolve in place, so the emission order is kept
+            self._tier.reload_for_window(j)
         frame = self._frames.pop(j, None)
         if not frame:
             return None
@@ -446,17 +762,6 @@ class UdafWindowExec(ExecOperator):
         snap = get_json(coord, self._ckpt[1])
         if snap is None:
             return
-        if snap.get("spill_blocks") or any(
-            states is None
-            for groups in snap["frames"].values()
-            for _keys, states in groups
-        ):
-            raise StateError(
-                spill_not_ported(
-                    f"snapshot {self._ckpt[1]!r} holds accumulators spilled "
-                    "to the cold tier"
-                )
-            )
         self._first_open = snap["first_open"]
         self._max_win_seen = snap["max_win_seen"]
         self._watermark = snap["watermark"]
@@ -472,11 +777,58 @@ class UdafWindowExec(ExecOperator):
                     )
                 else:
                     gid = 0
+                if states is None:
+                    # spilled at the cut: the marker holds the group's
+                    # recorded position (the tier restore, or the resident
+                    # load below, overwrites it IN PLACE, so the emission
+                    # row order is the uninterrupted run's)
+                    frame[gid] = SPILLED
+                    continue
                 accs = self._make_accs()
                 for acc, st in zip(accs, states):
                     acc.merge(st)
                 frame[gid] = accs
             self._frames[int(j_str)] = frame
+        bids = snap.get("spill_blocks") or []
+        if bids:
+            if self._tier is not None:
+                self._tier.restore_refs(coord, self._ckpt[1], bids)
+            else:
+                self._restore_spilled_resident(coord, self._ckpt[1], bids)
+
+    def _restore_spilled_resident(self, coord, key: str, bids: list) -> None:
+        """Budget removed since the checkpoint: the cold tier's blocks load
+        back resident."""
+        for bid in bids:
+            raw = coord.get_snapshot(f"{key}:spill:b{bid}")
+            if raw is None:
+                raise StateError(
+                    f"checkpoint references spilled UDAF block b{bid} "
+                    "but the epoch holds no such snapshot"
+                )
+            self._merge_block(unpack_snapshot(raw)[0])
+
+    def _block_gids(self, bmeta: dict) -> np.ndarray:
+        """A spilled block's gids in this run: its key values re-interned
+        (the gid space may have been rebuilt since)."""
+        if bmeta["keys"] is not None and self._interner is not None:
+            key_cols = tiering.key_columns_from_meta(bmeta["keys"])
+            return self._interner.intern(key_cols).astype(np.int64)
+        return np.zeros(1, dtype=np.int64)
+
+    def _merge_block(self, bmeta: dict) -> np.ndarray:
+        """Load one spilled block's accumulator states into the frames,
+        each replacing its marker IN PLACE (dict order, so emission row
+        order, is the all-resident run's) → the block's gids."""
+        chunk_gids = self._block_gids(bmeta)
+        for j_str, row in bmeta["entries"].items():
+            frame = self._frames.setdefault(int(j_str), {})
+            for posi, states in row:
+                accs = self._make_accs()
+                for acc, st in zip(accs, states):
+                    acc.merge(st)
+                frame[int(chunk_gids[int(posi)])] = accs
+        return chunk_gids
 
     def _snapshot(self, epoch: int) -> None:
         # put_json's `jsonable` converts numpy scalars and arrays in both
@@ -497,17 +849,26 @@ class UdafWindowExec(ExecOperator):
                 ]
             else:
                 keys_per_gid = [[] for _ in gids]
+            # a spilled marker persists in position as states=None: its
+            # states commit under this SAME epoch in a referenced block
             frames[str(j)] = [
-                [kv, [acc.state() for acc in frame[g]]]
+                [
+                    kv,
+                    None if frame[g] is SPILLED
+                    else [acc.state() for acc in frame[g]],
+                ]
                 for g, kv in zip(gids, keys_per_gid)
             ]
-        put_json(coord, key, epoch, {
+        snap = {
             "epoch": epoch,
             "first_open": self._first_open,
             "max_win_seen": self._max_win_seen,
             "watermark": self._watermark,
             "frames": frames,
-        })
+        }
+        if self._tier is not None and self._tier.any_spilled:
+            snap["spill_blocks"] = self._tier.snapshot_refs(coord, key, epoch)
+        put_json(coord, key, epoch, snap)
 
     def run(self) -> Iterator[StreamItem]:
         for item in self.input_op.run():

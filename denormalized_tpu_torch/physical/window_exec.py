@@ -56,8 +56,11 @@ marker's epoch, and the marker released before any output of that item.
 Restore rebuilds the backend for the snapshot's W and G and imports the
 ring onto the engine's device.
 
-Not ported yet: the cold tier (a snapshot holding spilled windows is
-refused).
+Cold tier (``enable_spill``, wired by ``state/tiering.py::attach_spill``
+under ``EngineConfig.state_budget_bytes``): :class:`_WindowTier` moves the
+oldest watermark-deferred windows' slots off the card into the LSM, and
+brings them back when rows land in them; a spilled window the watermark
+closes emits from its stored planes, finalized on the host.
 """
 
 from __future__ import annotations
@@ -83,6 +86,7 @@ from denormalized_tpu_torch.logical.expr import (
     column_validity,
 )
 from denormalized_tpu_torch.logical.plan import WindowType
+from denormalized_tpu_torch.obs import statewatch as swm
 from denormalized_tpu_torch.ops import segment_agg as sa
 from denormalized_tpu_torch.ops.host_partial import HostPartialStripe
 from denormalized_tpu_torch.ops.interner import GroupInterner
@@ -95,7 +99,7 @@ from denormalized_tpu_torch.physical.base import (
     StreamItem,
     WatermarkHint,
 )
-from denormalized_tpu_torch.runtime.tracing import span
+from denormalized_tpu_torch.runtime.tracing import logger, span
 from denormalized_tpu_torch.state.serialization import (
     pack_snapshot,
     unpack_snapshot,
@@ -137,6 +141,221 @@ def window_output_low_watermark(
         return low_first * slide_ms - 1
     min_future_start = ((hint_ts + 1 - length_ms) // slide_ms + 1) * slide_ms
     return min_future_start - 1
+
+
+def _ring_bytes(spec: sa.WindowKernelSpec, windows: int) -> int:
+    """The JAX package's charge for ``windows`` ring slots: every component
+    plane at the accumulator dtype's item size (the int32 count planes
+    included).  The item size comes from the torch dtype: a float64 ring
+    is charged 8 bytes a cell, as the JAX package charges its x64 ring."""
+    return (
+        len(spec.components) * windows * spec.group_capacity
+        * spec.accum_dtype.itemsize
+    )
+
+
+class _WindowTier:
+    """Cold tier of one window operator: spills the OLDEST contiguous
+    prefix of open-but-not-closable windows (watermark-deferred frames
+    whose rows have stopped arriving) off the card into the LSM, then
+    advances ``first_open`` past them so the ring stops reserving slots for
+    the skew span.  A spilled window
+
+    - emits from its stored planes when the watermark closes it, through
+      the host finalize (``_finalize_rows``);
+    - reloads into the ring — ``first_open`` lowers back, as in the
+      hint-driven rebase — when a batch lands rows in it, so drop semantics
+      match the all-resident run; only the reloaded slots are written on
+      the card (one indexed copy a plane, ``write_slots``);
+    - rides checkpoints as an epoch-referenced block.
+
+    Invariant: every spilled window lies strictly below ``first_open``.
+    When the resident span allows, the ring rebuilds at a smaller W."""
+
+    __slots__ = (
+        "op", "node_id", "ctrl", "any_spilled", "spilled_bytes",
+        "_blocks", "_next", "reload_ms", "emitted",
+    )
+
+    def __init__(self, op: "StreamingWindowExec", node_id: str, ctrl) -> None:
+        self.op = op
+        self.node_id = node_id
+        self.ctrl = ctrl
+        self.any_spilled = False
+        self.spilled_bytes = 0
+        self._blocks: dict[int, dict] = {}  # window index -> meta
+        self._next = 0
+        # host wall of each reload (LSM reads, unpack, slot writes queued)
+        self.reload_ms: list[float] = []
+        self.emitted = 0  # windows emitted from their stored planes
+        ctrl.register(node_id, op, self.resident_bytes)
+
+    def resident_bytes(self) -> int:
+        op = self.op
+        keys = len(op._interner) if op._interner is not None else 1
+        return (
+            _ring_bytes(op._spec, op._spec.window_slots)
+            + keys * swm.KEY_EST_BYTES
+        )
+
+    # -- touch / reload ---------------------------------------------------
+    def touch_and_reload(self, lo_win: int, hi_win: int) -> None:
+        """Reload every spilled window the incoming batch's rows can land
+        in (windows [lo_win, hi_win]) BEFORE the operator computes its
+        rows' ring offsets — else they would read as late and drop.
+        Reloading lowers ``first_open`` to the lowest touched window, so
+        every spilled window above it comes back too (the invariant), as
+        does one a hint-driven rebase left at or above ``first_open``."""
+        if not self.any_spilled:
+            return
+        first = self.op._first_open
+        due = [j for j in self._blocks if lo_win <= j <= hi_win or j >= first]
+        if not due:
+            return
+        lo = min(due)
+        self._reload(sorted(j for j in self._blocks if j >= lo))
+        self._write_manifest()
+
+    def _reload(self, js: list[int]) -> None:
+        t0 = time.perf_counter()
+        op = self.op
+        op._flush()
+        new_first = min(min(js), op._first_open)
+        # ring capacity must cover [new_first, max_win_seen] BEFORE the base
+        # lowers: _grow attributes slots to windows from first_open up
+        op._ensure_capacity(op._max_win_seen - new_first)
+        op._first_open = new_first
+        planes = []
+        for j in js:
+            meta = self._blocks.pop(j)
+            raw = self.ctrl.get_block(self.node_id, meta["id"])
+            planes.append(unpack_snapshot(raw)[1])
+            self.spilled_bytes -= meta["bytes"]
+            self.ctrl.note_reload(self.node_id, 1, len(raw))
+            self.ctrl.delete_block(self.node_id, meta["id"])
+        op._write_windows(js, planes)
+        self.any_spilled = bool(self._blocks)
+        self.reload_ms.append((time.perf_counter() - t0) * 1e3)
+
+    # -- eviction ---------------------------------------------------------
+    def maybe_spill(self, hot_lo_win: int) -> None:
+        """Spill the prefix [first_open, min(hot_lo_win, …)) when over
+        budget — the windows old enough that the current batch no longer
+        feeds them.  Runs AFTER the trigger, so closable windows have
+        already emitted and the prefix is genuinely deferred-open."""
+        need = self.ctrl.over_budget()
+        if need <= 0:
+            self.ctrl.relax(self.node_id)
+            return
+        op = self.op
+        spec = op._spec
+        if op._first_open is not None:
+            per_window = max(_ring_bytes(spec, 1), 1)
+            hi = min(int(hot_lo_win), op._max_win_seen + 1)
+            cut = min(op._first_open + -(-need // per_window), hi)
+            if cut > op._first_open:
+                # the stripe holds rows of these windows: merge it first
+                # (under partial_merge a launch of the merge kernel)
+                op._flush()
+                spilled_any = False
+                W = spec.window_slots
+                for j in range(op._first_open, cut):
+                    # read_slot is a blocking copy to fresh host memory,
+                    # ordered after the merge on the kernels' stream; the
+                    # block is durable before reset_slot is queued
+                    rows = op._backend.read_slot(j % W)
+                    block_id = f"w{self._next}"
+                    blob = pack_snapshot({"window": int(j)}, rows)
+                    try:
+                        nbytes = self.ctrl.put_block(
+                            self.node_id, block_id, blob
+                        )
+                    except StateError as e:
+                        logger.warning(
+                            "spill: window eviction put failed (%s) — "
+                            "window %d stays resident this pass", e, j,
+                        )
+                        break
+                    self._next += 1
+                    op._backend.reset_slot(j % W)
+                    self._blocks[j] = {"id": block_id, "bytes": nbytes}
+                    self.spilled_bytes += nbytes
+                    self.ctrl.note_spill(self.node_id, 1, nbytes)
+                    op._first_open = j + 1
+                    self.any_spilled = True
+                    spilled_any = True
+                if spilled_any:
+                    self._write_manifest()
+                    self._maybe_shrink()
+        self.ctrl.check_pressure(self.node_id)
+
+    def _maybe_shrink(self) -> None:
+        """Rebuild the ring at a smaller W once the resident span allows it
+        — the allocation shrink (spilling alone frees slots logically)."""
+        op = self.op
+        span = max(op._max_win_seen - op._first_open + 2, 1)
+        new_w = max(_next_pow2(span), 16)
+        if new_w < op._spec.window_slots:
+            op._grow(window_slots=new_w)
+
+    # -- emission ---------------------------------------------------------
+    def due_windows(self, wm_floor: int) -> list[int]:
+        """Spilled windows the watermark has closed, ascending — they emit
+        before any ring emission of the same trigger (ascending-window
+        output order)."""
+        if not self.any_spilled:
+            return []
+        return sorted(j for j in self._blocks if j < wm_floor)
+
+    def emit_rows(self, j: int) -> dict:
+        """Load and drop one due window's component planes."""
+        meta = self._blocks.pop(j)
+        raw = self.ctrl.get_block(self.node_id, meta["id"])
+        arrays = unpack_snapshot(raw)[1]
+        self.spilled_bytes -= meta["bytes"]
+        self.any_spilled = bool(self._blocks)
+        self.ctrl.note_reload(self.node_id, 1, len(raw))
+        self.ctrl.delete_block(self.node_id, meta["id"])
+        self._write_manifest()
+        self.emitted += 1
+        return arrays
+
+    def _write_manifest(self) -> None:
+        self.ctrl.write_manifest(
+            self.node_id, [m["id"] for m in self._blocks.values()]
+        )
+
+    def info(self) -> dict:
+        return {
+            "spilled_bytes": self.spilled_bytes,
+            "spilled_keys": 0,
+            "spilled_blocks": len(self._blocks),
+            "spilled_windows": sorted(self._blocks),
+            "windows_emitted_from_store": self.emitted,
+            "spill": self.ctrl.spill_stats(self.node_id),
+        }
+
+    # -- checkpoint integration -------------------------------------------
+    def snapshot_refs(self, coord, key: str, epoch: int) -> dict:
+        refs = {}
+        for j in sorted(self._blocks):
+            meta = self._blocks[j]
+            self.ctrl.copy_block_to_epoch(
+                coord, key, epoch, self.node_id, meta["id"]
+            )
+            refs[str(j)] = meta["id"]
+        return refs
+
+    def restore_refs(self, coord, key: str, refs: dict) -> None:
+        for j_str, block_id in refs.items():
+            raw = self.ctrl.restore_block_from_epoch(
+                coord, key, self.node_id, block_id
+            )
+            self._blocks[int(j_str)] = {"id": block_id, "bytes": len(raw)}
+            self.spilled_bytes += len(raw)
+            self._next = max(self._next, int(block_id[1:]) + 1)
+        self.any_spilled = bool(self._blocks)
+        self._write_manifest()
 
 
 class StreamingWindowExec(ExecOperator):
@@ -333,6 +552,8 @@ class StreamingWindowExec(ExecOperator):
         self._ckpt: tuple | None = None
         self._pending_snapshot: tuple | None = None
         self._held_marker: Marker | None = None
+        # cold tier (state/tiering.py): set by enable_spill
+        self._tier: _WindowTier | None = None
 
     # ------------------------------------------------------------------
     @property
@@ -352,6 +573,51 @@ class StreamingWindowExec(ExecOperator):
             f"StreamingWindowExec({w}, groups=[{', '.join(g.name for g in self.group_exprs)}], "
             f"aggs=[{', '.join(a.name for a in self.aggr_exprs)}])"
         )
+
+    # -- cold tier (state/tiering.py) -----------------------------------
+    def enable_spill(self, node_id: str, controller) -> None:
+        self._tier = _WindowTier(self, node_id, controller)
+
+    def state_info(self) -> dict:
+        """The JAX operator's accounting: the ring is a dense allocation,
+        so its footprint is the component-plane volume whatever the
+        occupancy, plus the per-key estimate; with a cold tier, its spilled
+        windows, bytes and stats."""
+        spec = self._spec
+        device_bytes = _ring_bytes(spec, spec.window_slots)
+        live_keys = (
+            len(self._interner) if self._interner is not None
+            else (1 if self._first_open is not None else 0)
+        )
+        open_windows = (
+            max(0, self._max_win_seen - self._first_open + 1)
+            if self._first_open is not None
+            else 0
+        )
+        oldest = (
+            self._first_open * self.slide_ms
+            if self._first_open is not None and open_windows
+            else None
+        )
+        wm = self._watermark_ms
+        info = {
+            "op": "window",
+            "state_bytes": device_bytes + live_keys * swm.KEY_EST_BYTES,
+            "device_state_bytes": device_bytes,
+            "live_keys": live_keys,
+            "slot_capacity": int(spec.group_capacity),
+            "slot_live": live_keys,
+            "open_windows": open_windows,
+            "window_slots": int(spec.window_slots),
+            "retention_unit_ms": self.length_ms,
+            "oldest_event_ms": oldest,
+            "watermark_ms": wm,
+        }
+        if wm is not None and oldest is not None:
+            info["oldest_event_lag_ms"] = max(0, int(wm) - int(oldest))
+        if self._tier is not None:
+            info.update(self._tier.info())
+        return info
 
     def metrics(self):
         m = dict(self._metrics)
@@ -494,6 +760,15 @@ class StreamingWindowExec(ExecOperator):
             anchor = int(units.min()) - self._spec.length_units + 1
             if anchor < self._first_open:
                 self._rebase_first_open(anchor)
+        if self._tier is not None:
+            # reload-on-touch BEFORE the ring offsets: a spilled window
+            # this batch's rows can land in comes back into the ring
+            # (first_open lowers with it), so nothing reads as late that
+            # the all-resident run would have accepted
+            self._tier.touch_and_reload(
+                int(units.min()) - self._spec.length_units + 1,
+                int(units.max()),
+            )
         first = self._first_open
         win_rel64 = units - first
         self._max_win_seen = max(self._max_win_seen, int(units.max()))
@@ -550,6 +825,30 @@ class StreamingWindowExec(ExecOperator):
             if self._watermark_ms is None or bmin > self._watermark_ms:
                 self._watermark_ms = bmin
         yield from self._trigger()
+        if self._tier is not None:
+            # after the trigger: closable windows have emitted, so the
+            # [first_open, this batch's lowest window) prefix is the
+            # watermark-deferred cold span
+            self._tier.maybe_spill(
+                int(units.min()) - self._spec.length_units + 1
+            )
+
+    def _write_windows(self, js: list[int], planes: list[dict]) -> None:
+        """Write the stored component planes of windows ``js`` into their
+        ring slots (``j % W``): whole slots, each block's G cells and the
+        init value past them (a block written before G grew is narrower),
+        one indexed copy a plane on the device."""
+        spec = self._spec
+        G = spec.group_capacity
+        host = {}
+        for c in spec.components:
+            plane = np.full((len(js), G), spec.init_value(c),
+                            dtype=planes[0][c.label].dtype)
+            for i, arrays in enumerate(planes):
+                arr = arrays[c.label]
+                plane[i, : arr.shape[0]] = arr
+            host[c.label] = plane
+        self._backend.write_slots([j % spec.window_slots for j in js], host)
 
     def _shifted(self, e: Expr, batch: RecordBatch, transform: str,
                  valid: np.ndarray | None) -> np.ndarray:
@@ -784,6 +1083,21 @@ class StreamingWindowExec(ExecOperator):
         marker, idle hint or end of stream), so their copy overlaps
         ingest."""
         yield from self._drain_pending()
+        if (
+            self._tier is not None
+            and self._tier.any_spilled
+            and self._watermark_ms is not None
+        ):
+            # spilled windows the watermark closed emit from their stored
+            # planes — all lie below first_open, so the output stays in
+            # ascending window order
+            wmf = int(watermark_floor(
+                self._watermark_ms, self.length_ms, self.slide_ms
+            ))
+            for j in self._tier.due_windows(wmf):
+                b = self._finalize_rows(j, self._tier.emit_rows(j))
+                if b is not None:
+                    yield b
         n_close = self._closable()
         if self._backend.accumulates_host:
             if n_close == 0:
@@ -963,6 +1277,13 @@ class StreamingWindowExec(ExecOperator):
             "var_shift": dict(self._var_shift),
             "any_nulls_seen": self._any_nulls_seen,
         }
+        if self._tier is not None and self._tier.any_spilled:
+            coord, key = self._ckpt
+            # spilled window planes commit under this SAME epoch; the ring
+            # export below holds only the resident windows
+            meta["spill_windows"] = self._tier.snapshot_refs(
+                coord, key, epoch
+            )
         self._pending_snapshot = (
             epoch, meta, self._backend, self._backend.export_start()
         )
@@ -997,18 +1318,14 @@ class StreamingWindowExec(ExecOperator):
     def _restore(self) -> None:
         """Continue from the committed epoch's snapshot, if there is one:
         the backend is rebuilt for its W and G and the ring imported onto
-        the engine's device (``load_state``)."""
+        the engine's device (``load_state``).  Spilled windows the snapshot
+        references re-arm the cold tier's map, or, with no tier (the budget
+        was removed since), go back into the ring."""
         coord, key = self._ckpt
         blob = coord.get_snapshot(key)
         if blob is None:
             return
         meta, arrays = unpack_snapshot(blob)
-        if meta.get("spill_windows"):
-            raise StateError(
-                f"snapshot {key!r} holds windows spilled to the cold tier "
-                "(state/tiering.py and the window's _WindowTier), which "
-                "denormalized_tpu_torch does not port yet"
-            )
         self.load_state(
             arrays,
             meta["interner"],
@@ -1021,6 +1338,31 @@ class StreamingWindowExec(ExecOperator):
             bool(meta.get("any_nulls_seen", True)),
             meta.get("var_shift"),
         )
+        refs = meta.get("spill_windows")
+        if refs:
+            if self._tier is not None:
+                self._tier.restore_refs(coord, key, refs)
+            else:
+                self._restore_spilled_resident(coord, key, refs)
+
+    def _restore_spilled_resident(self, coord, key: str, refs: dict) -> None:
+        """Budget removed since the checkpoint: the spilled windows' planes
+        go back into the ring (first_open lowers to cover them)."""
+        js = sorted(int(k) for k in refs)
+        new_first = min(js + ([self._first_open]
+                              if self._first_open is not None else []))
+        self._ensure_capacity(self._max_win_seen - new_first)
+        self._first_open = new_first
+        planes = []
+        for j in js:
+            raw = coord.get_snapshot(f"{key}:spill:{refs[str(j)]}")
+            if raw is None:
+                raise StateError(
+                    f"checkpoint references spilled window {j} but the "
+                    "epoch holds no such snapshot"
+                )
+            planes.append(unpack_snapshot(raw)[1])
+        self._write_windows(js, planes)
 
     # -- stream loop -----------------------------------------------------
     def run(self) -> Iterator[StreamItem]:
@@ -1058,6 +1400,17 @@ class StreamingWindowExec(ExecOperator):
                 # watermark closed, drained above, leave)
                 if self.emit_on_close and self._first_open is not None:
                     self._flush()
+                    if self._tier is not None:
+                        # spilled windows all lie below first_open: they
+                        # emit first, keeping ascending order
+                        for j in self._tier.due_windows(
+                            self._max_win_seen + 1
+                        ):
+                            b = self._finalize_rows(
+                                j, self._tier.emit_rows(j)
+                            )
+                            if b is not None:
+                                yield b
                     for j in range(self._first_open, self._max_win_seen + 1):
                         b = self._emit_window(j)
                         if b is not None:

@@ -1,9 +1,13 @@
 """Execution: plan → physical tree → run to completion.
 
 Counterpart of ``denormalized_tpu/runtime/executor.py`` with the logical
-optimizer (``EngineConfig.optimizer``), checkpointing and graceful
-shutdown: with ``EngineConfig(checkpoint=True)`` the barrier orchestrator
-starts, every operator with ``enable_checkpointing`` is wired to a
+optimizer (``EngineConfig.optimizer``), the cold tier, checkpointing and
+graceful shutdown: with ``state_budget_bytes`` and ``state_backend_path``
+set, every stateful operator gets its spill tier
+(``state/tiering.py::attach_spill``, wired before checkpoints so a restore
+rebuilds each tier map; the controller is ``ctx._last_spill`` and closes
+when the job ends); with ``EngineConfig(checkpoint=True)`` the barrier
+orchestrator starts, every operator with ``enable_checkpointing`` is wired to a
 :class:`CheckpointCoordinator` over the state backend (and restores from
 its committed epoch), and each :class:`Marker` that reaches the root
 commits its epoch.  ``execute_plan`` turns SIGINT and SIGTERM into a
@@ -96,11 +100,29 @@ def _attach_checkpointing(root: ExecOperator, ctx, checkpoint=None):
     return orch, coord
 
 
+def _attach_state(root: ExecOperator, ctx, checkpoint=None):
+    """The cold tier, then checkpointing → (spill controller, orchestrator,
+    coordinator), each None when off.  The tier comes FIRST: a restore
+    rebuilds each operator's tier map through the adapter it installs.
+    A failure wiring checkpoints closes the controller already made."""
+    from denormalized_tpu_torch.state.tiering import attach_spill
+
+    spill = attach_spill(root, ctx)
+    ctx._last_spill = spill
+    try:
+        orch, coord = _attach_checkpointing(root, ctx, checkpoint)
+    except BaseException:
+        if spill is not None:
+            spill.close()
+        raise
+    ctx._checkpointing = (coord, orch)  # Context.last_checkpointing()
+    return spill, orch, coord
+
+
 def execute_plan(plan: lp.LogicalPlan, ctx, checkpoint=None) -> None:
     root = build_physical(plan, ctx)
     ctx._last_physical = root  # post-run metrics access
-    orch, coord = _attach_checkpointing(root, ctx, checkpoint)
-    ctx._checkpointing = (coord, orch)  # Context.last_checkpointing()
+    spill, orch, coord = _attach_state(root, ctx, checkpoint)
     flag = ShutdownFlag()
     restore = _install_signal_handlers(flag)
     it = root.run()
@@ -117,13 +139,14 @@ def execute_plan(plan: lp.LogicalPlan, ctx, checkpoint=None) -> None:
         it.close()
         if orch is not None:
             orch.stop()
+        if spill is not None:
+            spill.close()
 
 
 def stream_plan(plan: lp.LogicalPlan, ctx) -> Iterator[RecordBatch]:
     root = build_physical(plan, ctx)
     ctx._last_physical = root
-    orch, coord = _attach_checkpointing(root, ctx)
-    ctx._checkpointing = (coord, orch)
+    spill, orch, coord = _attach_state(root, ctx)
     it = root.run()
     try:
         for item in it:
@@ -137,3 +160,5 @@ def stream_plan(plan: lp.LogicalPlan, ctx) -> Iterator[RecordBatch]:
         it.close()
         if orch is not None:
             orch.stop()
+        if spill is not None:
+            spill.close()

@@ -13,6 +13,9 @@ port has.  A process-global :class:`FaultPlan` is threaded through named
     lsm.get             LsmStore.get                (raises StateError)
     lsm.flush           LsmStore.flush              (raises StateError)
     checkpoint.commit   CheckpointCoordinator.commit(raises StateError)
+    lsm.spill_put       SpillController.put_block   (StateError / torn value)
+    lsm.spill_get       SpillController.get_block   (raises StateError)
+    spill.manifest      SpillController.write_manifest (StateError / torn)
 
 Each site calls :func:`inject` (optionally passing the key/payload being
 written).  With no plan armed ``inject`` is one attribute check and an
@@ -55,6 +58,9 @@ SITES = {
     "lsm.get": StateError,
     "lsm.flush": StateError,
     "checkpoint.commit": StateError,
+    "lsm.spill_put": StateError,
+    "lsm.spill_get": StateError,
+    "spill.manifest": StateError,
 }
 
 _KINDS = ("error", "torn")

@@ -12,7 +12,7 @@ snapshot) and of the kill/restore half of
 ``tests/test_join_adaptive.py:437`` (hot blocks rebuilt from their
 representatives); then cross-restores both ways with identical emissions,
 and a JAX snapshot written under a state budget (its cold tier spilled at
-the cut) refused whole.
+the cut) restored by the port with and without a budget.
 
 Rows are compared as sets: two pump threads interleave at random.  Window
 averages to rel=1e-5 (f32 sums in another order), the JAX tests' own
@@ -45,7 +45,6 @@ from denormalized_tpu.state import lsm as jlsm
 from denormalized_tpu.state.checkpoint import wire_checkpointing as jwire
 from denormalized_tpu.state.orchestrator import Orchestrator as JOrch
 from denormalized_tpu_torch.api import functions as TF
-from denormalized_tpu_torch.common.errors import StateError
 from denormalized_tpu_torch.common.record_batch import RecordBatch as TBatch
 from denormalized_tpu_torch.common.schema import DataType as TType
 from denormalized_tpu_torch.common.schema import Field as TField
@@ -58,6 +57,7 @@ from denormalized_tpu_torch.sources.memory import MemorySource as TSource
 from denormalized_tpu_torch.state import lsm as tlsm
 from denormalized_tpu_torch.state.checkpoint import wire_checkpointing as twire
 from denormalized_tpu_torch.state.orchestrator import Orchestrator as TOrch
+from denormalized_tpu_torch.state.tiering import attach_spill as tattach
 from denormalized_tpu_torch.state.serialization import unpack_snapshot
 
 T0 = 1_700_000_000_000
@@ -545,11 +545,14 @@ def test_cross_restore_of_a_banded_join_with_hot_blocks(tmp_path):
         assert np.array_equal(union(pairs(a), got["torch"]), golden), writer
 
 
-def test_jax_snapshot_spilled_at_the_cut_is_refused(tmp_path):
+def test_jax_snapshot_spilled_at_the_cut_restores(tmp_path):
     """A JAX join checkpointed under a state budget holds a v2 snapshot
-    (``meta["spill"]``: blocks of retained rows in the cold tier); the port
-    refuses it whole with a StateError naming ROADMAP §A item 7, and
-    restores nothing in part."""
+    (``meta["spill"]``: blocks of retained rows in the cold tier, per-row
+    gids and the interner).  The port restores it — with a budget (the
+    tier map re-arms, blocks streamed into the spill namespace) and
+    without one (spilled batches load resident) — and runs to the end: the
+    same pairs as the JAX package's own restore of the same store, and
+    with the crashed run's pairs the golden."""
     from denormalized_tpu.state.tiering import attach_spill
 
     from denormalized_tpu_torch.state.checkpoint import assign_node_ids
@@ -557,18 +560,25 @@ def test_jax_snapshot_spilled_at_the_cut_is_refused(tmp_path):
     # long enough that the pumps are still mid-stream at the barrier
     l_raw, r_raw = skewed(5, nb=60, rows=120), skewed(6, nb=60, rows=120)
     f64 = lambda p: p.DT.FLOAT64  # noqa: E731
+
+    def query(p, ctx):
+        left, right = keyed_streams(p, ctx, l_raw, r_raw, f64)
+        return left.join(right, "inner", ["k"], ["k2"])
+
     j = api("jax")
+    golden = pairs([query(j, j.ctx(join_adaptive=False)).collect()])
     path = str(tmp_path / "lsm")
     ctx = j.ctx(join_adaptive=False, state_budget_bytes=25_000, **ckpt(path))
-    left, right = keyed_streams(j, ctx, l_raw, r_raw, f64)
-    ds = left.join(right, "inner", ["k"], ["k2"])
+    ds = query(j, ctx)
     root = jexec.build_physical(jlp.Sink(ds._plan, JSink()), ctx)
     spill = attach_spill(root, ctx)
     orch = JOrch(interval_s=9999)
     coord = jwire(root, ctx, orch)
     it = root.run()
-    committed = False
+    crashed, committed = [], False
     for i, item in enumerate(it):
+        if isinstance(item, JBatch):
+            crashed.append(item)
         if i == 3:
             orch.trigger_now()
         if isinstance(item, JMarker):
@@ -581,21 +591,38 @@ def test_jax_snapshot_spilled_at_the_cut_is_refused(tmp_path):
     jlsm.close_global_state_backend()
     assert committed
 
-    p = api("torch")
-    ctx_b = p.ctx(join_adaptive=False, **ckpt(path))
-    left, right = keyed_streams(p, ctx_b, l_raw, r_raw, f64)
-    ds_b = left.join(right, "inner", ["k"], ["k2"])
-    root_b = texec.build_physical(tlp.Sink(ds_b._plan, TSink()), ctx_b)
-    orch_b = TOrch(interval_s=9999)
-    coord_b = twire(root_b, ctx_b, orch_b)
-    try:
+    got = {}
+    for name, pkg, budget in (("jax", "jax", None),
+                              ("torch", "torch", None),
+                              ("torch_budget", "torch", 25_000)):
+        store = str(tmp_path / f"copy_{name}")
+        shutil.copytree(path, store)
+        p = api(pkg)
+        cfg = dict(join_adaptive=False, **ckpt(store))
+        if budget is not None:
+            cfg["state_budget_bytes"] = budget
+        ctx_b = p.ctx(**cfg)
+        ds_b = query(p, ctx_b)
+        root_b = p.executor.build_physical(p.lp.Sink(ds_b._plan, p.Sink()),
+                                           ctx_b)
+        spill_b = (attach_spill if pkg == "jax" else tattach)(root_b, ctx_b)
+        orch_b = p.Orch(interval_s=9999)
+        coord_b = p.wire(root_b, ctx_b, orch_b)
         join = find_join(root_b)
-        blob = coord_b.get_snapshot(f"join_{assign_node_ids(root_b)[id(join)]}")
-        meta, _ = unpack_snapshot(blob)
-        assert meta.get("spill") is not None, "nothing spilled at the cut"
-        with pytest.raises(StateError, match="ROADMAP §A item 7"):
-            next(iter(root_b.run()))
-        assert all(s.count == 0 and not s.batches for s in join._sides)
-    finally:
+        if pkg == "torch":
+            blob = coord_b.get_snapshot(
+                f"join_{assign_node_ids(root_b)[id(join)]}")
+            assert unpack_snapshot(blob)[0].get("spill") is not None, (
+                "nothing spilled at the cut")
+        out = [b for b in root_b.run() if isinstance(b, (JBatch, TBatch))]
+        if budget is not None:
+            assert join._tier is not None
+            assert join._tier.ctrl.spill_stats(join._tier.node_id)[
+                "reload_blocks_total"] > 0
+            spill_b.close()
         orch_b.stop()
-        tlsm.close_global_state_backend()
+        p.close()
+        got[name] = pairs(out)
+    assert np.array_equal(got["torch"], got["jax"])
+    assert np.array_equal(got["torch_budget"], got["jax"])
+    assert np.array_equal(union(pairs(crashed), got["torch"]), golden)

@@ -11,7 +11,8 @@ every run) and ``tests/test_session_checkpoint_soa.py`` (both, the
 reference-interop one included), plus the live path (a mock-broker topic,
 whose keys arrive as ``StringColumn``s), ``FeastDataStream``,
 ``emit_on_close=False``, ``DENORMALIZED_SESSION_REFERENCE=1`` through
-``Context`` and the cold tier's refusal.
+``Context`` and the cold tier (a budgeted run and the restore of a spilled
+block, with and without a budget).
 
 Both packages run the same host numpy code in the same order, so a port
 row equals the JAX row EXACTLY, floats included.  Where the JAX tests
@@ -55,7 +56,6 @@ from denormalized_tpu.state.checkpoint import wire_checkpointing as jwire
 from denormalized_tpu.state.orchestrator import Orchestrator as JOrch
 from denormalized_tpu_torch.api import functions as TF
 from denormalized_tpu_torch.common.columns import StringColumn
-from denormalized_tpu_torch.common.errors import PlanError, StateError
 from denormalized_tpu_torch.common.record_batch import RecordBatch as TBatch
 from denormalized_tpu_torch.common.schema import DataType as TType
 from denormalized_tpu_torch.common.schema import Field as TField
@@ -1001,22 +1001,97 @@ def test_session_window_over_the_mock_broker():
         assert (r[1], r[2], r[-1]) == (cnt, mx, end), k
 
 
-def test_cold_tier_is_refused_naming_item_7():
-    p = api("torch")
-    raw = [(ts, ks, vs) for _, ts, ks, vs, _m in gen_items(2)]
-    ds = p.ctx().from_source(p.Source.from_batches(
-        [kv(p, *b) for b in raw], timestamp_column="ts")).session_window(
-        ["k"], [TF.count(tt.col("v"))], 500)
-    from denormalized_tpu_torch.planner.planner import Planner
+def test_cold_tier_spills_and_restores_like_the_jax_package(tmp_path):
+    """The cold tier: under a budget the session job's cold keys spill to
+    the LSM and reload, the rows equal the unbudgeted run's and the JAX
+    package's, with the same spill and reload counts.  Then a snapshot
+    referencing a spilled block of open sessions restores in both packages
+    — with a tier (the block re-seeded into the spill namespace, its key
+    kept out of gid recycling) and without one (the sessions load back
+    into the table) — and the restored run's rows are the same."""
+    from denormalized_tpu.planner.planner import Planner as JPlanner
+    from denormalized_tpu.state import tiering as jtier
+    from denormalized_tpu.state.lsm import LsmStore as JLsm
 
-    op = Planner(ds._ctx.config).create_physical_plan(ds._plan)
-    with pytest.raises(PlanError, match="§A item 7"):
-        op.enable_spill("1_SessionWindowExec", None)
+    from denormalized_tpu_torch.planner.planner import Planner as TPlanner
+    from denormalized_tpu_torch.state import tiering as ttier
+    from denormalized_tpu_torch.state.lsm import LsmStore as TLsm
+    from denormalized_tpu_torch.state.serialization import pack_snapshot
+
+    rng = np.random.default_rng(21)
+    raw = []
+    for b in range(12):
+        ts = np.sort(T0 + b * 250 + rng.integers(0, 250, 200))
+        raw.append((ts, [f"k{i}" for i in rng.integers(0, 300, 200)],
+                    rng.normal(50, 10, 200)))
+
+    def aggs(F, c):
+        return [F.count(c("v")).alias("n"), F.max(c("v")).alias("mx")]
+
+    got, stats = {}, {}
+    for pkg in PKGS:
+        p = api(pkg)
+        for budget in (None, 12_000):
+            cfg = {} if budget is None else dict(
+                state_backend_path=str(tmp_path / pkg),
+                state_budget_bytes=budget)
+            ctx = p.ctx(**cfg)
+            res = ctx.from_source(p.Source.from_batches(
+                [kv(p, *b) for b in raw], timestamp_column="ts"),
+            ).session_window(["k"], aggs(p.F, p.col), 300).collect()
+            got[pkg, budget] = table(res)
+            if budget is not None:
+                node = next(iter(ctx._last_spill._stats))
+                stats[pkg] = ctx._last_spill.spill_stats(node)
+                p.close()
+    assert got["torch", 12_000] == got["torch", None] == got["jax", 12_000]
+    assert stats["torch"]["spill_blocks_total"] > 0
+    assert stats["torch"] == stats["jax"]
+
+    key = "session_1_SessionWindowExec"
+    one = np.ones((1, 1))
+    block = pack_snapshot(
+        {"keys": [["cold"]], "accs": None, "n": 1, "min_start": T0 - 100,
+         "min_last": T0 - 50, "max_last": T0 - 50},
+        {"start": np.asarray([T0 - 100]), "last": np.asarray([T0 - 50]),
+         "row_count": np.asarray([2]), "counts": 2 * one.astype(np.int64),
+         "sums": 9.0 * one, "mins": 4.0 * one, "maxs": 5.0 * one,
+         "means": 4.5 * one, "m2s": 0.5 * one,
+         "owner": np.zeros(1, np.int32)})
 
     class Coord:
-        def get_snapshot(self, key):
-            return json.dumps({"epoch": 1, "watermark": 0, "sessions": [],
-                               "spill_blocks": [0]}).encode()
+        def get_snapshot(self, k):
+            if k == f"{key}:spill:b0":
+                return block
+            return json.dumps({"epoch": 1, "watermark": T0 - 400,
+                               "sessions": [], "spill_blocks": [0]}).encode()
 
-    with pytest.raises(StateError, match="§A item 7"):
-        op.enable_checkpointing("1_SessionWindowExec", Coord(), None)
+    restored = {}
+    for pkg, Lsm, tier, Planner in (("jax", JLsm, jtier, JPlanner),
+                                    ("torch", TLsm, ttier, TPlanner)):
+        p = api(pkg)
+        for with_tier in (False, True):
+            ds = p.ctx().from_source(p.Source.from_batches(
+                [kv(p, *b) for b in raw[:2]], timestamp_column="ts"),
+            ).session_window(["k"], aggs(p.F, p.col), 300)
+            op = Planner(ds._ctx.config).create_physical_plan(ds._plan)
+            store = ctrl = None
+            if with_tier:
+                store = Lsm(str(tmp_path / f"restore_{pkg}"))
+                ctrl = tier.SpillController(store, budget_bytes=1 << 20)
+                op.enable_spill("1_SessionWindowExec", ctrl)
+            op.enable_checkpointing("1_SessionWindowExec", Coord(), None)
+            if with_tier:
+                assert op._tier.any_spilled and op._tier.spilled_keys == 1
+            out = []
+            for item in op.run():
+                if isinstance(item, p.Batch):
+                    out.extend(table(item))
+            if with_tier:
+                ctrl.close()
+                store.close()
+            restored[pkg, with_tier] = out
+    cold = [r for r in restored["torch", False] if r[0] == "cold"]
+    assert [r[1:3] for r in cold] == [(2, 5.0)]
+    assert len({tuple(v) for v in restored.values()}) == 1
+

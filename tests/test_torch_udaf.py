@@ -46,7 +46,6 @@ from denormalized_tpu.state.checkpoint import wire_checkpointing as jwire
 from denormalized_tpu.state.orchestrator import Orchestrator as JOrch
 from denormalized_tpu_torch.api import functions as TF
 from denormalized_tpu_torch.api.udaf import Accumulator as TAccumulator
-from denormalized_tpu_torch.common.errors import PlanError, StateError
 from denormalized_tpu_torch.common.record_batch import RecordBatch as TBatch
 from denormalized_tpu_torch.common.schema import DataType as TType
 from denormalized_tpu_torch.common.schema import Field as TField
@@ -655,27 +654,94 @@ def test_udaf_snapshot_restores_across_packages(tmp_path, writer, reader):
     assert union == {r[:2] + (r[-3],): r for r in golden}
 
 
-def test_cold_tier_is_refused_naming_item_7(tmp_path):
-    p = api("torch")
-    ds = source(p, feed(1, n_batches=2, n=10)).window(
-        ["sensor"], [TF.median(tt.col("v"))], 1000)
-    from denormalized_tpu_torch.planner.planner import Planner
+def test_cold_tier_spills_and_restores_like_the_jax_package(tmp_path):
+    """The cold tier: under a budget the spread window's groups spill to
+    the LSM and come back, the rows equal the unbudgeted run's and the JAX
+    package's, with the same spill and reload counts.  Then a snapshot holding a spilled group (a
+    ``states=None`` placeholder in its frame and a referenced block)
+    restores in both packages, with a tier (the marker stays, its block
+    re-seeded) and without one (the states load in place), the group at
+    its recorded position."""
+    from denormalized_tpu.planner.planner import Planner as JPlanner
+    from denormalized_tpu.state import tiering as jtier
+    from denormalized_tpu.state.lsm import LsmStore as JLsm
 
-    op = Planner(ds._ctx.config).create_physical_plan(ds._plan)
-    assert isinstance(op, TUdafExec)
-    with pytest.raises(PlanError, match="§A item 7"):
-        op.enable_spill("1_UdafWindowExec", None)
+    from denormalized_tpu_torch.planner.planner import Planner as TPlanner
+    from denormalized_tpu_torch.state import tiering as ttier
+    from denormalized_tpu_torch.state.lsm import LsmStore as TLsm
+    from denormalized_tpu_torch.state.serialization import pack_snapshot
+
+    raw = feed(1, n_batches=10, n=200, keys=60)
+    got, stats = {}, {}
+    for pkg in PKGS:
+        p = api(pkg)
+        for budget in (None, 6_000):
+            cfg = {} if budget is None else dict(
+                state_backend_path=str(tmp_path / pkg),
+                state_budget_bytes=budget)
+            ctx = p.ctx(**cfg)
+            spread = p.F.udaf(p.Spread, p.DT.FLOAT64, "spread")
+            res = ctx.from_source(
+                p.Source.from_batches(batches_of(p, raw),
+                                      timestamp_column="ts"),
+            ).window(["sensor"], [spread(p.col("v")).alias("s")],
+                     1000).collect()
+            got[pkg, budget] = table(res)
+            if budget is not None:
+                node = next(iter(ctx._last_spill._stats))
+                stats[pkg] = ctx._last_spill.spill_stats(node)
+                p.close()
+    assert got["torch", 6_000] == got["torch", None] == got["jax", 6_000]
+    assert stats["torch"]["spill_blocks_total"] > 0
+    assert stats["torch"] == stats["jax"]
+
+    key = "udafwin_1_UdafWindowExec"
+    block = pack_snapshot({"keys": [["s0"]],
+                           "entries": {"0": [[0, [[2.0, 7.0]]]]},
+                           "windows": [0], "groups": 1}, {})
 
     class Coord:
-        def get_snapshot(self, key):
+        def get_snapshot(self, k):
+            if k == f"{key}:spill:b0":
+                return block
             return json.dumps({
                 "epoch": 1, "first_open": 0, "max_win_seen": 0,
-                "watermark": 0, "frames": {"0": [[["s0"], None]]},
+                "watermark": 0,
+                "frames": {"0": [[["s0"], None], [["s1"], [[1.0, 3.0]]]]},
                 "spill_blocks": [0],
             }).encode()
 
-    with pytest.raises(StateError, match="§A item 7"):
-        op.enable_checkpointing("1_UdafWindowExec", Coord(), None)
+    restored = {}
+    for pkg, Lsm, tier, Planner in (("jax", JLsm, jtier, JPlanner),
+                                    ("torch", TLsm, ttier, TPlanner)):
+        p = api(pkg)
+        for with_tier in (False, True):
+            ds = source(p, feed(1, n_batches=2, n=10)).window(
+                ["sensor"],
+                [p.F.udaf(p.Spread, p.DT.FLOAT64, "spread")(p.col("v"))],
+                1000)
+            op = Planner(ds._ctx.config).create_physical_plan(ds._plan)
+            assert isinstance(op, p.Udaf)
+            store = None
+            if with_tier:
+                store = Lsm(str(tmp_path / f"restore_{pkg}"))
+                ctrl = tier.SpillController(store, budget_bytes=1 << 20)
+                op.enable_spill("1_UdafWindowExec", ctrl)
+            op.enable_checkpointing("1_UdafWindowExec", Coord(), None)
+            frame = op._frames[0]
+            keys = [str(op._interner.keys_of(np.asarray([g]))[0][0])
+                    for g in frame]
+            if with_tier:
+                assert op._tier.any_spilled
+                assert type(frame[next(iter(frame))]).__name__ == "_Spilled"
+                op._tier.reload_for_window(0)
+                ctrl.close()
+                store.close()
+            restored[pkg, with_tier] = [
+                (k, accs[0].evaluate()) for k, accs in zip(keys, frame.values())
+            ]
+    assert restored["torch", False] == [("s0", 5.0), ("s1", 2.0)]
+    assert len({tuple(v) for v in restored.values()}) == 1, restored
 
 
 # -- the datafusion import shim ---------------------------------------------

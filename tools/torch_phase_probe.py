@@ -12,7 +12,11 @@ the host pipeline, ``29`` phase 21's job over an Avro topic, ``30`` the
 CSV job, ``explain(analyze=True)`` and the optimizer-off run, ``31``
 UDAFs, ``32`` sessions, ``33u``/``33s`` the UDAF and session jobs
 SIGKILLed and restored, ``34`` SIGTERM to a live ``print_stream`` child
-(over phase 22's chunks, made here at 1M rows/s).  It builds every kernel (printing ptxas' register and
+(over phase 22's chunks, made here at 1M rows/s), ``35`` config 3 under a
+48 MiB state budget, ``36`` config 1 under a budget, ``37c`` phase 35's
+budgeted job SIGKILLed and restored with and without the budget, ``37j``
+config 4 at 100K keys under a budget, ``37h`` the UDAF and session jobs
+under a budget.  It builds every kernel (printing ptxas' register and
 shared-memory lines), makes phase 4's and phase 10's streams from seed 0,
 and calls the same ``chip_smoke`` functions as the full script, each
 step checked as there.  A failing step is printed with its traceback and
@@ -32,7 +36,7 @@ import traceback
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 STEPS = ("25k", "7", "24", "24h", "25", "25j", "26", "27", "28", "29", "30",
-         "31", "32", "33u", "33s", "34")
+         "31", "32", "33u", "33s", "34", "35", "36", "37c", "37j", "37h")
 
 
 def main(argv: list[str]) -> int:
@@ -119,6 +123,14 @@ def main(argv: list[str]) -> int:
                                           card),
         "34": lambda: cs.phase_sigterm(device, cs.EVENTS_PER_SEC,
                                        *lat_chunks(), card),
+        "35": lambda: cs.phase_spill_highcard(device, seed + 13, card),
+        "36": lambda: cs.phase_spill_cfg1(device, batches, stream, card),
+        "37c": lambda: cs.phase_spill_ckpt(device, seed + 13,
+                                           cs.spill_feed(seed + 13), card),
+        "37j": lambda: cs.phase_spill_join(
+            device, (hb, hs),
+            side(seed + 6, cs.HIGHCARD_BATCH_ROWS, cs.HIGHCARD_KEYS), card),
+        "37h": lambda: cs.phase_spill_host(device, seed + 12, card),
     }
     failed = []
     for step in steps:
