@@ -259,10 +259,53 @@ Phases:
     phase 15's config 4 at 100K keys, the UDAF job and the session job
     (phase 32's session_scale stream, its first 2 batches) each under a
     budget and not: the same rows (the join's averages to rtol=1e-5, the
-    host jobs' in the same order) and spills > 0.
+    host jobs' in the same order) and spills > 0;
+38. the multi-query engine (``runtime/multi_query.py``, the host slice
+    store): bench.py's ``multi_query`` at config 1's row count (61 batches
+    of 131,072, 64 keys): Q = 1, 10 and 100 sliding count/sum/avg queries
+    over bench.py's 8-spec cycle, over ONE base DataStream, each run one
+    ingest into one slice store, against the same Q queries as
+    independent pipelines through the device window (the dense kernel, or
+    the scatter program where a batch spans more than 8 ring slots; Q =
+    100 cut to a stated prefix if Q = 10 says all 100 would pass
+    MQ_INDEPENDENT_CAP_S); then Q = 10 at config 3's shape (100K keys, 15
+    batches of 524,288) with the store's peak bytes and live units.
+    Every shared query bit-identical to its independent slice oracle
+    (``slice_windows=True``, the group's unit) and within PERF.md §2's
+    gate of the numpy oracle and of its device-window baseline; the
+    shared runs launch no kernel; rows/s (Q x rows / wall), speedups, the
+    baselines' dense launches and scatter steps;
+39. bench.py's ``query_dense`` over phase 38's stream: 50 queries over 8
+    nested filter classes (predicate subsumption) against 50 independent
+    device-window pipelines, each query bit-identical to its slice oracle
+    (the lexsort lane pinned for residual classes); its no-overlap control
+    (50 queries each pinning a sensor) with subsumption on and off over
+    the stream's first QD_CONTROL_BATCHES batches; then ``join_dense``: 25
+    queries over one fact x dim band join (150,000 fact rows, band 0-999
+    ms) through ONE shared ``StreamingJoinExec`` against the 8 distinct
+    queries as independent join + window pipelines on the card, with the
+    join's measured ``shared_cost_ms`` and the members' fractions;
+40. bench.py's ``approx_scale`` (approx_distinct, approx_median,
+    approx_top_k(10), 100 ms / 25 ms, 4 keys, 393,216 rows) at 1K and 1M
+    distinct values: the sketch lane (``slice_windows=True``) against the
+    accumulator lane (``approx_native=False``, the UDAF operator), every
+    row within docs/approx_aggregates.md's bounds of the exact answer,
+    rows/s and peak sketch and state bytes each; then the exact control
+    with ``approx_native`` on and off (bit-identical rows);
+41. live registration across a kill: a ``SharedPipeline`` of 3 queries in
+    a child (``--mq-child``) over a 4-partition JSON topic of the port's
+    mock broker fed at its event-time pace (12 s at 250,000 rows a
+    second, integer readings), a joiner registered at +2 s and
+    deregistered at +5 s, a residual joiner at +6 s, barriers every 0.5
+    s; SIGKILLed after an epoch commits past the residual joiner's first
+    window; a second child restores, replays the schedule and runs until
+    every closable window is covered.  Per query the union bit-equal to
+    its uninterrupted slice oracle, no window emitted twice by a child
+    and none from behind A's last commit by B; spawn → restore.
 
 Then one JSON line with each kernel's launches on its main path (phase 4
-for the dense kernel, phase 8 for the merge kernel, phase 25's config 3
+for the dense kernel, with phases 38-39's baselines' launches under
+``multi_query_launches``, phase 8 for the merge kernel, phase 25's config 3
 run for the compaction kernel, phase 27's for the f64 merge, each counted
 from 0 just before the run; for the dense kernel also its launches on
 phase 11's restored ring, both windows' launches under phase 14's join and
@@ -719,39 +762,56 @@ def oracle(ts, kid, val, length_ms, slide_ms, num_keys):
     key = (id(ts), id(kid), id(val), length_ms, slide_ms, num_keys)
     hit = _ORACLES.get(key)
     if hit is None:
-        hit = _ORACLES[key] = ((ts, kid, val), _oracle(
-            ts, kid, val, length_ms, slide_ms, num_keys))
+        t = window_table(ts, kid, val, length_ms, slide_ms, num_keys,
+                         extrema=True)
+        ws, key_i, n = (t[i].astype(np.int64).tolist() for i in (0, 1, 3))
+        hit = _ORACLES[key] = ((ts, kid, val), {
+            (w, k): row for w, k, *row in zip(
+                ws, key_i, n, t[6].tolist(), t[7].tolist(), t[5].tolist())})
     return hit[1]
 
 
-def _oracle(ts, kid, val, length_ms, slide_ms, num_keys):
-    k = -(-length_ms // slide_ms)
+def window_table(ts, kid, val, length_ms, slide_ms, num_keys, keep=None,
+                 extrema=False) -> np.ndarray:
+    """numpy float64 oracle of a window whose length is a multiple of its
+    slide, as a table sorted by (window start, key): start, key index,
+    end, count, sum, avg (and, with ``extrema``, min and max over the
+    f32-rounded readings the ring holds), a row for each (window, key)
+    holding a row of the stream (so every window the end-of-stream flush
+    emits).  ``slide_ms`` partials a key by ``bincount``, then each window
+    folds its units in order; ``keep`` masks the stream's rows first."""
+    if keep is not None:
+        ts, kid, val = ts[keep], kid[keep], val[keep]
+    k = length_ms // slide_ms
     units = ts // slide_ms
-    rem = ts - units * slide_ms
-    v32 = val.astype(np.float32).astype(np.float64)
-    codes, vals, vals32 = [], [], []
-    for i in range(k):
-        ok = rem < length_ms - i * slide_ms
-        codes.append((units[ok] - i) * num_keys + kid[ok])
-        vals.append(val[ok])
-        vals32.append(v32[ok])
-    code = np.concatenate(codes)
-    v = np.concatenate(vals)
-    v32 = np.concatenate(vals32)
-    order = np.argsort(code, kind="stable")
-    code, v, v32 = code[order], v[order], v32[order]
-    starts = np.flatnonzero(np.r_[True, code[1:] != code[:-1]])
-    cnt = np.diff(np.r_[starts, len(code)])
-    out = {}
-    for c, n, s, mn, mx in zip(
-        code[starts].tolist(), cnt.tolist(),
-        np.add.reduceat(v, starts).tolist(),
-        np.minimum.reduceat(v32, starts).tolist(),
-        np.maximum.reduceat(v32, starts).tolist(),
-    ):
-        j, key = divmod(c, num_keys)
-        out[(j * slide_ms, key)] = (n, mn, mx, s / n)
-    return out
+    u0 = int(units.min())
+    span = int(units.max()) - u0 + 1
+    cell = (units - u0) * num_keys + kid
+    cells = span * num_keys
+    planes = [(np.bincount(cell, minlength=cells), 0, np.add),
+              (np.bincount(cell, weights=val, minlength=cells), 0.0, np.add)]
+    if extrema:
+        v32 = val.astype(np.float32).astype(np.float64)
+        for fill, op in ((np.inf, np.minimum), (-np.inf, np.maximum)):
+            p = np.full(cells, fill)
+            op.at(p, cell, v32)
+            planes.append((p, fill, op))
+    # window w starts at unit u0 - k + 1 + w and folds units w..w+k-1 of
+    # the planes padded by k - 1 empty units a side
+    n = span + k - 1
+    folded = []
+    for p, fill, op in planes:
+        pad = np.full((k - 1, num_keys), fill, p.dtype)
+        q = np.concatenate([pad, p.reshape(span, num_keys), pad])
+        acc = q[:n].copy()
+        for i in range(1, k):
+            op(acc, q[i:i + n], out=acc)
+        folded.append(acc)
+    w, key = np.nonzero(folded[0])
+    start = (u0 - k + 1 + w) * slide_ms
+    c, s = folded[0][w, key], folded[1][w, key]
+    return sorted_table([start, key, start + length_ms, c, s, s / c,
+                         *(f[w, key] for f in folded[2:])])
 
 
 def job_stream(device, batches, job: str, on_read=None, strategy="auto",
@@ -5386,27 +5446,17 @@ def highcard_table(res) -> np.ndarray:
     ])
 
 
-def highcard_oracle_table(ts, kid, val, num_keys) -> np.ndarray:
-    """The numpy float64 oracle of config 3's 1 s tumbling windows as a
-    (4, n) table sorted like ``highcard_table``."""
-    code = (ts // 1000) * num_keys + kid
-    order = np.argsort(code, kind="stable")
-    c, v = code[order], val[order]
-    starts = np.flatnonzero(np.r_[True, c[1:] != c[:-1]])
-    n = np.diff(np.r_[starts, len(c)])
-    sums = np.add.reduceat(v, starts)
-    cs = c[starts]
-    return sorted_table([(cs // num_keys) * 1000, cs % num_keys, sums,
-                         sums / n])
-
-
-def check_table(got, want, what: str, rtol: float = 1e-4) -> int:
-    """Two tables: the same (window, key) rows, every value within
+def check_table(got, want, what: str, rtol: float = 1e-4,
+                exact: int = 2) -> int:
+    """Two tables: the same rows in their first ``exact`` columns (window,
+    key, and e.g. window end and count), every other value within
     ``rtol`` → rows."""
-    if got.shape != want.shape or not np.array_equal(got[:2], want[:2]):
+    if got.shape != want.shape or not np.array_equal(got[:exact],
+                                                      want[:exact]):
         raise AssertionError(f"{what}: {got.shape[1]} rows against "
-                             f"{want.shape[1]}, or other windows or keys")
-    ok = np.isclose(got[2:], want[2:], rtol=rtol, atol=0).all(axis=0)
+                             f"{want.shape[1]}, or other windows, keys or "
+                             "exact columns")
+    ok = np.isclose(got[exact:], want[exact:], rtol=rtol, atol=0).all(axis=0)
     if not ok.all():
         i = int(np.flatnonzero(~ok)[0])
         raise AssertionError(f"{what}: row {tuple(got[:, i])} against "
@@ -5499,7 +5549,7 @@ def phase_spill_highcard(device, seed: int, card: str):
     emission_compaction, each budgeted and not, against the oracle and
     each other → {launches by strategy, rows/s, feed} for phase 37."""
     batches, beats, stream = spill_feed(seed)
-    exp = highcard_oracle_table(*stream, HIGHCARD_KEYS)
+    exp = window_table(*stream, 1000, 1000, HIGHCARD_KEYS)[[0, 1, 4, 5]]
     n = len(stream[0])
     cap = dict(min_group_capacity=2 * HIGHCARD_KEYS)
     out = {"feed": (batches, beats, stream), "launches": {}}
@@ -5705,7 +5755,7 @@ def phase_spill_ckpt(device, seed: int, feed, card):
     import tempfile
 
     batches, beats, stream = feed
-    exp = highcard_oracle_table(*stream, HIGHCARD_KEYS)
+    exp = window_table(*stream, 1000, 1000, HIGHCARD_KEYS)[[0, 1, 4, 5]]
     work = tempfile.mkdtemp(prefix="dnz_spill_ckpt_")
     try:
         a, _b, commits, unread, _t = sigkill_and_restore(
@@ -5773,8 +5823,8 @@ def phase_spill_join(device, highcard, right, card):
     from denormalized_tpu_torch.state.lsm import close_global_state_backend
 
     cap = dict(min_group_capacity=2 * HIGHCARD_KEYS)
-    lo = highcard_oracle_table(*highcard[1], HIGHCARD_KEYS)
-    ro = highcard_oracle_table(*right[1], HIGHCARD_KEYS)
+    lo, ro = (window_table(*s, 1000, 1000, HIGHCARD_KEYS)[[0, 1, 4, 5]]
+              for s in (highcard[1], right[1]))
     def codes(t):  # (window index, key) as one exact int64
         return (t[0].astype(np.int64) // 1000) * HIGHCARD_KEYS + t[1].astype(
             np.int64)
@@ -5892,6 +5942,1068 @@ def phase_spill_host(device, seed: int, card):
             f"{len(stream[0]) / wall0:.0f} unbudgeted ({card})")
 
 
+# -- phases 38-41: the multi-query engine ------------------------------------
+
+#: bench.py's multi_query / query_dense spec cycle: 8 sliding specs, 5 s to
+#: 60 s windows, 1-10 s slides, a 1 s gcd
+MQ_SPECS = [
+    (5_000, 1_000), (10_000, 1_000), (30_000, 5_000), (10_000, 2_000),
+    (60_000, 10_000), (15_000, 3_000), (20_000, 4_000), (8_000, 2_000),
+]
+MQ_KEYS = 64  # bench.py's BENCH_MQ_KEYS / BENCH_QD_KEYS
+MQ_SWEEP = (1, 10, 100)
+#: wall the Q = 100 independent baseline may take; past it (reckoned from
+#: the Q = 10 run) it runs a stated prefix of the queries
+MQ_INDEPENDENT_CAP_S = 35.0
+#: query_dense's nested thresholds on ``reading`` (N(50, 10)): the base
+#: keeps ~97% of rows, the strongest ~31%
+QD_THRESHOLDS = [30.0, 38.0, 42.0, 46.0, 50.0, 52.0, 55.0, 35.0]
+QD_QUERIES = 50
+#: the no-overlap control's feed: its 2 x 50 pipelines each string-compare
+#: every row on the host (~9 s a side at 15 batches on the card's host)
+QD_CONTROL_BATCHES = 8
+#: join_dense (bench.py): 25 queries over one fact x dim band join
+JD_QUERIES = 25
+JD_SPECS = [
+    (3_000, 1_000), (2_000, 1_000), (4_000, 2_000), (2_000, 2_000),
+    (3_000, 3_000), (4_000, 1_000), (5_000, 1_000), (6_000, 2_000),
+]
+JD_ROWS = 1_048_576  # 64 batches: 524 s of event time at 2 rows a ms
+JD_BATCH = 16_384
+#: approx_scale (bench.py): 4 keys, 100 ms windows sliding by 25 ms
+#: the sketch lane's feed: 256 batches of 16,384, so the 1M point's
+#: readings hold ~985K distinct values (bench.py's smoke: 400,000 rows)
+AP_ROWS = 4_194_304
+#: the accumulator lane (per-row Python, ~0.1M rows/s) runs the first 24
+AP_ACC_ROWS = 393_216
+#: the exact control's feed: 1,024 batches, so each run takes ~0.5 s
+AP_CONTROL_ROWS = 16_777_216
+AP_BATCH = 16_384
+AP_KEYS = 4
+AP_CARDS = (1_000, 1_000_000)
+#: phase 41: 12 s of event time at 250,000 rows a second, fed at its pace
+LR_EVENTS_PER_SEC = 250_000
+LR_EVENT_S = 12
+LR_BATCH = 8_192
+
+
+def mq_aggs(F, col):
+    return [F.count(col("reading")).alias("c"),
+            F.sum(col("reading")).alias("s"),
+            F.avg(col("reading")).alias("av")]
+
+
+def mq_table(batches, cols=("c", "s", "av")) -> np.ndarray:
+    """Emitted windows as a float64 table (window start, window end, key
+    index, aggregates...) sorted by window and key."""
+    parts = [b for b in batches if b.num_rows]
+    if not parts:
+        return np.zeros((3 + len(cols), 0))
+    return sorted_table([
+        np.concatenate([b.column("window_start_time") for b in parts]),
+        np.concatenate([
+            key_indices(b.column("sensor_name").tolist()) for b in parts]),
+        np.concatenate([b.column("window_end_time") for b in parts]),
+        *[np.concatenate([np.asarray(b.column(c), np.float64)
+                          for b in parts]) for c in cols],
+    ])
+
+
+def mq_source(batches):
+    from denormalized_tpu_torch.sources.memory import MemorySource
+
+    return MemorySource.from_batches(batches, timestamp_column="occurred_at_ms")
+
+
+def mq_shared(device, batches, queries, sample=None, **cfg):
+    """``run_queries`` over ONE base DataStream (sharing keys on the scan's
+    source identity; a single query runs as a one-member
+    ``SharedPipeline``, as ``run_queries`` would send it to the device
+    window).  ``queries`` lists (filter or None, L, S); the dense kernel's
+    and the scatter program's counts are 0 just before the run;
+    ``sample(root)``, where given, runs at each emission.  → (report,
+    per-query tables, wall s, {"dense": launches, "scatter": steps}, the
+    root)."""
+    import denormalized_tpu_torch as tt
+    from denormalized_tpu_torch.api import functions as F
+    from denormalized_tpu_torch.ops import dense_window as dw
+    from denormalized_tpu_torch.parallel import sharded_state as ss
+    from denormalized_tpu_torch.runtime.multi_query import (
+        SharedPipeline,
+        run_queries,
+    )
+
+    ctx = tt.Context(tt.EngineConfig(device=str(device), **cfg))
+    base = ctx.from_source(mq_source(batches))
+    outs = [[] for _ in queries]
+    root = []
+
+    def sink(acc):
+        def f(b):
+            acc.append(b)
+            if sample is not None:
+                sample(root[0] if root else ctx._last_physical)
+        return f
+
+    qs = []
+    for i, (flt, L, S) in enumerate(queries):
+        ds = base if flt is None else base.filter(flt(tt.col))
+        qs.append((ds.window(["sensor_name"], mq_aggs(F, tt.col), L, S),
+                   sink(outs[i])))
+    dw.dense_window_launches = ss.scatter_steps = 0
+    t0 = time.perf_counter()
+    if len(qs) == 1:
+        sp = SharedPipeline(ctx, qs)
+        root.append(sp.root)
+        sp.run()
+        rep = {"shared_queries": 1, "groups": [
+            {"members": [0], "shared": True, "unit_ms": sp.root.unit_ms}]}
+    else:
+        rep = run_queries(ctx, qs)
+        root.append(ctx._last_physical)
+    sync(device)
+    wall = time.perf_counter() - t0
+    return (rep, [mq_table(o) for o in outs], wall,
+            {"dense": dw.dense_window_launches, "scatter": ss.scatter_steps},
+            root[0])
+
+
+def mq_independent(device, batches, queries, **cfg):
+    """Each query its own pipeline through the device window (the dense
+    kernel, or the scatter program where a batch spans more than
+    K_ACTIVE ring slots), every kernel count 0 just before → (tables,
+    wall s, dense launches, scatter steps)."""
+    import denormalized_tpu_torch as tt
+    from denormalized_tpu_torch.api import functions as F
+    from denormalized_tpu_torch.ops import dense_window as dw
+    from denormalized_tpu_torch.parallel import sharded_state as ss
+
+    dw.dense_window_launches = ss.scatter_steps = 0
+    scatter = dense = 0
+    tables = []
+    t0 = time.perf_counter()
+    for flt, L, S in queries:
+        ctx = tt.Context(tt.EngineConfig(device=str(device), **cfg))
+        ds = ctx.from_source(mq_source(batches))
+        if flt is not None:
+            ds = ds.filter(flt(tt.col))
+        res = ds.window(["sensor_name"], mq_aggs(F, tt.col), L, S).collect()
+        backend = window_exec_of(ctx).backend
+        scatter += backend.scatter_updates
+        dense += backend.dense_updates
+        tables.append(mq_table([res]))
+    sync(device)
+    wall = time.perf_counter() - t0
+    if (dw.dense_window_launches, ss.scatter_steps) != (dense, scatter):
+        raise AssertionError(
+            f"{dw.dense_window_launches} dense launches and "
+            f"{ss.scatter_steps} scatter steps against the backends' "
+            f"{dense} and {scatter}")
+    return tables, wall, dense, scatter
+
+
+def mq_slice_oracle(device, batches, flt, L, S, unit=1000, sort_lane=False):
+    """The independent slice oracle: one query through
+    ``EngineConfig(slice_windows=True)`` pinned to the group's unit (and,
+    for a residual member, the lexsort lane) → its table."""
+    import denormalized_tpu_torch as tt
+    from denormalized_tpu_torch.api import functions as F
+
+    ctx = tt.Context(tt.EngineConfig(
+        device=str(device), slice_windows=True, slice_unit_ms=unit,
+        slice_sort_lane=sort_lane))
+    ds = ctx.from_source(mq_source(batches))
+    if flt is not None:
+        ds = ds.filter(flt(tt.col))
+    out = list(ds.window(["sensor_name"], mq_aggs(F, tt.col), L,
+                         S).stream())
+    return mq_table(out)
+
+
+def same_bits(a, b) -> bool:
+    return a.shape == b.shape and np.array_equal(a, b)
+
+
+def mq_sweep_point(device, batches, stream, q, phase, num_keys,
+                   independent=True, cap_s=None, oracles=None,
+                   sample=None):
+    """One sweep point of phase 38: Q shared queries cycling MQ_SPECS,
+    then (``independent``) the same Q queries as independent device-window
+    pipelines, capped at ``cap_s`` (a prefix of the queries past it).
+    Gates: every shared query bit-identical to its spec's slice oracle,
+    and within PERF.md §2's gate of the numpy oracle and of its
+    device-window baseline; no kernel launch and no scatter step in the
+    shared run.  The shared wall splits into the operator's ingest (intern,
+    sort, accumulate: its cost ledger less the folds), its fold and emit
+    (``dnz_slice_fold_ms``), and the rest (source, planning, sinks)."""
+    from denormalized_tpu_torch import obs
+
+    ts, kid, val = stream
+    queries = [(None, *MQ_SPECS[i % len(MQ_SPECS)]) for i in range(q)]
+    fold_h = obs.histogram("dnz_slice_fold_ms")
+    fold0 = fold_h.sum
+    rep, tables, shared_s, shared_launches, root = mq_shared(
+        device, batches, queries, sample=sample)
+    fold_ms = fold_h.sum - fold0
+    op_ms = sum(root._sub_cost_ms)
+    if any(shared_launches.values()) or rep["shared_queries"] != q or len(
+            rep["groups"]) != 1:
+        raise AssertionError(f"phase {phase} Q={q}: {rep}, "
+                             f"{shared_launches}")
+    for i, t in enumerate(tables):
+        spec = MQ_SPECS[i % len(MQ_SPECS)]
+        if spec not in oracles:
+            oracles[spec] = (
+                mq_slice_oracle(device, batches, None, *spec),
+                window_table(ts, kid, val, *spec, num_keys))
+        sl, npo = oracles[spec]
+        if not same_bits(t, sl):
+            raise AssertionError(f"phase {phase} Q={q} query {i} {spec}: "
+                                 "not bit-identical to its slice oracle")
+        check_table(t, npo, f"phase {phase} Q={q} query {i} numpy", exact=4)
+    rows = len(ts)
+    point = {"q": q, "shared_s": shared_s,
+             "shared_rows_per_s": q * rows / shared_s,
+             "shared_launches": shared_launches,
+             "split_s": {"ingest": (op_ms - fold_ms) / 1e3,
+                         "fold_emit": fold_ms / 1e3,
+                         "rest": shared_s - op_ms / 1e3},
+             "windows": int(sum(t.shape[1] for t in tables)),
+             "unit_ms": rep["groups"][0]["unit_ms"], "root": root}
+    if not independent:
+        return point
+    n = q
+    if cap_s is not None and cap_s[0] is not None and cap_s[0] > cap_s[1]:
+        n = max(len(MQ_SPECS), int(q * cap_s[1] / cap_s[0]))
+    ind, ind_s, dense, scatter = mq_independent(device, batches,
+                                                queries[:n])
+    for i, t in enumerate(ind):
+        check_table(tables[i], t, f"phase {phase} Q={q} query {i} against "
+                    "its device-window baseline", exact=4)
+    if dense + scatter == 0:
+        raise AssertionError(f"phase {phase} Q={q}: the baseline launched "
+                             "nothing")
+    point.update(ind_n=n, ind_s=ind_s, ind_rows_per_s=n * rows / ind_s,
+                 dense=dense, scatter=scatter,
+                 speedup=point["shared_rows_per_s"] / (n * rows / ind_s))
+    return point
+
+
+def split_text(p) -> str:
+    return ("shared wall split: ingest {ingest:.3f} s, fold + emit "
+            "{fold_emit:.3f} s, rest {rest:.3f} s").format(**p["split_s"])
+
+
+def phase_multi_query(device, seed: int, card: str):
+    """Phase 38: bench.py's ``multi_query`` at config 1's row count (64
+    keys): Q = 1, 10, 100 shared queries (one ingest into one slice store)
+    against Q independent device-window pipelines, then Q = 10 at config
+    3's shape (100K keys), where the store holds real state."""
+    ts, kid, val = stream = gen_stream(TOTAL_ROWS, BATCH_ROWS, MQ_KEYS,
+                                       seed)
+    batches = to_batches(ts, kid, val, BATCH_ROWS, MQ_KEYS)
+    oracles: dict = {}
+    cap = [None, MQ_INDEPENDENT_CAP_S]
+    points = []
+    for q in MQ_SWEEP:
+        p = mq_sweep_point(device, batches, stream, q, 38, MQ_KEYS,
+                           cap_s=cap, oracles=oracles)
+        if q == 10:
+            cap[0] = p["ind_s"] * 10  # Q = 100 reckoned from Q = 10
+        points.append(p)
+        cut = (f" (cut to the first {p['ind_n']} of {q} queries: Q = 10 took"
+               f" {cap[0] / 10:.1f} s, so all {q} would take ~{cap[0]:.0f} "
+               f"s, past the {MQ_INDEPENDENT_CAP_S:.0f} s cap)"
+               ) if p["ind_n"] < q else ""
+        log(f"phase 38 multi_query Q={q} ({len(ts)} rows, {MQ_KEYS} keys, "
+            f"bench.py's 8-spec cycle, count/sum/avg, unit "
+            f"{p['unit_ms']} ms): shared {p['shared_s']:.3f} s = "
+            f"{p['shared_rows_per_s']:.0f} rows/s (Q x rows / wall; "
+            f"{split_text(p)}), {p['windows']} window rows, every query "
+            f"bit-identical to its slice oracle and within 1e-4 of the "
+            f"numpy oracle, 0 kernel launches and 0 scatter steps; "
+            f"independent {p['ind_s']:.3f} s = "
+            f"{p['ind_rows_per_s']:.0f} rows/s over {p['ind_n']} "
+            f"pipelines{cut}, {p['dense']} dense launches + {p['scatter']} "
+            f"scatter steps, every row within 1e-4 of the shared; speedup "
+            f"{p['speedup']:.2f}x ({card})")
+
+    # config 3's shape: 100K keys, 15 batches of 524,288
+    hts, hkid, hval = hstream = gen_stream(
+        15 * HIGHCARD_BATCH_ROWS, HIGHCARD_BATCH_ROWS, HIGHCARD_KEYS,
+        seed + 1)
+    hbatches = to_batches(hts, hkid, hval, HIGHCARD_BATCH_ROWS,
+                          HIGHCARD_KEYS)
+    peak = {"slice_store_bytes": 0, "slices_live": 0, "live_keys": 0}
+
+    def sample(root):
+        info = root.state_info()
+        for k in peak:
+            peak[k] = max(peak[k], info[k])
+
+    hp = mq_sweep_point(device, hbatches, hstream, 10, 38,
+                        HIGHCARD_KEYS, oracles={}, sample=sample)
+    log(f"phase 38 multi_query Q=10 at config 3's shape ({len(hts)} rows, "
+        f"{HIGHCARD_KEYS} keys, {HIGHCARD_BATCH_ROWS}-row batches): shared "
+        f"{hp['shared_s']:.3f} s = {hp['shared_rows_per_s']:.0f} rows/s, "
+        f"{hp['windows']} window rows ({split_text(hp)}), every query "
+        f"bit-identical to its slice oracle and within 1e-4 of the numpy "
+        f"oracle, 0 kernel launches and 0 scatter steps; peak state: "
+        f"{peak['slice_store_bytes']} slice-store bytes, "
+        f"{peak['slices_live']} live slice units, {peak['live_keys']} keys; "
+        f"independent {hp['ind_s']:.3f} s = {hp['ind_rows_per_s']:.0f} "
+        f"rows/s, {hp['dense']} dense launches + {hp['scatter']} scatter "
+        f"steps; speedup {hp['speedup']:.2f}x ({card})")
+    for p in points + [hp]:
+        p.pop("root")
+    return {"points": points, "highcard": hp, "peak": peak,
+            "feed": (batches, stream)}
+
+
+def jd_feed(rows: int, batch_rows: int, n_keys: int = MQ_KEYS):
+    """bench.py's ``join_dense`` feed: fact rows 2 a millisecond with
+    integer-valued readings (every fold exact in any order), one dim row a
+    (key, event second), so each fact row band-matches exactly one dim row
+    → (fact batches, dim batches, (ts, key index, reading))."""
+    from denormalized_tpu_torch.common.record_batch import RecordBatch
+    from denormalized_tpu_torch.common.schema import DataType, Field, Schema
+
+    fact_schema = e2e_schema()
+    dim_schema = Schema([
+        Field("dim_at_ms", DataType.INT64, nullable=False),
+        Field("dim_sensor", DataType.STRING, nullable=False),
+        Field("dim_w", DataType.FLOAT64),
+    ])
+    keys = np.array([f"sensor_{i}" for i in range(n_keys)], dtype=object)
+    rng = np.random.default_rng(7)
+    facts, cols = [], ([], [], [])
+    for start in range(0, rows, batch_rows):
+        n = min(batch_rows, rows - start)
+        ts = EVENT_T0 + np.arange(start, start + n, dtype=np.int64) // 2
+        k = rng.integers(0, n_keys, n)
+        v = np.round(rng.normal(50.0, 10.0, n))
+        facts.append(RecordBatch(fact_schema, [ts, keys[k], v]))
+        for c, a in zip(cols, (ts, k, v)):
+            c.append(a)
+    span_s = -(-rows // 2 // 1000)
+    dims = []
+    for sec0 in range(0, span_s, 8):
+        secs = np.arange(sec0, min(sec0 + 8, span_s), dtype=np.int64)
+        dts = np.repeat(EVENT_T0 + secs * 1000, n_keys)
+        dims.append(RecordBatch(dim_schema, [
+            dts, np.tile(keys, len(secs)), rng.random(len(dts))]))
+    return facts, dims, tuple(np.concatenate(c) for c in cols)
+
+
+def jd_joined(ctx, facts, dims):
+    from denormalized_tpu_torch.sources.memory import MemorySource
+
+    fact = ctx.from_source(MemorySource.from_batches(
+        facts, timestamp_column="occurred_at_ms"), name="jd_fact")
+    dim = ctx.from_source(MemorySource.from_batches(
+        dims, timestamp_column="dim_at_ms"), name="jd_dim")
+    return fact.join(dim, "inner", ["sensor_name"], ["dim_sensor"],
+                     band=("occurred_at_ms", "dim_at_ms", 0, 999))
+
+
+def jd_config(device, **cfg) -> dict:
+    # both sides arrive in band-value order: zero slack is exact
+    return dict(device=str(device), join_retention_ms=3_000,
+                join_band_slack_ms=0, **cfg)
+
+
+def phase_query_dense(device, seed: int, batches, stream, card):
+    """Phase 39: bench.py's ``query_dense`` (50 queries, 8 nested filter
+    classes under predicate subsumption) over phase 38's stream against 50
+    independent device-window pipelines, its no-overlap control with
+    subsumption on and off, then ``join_dense``: 25 queries over one band
+    join through ONE shared ``StreamingJoinExec`` against independent join
+    + window pipelines on the card, with the join's measured shared
+    cost."""
+    import denormalized_tpu_torch as tt
+    from denormalized_tpu_torch.api import functions as F
+    from denormalized_tpu_torch.ops import dense_window as dw
+    from denormalized_tpu_torch.parallel import sharded_state as ss
+    from denormalized_tpu_torch.physical.join_exec import StreamingJoinExec
+    from denormalized_tpu_torch.runtime.multi_query import run_queries
+    from denormalized_tpu_torch.state.checkpoint import walk
+
+    ts, kid, val = stream
+    rows = len(ts)
+
+    def thr(i):
+        th = QD_THRESHOLDS[i % len(QD_THRESHOLDS)]
+        return lambda col: col("reading") > th
+
+    queries = [(thr(i), *MQ_SPECS[i % len(MQ_SPECS)])
+               for i in range(QD_QUERIES)]
+    rep, tables, shared_s, launches, root = mq_shared(device, batches,
+                                                      queries)
+    classes = root.metrics()["filter_classes"]
+    if (any(launches.values()) or rep["shared_queries"] != QD_QUERIES
+            or classes != 8):
+        raise AssertionError(f"phase 39 query_dense: {launches} launches, "
+                             f"{rep['shared_queries']} shared, {classes} "
+                             "filter classes")
+    # the 8 distinct (spec, threshold) pairs repeat every 8 queries
+    for i in range(len(MQ_SPECS)):
+        th = QD_THRESHOLDS[i]
+        want = mq_slice_oracle(device, batches, thr(i), *MQ_SPECS[i],
+                               sort_lane=th != min(QD_THRESHOLDS))
+        npo = window_table(ts, kid, val, *MQ_SPECS[i], MQ_KEYS,
+                        keep=val > th)
+        for q in range(i, QD_QUERIES, len(MQ_SPECS)):
+            if not same_bits(tables[q], want):
+                raise AssertionError(f"phase 39 query_dense query {q}: not "
+                                     "bit-identical to its slice oracle")
+            check_table(tables[q], npo, f"phase 39 query_dense query {q}",
+                        exact=4)
+    ind, ind_s, dense, scatter = mq_independent(device, batches, queries)
+    for q, t in enumerate(ind):
+        check_table(tables[q], t, f"phase 39 query_dense query {q} "
+                       "against its device-window baseline", exact=4)
+    log(f"phase 39 query_dense ({QD_QUERIES} queries over phase 38's "
+        f"{rows} rows, 8 specs x 8 nested thresholds on reading, one share "
+        f"group with {classes} filter classes): shared {shared_s:.3f} s = "
+        f"{QD_QUERIES * rows / shared_s:.0f} rows/s, every query "
+        f"bit-identical to its slice oracle (residual classes on the "
+        f"lexsort lane) and within 1e-4 of the numpy oracle, 0 kernel "
+        f"launches and 0 scatter steps; independent {ind_s:.3f} s = "
+        f"{QD_QUERIES * rows / ind_s:.0f} rows/s, {dense} dense launches + "
+        f"{scatter} scatter steps; speedup {ind_s / shared_s:.2f}x ({card})")
+
+    # the no-overlap control: each query pins its own sensor (no predicate
+    # implies another), so nothing shares, with subsumption on or off
+    cb = batches[:QD_CONTROL_BATCHES]
+    n = QD_CONTROL_BATCHES * BATCH_ROWS
+    cts, ckid, cval = ts[:n], kid[:n], val[:n]
+
+    def pin(i):
+        name = f"sensor_{i % MQ_KEYS}"
+        return lambda col: col("sensor_name") == name
+
+    control = [(pin(i), *MQ_SPECS[i % len(MQ_SPECS)])
+               for i in range(QD_QUERIES)]
+    walls = {}
+    for on in (True, False):
+        rep_c, tab_c, wall_c, launches_c, _ = mq_shared(
+            device, cb, control, mq_subsumption=on)
+        if rep_c["shared_queries"] or not any(launches_c.values()):
+            raise AssertionError(f"phase 39 control: {rep_c}")
+        for i, t in enumerate(tab_c):
+            check_table(t, window_table(
+                cts, ckid, cval, *MQ_SPECS[i % len(MQ_SPECS)], MQ_KEYS,
+                keep=ckid == i % MQ_KEYS), f"phase 39 control query {i}",
+                exact=4)
+        walls[on] = (wall_c, "{dense} dense launches + {scatter} scatter "
+                     "steps".format(**launches_c))
+    log(f"phase 39 query_dense no-overlap control ({QD_QUERIES} queries "
+        f"each pinning its own sensor, phase 38's first "
+        f"{QD_CONTROL_BATCHES} batches = {n} rows): nothing shares; "
+        f"subsumption on {walls[True][0]:.3f} s ({walls[True][1]}), off "
+        f"{walls[False][0]:.3f} s ({walls[False][1]}); on/off "
+        f"{walls[False][0] / walls[True][0]:.3f}x, every query within 1e-4 "
+        f"of the numpy oracle ({card})")
+
+    # join_dense at JD_ROWS fact rows (PERF.md §4 gives the cut)
+    facts, dims, (fts, fkid, fval) = jd_feed(JD_ROWS, JD_BATCH)
+    jq = [(thr(i), *JD_SPECS[i % len(JD_SPECS)]) for i in range(JD_QUERIES)]
+
+    def joined_queries(ctx, outs):
+        base = jd_joined(ctx, facts, dims)
+        return [(base.filter(flt(tt.col)).window(
+            ["sensor_name"], mq_aggs(F, tt.col), L, S), outs[i].append)
+            for i, (flt, L, S) in enumerate(jq)]
+
+    ctx = tt.Context(tt.EngineConfig(**jd_config(device)))
+    outs = [[] for _ in jq]
+    dw.dense_window_launches = ss.scatter_steps = 0
+    t0 = time.perf_counter()
+    rep = run_queries(ctx, joined_queries(ctx, outs))
+    sync(device)
+    jshared_s = time.perf_counter() - t0
+    jshared = {"dense": dw.dense_window_launches, "scatter": ss.scatter_steps}
+    (join,) = [op for op in walk(ctx._last_physical)
+               if isinstance(op, StreamingJoinExec)]
+    cost = join.shared_cost_ms()
+    stages = {k: round(v, 3) for k, v in join._stage_ms.items()}
+    fr = ctx._last_physical.shared_fractions()
+    if (any(jshared.values()) or rep["shared_queries"] != JD_QUERIES
+            or len(rep["groups"]) != 1 or cost <= 0
+            or abs(sum(fr.values()) - 1.0) > 1e-9):
+        raise AssertionError(f"phase 39 join_dense: {rep}, {jshared}, "
+                             f"cost {cost}, fractions {fr}")
+    jtables = [mq_table(o) for o in outs]
+    # integer readings: every fold is exact, so the numpy f64 oracle is
+    # bit-exact for each member (each fact row matches one dim row)
+    for i, (flt, L, S) in enumerate(jq):
+        th = QD_THRESHOLDS[i % len(QD_THRESHOLDS)]
+        want = window_table(fts, fkid, fval, L, S, MQ_KEYS, keep=fval > th)
+        if not same_bits(jtables[i], want):
+            check_table(jtables[i], want, f"phase 39 join_dense {i}",
+                        exact=4)
+            raise AssertionError(f"phase 39 join_dense query {i}: not "
+                                 "bit-identical to the oracle")
+    # independent join + window pipelines on the card: the 8 distinct
+    # queries (queries 8-24 repeat them: the same filter and window)
+    n_ind = len(JD_SPECS)
+    dw.dense_window_launches = ss.scatter_steps = 0
+    jdense = jscatter = 0
+    t0 = time.perf_counter()
+    for i, (flt, L, S) in enumerate(jq[:n_ind]):
+        ictx = tt.Context(tt.EngineConfig(**jd_config(device)))
+        res = jd_joined(ictx, facts, dims).filter(flt(tt.col)).window(
+            ["sensor_name"], mq_aggs(F, tt.col), L, S).collect()
+        backend = window_exec_of(ictx).backend
+        jdense += backend.dense_updates
+        jscatter += backend.scatter_updates
+        check_table(jtables[i], mq_table([res]), f"phase 39 join_dense "
+                    f"query {i} against its independent join + window",
+                    exact=4)
+    sync(device)
+    jind_s = time.perf_counter() - t0
+    if jdense + jscatter == 0 or (dw.dense_window_launches,
+                                  ss.scatter_steps) != (jdense, jscatter):
+        raise AssertionError(
+            f"phase 39 join_dense baseline: {jdense} dense, {jscatter} "
+            f"scatter, {dw.dense_window_launches} launches, "
+            f"{ss.scatter_steps} scatter steps counted")
+    # spot check against the slice oracle: the base class and two residuals
+    for i in (0, 1, 4):
+        flt, L, S = jq[i]
+        octx = tt.Context(tt.EngineConfig(**jd_config(
+            device, slice_windows=True, slice_unit_ms=1000,
+            slice_sort_lane=True)))
+        got = mq_table(list(jd_joined(octx, facts, dims).filter(
+            flt(tt.col)).window(["sensor_name"], mq_aggs(F, tt.col), L,
+                                S).stream()))
+        if not same_bits(jtables[i], got):
+            raise AssertionError(f"phase 39 join_dense query {i}: not "
+                                 "bit-identical to its slice oracle")
+    frows = len(fts)
+    log(f"phase 39 join_dense ({JD_QUERIES} queries, 8 specs x 8 nested "
+        f"thresholds, over one fact x dim band join: {frows} fact rows = "
+        f"{(fts.max() - fts.min() + 1) / 1000:.0f} s of event time, "
+        f"{sum(b.num_rows for b in dims)} dim rows, band 0-999 ms, "
+        f"retention 3 s, slack 0): ONE shared StreamingJoinExec, "
+        f"{jshared_s:.3f} s = {JD_QUERIES * frows / jshared_s:.0f} rows/s, "
+        f"0 kernel launches and 0 scatter steps, shared_cost_ms "
+        f"{cost:.3f} (stages {stages}), fractions summing to 1 over "
+        f"{len(fr)} members; every query bit-identical to the numpy oracle "
+        f"(integer readings), 3 to their slice oracles; independent join + "
+        f"window on the card: {n_ind} of {JD_QUERIES} (queries 8-24 repeat "
+        f"0-7) in {jind_s:.3f} s = {n_ind * frows / jind_s:.0f} rows/s, "
+        f"{jind_s / n_ind:.3f} s a pipeline, {jdense} dense launches + "
+        f"{jscatter} scatter steps; speedup "
+        f"{(JD_QUERIES * frows / jshared_s) / (n_ind * frows / jind_s):.2f}x"
+        f" ({card})")
+    return {"shared_s": shared_s, "ind_s": ind_s, "dense": dense,
+            "scatter": scatter, "join_shared_s": jshared_s,
+            "join_ind_s": jind_s, "join_dense": jdense,
+            "join_scatter": jscatter, "shared_cost_ms": cost,
+            "shared_launches": [launches, jshared]}
+
+
+def ap_batches(card_values: int, seed: int, rows: int | None = None):
+    """bench.py's approx_scale feed (``rows``, AP_ROWS by default): phase
+    4's stream shape at 4 keys with readings drawn from ``card_values``
+    distinct integers."""
+    ts, kid, _ = gen_stream(rows or AP_ROWS, AP_BATCH, AP_KEYS, seed)
+    val = np.random.default_rng(card_values).integers(
+        0, card_values, len(ts)).astype(np.float64)
+    return to_batches(ts, kid, val, AP_BATCH, AP_KEYS), (ts, kid, val)
+
+
+def ap_exact(ts, kid, val, L, S) -> dict:
+    """{(window start, key index): the sorted readings} of every window a
+    row falls in (``ts`` ascending)."""
+    exact = {}
+    for j in range((int(ts[0]) - L) // S + 1, int(ts[-1]) // S + 1):
+        a, b = np.searchsorted(ts, [j * S, j * S + L])
+        for k in range(AP_KEYS):
+            v = val[a:b][kid[a:b] == k]
+            if len(v):
+                exact[(j * S, k)] = np.sort(v)
+    return exact
+
+
+def ap_check(got, exact, what: str) -> dict:
+    """docs/approx_aggregates.md's bounds of every emitted row against the
+    exact readings → the worst approx_distinct and median errors."""
+    worst = {"nd": 0.0, "med": 0.0}
+    n_rows = 0
+    for b in got:
+        starts = b.column("window_start_time").tolist()
+        keys = b.column("sensor_name").tolist()
+        nds, meds = b.column("nd"), b.column("med")
+        tops = b.column("top")
+        for i in range(b.num_rows):
+            n_rows += 1
+            key = (int(starts[i]), int(keys[i][7:]))
+            v = exact[key]
+            u, c = np.unique(v, return_counts=True)
+            err = abs(int(nds[i]) - len(u)) / len(u)
+            # HLL at p = 12 (sketch) or 11 (accumulator): 1.6% / 2.3%
+            # standard error; 5 sigma
+            if err > 0.115:
+                raise AssertionError(f"{what} {key}: approx_distinct "
+                                     f"{nds[i]} for {len(u)}")
+            # the median lands in the 40-60 percentile span
+            med = float(meds[i])
+            lo, hi = np.searchsorted(v, med, "left"), np.searchsorted(
+                v, med, "right")
+            if hi < 0.40 * len(v) or lo > 0.60 * len(v):
+                raise AssertionError(f"{what} {key}: median {med} at rank "
+                                     f"{lo}-{hi} of {len(v)}")
+            top = [tuple(p) for p in tops[i]]
+            if not top or len(top) > 10:
+                raise AssertionError(f"{what}: top {top}")
+            # Space-Saving overcounts only: true <= reported
+            for value, count in top:
+                at = int(np.searchsorted(u, value))
+                true = int(c[at]) if at < len(u) and u[at] == value else 0
+                if true > count:
+                    raise AssertionError(f"{what} {key}: top-k {value} "
+                                         f"count {count} < true {true}")
+            worst["nd"] = max(worst["nd"], err)
+            worst["med"] = max(worst["med"], abs((lo + hi) / 2 / len(v)
+                                                 - 0.5))
+    if n_rows != len(exact):
+        raise AssertionError(f"{what}: {n_rows} rows, the oracle "
+                             f"{len(exact)}")
+    return worst
+
+
+def phase_sketches(device, seed: int, card: str):
+    """Phase 40: bench.py's ``approx_scale`` (approx_distinct,
+    approx_median, approx_top_k(10); 100 ms windows sliding by 25 ms; 4
+    keys) at 1K and 1M distinct values: the sketch lane
+    (``slice_windows=True``) over AP_ROWS against the accumulator lane
+    (``approx_native=False``, the UDAF operator) over the first
+    AP_ACC_ROWS, each against docs/approx_aggregates.md's bounds of the
+    exact answer; then the exact control (count/sum/avg) with
+    ``approx_native`` on and off over AP_CONTROL_ROWS.  → the lanes'
+    numbers and the sketch lane's {dense launches, scatter steps}."""
+    import denormalized_tpu_torch as tt
+    from denormalized_tpu_torch.api import functions as F
+    from denormalized_tpu_torch.ops import dense_window as dw
+    from denormalized_tpu_torch.parallel import sharded_state as ss
+    from denormalized_tpu_torch.physical.slice_exec import SliceWindowExec
+    from denormalized_tpu_torch.physical.udaf_exec import UdafWindowExec
+    from denormalized_tpu_torch.state.checkpoint import walk
+
+    col = tt.col
+    aggs = [F.approx_distinct(col("reading")).alias("nd"),
+            F.approx_median(col("reading")).alias("med"),
+            F.approx_top_k(col("reading"), 10).alias("top")]
+    L, S = 100, 25
+    out = {}
+    shared = {"dense": 0, "scatter": 0}
+    n_acc = AP_ACC_ROWS // AP_BATCH
+    for cv in AP_CARDS:
+        batches, (ts, kid, val) = ap_batches(cv, seed + cv % 97)
+        lanes = {}
+        for native in (True, False):
+            feed = batches if native else batches[:n_acc]
+            n = sum(b.num_rows for b in feed)
+            exact = ap_exact(ts[:n], kid[:n], val[:n], L, S)
+            peak = {"sketch_bytes": 0, "state_bytes": 0,
+                    "vid_interner_keys": 0}
+            ctx = tt.Context(tt.EngineConfig(
+                device=str(device), slice_windows=True, slice_unit_ms=S,
+                approx_native=native))
+            got = []
+
+            def sink(b, ctx=ctx, got=got, peak=peak):
+                got.append(b)
+                for op in walk(ctx._last_physical):
+                    if isinstance(op, (SliceWindowExec, UdafWindowExec)):
+                        info = op.state_info()
+                        for k in peak:
+                            peak[k] = max(peak[k], info.get(k, 0))
+
+            dw.dense_window_launches = ss.scatter_steps = 0
+            t0 = time.perf_counter()
+            ctx.from_source(mq_source(feed)).window(
+                ["sensor_name"], aggs, L, S).sink(sink)
+            wall = time.perf_counter() - t0
+            counts = {"dense": dw.dense_window_launches,
+                      "scatter": ss.scatter_steps}
+            ops = [type(op).__name__ for op in walk(ctx._last_physical)]
+            want_op = "SliceWindowExec" if native else "UdafWindowExec"
+            if want_op not in ops or any(counts.values()):
+                raise AssertionError(f"phase 40 C={cv}: plan {ops}, "
+                                     f"{counts}")
+            if native:
+                for k in shared:
+                    shared[k] += counts[k]
+            worst = ap_check(got, exact, f"phase 40 C={cv}")
+            lanes[native] = {
+                "rows": n, "wall": wall, "rows_per_s": n / wall,
+                "distinct": len(np.unique(val[:n])),
+                "window_distinct": max(len(np.unique(v))
+                                       for v in exact.values()),
+                "window_rows": len(exact), "peak": dict(peak),
+                "worst": worst}
+        sk, ac = lanes[True], lanes[False]
+        out[cv] = lanes
+        log(f"phase 40 approx_scale C={cv} (readings from {cv} integers, "
+            f"{AP_KEYS} keys, 100 ms / 25 ms): sketch lane {sk['rows']} rows"
+            f" ({sk['distinct']} distinct, at most "
+            f"{sk['window_distinct']} in a (window, key)) in "
+            f"{sk['wall']:.3f} s = {sk['rows_per_s']:.0f} rows/s, peak "
+            f"sketch_bytes {sk['peak']['sketch_bytes']}, state_bytes "
+            f"{sk['peak']['state_bytes']} (value interner "
+            f"{sk['peak']['vid_interner_keys']} keys); accumulator lane "
+            f"{ac['rows']} rows ({ac['distinct']} distinct, at most "
+            f"{ac['window_distinct']} in a (window, key)) in "
+            f"{ac['wall']:.3f} s = {ac['rows_per_s']:.0f} rows/s, peak "
+            f"state_bytes {ac['peak']['state_bytes']}; rows/s ratio "
+            f"{sk['rows_per_s'] / ac['rows_per_s']:.2f}x; "
+            f"{sk['window_rows']} / {ac['window_rows']} window rows in "
+            f"bounds (approx_distinct within {sk['worst']['nd']:.4f} / "
+            f"{ac['worst']['nd']:.4f} of exact, medians within "
+            f"{sk['worst']['med']:.3f} / {ac['worst']['med']:.3f} of rank "
+            f"0.5); 0 kernel launches and 0 scatter steps ({card})")
+    # the exact control: approx_native routes sketch kinds only
+    batches, (ts, kid, val) = ap_batches(AP_CARDS[0], seed,
+                                         AP_CONTROL_ROWS)
+    walls, tabs = {}, {}
+    for native in (True, False) * 3:
+        ctx = tt.Context(tt.EngineConfig(
+            device=str(device), slice_windows=True, slice_unit_ms=S,
+            approx_native=native))
+        t0 = time.perf_counter()
+        res = ctx.from_source(mq_source(batches)).window(
+            ["sensor_name"], mq_aggs(F, col), L, S).collect()
+        walls.setdefault(native, []).append(time.perf_counter() - t0)
+        tab = mq_table([res])
+        if native in tabs and not same_bits(tab, tabs[native]):
+            raise AssertionError("phase 40 control: two runs differ")
+        tabs[native] = tab
+    if not same_bits(tabs[True], tabs[False]):
+        raise AssertionError("phase 40 control: approx_native changed an "
+                             "exact query's rows")
+    check_table(tabs[True], window_table(ts, kid, val, L, S, AP_KEYS),
+                "phase 40 control", exact=4)
+    plateau = (out[AP_CARDS[-1]][True]["peak"]["sketch_bytes"]
+               / max(1, out[AP_CARDS[0]][True]["peak"]["sketch_bytes"]))
+    log(f"phase 40 exact control (count/sum/avg, the same window, "
+        f"slice_windows=True, {len(ts)} rows): approx_native on "
+        + ", ".join(f"{w:.4f}" for w in walls[True]) + " s, off "
+        + ", ".join(f"{w:.4f}" for w in walls[False])
+        + " s (alternating), on/off "
+        f"{min(walls[False]) / min(walls[True]):.3f}x (min of 3 each), rows "
+        f"bit-identical; sketch_bytes 1M / 1K "
+        f"distinct {plateau:.3f} ({card})")
+    return {"lanes": out, "plateau": plateau, "shared_launches": shared}
+
+
+#: phase 41's queries: the 3 initial members, then the schedule (event
+#: time from the stream's start): one joiner at +2 s that leaves at +5 s,
+#: and a residual joiner (reading > 50, a new filter class) at +6 s
+LR_INITIAL = [(3_000, 1_000), (2_000, 1_000), (4_000, 2_000)]
+LR_COLS = ("c", "s", "mn", "mx", "av")
+
+
+def lr_aggs(F, col):
+    return [F.count(col("reading")).alias("c"),
+            F.sum(col("reading")).alias("s"),
+            F.min(col("reading")).alias("mn"),
+            F.max(col("reading")).alias("mx"),
+            F.avg(col("reading")).alias("av")]
+
+
+def lr_stream(seed: int):
+    """Phase 41's stream: gen_stream's shape at LR_EVENTS_PER_SEC over
+    LR_EVENT_S seconds, MQ_KEYS keys, integer-valued readings (every fold
+    exact whatever the batching, so a Kafka run's windows are bit-equal
+    to a MemorySource oracle's)."""
+    ts, kid, val = gen_stream(LR_EVENT_S * LR_EVENTS_PER_SEC, LR_BATCH,
+                              MQ_KEYS, seed,
+                              events_per_sec=LR_EVENTS_PER_SEC)
+    return ts, kid, np.round(val)
+
+
+def lr_pipeline(ctx, base, sink_of):
+    """The SharedPipeline of phase 41 with its replayable schedule →
+    (pipeline, [(tag, filter or None, L, S)])."""
+    import denormalized_tpu_torch as tt
+    from denormalized_tpu_torch.api import functions as F
+    from denormalized_tpu_torch.runtime.multi_query import SharedPipeline
+
+    col = tt.col
+    sp = SharedPipeline(ctx, [
+        (base.window(["sensor_name"], lr_aggs(F, col), L, S), sink_of(i))
+        for i, (L, S) in enumerate(LR_INITIAL)])
+    specs = [(i, None, L, S) for i, (L, S) in enumerate(LR_INITIAL)]
+    t3 = sp.register(base.window(["sensor_name"], lr_aggs(F, col), 2000,
+                                 2000), sink_of(3), label="joiner",
+                     when_ts=EVENT_T0 + 2_000)
+    sp.deregister(t3, when_ts=EVENT_T0 + 5_000)
+    t4 = sp.register(base.filter(col("reading") > 50.0).window(
+        ["sensor_name"], lr_aggs(F, col), 2000, 1000), sink_of(4),
+        label="residual", when_ts=EVENT_T0 + 6_000)
+    if (t3, t4) != (3, 4):
+        raise AssertionError(f"phase 41: tags {t3}, {t4}")
+    specs += [(3, None, 2000, 2000), (4, 50.0, 2000, 1000)]
+    return sp, specs
+
+
+def mq_child(args) -> int:
+    """Phase 41's child: the SharedPipeline of ``lr_pipeline`` over the
+    parent's broker (JSON, 4 partitions, 1 s idleness), checkpointed to
+    ``--mq-child`` with barriers every 0.5 s.  One flushed JSON line per
+    emitted row (its tag), per committed epoch (written in band, from the
+    drive loop's commit), and for the restore (with the restored cursors,
+    orphans and departed tags)."""
+    import denormalized_tpu_torch as tt
+
+    t_main = time.time()
+    device = torch.device(args.ckpt_device)
+    out = open(args.mq_out, "a", buffering=1)
+    lock = threading.Lock()
+
+    def line(**kw):
+        with lock:
+            out.write(json.dumps(kw) + "\n")
+
+    ctx = tt.Context(tt.EngineConfig(
+        device=str(device), checkpoint=True, checkpoint_interval_s=0.5,
+        state_backend_path=args.mq_child, source_idle_timeout_ms=1000))
+    base = ctx.from_topic(args.mq_topic, bootstrap_servers=args.mq_broker,
+                          timestamp_column="occurred_at_ms",
+                          schema=e2e_schema())
+
+    def sink_of(tag):
+        def f(b):
+            t = time.time()
+            tab = mq_table([b], LR_COLS)
+            for r in tab.T.tolist():
+                line(event="row", tag=tag, r=r, t=t)
+        return f
+
+    sp, _specs = lr_pipeline(ctx, base, sink_of)
+    root = sp.root
+
+    def watch():
+        while ctx.last_checkpointing()[0] is None:
+            time.sleep(0.002)
+        coord = ctx.last_checkpointing()[0]
+        commit = coord.commit
+
+        def logged(epoch):
+            commit(epoch)
+            line(event="commit", epoch=epoch, t=time.time())
+
+        coord.commit = logged
+        line(event="restored", t=time.time(), t_start=T_START,
+             t_main=t_main, epoch=coord.restored_epoch,
+             cursors={str(s.tag): nw for s, nw in zip(
+                 list(root._subs), list(root._next_win))},
+             orphans=sorted(root._orphans), departed=sorted(root._departed))
+
+    threading.Thread(target=watch, daemon=True).start()
+    line(event="ready", t=time.time())
+    sp.run()
+    return 0
+
+
+def phase_live_registration(device, seed: int, card: str):
+    """Phase 41: kill/restore of a live-registration SharedPipeline over
+    the port's mock broker.  Child A runs ``lr_pipeline`` (3 queries, a
+    joiner that leaves, a residual joiner) over a topic fed at its
+    event-time pace and is SIGKILLed after an epoch commits past the
+    residual joiner's first window; child B restores on the same store,
+    replays the same schedule and runs until every query's closable
+    windows are covered.  Per query, the union against the query's own
+    uninterrupted slice oracle (bit for bit: integer readings), no window
+    emitted twice by a child, none of A's windows behind its last commit
+    emitted again by B; the spawn → restore time."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    import denormalized_tpu_torch as tt
+    from denormalized_tpu_torch.api import functions as F
+
+    ts, kid, val = stream = lr_stream(seed)
+    batches = to_batches(ts, kid, val, LR_BATCH, MQ_KEYS)
+    max_ts = int(ts.max())
+    # the oracles: each query alone over the same stream (slice path)
+    specs = [(i, None, L, S) for i, (L, S) in enumerate(LR_INITIAL)] + [
+        (3, None, 2000, 2000), (4, 50.0, 2000, 1000)]
+    oracles = {}
+    for tag, th, L, S in specs:
+        octx = tt.Context(tt.EngineConfig(device=str(device),
+                                          slice_windows=True,
+                                          slice_unit_ms=1000))
+        ds = octx.from_source(mq_source(batches))
+        if th is not None:
+            ds = ds.filter(tt.col("reading") > th)
+        tab = mq_table(list(ds.window(["sensor_name"], lr_aggs(F, tt.col),
+                                      L, S).stream()), LR_COLS)
+        oracles[tag] = {tuple(r[:3]): tuple(r[3:]) for r in tab.T.tolist()}
+    t0 = time.perf_counter()
+    staged = encode_topic(stream, KAFKA_PARTITIONS, KAFKA_RECORDS_PER_BATCH,
+                          chunk_rows=LR_BATCH)
+    encode_s = time.perf_counter() - t0
+    n_chunks = len(ts) // LR_BATCH
+    due_ms = ts[LR_BATCH - 1::LR_BATCH]
+    work = tempfile.mkdtemp(prefix="dnz_mq_ckpt_")
+    state = os.path.join(work, "state")
+    broker = make_broker("mq")
+    clock = FeedClock(EVENTS_PER_SEC)  # one event second a wall second
+    stop = threading.Event()
+    procs = []
+
+    def feed():
+        clock.start()
+        for ci in range(n_chunks):
+            due = clock.wall_of(float(due_ms[ci]))
+            if stop.wait(max(0.0, due - time.perf_counter())):
+                return
+            for p in range(KAFKA_PARTITIONS):
+                broker.append_staged("mq", p, staged[p][ci])
+
+    def spawn(name):
+        out = os.path.join(work, f"{name}.jsonl")
+        err = open(os.path.join(work, f"{name}.err"), "w")
+        t = time.time()
+        p = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--ckpt-device",
+             str(device), "--mq-child", state, "--mq-broker",
+             broker.bootstrap, "--mq-topic", "mq", "--mq-out", out],
+            stdout=subprocess.DEVNULL, stderr=err,
+        )
+        procs.append(p)
+        return p, out, t
+
+    def tail(name):
+        with open(os.path.join(work, f"{name}.err")) as f:
+            return f.read()[-3000:]
+
+    def wait_for(p, name, out, cond, what, timeout=180):
+        deadline = time.time() + timeout
+        while True:
+            lines = read_jsonl(out)
+            if cond(lines):
+                return lines
+            if p.poll() is not None:
+                raise AssertionError(f"phase 41: child {name} exited "
+                                     f"({p.returncode}) {what}: {tail(name)}")
+            if time.time() > deadline:
+                raise AssertionError(f"phase 41: child {name} {what}")
+            time.sleep(0.05)
+
+    def rows(lines, upto=None):
+        out = {}
+        for d in lines[:upto]:
+            if d["event"] == "row":
+                key = (d["tag"], *d["r"][:3])
+                if key in out:
+                    raise AssertionError(f"phase 41: window {key} emitted "
+                                         "twice by one child")
+                out[key] = tuple(d["r"][3:])
+        return out
+
+    # every closable window (its end at or before the last event) of the
+    # initial members; the residual joiner's from its first window on
+    need = {(tag, *k) for tag in range(3) for k in oracles[tag]
+            if k[2] <= max_ts}
+
+    def covered(lines_a, lines_b):
+        union = dict(rows(lines_a))
+        union.update(rows(lines_b))
+        r4 = [k for k in union if k[0] == 4]
+        if not r4:
+            return False
+        first4 = min(k[1] for k in r4)
+        need4 = {(4, *k) for k in oracles[4]
+                 if k[0] >= first4 and k[2] <= max_ts}
+        return need <= set(union) and need4 <= set(union)
+
+    feeder = threading.Thread(target=feed, daemon=True)
+    try:
+        pa, out_a, _ = spawn("a")
+        wait_for(pa, "a", out_a, lambda ls: any(
+            d["event"] == "ready" for d in ls), "before it was ready")
+        feeder.start()
+
+        def killable(ls):
+            first4 = next((i for i, d in enumerate(ls) if d["event"] == "row"
+                           and d["tag"] == 4), None)
+            return first4 is not None and any(
+                d["event"] == "commit" for d in ls[first4:])
+
+        wait_for(pa, "a", out_a, killable, "never committed after the "
+                 "residual joiner's first window")
+        os.kill(pa.pid, signal.SIGKILL)
+        pa.wait(60)
+        a = read_jsonl(out_a)
+        pb, out_b, t_spawn = spawn("b")
+        b = wait_for(pb, "b", out_b, lambda ls: covered(a, ls),
+                     "never covered every closable window", timeout=300)
+        os.kill(pb.pid, signal.SIGKILL)
+        pb.wait(60)
+        err_b = tail("b")
+    finally:
+        stop.set()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(60)
+        broker.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    last_commit = max(i for i, d in enumerate(a) if d["event"] == "commit")
+    commits = [d["epoch"] for d in a if d["event"] == "commit"]
+    behind = rows(a, last_commit)
+    rows_a, rows_b = rows(a), rows(b)
+    restored = next(d for d in b if d["event"] == "restored")
+    if restored["epoch"] != commits[-1]:
+        raise AssertionError(f"phase 41: restored {restored['epoch']}, A's "
+                             f"last commit {commits[-1]}: {err_b}")
+    again = set(behind) & set(rows_b)
+    if again:
+        raise AssertionError(f"phase 41: B emitted {len(again)} windows A "
+                             f"emitted before its last commit, e.g. "
+                             f"{sorted(again)[:3]}")
+    re_emitted = set(rows_a) & set(rows_b)
+    for key in re_emitted:
+        if rows_a[key] != rows_b[key]:
+            raise AssertionError(f"phase 41: {key} re-emitted as "
+                                 f"{rows_b[key]}, A had {rows_a[key]}")
+    union = dict(rows_a)
+    union.update(rows_b)
+    for key, v in union.items():
+        want = oracles[key[0]].get(key[1:])
+        if want != v:
+            raise AssertionError(f"phase 41: {key} = {v}, its oracle {want}")
+    if any(k[0] == 3 for k in rows_b) or not any(
+            k[0] == 3 for k in rows_a):
+        raise AssertionError("phase 41: the departed joiner emitted after "
+                             "the restore, or never")
+    per_tag = {t: sum(1 for k in union if k[0] == t) for t in range(5)}
+    log(f"phase 41 live registration over Kafka ({len(ts)} rows, "
+        f"{LR_EVENT_S} s of event time fed at its pace to "
+        f"{KAFKA_PARTITIONS} JSON partitions, {encode_s:.1f} s to encode; 3 "
+        f"queries, a joiner at +2 s leaving at +5 s, a residual joiner "
+        f"(reading > 50) at +6 s, barriers every 0.5 s): child A committed "
+        f"{len(commits)} epochs, emitted {len(rows_a)} window rows and was "
+        f"SIGKILLed after its last commit; child B restored epoch "
+        f"{restored['epoch']} (orphans {restored['orphans']}, departed "
+        f"{restored['departed']}), replayed the schedule and emitted "
+        f"{len(rows_b)} window rows ({len(re_emitted)} of A's after its "
+        f"last commit again, equal; none from behind it); the union per "
+        f"query {per_tag} = each query's uninterrupted slice oracle bit for "
+        f"bit; spawn → restore {restored['t'] - t_spawn:.3f} s "
+        f"({restored['t_start'] - t_spawn:.3f} s to the script's first "
+        f"line, {restored['t_main'] - restored['t_start']:.3f} s of imports)"
+        f" ({card})")
+    return {"recover_s": restored["t"] - t_spawn}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5920,6 +7032,11 @@ def main(argv=None) -> int:
     # phase 37's child (the script re-invoked on a state path)
     ap.add_argument("--spill-child", help=argparse.SUPPRESS)
     ap.add_argument("--spill-out", help=argparse.SUPPRESS)
+    # phase 41's child (a SharedPipeline over the parent's broker)
+    ap.add_argument("--mq-child", help=argparse.SUPPRESS)
+    ap.add_argument("--mq-broker", help=argparse.SUPPRESS)
+    ap.add_argument("--mq-topic", help=argparse.SUPPRESS)
+    ap.add_argument("--mq-out", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.ckpt_child:
         return ckpt_child(args)
@@ -5933,6 +7050,8 @@ def main(argv=None) -> int:
         return sigterm_child(args)
     if args.spill_child:
         return spill_child(args)
+    if args.mq_child:
+        return mq_child(args)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -6052,7 +7171,23 @@ def main(argv=None) -> int:
     phase_spill_join(device, (highcard_batches, highcard_stream),
                      highcard_right, card)
     phase_spill_host(device, args.seed + 12, card)
+    took = {}
+    t_mq = time.perf_counter()
+    mq = phase_multi_query(device, args.seed + 14, card)
+    took[38] = time.perf_counter() - t_mq
+    qd = phase_query_dense(device, args.seed + 14, *mq["feed"], card)
+    took[39] = time.perf_counter() - t_mq - sum(took.values())
+    sk = phase_sketches(device, args.seed + 15, card)
+    took[40] = time.perf_counter() - t_mq - sum(took.values())
+    phase_live_registration(device, args.seed + 16, card)
+    took[41] = time.perf_counter() - t_mq - sum(took.values())
+    log(f"phases 38-41 took {sum(took.values()):.1f} s ("
+        + ", ".join(f"{k}: {v:.1f} s" for k, v in took.items())
+        + f"); the script {time.time() - T_START:.1f} s so far ({card})")
 
+    shared_counts = ([p["shared_launches"]
+                      for p in mq["points"] + [mq["highcard"]]]
+                     + qd["shared_launches"] + [sk["shared_launches"]])
     hot = kern["main_hot"]
     m1 = merge["cfg1_dense"]
     m64 = merge["cfg3_f64"]
@@ -6093,6 +7228,19 @@ def main(argv=None) -> int:
         "sigterm_launches": sigterm["launches"],
         # ... on config 1 under a state budget that forces spills (phase 36)
         "budget_launches": cfg1_spill_launches,
+        # the multi-query baselines (phases 38-39): each query its own
+        # device window (dense launches + scatter steps); "shared" sums
+        # what the shared runs of phases 38-40 launched, as counted
+        "multi_query_launches": {
+            **{f"q{p['q']}": {"dense": p["dense"], "scatter": p["scatter"]}
+               for p in mq["points"]},
+            "highcard_q10": {"dense": mq["highcard"]["dense"],
+                             "scatter": mq["highcard"]["scatter"]},
+            "query_dense": {"dense": qd["dense"], "scatter": qd["scatter"]},
+            "join_dense": {"dense": qd["join_dense"],
+                           "scatter": qd["join_scatter"]},
+            "shared": {k: sum(c[k] for c in shared_counts)
+                       for k in ("dense", "scatter")}},
     }, {
         "name": "merge_partials",
         "route": "cuda",

@@ -11,8 +11,10 @@ the open windows and sessions at end of stream), the checkpoint knobs
 ``state_budget_bytes`` and ``state_spill``, the
 join knobs (``join_retention_ms``, ``join_adaptive``,
 ``join_adapt_interval_s``, ``join_band_slack_ms``),
-``partition_watermarks``, ``source_idle_timeout_ms``, and the window
-operator's ``accum_dtype``, ``emission_compaction`` and ``host_pipeline``.
+``partition_watermarks``, ``source_idle_timeout_ms``, the window
+operator's ``accum_dtype``, ``emission_compaction`` and ``host_pipeline``,
+and the multi-query engine's ``slice_windows``, ``slice_unit_ms``,
+``slice_sort_lane``, ``approx_native`` and ``mq_subsumption``.
 :meth:`Context.from_topic` reads a Kafka topic (JSON or Avro payloads);
 :meth:`Context.table` returns a registered source and
 :meth:`EngineConfig.set` sets a knob by its ``denormalized_config.`` name.
@@ -143,6 +145,43 @@ class EngineConfig:
     # (count/sum/min/max/avg) plus the active-group mask instead of the raw
     # component planes
     device_finalize: bool = True
+
+    # -- the multi-query engine (docs/multi_query.md) ---------------------
+    # slice-folding window path: tumbling/sliding windows with foldable
+    # aggregates run on SliceWindowExec — per-(group, slide-unit) partials
+    # accumulated once per batch on the HOST in float64, windows folded
+    # from slice partials instead of scattering each row into every
+    # overlapping window on the card.  The multi-query runtime
+    # (runtime/multi_query.py) always uses it; True here also applies it
+    # to single queries planned through the normal executor.  Default
+    # False: the device ring stays the single-query default (slice folds
+    # are f64, so emitted floats can differ from the f32 ring in the last
+    # bits)
+    slice_windows: bool = False
+    # explicit slice width for the slice path (must divide the window's
+    # length AND slide; None = their gcd).  The fold grouping is part of a
+    # query's numeric contract — f64 sums round per fold tree — so an
+    # independent oracle compared byte for byte against a shared group
+    # pins the group's gcd unit here
+    slice_unit_ms: int | None = None
+    # pin the slice store's lexsort accumulation lane (add-only component
+    # sets otherwise take the bincount lane, which associates long-segment
+    # adds differently).  A shared group whose aggregate UNION carries
+    # min/max always sorts, so an add-only member's byte-identity oracle
+    # sets this True to match
+    slice_sort_lane: bool = False
+    # approximate aggregates (approx_distinct / approx_top_k /
+    # approx_percentile_cont / approx_median) as first-class sketch planes
+    # on the slice path — constant state per group whatever the value
+    # cardinality (ops/sketches.py).  Only with slice_windows=True; False
+    # lowers them to their exact accumulator UDAFs everywhere
+    approx_native: bool = True
+    # predicate-subsumption sharing in the multi-query runtime: a query
+    # whose filter is provably implied by another's joins that query's
+    # share group, ingesting once under the weakest member predicate with
+    # a residual re-filter per stronger member (planner/predicates.py).
+    # False keeps exact-signature matching only
+    mq_subsumption: bool = True
 
     def resolved_device(self) -> torch.device:
         """The device the engine runs on; raises when CUDA is asked for and

@@ -1129,10 +1129,10 @@ AGG_KINDS = (
 )
 VAR_KINDS = ("stddev", "stddev_pop", "var", "var_pop")
 
-#: sketch-backed approximate aggregates: each carries its exact
-#: accumulator fallback (``AggregateExpr.udaf``), which the planner lowers
-#: it to (the JAX package plans them natively only on its multi-query
-#: slice path, not ported yet)
+#: sketch-backed approximate aggregates: sketch planes on the slice path
+#: (``EngineConfig(slice_windows=True)``, ``approx_native``); elsewhere the
+#: planner lowers each to the exact accumulator it carries
+#: (``AggregateExpr.udaf``)
 SKETCH_AGG_KINDS = (
     "approx_distinct", "approx_top_k",
     "approx_percentile_cont", "approx_median",

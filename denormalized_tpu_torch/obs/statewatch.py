@@ -87,7 +87,7 @@ class StateWatch:
     __slots__ = ("sketch", "_sample_phase")
 
     def __init__(self) -> None:
-        self.sketch = SpaceSaving(64, JOIN_SKETCH_DECAY_ROWS)
+        self.sketch = SpaceSaving(64, decay_every=JOIN_SKETCH_DECAY_ROWS)
         self._sample_phase = 0
 
     def update(self, gids: np.ndarray) -> None:

@@ -121,6 +121,10 @@ def components_for(aggs: list[tuple]) -> list[AggComponent]:
             ]
         elif kind in ("sum", "min", "max"):
             wanted = [AggComponent(kind, col)]
+        elif kind == "sketch":
+            # sketch aggregates carry their own slice-store planes
+            # (ops/sketches.py SketchSpec): no scalar components
+            wanted = []
         else:
             raise PlanError(
                 f"aggregate kind {kind!r} has no ring component (accumulator "

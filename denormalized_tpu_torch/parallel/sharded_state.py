@@ -6,7 +6,8 @@
 batch it runs the dense kernel (``ops/dense_window.py``) where the spec and
 the batch allow it, else the scatter program (``ops/segment_agg.py``) — the
 JAX package's per-batch rule, counted in ``dense_updates`` and
-``scatter_updates``.
+``scatter_updates`` (and, over every backend of the process, in the module's
+``scatter_steps``, as ``dense_window_launches`` counts the kernel's).
 
 :class:`PartialMergeWindowState` (``device_strategy='partial_merge'``)
 reduces each batch on the host into a stripe of per-(slide unit, sub,
@@ -42,6 +43,11 @@ from denormalized_tpu_torch.ops import dense_window as dw
 from denormalized_tpu_torch.ops import segment_agg as sa
 from denormalized_tpu_torch.ops.host_partial import HostPartialStripe
 from denormalized_tpu_torch.ops.merge_partials import merge_partials
+
+#: steps of the scatter program over every backend of the process
+#: (``chip_smoke.py`` sets it to 0 before a run and reads it after)
+scatter_steps = 0
+_STEPS_LOCK = threading.Lock()  # two window operators step from two threads
 
 
 class WindowStateBackend:
@@ -200,7 +206,10 @@ class SingleDeviceWindowState(WindowStateBackend):
                     gid, row_valid, int(base_mod), min_win_rel=lo,
                 )
                 return
+        global scatter_steps
         self.scatter_updates += 1
+        with _STEPS_LOCK:
+            scatter_steps += 1
         sa.update_state(
             self.spec, self._state, values, colvalid, win_rel, rem, gid,
             row_valid, int(base_mod),

@@ -55,8 +55,14 @@ While any batch is spilled the snapshot takes the JAX package's v2 layout
 (per-row gids and the interner ride along; spilled batches are referenced
 blocks), which either package restores, with a budget or without one.
 
-Not ported yet: shared-group cost attribution and the doctor's lineage
-hooks.
+Shared-group cost attribution (``enable_shared_attribution``): when the
+join feeds a shared slice pipeline (runtime/multi_query.py), its build,
+probe and gather times also go to ``_stage_ms`` and the
+``dnz_mq_join_stage_ms``/``dnz_mq_join_fanout_rows_total`` instruments,
+and ``shared_cost_ms()`` hands their total to the slice operator, which
+apportions it across subscribers by kept rows.
+
+Not ported yet: the doctor's lineage hooks.
 """
 
 from __future__ import annotations
@@ -1059,6 +1065,18 @@ class StreamingJoinExec(ExecOperator):
 
             self._policy = JoinAdaptationPolicy(interval_s=adapt_interval_s)
         self._obs_rows_out = obs.counter("dnz_op_rows_out_total", op="join")
+        # shared-group cost attribution (runtime/multi_query.py): when a
+        # join feeds a shared slice pipeline, its MEASURED build/probe/
+        # gather time is apportioned across subscribers by kept-rows
+        # share instead of 1/N.  Off by default: the single-query path
+        # never feeds the stage ledger
+        self._shared_attr = False
+        self._stage_ms = {"build": 0.0, "probe": 0.0, "gather": 0.0}
+        self._obs_mq_stage = {
+            s: obs.histogram("dnz_mq_join_stage_ms", stage=s)
+            for s in ("build", "probe", "gather")
+        }
+        self._obs_mq_fanout = obs.counter("dnz_mq_join_fanout_rows_total")
         # adaptation counters pre-bound per (action, side)
         self._obs_adapt = {
             (a, s): obs.counter(
@@ -1111,7 +1129,22 @@ class StreamingJoinExec(ExecOperator):
             m["hot_keys"] = sum(int(s.hot.nslots) for s in sides)
         if self._policy is not None:
             m["adaptations"] = self._policy.adaptations_total
+        if self._shared_attr:
+            m["shared_cost_ms"] = self.shared_cost_ms()
         return m
+
+    # -- shared-group cost attribution (runtime/multi_query.py) ---------
+    def enable_shared_attribution(self) -> None:
+        """Turn on the build/probe/gather stage ledger so a shared
+        pipeline can apportion the join's measured cost across
+        subscribers (slice_exec.shared_fractions)."""
+        self._shared_attr = True
+
+    def shared_cost_ms(self) -> float:
+        """Total measured join time (build + probe + gather, ms) since
+        attribution was enabled — the upstream cost the shared slice
+        operator folds into its per-subscriber attribution."""
+        return float(sum(self._stage_ms.values()))
 
     # -- state accounting (read from the join's thread or after the run) --
     def _side_state_info(self, side: _SideState) -> dict:
@@ -1296,14 +1329,20 @@ class StreamingJoinExec(ExecOperator):
                 probe_batch, p_idx, b_rows, keep, probe_is_left,
                 probe_base, probe_side, build,
             )
-            self._metrics["gather_s"] += time.perf_counter() - tg
+            dg = time.perf_counter() - tg
+            self._metrics["gather_s"] += dg
+            if self._shared_attr:
+                self._stage_ms["gather"] += dg * 1e3
             return res
         if not keep.all():
             out = out.filter(keep)
         # mark matched pairs that survived the filter
         probe_side.matched[probe_base + p_idx[keep]] = True
         build.matched[b_rows[keep]] = True
-        self._metrics["gather_s"] += time.perf_counter() - tg
+        dg = time.perf_counter() - tg
+        self._metrics["gather_s"] += dg
+        if self._shared_attr:
+            self._stage_ms["gather"] += dg * 1e3
         return out if out.num_rows else None
 
     def _existence_probe(
@@ -1972,9 +2011,18 @@ class StreamingJoinExec(ExecOperator):
                 )
                 # _probe accumulated its gather sub-phase itself; the rest
                 # of the call is index-probe time
-                m["probe_s"] += max(
-                    time.perf_counter() - t1 - (m["gather_s"] - g0), 0.0
-                )
+                gather_d = m["gather_s"] - g0
+                tp = max(time.perf_counter() - t1 - gather_d, 0.0)
+                m["probe_s"] += tp
+                if self._shared_attr:
+                    tb = (t1 - t0_batch) * 1e3
+                    self._stage_ms["build"] += tb
+                    self._stage_ms["probe"] += tp * 1e3
+                    self._obs_mq_stage["build"].observe(tb)
+                    self._obs_mq_stage["probe"].observe(tp * 1e3)
+                    self._obs_mq_stage["gather"].observe(gather_d * 1e3)
+                    if out is not None:
+                        self._obs_mq_fanout.add(out.num_rows)
                 if out is not None:
                     if not wm_announced:
                         # switch downstream to hint-driven watermarks

@@ -6,14 +6,18 @@ project, filter, window, session, join and sink routes.  A window picks its
 operator: a session window the vectorized :class:`SessionWindowExec` (or,
 with ``DENORMALIZED_SESSION_REFERENCE=1``, the pre-vectorization
 ``ReferenceSessionWindowExec``, the JAX package's differential oracle);
-a window holding any accumulator aggregate :class:`UdafWindowExec`; every
-other window :class:`StreamingWindowExec`, with the engine config's
-explicit ``device``, kernel strategy, ``accum_dtype``,
+a window holding any accumulator aggregate :class:`UdafWindowExec`; under
+``EngineConfig(slice_windows=True)`` every other window the host
+:class:`SliceWindowExec` (one subscriber, with ``slice_unit_ms`` and
+``slice_sort_lane``); otherwise :class:`StreamingWindowExec`, with the
+engine config's explicit ``device``, kernel strategy, ``accum_dtype``,
 ``emission_compaction`` and ``host_pipeline``.  Approximate aggregates
-lower to their exact accumulators first (the JAX package plans them as
-sketches only on its slice path, not ported yet).  The join route threads
-its band, retention, band slack and adaptation knobs into
-:class:`StreamingJoinExec`.  The slice path and meshes are not ported yet.
+stay sketch kinds on the slice path (``approx_native``, the default) and
+lower to their exact accumulators everywhere else, as in the JAX package
+(:meth:`Planner._route_approx`).  The join route threads its band,
+retention, band slack and adaptation knobs into
+:class:`StreamingJoinExec`.  Meshes are not ported yet (ROADMAP §A item
+9), so the JAX package's mesh clauses are absent.
 """
 
 from __future__ import annotations
@@ -35,32 +39,53 @@ from denormalized_tpu_torch.physical.session_exec import SessionWindowExec
 from denormalized_tpu_torch.physical.session_reference import (
     ReferenceSessionWindowExec,
 )
+from denormalized_tpu_torch.physical.slice_exec import (
+    SliceSubscriber,
+    SliceWindowExec,
+)
 from denormalized_tpu_torch.physical.udaf_exec import UdafWindowExec
 from denormalized_tpu_torch.physical.window_exec import StreamingWindowExec
-
-
-def route_approx(aggs: list[AggregateExpr]) -> list[AggregateExpr]:
-    """Lower each approximate aggregate to the exact accumulator UDAF it
-    carries — what the JAX package does off its slice path, which includes
-    its default configuration."""
-    lowered = []
-    for a in aggs:
-        if a.kind in SKETCH_AGG_KINDS:
-            if a.udaf is None:
-                raise PlanError(
-                    f"approximate aggregate {a.name!r} has no accumulator "
-                    "fallback (sketch aggregates plan natively only on the "
-                    "multi-query slice path, ROADMAP §A item 8)"
-                )
-            a = AggregateExpr("udaf", a.arg, a._alias, a.udaf)
-        lowered.append(a)
-    return lowered
 
 
 class Planner:
     def __init__(self, config) -> None:
         # config: api.context.EngineConfig (device already resolved)
         self.config = config
+
+    def _route_approx(self, node) -> list:
+        """Route approximate aggregates: on the slice path they stay
+        first-class sketch kinds (constant-state mergeable planes,
+        ops/sketches.py); everywhere else — sessions, the device ring,
+        default config, plans mixing true UDAFs, or
+        ``approx_native=False`` — each lowers to the exact accumulator
+        UDAF it carries."""
+        aggs = node.aggr_exprs
+        if not any(a.kind in SKETCH_AGG_KINDS for a in aggs):
+            return aggs
+        native = (
+            node.window_type is not lp.WindowType.SESSION
+            and self.config.slice_windows
+            and self.config.approx_native
+            and not any(a.kind == "udaf" for a in aggs)
+        )
+        if native:
+            return aggs
+        lowered = []
+        for a in aggs:
+            if a.kind in SKETCH_AGG_KINDS:
+                if a.udaf is None:
+                    raise PlanError(
+                        f"approximate aggregate {a.name!r} has no "
+                        "accumulator fallback and the plan cannot take "
+                        "the slice path (sketch aggregates need "
+                        "EngineConfig(slice_windows=True) here)"
+                    )
+                lowered.append(
+                    AggregateExpr("udaf", a.arg, a._alias, a.udaf)
+                )
+            else:
+                lowered.append(a)
+        return lowered
 
     def create_physical_plan(self, node: lp.LogicalPlan) -> ExecOperator:
         if isinstance(node, lp.Scan):
@@ -80,7 +105,7 @@ class Planner:
         if isinstance(node, lp.StreamingWindow):
             c = self.config
             child = self.create_physical_plan(node.input)
-            aggr_exprs = route_approx(node.aggr_exprs)
+            aggr_exprs = self._route_approx(node)
             if node.window_type is lp.WindowType.SESSION:
                 # sessions take builtin AND accumulator aggregates in one
                 # operator; the switch selects the JAX package's
@@ -106,6 +131,26 @@ class Planner:
                     node.length_ms,
                     node.slide_ms,
                     emit_on_close=c.emit_on_close,
+                )
+            if c.slice_windows:
+                # slice-fold path (docs/multi_query.md): every foldable
+                # aggregate folds from slice partials, so a sliding window
+                # pays O(1) per row + O(L/slide) per emitted window instead
+                # of the k-way fan-out.  Host kernel: nothing runs on the
+                # card
+                return SliceWindowExec(
+                    child,
+                    node.group_exprs,
+                    [
+                        SliceSubscriber(
+                            aggr_exprs,
+                            node.length_ms,
+                            node.slide_ms or node.length_ms,
+                        )
+                    ],
+                    emit_on_close=c.emit_on_close,
+                    unit_ms=c.slice_unit_ms,
+                    sort_lane=c.slice_sort_lane,
                 )
             return StreamingWindowExec(
                 child,

@@ -81,6 +81,12 @@ NEW_MODULES = (
     "denormalized_tpu_torch.physical.session_exec",
     "denormalized_tpu_torch.physical.session_reference",
     "denormalized_tpu_torch.ops.session_table",
+    # the multi-query slice
+    "denormalized_tpu_torch.ops.slice_store",
+    "denormalized_tpu_torch.planner.predicates",
+    "denormalized_tpu_torch.planner.sharing",
+    "denormalized_tpu_torch.physical.slice_exec",
+    "denormalized_tpu_torch.runtime.multi_query",
 )
 
 

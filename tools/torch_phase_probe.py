@@ -16,7 +16,11 @@ SIGKILLed and restored, ``34`` SIGTERM to a live ``print_stream`` child
 48 MiB state budget, ``36`` config 1 under a budget, ``37c`` phase 35's
 budgeted job SIGKILLed and restored with and without the budget, ``37j``
 config 4 at 100K keys under a budget, ``37h`` the UDAF and session jobs
-under a budget.  It builds every kernel (printing ptxas' register and
+under a budget, ``38`` the multi-query sweep (Q = 1, 10, 100 shared
+against independent device windows, and Q = 10 at config 3's shape),
+``39`` query_dense with its control and join_dense (over phase 38's
+stream, made here), ``40`` the sketch lanes of approx_scale, ``41`` live
+registration across a SIGKILL over Kafka.  It builds every kernel (printing ptxas' register and
 shared-memory lines), makes phase 4's and phase 10's streams from seed 0,
 and calls the same ``chip_smoke`` functions as the full script, each
 step checked as there.  A failing step is printed with its traceback and
@@ -36,7 +40,8 @@ import traceback
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 STEPS = ("25k", "7", "24", "24h", "25", "25j", "26", "27", "28", "29", "30",
-         "31", "32", "33u", "33s", "34", "35", "36", "37c", "37j", "37h")
+         "31", "32", "33u", "33s", "34", "35", "36", "37c", "37j", "37h",
+         "38", "39", "40", "41")
 
 
 def main(argv: list[str]) -> int:
@@ -89,6 +94,11 @@ def main(argv: list[str]) -> int:
         return cs.encode_topic(lat, cs.KAFKA_PARTITIONS, None,
                                cs.LAT_CHUNK), lat
 
+    def mq_feed():
+        st = cs.gen_stream(cs.TOTAL_ROWS, cs.BATCH_ROWS, cs.MQ_KEYS,
+                           seed + 14)
+        return cs.to_batches(*st, cs.BATCH_ROWS, cs.MQ_KEYS), st
+
     def side(s, batch_rows, keys):
         st = cs.gen_stream(cs.TOTAL_ROWS, batch_rows, keys, s)
         return cs.to_batches(*st, batch_rows, keys), st
@@ -131,6 +141,11 @@ def main(argv: list[str]) -> int:
             device, (hb, hs),
             side(seed + 6, cs.HIGHCARD_BATCH_ROWS, cs.HIGHCARD_KEYS), card),
         "37h": lambda: cs.phase_spill_host(device, seed + 12, card),
+        "38": lambda: cs.phase_multi_query(device, seed + 14, card),
+        "39": lambda: cs.phase_query_dense(device, seed + 14, *mq_feed(),
+                                           card),
+        "40": lambda: cs.phase_sketches(device, seed + 15, card),
+        "41": lambda: cs.phase_live_registration(device, seed + 16, card),
     }
     failed = []
     for step in steps:
