@@ -301,7 +301,39 @@ Phases:
     window; a second child restores, replays the schedule and runs until
     every closable window is covered.  Per query the union bit-equal to
     its uninterrupted slice oracle, no window emitted twice by a child
-    and none from behind A's last commit by B; spawn → restore.
+    and none from behind A's last commit by B; spawn → restore;
+42. observability on config 1 (phase 4's 7,995,392 rows, 10 keys,
+    ``auto``), seven variants interleaved three times: metrics off;
+    metrics on with no exporter (the default); that with the window's
+    state sketch off; JSONL snapshots alone; the Perfetto trace alone;
+    every exporter on (``prometheus_port=0``, JSONL snapshots, the trace,
+    record lineage) while a scraper thread reads ``/metrics``,
+    ``/queries``, ``/queries/<id>/plan``, ``/state`` and ``/lineage`` at
+    ~20 Hz; and that with the sampling profiler started and stopped over
+    HTTP mid-run.  Each run: rows equal to the oracle, dense launches
+    equal to the metrics-off run's (61); with metrics on
+    ``dnz_op_rows_in_total{op="window"}`` the stream's rows,
+    ``dnz_windows_emitted_total`` the oracle's windows, the ranked
+    report's shares in [0, 1.05], the trace loads where it is on; with
+    the scraper ``/state``'s ``device_state_bytes`` the ring tensors'
+    summed nbytes (read on the main thread after the run); rows/s of each
+    variant (best of three), their ratios to off, the best walls' on/off
+    gap split by difference between the sketch, the instruments, the
+    JSONL thread, the spans and the rest (HTTP, scraper, lineage), the
+    state sketch's ms a batch (reported, not gated);
+43. config 3 (phase 10's stream) through ``partial_merge`` with
+    ``emission_compaction`` under a state budget below the state's size,
+    with metrics off then on: the doctor's frozen ``/state`` holds a
+    ``state-budget-pressure`` verdict, and the rows, merge and compaction
+    launches equal the metrics-off run's; then config 4 at 10 keys (phase
+    14's streams) off and on: the same joined keys, averages within the
+    oracle's rtol of each other, the same dense launches, both join sides'
+    hot-key gauges set, and the doctor ranking both windows;
+44. phase 38's Q = 10 spec set through ``run_queries`` with every exporter
+    on and scraped, against the same run with metrics off: the same
+    tables, no kernel launch and no scatter step, ten doctor query ids
+    back, and each shared node's busy time, scaled by each member's
+    measured fraction, summing over the ten to the node's own within 1%.
 
 Then one JSON line with each kernel's launches on its main path (phase 4
 for the dense kernel, with phases 38-39's baselines' launches under
@@ -313,7 +345,9 @@ phase 16's join_on, phase 19's window, phase 21's Kafka job, phase 29's
 Avro topic, phase 30's analyze run and phase 34's child up to its
 SIGTERM; phases 31-33 run host operators only; for each kernel its
 launches under a state budget, ``budget_launches``: phase 36's dense
-launches, phase 35's merges and compactions), its
+launches, phase 35's merges and compactions; and with metrics and every
+exporter on, ``obs_launches``: phase 42's dense launches, phase 43's
+merges and compactions, with the join's dense launches beside), its
 largest error against the plain version, its device time, the wrapper's
 time, the plain version's time, the library call's (for the compaction
 kernel the nonzero + index_select sequence) and the least time the card
@@ -333,9 +367,13 @@ T_START = time.time()  # phase 11 times a child's restart from here
 import argparse
 import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import threading
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -3706,7 +3744,10 @@ def join_child(args) -> int:
     snapshot counters and the commit histogram so far), and for the
     restore; with ``--join-pause-after N`` both sources stop reading
     JOIN_CKPT_PAUSE_READS left reads after the N-th commit, until the
-    parent's SIGKILL."""
+    parent's SIGKILL.  The join commits an epoch some reads after its
+    barrier, so such a child triggers N barriers and no more: none is in
+    flight at the pause, and the epoch on disk at the kill is the last one
+    logged."""
     from denormalized_tpu_torch import obs
     from denormalized_tpu_torch.ops import dense_window as dw
     from denormalized_tpu_torch.state import checkpoint as ck
@@ -3726,7 +3767,8 @@ def join_child(args) -> int:
         with lock:
             out.write(json.dumps(kw) + "\n")
 
-    st = {"restored": False, "commits": [], "after": 0, "paused": False}
+    st = {"restored": False, "commits": [], "after": 0, "paused": False,
+          "barriers": 0}
 
     def on_read(ctx, side, i):
         coord = ctx.last_checkpointing()[0]
@@ -3756,13 +3798,15 @@ def join_child(args) -> int:
                          pack_s=m["snapshot_pack_s"],
                          put_s=m["snapshot_put_s"], commits=commit_ms.count,
                          commit_ms=commit_ms.sum)
-                if args.join_pause_after and (
-                        len(st["commits"]) >= args.join_pause_after):
+                n = args.join_pause_after
+                if n and len(st["commits"]) >= n:
                     st["after"] += 1
                     if st["after"] > JOIN_CKPT_PAUSE_READS:
                         st["paused"] = True
                         line(event="paused", read=i)
-                if i % CKPT_EVERY == CKPT_EVERY - 1:
+                if i % CKPT_EVERY == CKPT_EVERY - 1 and not (
+                        n and st["barriers"] >= n):
+                    st["barriers"] += 1
                     ctx.last_checkpointing()[1].trigger_now()
         while st["paused"]:  # both sides, until the parent's SIGKILL
             time.sleep(1)
@@ -6015,13 +6059,14 @@ def mq_source(batches):
     return MemorySource.from_batches(batches, timestamp_column="occurred_at_ms")
 
 
-def mq_shared(device, batches, queries, sample=None, **cfg):
+def mq_shared(device, batches, queries, sample=None, on_ctx=None, **cfg):
     """``run_queries`` over ONE base DataStream (sharing keys on the scan's
     source identity; a single query runs as a one-member
     ``SharedPipeline``, as ``run_queries`` would send it to the device
     window).  ``queries`` lists (filter or None, L, S); the dense kernel's
     and the scatter program's counts are 0 just before the run;
-    ``sample(root)``, where given, runs at each emission.  → (report,
+    ``sample(root)``, where given, runs at each emission, and
+    ``on_ctx(ctx)`` once the Context is made.  → (report,
     per-query tables, wall s, {"dense": launches, "scatter": steps}, the
     root)."""
     import denormalized_tpu_torch as tt
@@ -6034,6 +6079,8 @@ def mq_shared(device, batches, queries, sample=None, **cfg):
     )
 
     ctx = tt.Context(tt.EngineConfig(device=str(device), **cfg))
+    if on_ctx is not None:
+        on_ctx(ctx)
     base = ctx.from_source(mq_source(batches))
     outs = [[] for _ in queries]
     root = []
@@ -7004,6 +7051,469 @@ def phase_live_registration(device, seed: int, card: str):
     return {"recover_s": restored["t"] - t_spawn}
 
 
+# -- phases 42-44: observability and the doctor on the card -----------------
+
+OBS_SCRAPE_HZ = 20.0
+OBS_PATHS = ("/metrics", "/queries", "/queries/{q}/plan",
+             "/queries/{q}/state", "/queries/{q}/lineage")
+#: record lineage: one sampled row per this many of a partition's rows
+OBS_LINEAGE_EVERY = 100_000
+#: phase 43's state budget for config 3: below the ring's allocation, so
+#: the query's state is past it (time to budget 0) once sampled
+OBS_BUDGET = 16 * 2**20
+#: phase 43's config-4 reads wait this long each (61 a side: ~2.4 s)
+OBS_JOIN_READ_S = 0.04
+
+
+class Scraper:
+    """Reads a running job's exporter endpoint from its own thread at
+    ~OBS_SCRAPE_HZ until the server goes down: every path of OBS_PATHS a
+    round, counting the reads and keeping each ``/state`` window node's
+    ``device_state_bytes``.  Any 4xx/5xx answer is an error."""
+
+    def __init__(self, ctx):
+        self.ctx = ctx
+        self.counts = dict.fromkeys(OBS_PATHS, 0)
+        self.errors: list = []
+        self.state_bytes: list = []
+        self.qid = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="scraper",
+                                        daemon=True)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+    def _run(self):
+        while not self._stop.is_set() and self.ctx._last_exporters is None:
+            time.sleep(0.001)
+        ex = self.ctx._last_exporters
+        if ex is None:
+            return
+        base = f"http://127.0.0.1:{ex.prometheus.port}"
+        try:
+            while self.qid is None and not self._stop.is_set():
+                with urllib.request.urlopen(base + "/queries",
+                                            timeout=10) as r:
+                    running = [q["query_id"] for q in json.loads(r.read())[
+                        "queries"] if q["state"] == "running"]
+                self.qid = running[0] if running else None
+            while not self._stop.is_set():
+                t0 = time.perf_counter()
+                for p in OBS_PATHS:
+                    with urllib.request.urlopen(base + p.format(q=self.qid),
+                                                timeout=10) as r:
+                        body = r.read()
+                    self.counts[p] += 1
+                    if p.endswith("/state"):
+                        self.state_bytes += [
+                            n["device_state_bytes"]
+                            for n in json.loads(body)["nodes"]
+                            if n.get("op") == "window"]
+                time.sleep(max(0.0, 1.0 / OBS_SCRAPE_HZ
+                               - (time.perf_counter() - t0)))
+        except urllib.error.HTTPError as e:
+            self.errors.append(f"{e.code} {e.url}")
+        except (urllib.error.URLError, ConnectionError, OSError):
+            return  # the job ended and its server stopped
+
+
+def obs_config(tmp: str, tag: str) -> dict:
+    """Every exporter on, writing under ``tmp``."""
+    return dict(prometheus_port=0,
+                metrics_jsonl_path=f"{tmp}/{tag}.jsonl",
+                metrics_jsonl_interval_s=0.05,
+                trace_path=f"{tmp}/{tag}.trace.json",
+                lineage_sample_every=OBS_LINEAGE_EVERY)
+
+
+def http_get(ctx, path: str) -> dict:
+    base = f"http://127.0.0.1:{ctx._last_exporters.prometheus.port}"
+    with urllib.request.urlopen(base + path, timeout=10) as r:
+        return json.loads(r.read())
+
+
+def drive(ds, on_batch=None):
+    """Run ``ds`` through ``stream()`` into one batch → (result, wall s);
+    ``on_batch(i)`` runs after the i-th emitted batch."""
+    from denormalized_tpu_torch.physical.simple_execs import CollectSink
+
+    sink = CollectSink()
+    t0 = time.perf_counter()
+    for i, b in enumerate(ds.stream()):
+        sink.write(b)
+        if on_batch is not None:
+            on_batch(i)
+    wall = time.perf_counter() - t0
+    return sink.result(), wall
+
+
+def check_ranking(ctx, what: str) -> list:
+    """The frozen doctor snapshot's suspects: each share of the wall in
+    [0, 1.05] → the suspects."""
+    sus = ctx._last_doctor.snapshot()["attribution"]["suspects"]
+    bad = [s for s in sus if not 0.0 <= s["share_of_wall"] <= 1.05]
+    if not sus or bad:
+        raise AssertionError(f"{what}: ranked shares {bad or 'none'}")
+    return sus
+
+
+#: phase 42's variants, run round robin OBS_CFG1_ROUNDS times: metrics off;
+#: metrics on with no exporter (the default); that with the window's state
+#: sketch off; JSONL snapshots alone; the span trace alone; every exporter
+#: on and scraped; and that with the profiler started and stopped over HTTP
+OBS_CFG1_VARIANTS = ("off", "default", "nosketch", "jsonl", "trace", "on",
+                     "profiler")
+OBS_CFG1_ROUNDS = 3
+
+
+def obs_cfg1_config(variant: str, tmp: str, tag: str) -> dict:
+    if variant == "off":
+        return dict(metrics_enabled=False)
+    if variant == "jsonl":
+        return dict(metrics_jsonl_path=f"{tmp}/{tag}.jsonl",
+                    metrics_jsonl_interval_s=0.05)
+    if variant == "trace":
+        return dict(trace_path=f"{tmp}/{tag}.trace.json")
+    if variant in ("on", "profiler"):
+        return obs_config(tmp, tag)
+    return {}
+
+
+def phase_obs_cfg1(device, batches, stream, card):
+    """Phase 42 (see the module docstring) → {launches, rates}."""
+    from unittest import mock
+
+    from denormalized_tpu_torch import obs
+    from denormalized_tpu_torch.obs import statewatch as swm
+    from denormalized_tpu_torch.obs.registry import MetricsRegistry
+    from denormalized_tpu_torch.ops import dense_window as dw
+
+    ts, kid, val = stream
+    exp = oracle(ts, kid, val, 1000, 1000, NUM_KEYS)
+    n_windows = len({ws for ws, _k in exp})
+    walls = {v: [] for v in OBS_CFG1_VARIANTS}
+    launches = {}
+    sketch_ms = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for rnd in range(OBS_CFG1_ROUNDS):
+            for variant in OBS_CFG1_VARIANTS:
+                tag = f"{variant}{rnd}"
+                reg = MetricsRegistry(enabled=True)
+                ctx, ds = job_stream(device, batches, "tumbling",
+                                     **obs_cfg1_config(variant, tmp, tag))
+                scraped = variant in ("on", "profiler")
+                prof = {}
+
+                def on_batch(i, ctx=ctx, prof=prof):
+                    # the sampler starts after the first emission and
+                    # stops halfway through the windows, over HTTP
+                    qid = ctx._last_doctor.query_id
+                    if i == 0:
+                        prof["start"] = http_get(
+                            ctx, f"/queries/{qid}/profile/start?hz=200")
+                    elif i == max(1, n_windows // 2):
+                        prof["stop"] = http_get(
+                            ctx, f"/queries/{qid}/profile/stop")
+
+                dw.dense_window_launches = 0
+                with obs.bound_registry(reg), contextlib.ExitStack() as st:
+                    if variant == "nosketch":
+                        st.enter_context(mock.patch.object(
+                            swm, "make_watch",
+                            lambda *a, **k: swm.NULL_WATCH))
+                    scr = st.enter_context(Scraper(ctx)) if scraped else None
+                    res, wall = drive(
+                        ds, on_batch if variant == "profiler" else None)
+                    sync(device)
+                launches[tag] = dw.dense_window_launches
+                check_tumbling(res, exp, NUM_KEYS)
+                walls[variant].append(wall)
+                op = window_exec_of(ctx)
+                if variant == "off":
+                    if reg.instruments() or op._sw:
+                        raise AssertionError("phase 42: the metrics-off run "
+                                             "bound live instruments")
+                    continue
+                snap = reg.snapshot()
+                rows_in = snap.get('dnz_op_rows_in_total{op="window"}')
+                emitted = snap.get('dnz_windows_emitted_total{op="window"}')
+                fails = []
+                if launches[tag] != launches[f"off{rnd}"]:
+                    fails.append(f"dense launches {launches[tag]} vs "
+                                 f"{launches[f'off{rnd}']} with metrics off")
+                if rows_in != len(ts):
+                    fails.append(f"rows in {rows_in} vs {len(ts)}")
+                if emitted != n_windows:
+                    fails.append(f"windows emitted {emitted} vs {n_windows}")
+                if bool(op._sw) != (variant != "nosketch"):
+                    fails.append(f"state sketch {op._sw!r}")
+                if variant == "jsonl" and not os.path.getsize(
+                        f"{tmp}/{tag}.jsonl"):
+                    fails.append("no JSONL snapshot")
+                names = set()
+                if variant in ("trace", "on", "profiler"):
+                    with open(f"{tmp}/{tag}.trace.json") as f:
+                        names = {e["name"]
+                                 for e in json.load(f)["traceEvents"]}
+                    if "window.process_batch" not in names:
+                        fails.append(f"trace spans {sorted(names)}")
+                detail = ""
+                if scraped:
+                    ring = ring_nbytes(op.backend)
+                    if not scr.state_bytes or set(scr.state_bytes) != {ring}:
+                        fails.append(f"/state device bytes "
+                                     f"{sorted(set(scr.state_bytes))} vs "
+                                     f"ring {ring}")
+                    if scr.errors or min(scr.counts.values()) == 0:
+                        fails.append(f"scrapes {scr.counts}, errors "
+                                     f"{scr.errors[:3]}")
+                    lineage = ctx._last_doctor.lineage
+                    if lineage is None or lineage.sampled_total == 0:
+                        fails.append("no lineage sample")
+                    else:
+                        detail = (
+                            f", /state device bytes {ring} = the ring's, "
+                            f"scrapes {sum(scr.counts.values())} "
+                            f"({min(scr.counts.values())} a path), lineage "
+                            f"samples {lineage.sampled_total}")
+                if variant == "profiler":
+                    if not (prof.get("start", {}).get("profiling")
+                            and prof.get("stop", {}).get("profiling") is False
+                            and prof["stop"]["samples"] > 0):
+                        fails.append(f"profiler over HTTP {prof}")
+                    else:
+                        detail += (f", profiler samples "
+                                   f"{prof['stop']['samples']}")
+                sus = check_ranking(ctx, f"phase 42 {tag}")
+                if fails:
+                    raise AssertionError(f"phase 42 {tag}: "
+                                         + "; ".join(fails))
+                if op._sw:
+                    sw = op._sw
+                    sketch_ms.append(
+                        sw.update_s * 1e3 / max(sw.update_batches, 1))
+                log(f"phase 42 config 1 metrics {variant} (round {rnd}): "
+                    f"{len(ts)} rows, {res.num_rows} window rows match the "
+                    f"oracle, {launches[tag]} dense launches (metrics off "
+                    f"{launches[f'off{rnd}']}), rows in {rows_in}, windows "
+                    f"emitted {emitted}" + detail
+                    + (f", trace spans {len(names)} names" if names else "")
+                    + f", top suspect {sus[0]['node_id']} "
+                    f"{sus[0]['share_of_wall']:.3f} of the wall, wall "
+                    f"{wall:.3f} s ({card})")
+    best = {v: min(w) for v, w in walls.items()}
+    rates = {v: len(ts) / w for v, w in best.items()}
+    log(f"phase 42 config 1 rows/s, best of {OBS_CFG1_ROUNDS} (ratio to "
+        f"metrics off): " + ", ".join(
+            f"{v} {rates[v]:.0f} ({rates[v] / rates['off']:.4f})"
+            for v in OBS_CFG1_VARIANTS)
+        + "; every wall (s): " + ", ".join(
+            f"{v} {[round(w, 4) for w in walls[v]]}"
+            for v in OBS_CFG1_VARIANTS)
+        + f"; the state sketch {max(sketch_ms):.4f} ms a batch at most "
+        f"({card})")
+    ms = {v: w * 1e3 for v, w in best.items()}
+    jsonl, spans = ms["jsonl"] - ms["default"], ms["trace"] - ms["default"]
+    log(f"phase 42 config 1 best walls split: on - off "
+        f"{ms['on'] - ms['off']:.1f} ms = instruments and doctor hooks "
+        f"(nosketch - off) {ms['nosketch'] - ms['off']:.1f} + state sketch "
+        f"(default - nosketch) {ms['default'] - ms['nosketch']:.1f} + JSONL "
+        f"thread (jsonl - default) {jsonl:.1f} + spans (trace - default) "
+        f"{spans:.1f} + HTTP server, scraper and lineage (the rest) "
+        f"{ms['on'] - ms['default'] - jsonl - spans:.1f} ({card})")
+    return {"launches": launches["on0"], "rates": rates,
+            "sketch_ms": max(sketch_ms)}
+
+
+def phase_obs_cfg3_cfg4(device, highcard_batches, highcard_stream, left,
+                        right, card):
+    """Phase 43 (see the module docstring) → {merge, compact, join}
+    launches with metrics on."""
+    from denormalized_tpu_torch import obs
+    from denormalized_tpu_torch.obs.registry import MetricsRegistry
+    from denormalized_tpu_torch.ops import compact_slot as cs
+    from denormalized_tpu_torch.ops import dense_window as dw
+    from denormalized_tpu_torch.ops import merge_partials as mp
+
+    ts, kid, val = highcard_stream
+    exp = oracle(ts, kid, val, 1000, 1000, HIGHCARD_KEYS)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for variant in ("off", "on"):
+            cfg = dict(emission_compaction=True,
+                       min_group_capacity=2 * HIGHCARD_KEYS, emit_lag_ms=0,
+                       state_budget_bytes=OBS_BUDGET)
+            cfg.update(dict(metrics_enabled=False) if variant == "off"
+                       else obs_config(tmp, "cfg3"))
+            ctx, ds = job_stream(device, highcard_batches, "highcard",
+                                 strategy="partial_merge", **cfg)
+            mp.merge_partials_launches = cs.compact_slot_launches = 0
+            with obs.bound_registry(MetricsRegistry(enabled=True)), \
+                    contextlib.ExitStack() as st:
+                if variant == "on":
+                    st.enter_context(Scraper(ctx))
+                res, wall = drive(ds)
+                sync(device)
+            check_highcard(res, exp, HIGHCARD_KEYS)
+            runs[variant] = dict(
+                rows=highcard_rows(res), wall=wall, ctx=ctx,
+                merge=mp.merge_partials_launches,
+                compact=cs.compact_slot_launches)
+    off, on = runs["off"], runs["on"]
+    state = on["ctx"]._last_doctor.state_snapshot()
+    kinds = [v["kind"] for v in state["verdicts"]]
+    fails = []
+    if on["rows"] != off["rows"]:
+        fails.append("rows differ from the metrics-off run's")
+    if (on["merge"], on["compact"]) != (off["merge"], off["compact"]) or (
+            not on["merge"] or not on["compact"]):
+        fails.append(f"launches merge {on['merge']} / compaction "
+                     f"{on['compact']} vs off {off['merge']} / "
+                     f"{off['compact']}")
+    if "state-budget-pressure" not in kinds:
+        fails.append(f"verdicts {kinds}, total {state['total_state_bytes']}"
+                     f" B, forecast {state['forecast']}")
+    if fails:
+        raise AssertionError("phase 43 config 3: " + "; ".join(fails))
+    fc = state["forecast"]
+    log(f"phase 43 config 3 via partial_merge with emission_compaction, "
+        f"metrics on: {len(ts)} rows, {len(on['rows'])} window rows match "
+        f"the oracle and the metrics-off run, merge launches "
+        f"{on['merge']} and compaction launches {on['compact']} (off "
+        f"{off['merge']} / {off['compact']}), state "
+        f"{state['total_state_bytes']} B against a {OBS_BUDGET} B budget, "
+        f"slope {fc['slope_bytes_per_s']} B/s over {fc['samples']} samples,"
+        f" verdicts {kinds}; wall off {off['wall']:.3f} s, on "
+        f"{on['wall']:.3f} s ({card})")
+
+    (lb, ls), (rb, rs) = left, right
+    joins = {}
+    for variant in ("off", "on"):
+        reg = MetricsRegistry(enabled=True)
+        cfg = (dict(metrics_enabled=False) if variant == "off"
+               else obs_config(tempfile.mkdtemp(), "cfg4"))
+        # each read waits OBS_JOIN_READ_S, so the run outlasts the
+        # operator's 1 s hot-key gauge refresh with both sides sketched
+        ctx, ds = join_stream(device, lb, rb, "auto",
+                              on_read=lambda *_a: time.sleep(OBS_JOIN_READ_S),
+                              **cfg)
+        dw.dense_window_launches = 0
+        with obs.bound_registry(reg), contextlib.ExitStack() as st:
+            if variant == "on":
+                st.enter_context(Scraper(ctx))
+            res, wall = drive(ds)
+            sync(device)
+        n = check_join(res, ls, rs, NUM_KEYS)
+        joins[variant] = dict(rows=join_rows(res), n=n, wall=wall, reg=reg,
+                              ctx=ctx, launches=dw.dense_window_launches)
+    off, on = joins["off"], joins["on"]
+    snap = on["ctx"]._last_doctor.snapshot()
+    join_id = next(n["node_id"] for n in snap["nodes"]
+                   if "StreamingJoinExec" in n["node_id"])
+    windows = {n["node_id"] for n in snap["nodes"]
+               if "StreamingWindowExec" in n["node_id"]}
+    hot = {side: [v for k, v in on["reg"].snapshot().items()
+                  if k.startswith("dnz_state_hot_key_share")
+                  and f'node="{join_id}"' in k and f'side="{side}"' in k
+                  and v > 0]
+           for side in ("left", "right")}
+    ranked = {s["node_id"] for s in check_ranking(on["ctx"], "phase 43 join")}
+    fails = []
+    # the dense kernel folds f32 sums in atomic order: two runs' averages
+    # agree to the oracle's rtol, not bit for bit
+    keys = sorted(off["rows"])
+    if sorted(on["rows"]) != keys or on["launches"] != off["launches"]:
+        fails.append(f"rows {len(on['rows'])} vs {len(off['rows'])}, dense "
+                     f"launches {on['launches']} vs {off['launches']}")
+    else:
+        assert_close_rows(keys, [on["rows"][k] for k in keys],
+                          [off["rows"][k] for k in keys])
+    if not hot["left"] or not hot["right"]:
+        fails.append(f"hot-key gauges {hot}")
+    if len(windows) != 2 or not windows <= ranked:
+        fails.append(f"windows {sorted(windows)}, ranked {sorted(ranked)}")
+    if fails:
+        raise AssertionError("phase 43 config 4: " + "; ".join(fails))
+    log(f"phase 43 config 4 at 10 keys, metrics on: {on['n']} joined rows "
+        f"match the metrics-off run's and the oracle, {on['launches']} "
+        f"dense launches (off {off['launches']}), hot-key gauges left "
+        f"{len(hot['left'])} right {len(hot['right'])} (top shares "
+        f"{max(hot['left']):.3f} / {max(hot['right']):.3f}), both windows "
+        f"ranked ({', '.join(sorted(windows))}); wall off "
+        f"{off['wall']:.3f} s, on {on['wall']:.3f} s ({card})")
+    return {"merge": runs["on"]["merge"], "compact": runs["on"]["compact"],
+            "join": on["launches"]}
+
+
+def phase_obs_shared(device, batches, stream, card):
+    """Phase 44 (see the module docstring)."""
+    from denormalized_tpu_torch.obs.doctor import get_query
+    from denormalized_tpu_torch.state.checkpoint import walk
+
+    queries = [(None, *MQ_SPECS[i % len(MQ_SPECS)]) for i in range(10)]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for variant in ("off", "on"):
+            cfg = (dict(metrics_enabled=False) if variant == "off"
+                   else obs_config(tmp, "mq"))
+            scr = []
+            try:
+                rep, tables, wall, launches, root = mq_shared(
+                    device, batches, queries,
+                    on_ctx=(lambda ctx: scr.append(Scraper(ctx).__enter__()))
+                    if variant == "on" else None, **cfg)
+            finally:
+                for sc in scr:
+                    sc.__exit__(None, None, None)
+            out[variant] = dict(rep=rep, tables=tables, wall=wall,
+                                launches=launches, root=root,
+                                scraper=scr[0] if scr else None)
+    off, on = out["off"], out["on"]
+    ids = on["rep"]["groups"][0]["query_ids"]
+    handles = [get_query(q) for q in ids]
+    sums = []
+    for op in walk(on["root"]):
+        nid = op._dr_node_id
+        got = 0.0
+        for h in handles:
+            (node,) = [n for n in h.snapshot()["nodes"]
+                       if n["node_id"] == nid]
+            got += node["busy_ms"]
+        sums.append((nid, got, op._dr_busy_ms))
+    fails = []
+    if any(not np.array_equal(a, b) for a, b in zip(on["tables"],
+                                                    off["tables"])):
+        fails.append("tables differ from the metrics-off run's")
+    if any(on["launches"].values()) or any(off["launches"].values()):
+        fails.append(f"launches on {on['launches']}, off {off['launches']}")
+    if len(set(ids)) != 10 or None in handles:
+        fails.append(f"query ids {ids}")
+    bad = [(nid, got, own) for nid, got, own in sums
+           if abs(got - own) > 0.01 * max(own, 1e-3)]
+    if bad:
+        fails.append(f"scaled busy sums {bad}")
+    scr = on["scraper"]
+    if scr is None or scr.errors or min(scr.counts.values()) == 0:
+        fails.append(f"scrapes {scr and scr.counts}, errors "
+                     f"{scr and scr.errors[:3]}")
+    if fails:
+        raise AssertionError("phase 44: " + "; ".join(fails))
+    root_id, root_sum, root_own = sums[0]
+    log(f"phase 44 run_queries Q = 10 (phase 38's specs, {MQ_KEYS} keys), "
+        f"every exporter on and scraped ({sum(scr.counts.values())} "
+        f"reads): tables equal to the metrics-off run's, 0 dense launches "
+        f"and 0 scatter steps, query ids {ids[0]}..{ids[-1]}, the ten "
+        f"members' scaled busy time summing to each node's within 1% "
+        f"(root {root_id}: {root_sum:.3f} of {root_own:.3f} ms); wall off "
+        f"{off['wall']:.3f} s, on {on['wall']:.3f} s ({card})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7184,6 +7694,14 @@ def main(argv=None) -> int:
     log(f"phases 38-41 took {sum(took.values()):.1f} s ("
         + ", ".join(f"{k}: {v:.1f} s" for k, v in took.items())
         + f"); the script {time.time() - T_START:.1f} s so far ({card})")
+    t_obs = time.perf_counter()
+    obs_cfg1 = phase_obs_cfg1(device, batches, stream, card)
+    obs_cfg34 = phase_obs_cfg3_cfg4(
+        device, highcard_batches, highcard_stream, (batches, stream),
+        join_right, card)
+    phase_obs_shared(device, *mq["feed"], card)
+    log(f"phases 42-44 took {time.perf_counter() - t_obs:.1f} s; the script "
+        f"{time.time() - T_START:.1f} s so far ({card})")
 
     shared_counts = ([p["shared_launches"]
                       for p in mq["points"] + [mq["highcard"]]]
@@ -7228,6 +7746,10 @@ def main(argv=None) -> int:
         "sigterm_launches": sigterm["launches"],
         # ... on config 1 under a state budget that forces spills (phase 36)
         "budget_launches": cfg1_spill_launches,
+        # ... on config 1 with metrics and every exporter on, scraped
+        # (phase 42), and both windows of config 4 so (phase 43)
+        "obs_launches": obs_cfg1["launches"],
+        "obs_join_launches": obs_cfg34["join"],
         # the multi-query baselines (phases 38-39): each query its own
         # device window (dense launches + scatter steps); "shared" sums
         # what the shared runs of phases 38-40 launched, as counted
@@ -7262,6 +7784,8 @@ def main(argv=None) -> int:
         # reads included
         "budget_launches": spill["launches"]["partial_merge"][
             "merge_partials"],
+        # config 3 with metrics and every exporter on (phase 43)
+        "obs_launches": obs_cfg34["merge"],
         "cfg3_ms": merge["cfg3_compact"]["ms"],
         "cfg3_bound_ms": merge["cfg3_compact"]["bound_ms"],
         # every phase-7 case: its kernel, device time, bound, wrapper and
@@ -7299,6 +7823,9 @@ def main(argv=None) -> int:
         # one a window emitted from the ring (spilled windows emit from
         # their stored planes)
         "budget_launches": spill["launches"]["auto"]["compact_slot"],
+        # config 3 through partial_merge with metrics and every exporter
+        # on (phase 43): one a window emitted
+        "obs_launches": obs_cfg34["compact"],
         # both windows of config 4 at 100K keys, emitting from two threads
         "join_launches": compact_join,
         "cases": {name: {key: case[key] for key in (

@@ -13,8 +13,12 @@ join knobs (``join_retention_ms``, ``join_adaptive``,
 ``join_adapt_interval_s``, ``join_band_slack_ms``),
 ``partition_watermarks``, ``source_idle_timeout_ms``, the window
 operator's ``accum_dtype``, ``emission_compaction`` and ``host_pipeline``,
-and the multi-query engine's ``slice_windows``, ``slice_unit_ms``,
-``slice_sort_lane``, ``approx_native`` and ``mq_subsumption``.
+the multi-query engine's ``slice_windows``, ``slice_unit_ms``,
+``slice_sort_lane``, ``approx_native`` and ``mq_subsumption``, and the
+observability knobs (``metrics_enabled``, ``prometheus_port``,
+``metrics_jsonl_path``, ``metrics_jsonl_interval_s``, ``trace_path``,
+``trace_events``, ``doctor_enabled``, ``lineage_sample_every``,
+``lineage_max_samples``, ``profiler_hz``).
 :meth:`Context.from_topic` reads a Kafka topic (JSON or Avro payloads);
 :meth:`Context.table` returns a registered source and
 :meth:`EngineConfig.set` sets a knob by its ``denormalized_config.`` name.
@@ -146,6 +150,38 @@ class EngineConfig:
     # component planes
     device_finalize: bool = True
 
+    # -- observability (obs/, the JAX package's defaults) -----------------
+    # typed registry instruments across every layer (per-operator batch
+    # time and rows, watermark and emission lag, Kafka consumer lag,
+    # prefetch depth, checkpoint and LSM timings).  False binds every
+    # handle to the shared falsy no-op NULL: the hot paths do nothing
+    metrics_enabled: bool = True
+    # Prometheus text exposition on a stdlib HTTP server (127.0.0.1); 0 =
+    # an ephemeral port (ctx._last_exporters.prometheus.port), None = off.
+    # The server also mounts the doctor's /queries surface
+    prometheus_port: int | None = None
+    # periodic JSONL registry snapshots; None = off
+    metrics_jsonl_path: str | None = None
+    metrics_jsonl_interval_s: float = 1.0
+    # Chrome trace-event JSON (Perfetto) dumped at the end of the job from
+    # the ring-buffered span recorder; None = off.  trace_events sizes the
+    # ring (newest events win; 0 = 65536)
+    trace_path: str | None = None
+    trace_events: int = 0
+    # the pipeline doctor (obs/doctor): every job registers its physical
+    # plan with per-operator busy and input-wait time and a ranked
+    # bottleneck attribution (/queries, explain(analyze=True)); False
+    # opts a job out
+    doctor_enabled: bool = True
+    # sampled record lineage: tag every Nth row of each partition at
+    # ingest with (source, partition, offset, event time) and follow it
+    # into window emission (/queries/<id>/lineage).  None = off
+    lineage_sample_every: int | None = None
+    lineage_max_samples: int = 256
+    # the on-demand sampling profiler's rate (started over HTTP or by
+    # QueryHandle.start_profiler())
+    profiler_hz: float = 100.0
+
     # -- the multi-query engine (docs/multi_query.md) ---------------------
     # slice-folding window path: tumbling/sliding windows with foldable
     # aggregates run on SliceWindowExec — per-(group, slide-unit) partials
@@ -220,6 +256,10 @@ class Context:
         # the last job's SpillController (None without a budgeted tier);
         # spill_stats(node_id) reads a node's spill and reload counts
         self._last_spill = None
+        # the last job's running exporters (None when none opted in) and
+        # its doctor handle (None with doctor_enabled=False)
+        self._last_exporters = None
+        self._last_doctor = None
 
     def __repr__(self) -> str:
         return (

@@ -403,9 +403,11 @@ class DataStream:
         """Print the logical plan, the optimized plan and the physical plan.
         With ``analyze=True``, run the stream to completion into a discard
         sink and print the physical plan with each operator's metrics
-        (rows, batches, device steps and launches).  Like ``collect``,
-        analyze needs a bounded source; it runs with checkpointing off, so
-        it commits no epoch under the real pipeline's node ids."""
+        (rows, batches, device steps and launches), then the pipeline
+        doctor's ranked bottleneck report (with ``doctor_enabled=False``
+        only the former).  Like ``collect``, analyze needs a bounded
+        source; it runs with checkpointing off, so it commits no epoch
+        under the real pipeline's node ids."""
         opt = self.optimized_plan()
         print("== logical plan ==")
         print(self._plan.display())
@@ -420,19 +422,29 @@ class DataStream:
         self._execute(CallbackSink(lambda _b: None), checkpoint=False)
         print("== physical plan (analyzed) ==")
         print(self._ctx._last_physical.display(with_metrics=True))
+        handle = self._ctx._last_doctor
+        if handle is not None:
+            print("== bottleneck report ==")
+            print(handle.render())
         return self
 
     def explain_analyze(self, print_output: bool = True) -> str:
         """Run into a discard sink (checkpointing off, a bounded source)
-        and return the physical plan annotated with each operator's
-        metrics: the text the JAX package gives with its pipeline doctor
-        off.  The doctor's ranked bottleneck report
-        (``obs/doctor/attribution.py``) is not ported yet: it comes with
-        ROADMAP §A item 10."""
+        and return the pipeline doctor's annotated plan: every node with
+        its rows/s, busy share of the wall, upstream wait, queue depth and
+        watermark lag, and the ranked bottleneck attribution under the
+        documented rule (``obs/doctor/attribution.py``).  With
+        ``doctor_enabled=False`` it returns the physical plan with each
+        operator's metrics.  The same report is live for a running query
+        at ``GET /queries/<id>/plan`` on the Prometheus server."""
         from denormalized_tpu_torch.physical.simple_execs import CallbackSink
 
         self._execute(CallbackSink(lambda _b: None), checkpoint=False)
-        text = self._ctx._last_physical.display(with_metrics=True)
+        handle = self._ctx._last_doctor
+        if handle is not None:
+            text = handle.render()
+        else:  # doctor_enabled=False: the metrics dump
+            text = self._ctx._last_physical.display(with_metrics=True)
         if print_output:
             print(text)
         return text

@@ -62,7 +62,10 @@ probe and gather times also go to ``_stage_ms`` and the
 and ``shared_cost_ms()`` hands their total to the slice operator, which
 apportions it across subscribers by kept rows.
 
-Not ported yet: the doctor's lineage hooks.
+Observability: ``op="join"`` instruments, a state watch per side (with
+metrics off the adaptive path owns live sketches fed every 4th batch),
+the merged queue's wait as the doctor's input wait, and record-lineage
+hops at the merge point.
 """
 
 from __future__ import annotations
@@ -799,6 +802,7 @@ class _JoinTier:
         self.spilled_rows -= meta["rows"]
         self.ctrl.note_reload(self.node_id, 1, len(raw))
         self.ctrl.delete_block(self.node_id, meta["id"])
+        self.op._state_info_cache = None
 
     # -- eviction interplay ----------------------------------------------
     def evict_prepare(self, side, drop_bi: np.ndarray, um: np.ndarray | None) -> None:
@@ -890,6 +894,7 @@ class _JoinTier:
             spilled_any = True
         if spilled_any:
             self._write_manifest()
+            self.op._state_info_cache = None
         self.ctrl.check_pressure(self.node_id)
 
     def _spill(self, sid: int, side, bi: int) -> None:
@@ -1046,10 +1051,21 @@ class StreamingJoinExec(ExecOperator):
             "snapshots": 0, "snapshot_bytes": 0, "snapshot_pack_s": 0.0,
             "snapshot_put_s": 0.0, "restore_s": 0.0,
         }
-        # one heavy-hitter sketch PER SIDE, windowed so the policy's
-        # shares track recent traffic
-        self._sw = statewatch.StateWatch()
-        self._sw_right = statewatch.StateWatch()
+        self.bind_obs("join")
+        # state observatory: one heavy-hitter/cardinality sketch pair PER
+        # SIDE, windowed (decay_every) so the policy's shares track recent
+        # traffic
+        self._sw = statewatch.make_watch(
+            "join", decay_every=statewatch.JOIN_SKETCH_DECAY_ROWS
+        )
+        self._sw_right = statewatch.make_watch(
+            "join", decay_every=statewatch.JOIN_SKETCH_DECAY_ROWS
+        )
+        # with metrics off make_watch hands out the null watch, so the
+        # adaptive path owns real sketches instead, fed every 4th batch
+        # of a side (the policy decides at second granularity)
+        self._sw_sample = 0
+        self._sw_batches = [0, 0]
         self._sides = None  # run()'s live (_SideState, _SideState) pair
         # checkpointing (enable_checkpointing): (coordinator, state key)
         self._ckpt: tuple | None = None
@@ -1064,6 +1080,14 @@ class StreamingJoinExec(ExecOperator):
             )
 
             self._policy = JoinAdaptationPolicy(interval_s=adapt_interval_s)
+            if not self._sw:
+                self._sw = statewatch.StateWatch(
+                    "join", decay_every=statewatch.JOIN_SKETCH_DECAY_ROWS
+                )
+                self._sw_right = statewatch.StateWatch(
+                    "join", decay_every=statewatch.JOIN_SKETCH_DECAY_ROWS
+                )
+                self._sw_sample = 4
         self._obs_rows_out = obs.counter("dnz_op_rows_out_total", op="join")
         # shared-group cost attribution (runtime/multi_query.py): when a
         # join feeds a shared slice pipeline, its MEASURED build/probe/
@@ -1231,6 +1255,17 @@ class StreamingJoinExec(ExecOperator):
                 0, int(min(wms)) - int(min(olds))
             )
         return info
+
+    def _state_watch_views(self):
+        if not self._sw:
+            return []
+        from denormalized_tpu_torch.ops.interner import display_keys
+
+        resolve = lambda g: display_keys(self._interner, g)  # noqa: E731
+        return [
+            ("left", self._sw, resolve),
+            ("right", self._sw_right, resolve),
+        ]
 
     # ------------------------------------------------------------------
     def _gids_of(self, batch: RecordBatch, names: list[str]) -> np.ndarray:
@@ -1905,9 +1940,13 @@ class StreamingJoinExec(ExecOperator):
                 if pending and not (blocked[0] or blocked[1]):
                     side_id, item = pending.popleft()
                 else:
+                    # the merged queue is this operator's upstream handoff:
+                    # time blocked here is the doctor's queue wait
                     t0_wait = time.perf_counter()
                     side_id, item = q.get()
-                    m["queue_wait_s"] += time.perf_counter() - t0_wait
+                    dw = time.perf_counter() - t0_wait
+                    m["queue_wait_s"] += dw
+                    self._note_input_wait(dw)
                     if blocked[side_id] and not isinstance(
                         item, BaseException
                     ):
@@ -1987,11 +2026,19 @@ class StreamingJoinExec(ExecOperator):
                     continue
                 m["rows_in"] += batch.num_rows
                 m["batches_in"] += 1
+                self._obs_rows_in.add(batch.num_rows)
+                if self._dr_lineage is not None:
+                    # record-lineage hop (the generic _doctor_input hook
+                    # cannot see through the merged queue)
+                    self._dr_lineage.hop(self._dr_node_id, batch)
                 t0_batch = time.perf_counter()
                 gids = self._gids_of(
                     batch, self.left_keys if is_left else self.right_keys
                 )
-                (self._sw if is_left else self._sw_right).update(gids)
+                nb = self._sw_batches[side_id]
+                self._sw_batches[side_id] = nb + 1
+                if not self._sw_sample or nb % self._sw_sample == 0:
+                    (self._sw if is_left else self._sw_right).update(gids)
                 band_vals = (
                     self._band_vals(batch, is_left)
                     if self.band is not None else None
@@ -2023,6 +2070,7 @@ class StreamingJoinExec(ExecOperator):
                     self._obs_mq_stage["gather"].observe(gather_d * 1e3)
                     if out is not None:
                         self._obs_mq_fanout.add(out.num_rows)
+                self._note_batch(t0_batch, batch.num_rows)
                 if out is not None:
                     if not wm_announced:
                         # switch downstream to hint-driven watermarks

@@ -58,6 +58,8 @@ from __future__ import annotations
 
 from typing import Iterator
 
+import time
+
 import numpy as np
 
 from denormalized_tpu_torch.common.constants import (
@@ -245,6 +247,7 @@ class _SessionTier:
                         start, acc = i + 1, 0
                 if spilled_any:
                     self._write_manifest()
+                    op._state_info_cache = None
         self.ctrl.check_pressure(self.node_id)
 
     def _spill_chunk(self, gids_chunk: np.ndarray) -> None:
@@ -307,6 +310,7 @@ class _SessionTier:
         self.spilled_keys -= int(len(meta["gids"]))
         self.ctrl.note_reload(self.node_id, 1, len(raw))
         self.ctrl.delete_block(self.node_id, f"b{bid}")
+        self.op._state_info_cache = None
 
     def reload_for_watermark(self, watermark: int) -> None:
         """Blocks holding ANY gap-expired session reload so the close sweep
@@ -464,8 +468,23 @@ class SessionWindowExec(ExecOperator):
             "late_rows": 0,
             "salvage_rows_scanned": 0,
         }
-        # heavy-hitter sketch fed the dense gids of every batch
-        self._sw = swm.StateWatch()
+        from denormalized_tpu_torch import obs
+
+        self.bind_obs("session")
+        # state observatory: heavy-hitter/cardinality sketches fed dense
+        # gids per batch (the falsy null watch with metrics off)
+        self._sw = swm.make_watch("session")
+        self._obs_late = obs.counter("dnz_late_rows_total", op="session")
+        self._obs_windows = obs.counter(
+            "dnz_windows_emitted_total", op="session"
+        )
+        self._obs_emit_lag = obs.histogram(
+            "dnz_emit_event_lag_ms", op="session"
+        )
+        self._obs_wm_lag = obs.gauge("dnz_watermark_lag_ms", op="session")
+        self._obs_wm_lag_hist = obs.histogram(
+            "dnz_watermark_lag_hist_ms", op="session"
+        )
 
     @property
     def children(self):
@@ -531,6 +550,15 @@ class SessionWindowExec(ExecOperator):
             info.update(self._tier.info())
         return info
 
+    def _state_watch_views(self):
+        if not self._sw:
+            return []
+        from denormalized_tpu_torch.ops.interner import display_keys
+
+        return [
+            (None, self._sw, lambda g: display_keys(self._interner, g))
+        ]
+
     # ------------------------------------------------------------------
     def _make_accs(self) -> list | None:
         if not self._udafs:
@@ -591,6 +619,7 @@ class SessionWindowExec(ExecOperator):
         if n == 0:
             return
         self._metrics["rows_in"] += n
+        self._obs_rows_in.add(n)
         ts = np.asarray(batch.column(CANONICAL_TIMESTAMP_COLUMN), dtype=np.int64)
         key_cols = [g.eval(batch) for g in self.group_exprs]
         gids = self._interner.intern(key_cols)
@@ -637,6 +666,7 @@ class SessionWindowExec(ExecOperator):
             n_late = int(late.sum())
             if n_late:
                 self._metrics["late_rows"] += n_late
+                self._obs_late.add(n_late)
                 dropped_gids = np.unique(gids[late])
                 keep = ~late
                 ts = ts[keep]
@@ -890,6 +920,10 @@ class SessionWindowExec(ExecOperator):
         WatermarkHint handling.  One vectorized scan of the live slots."""
         if self._watermark is None or candidate_wm > self._watermark:
             self._watermark = candidate_wm
+        if self._obs_wm_lag:
+            lag = time.time() * 1000.0 - self._watermark
+            self._obs_wm_lag.set(lag)
+            self._obs_wm_lag_hist.observe(lag)
         if self._tier is not None:
             # gap-expired cold blocks come back resident so this sweep
             # closes them on the watermark the all-resident run does
@@ -914,6 +948,22 @@ class SessionWindowExec(ExecOperator):
         T = self._table
         m = len(slots)
         self._metrics["sessions_emitted"] += m
+        self._obs_windows.add(m)
+        if self._obs_emit_lag:
+            # one sample per emission sweep, at the OLDEST session's end
+            # (start-of-last-row + gap): the conservative bound
+            self._obs_emit_lag.observe(
+                time.time() * 1000.0
+                - (float(T.last[slots].min()) + self.gap_ms)
+            )
+        if self._dr_lineage is not None:
+            # a sampled row belongs to the session whose [start, last +
+            # gap) interval holds its event time
+            self._dr_lineage.emitted(
+                self._dr_node_id,
+                np.asarray(T.start[slots], dtype=np.int64),
+                np.asarray(T.last[slots], dtype=np.int64) + self.gap_ms,
+            )
         in_schema = self.input_op.schema
         key_vals = self._interner.keys_of(T.gid[slots])
         cols: list[np.ndarray] = []
@@ -1124,9 +1174,14 @@ class SessionWindowExec(ExecOperator):
         put_json(coord, key, epoch, snap)
 
     def run(self) -> Iterator[StreamItem]:
-        for item in self.input_op.run():
+        for item in self._doctor_input():
             if isinstance(item, RecordBatch):
-                yield from self._process_batch(item)
+                # materialized inside the busy bracket: the histogram
+                # measures this operator's work, not downstream's
+                t0 = time.perf_counter()
+                out = list(self._process_batch(item))
+                self._note_batch(t0, item.num_rows)
+                yield from out
             elif isinstance(item, WatermarkHint):
                 if item.kind == "partition":
                     self._src_watermarks = True

@@ -15,13 +15,13 @@ Known defect (by design left in place — it is what the rewrite fixes): the
 salted 64-bit ``hash(tuple)`` composite can collide and silently merge
 segments of two distinct keys; the interner's dense ids cannot.
 
-Counterpart of ``denormalized_tpu/physical/session_reference.py`` for the
-port, without the state observatory's sketch feed (its only reader, the
-doctor, is not ported).
+Counterpart of ``denormalized_tpu/physical/session_reference.py``, with
+its observability hooks (``op="session_ref"``).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Iterator
 
@@ -141,6 +141,19 @@ class ReferenceSessionWindowExec(ExecOperator):
         self._src_watermarks = False
         self._ckpt: tuple | None = None
         self._metrics = {"rows_in": 0, "sessions_emitted": 0, "late_rows": 0}
+        from denormalized_tpu_torch import obs
+
+        self.bind_obs("session_ref")
+        # state observatory: the oracle operator has no interner, so it
+        # assigns its own sequential key ids for the sketches (per-row
+        # Python is this operator's nature — it is the slow reference)
+        self._sw = swm.make_watch("session_ref")
+        self._sw_ids: dict = {}
+        self._sw_keys: list = []
+        self._obs_late = obs.counter("dnz_late_rows_total", op="session_ref")
+        self._obs_windows = obs.counter(
+            "dnz_windows_emitted_total", op="session_ref"
+        )
 
     @property
     def children(self):
@@ -154,6 +167,30 @@ class ReferenceSessionWindowExec(ExecOperator):
             f"SessionWindowExec(gap={self.gap_ms}ms, "
             f"groups=[{', '.join(g.name for g in self.group_exprs)}])"
         )
+
+    def _sw_intern_rows(self, key_cols, n: int) -> np.ndarray:
+        """Sequential key ids for the sketches (the oracle has no dense
+        interner; ids never recycle, so attribution is alias-free).
+        When keys-ever-seen dwarfs the live key population the map is
+        dropped and the sketches re-warm — the same bounded-memory
+        policy the join/udaf re-intern applies; without it a churning
+        differential soak would grow this display-only map forever."""
+        if len(self._sw_ids) > 4 * max(len(self._sessions), 1024):
+            self._sw.reset_sketches()
+            self._sw_ids = {}
+            self._sw_keys = []
+        ids = np.empty(n, dtype=np.int64)
+        d = self._sw_ids
+        keys_list = self._sw_keys
+        for i in range(n):
+            k = tuple(kc[i] for kc in key_cols)
+            j = d.get(k)
+            if j is None:
+                j = len(keys_list)
+                d[k] = j
+                keys_list.append(k)
+            ids[i] = j
+        return ids
 
     def state_info(self) -> dict:
         sessions = self._sessions
@@ -193,6 +230,22 @@ class ReferenceSessionWindowExec(ExecOperator):
         if wm is not None and oldest is not None:
             info["oldest_event_lag_ms"] = max(0, int(wm) - int(oldest))
         return info
+
+    def _state_watch_views(self):
+        if not self._sw:
+            return []
+
+        def resolve(gids):
+            from denormalized_tpu_torch.ops.interner import format_key_tuple
+
+            keys_list = self._sw_keys
+            return [
+                format_key_tuple(keys_list[g])
+                if 0 <= g < len(keys_list) else None
+                for g in np.asarray(gids).tolist()
+            ]
+
+        return [(None, self._sw, resolve)]
 
     # ------------------------------------------------------------------
     def _make_accs(self) -> list | None:
@@ -266,8 +319,11 @@ class ReferenceSessionWindowExec(ExecOperator):
         if n == 0:
             return
         self._metrics["rows_in"] += n
+        self._obs_rows_in.add(n)
         ts = np.asarray(batch.column(CANONICAL_TIMESTAMP_COLUMN), dtype=np.int64)
         key_cols = [np.asarray(g.eval(batch), dtype=object) for g in self.group_exprs]
+        if self._sw:
+            self._sw.update(self._sw_intern_rows(key_cols, n))
         vals = (
             np.stack(
                 [np.asarray(e.eval(batch), dtype=np.float64) for e in self._value_exprs],
@@ -346,6 +402,7 @@ class ReferenceSessionWindowExec(ExecOperator):
             n_late = int(late.sum())
             if n_late:
                 self._metrics["late_rows"] += n_late
+                self._obs_late.add(n_late)
                 keep = ~late
                 ts = ts[keep]
                 key_cols = [kc[keep] for kc in key_cols]
@@ -451,6 +508,7 @@ class ReferenceSessionWindowExec(ExecOperator):
 
     def _emit(self, closed: list[tuple[tuple, _Session]]) -> RecordBatch:
         self._metrics["sessions_emitted"] += len(closed)
+        self._obs_windows.add(len(closed))
         m = len(closed)
         cols: list[np.ndarray] = []
         in_schema = self.input_op.schema
@@ -581,9 +639,14 @@ class ReferenceSessionWindowExec(ExecOperator):
         )
 
     def run(self) -> Iterator[StreamItem]:
-        for item in self.input_op.run():
+        for item in self._doctor_input():
             if isinstance(item, RecordBatch):
-                yield from self._process_batch(item)
+                # materialized inside the busy bracket, as in the
+                # vectorized operator
+                t0 = time.perf_counter()
+                out = list(self._process_batch(item))
+                self._note_batch(t0, item.num_rows)
+                yield from out
             elif isinstance(item, WatermarkHint):
                 if item.kind == "partition":
                     self._src_watermarks = True

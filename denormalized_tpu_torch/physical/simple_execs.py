@@ -9,8 +9,9 @@ arrived, persisting the offsets of the batches it has YIELDED, and ends
 with EndOfStream.  A source of several partitions sends per-partition
 watermarks (:class:`_PartitionWatermarks`, ``EngineConfig.
 partition_watermarks``); a live source with ``source_idle_timeout_ms``
-also sends idle hints (:class:`_IdleTracker`).  The cluster barrier hooks
-and record lineage are not ported.
+also sends idle hints (:class:`_IdleTracker`).  With record lineage on,
+the source tags its sampled rows at ingest.  The cluster barrier hooks are
+not ported.
 """
 
 from __future__ import annotations
@@ -36,6 +37,18 @@ from denormalized_tpu_torch.physical.base import (
     WatermarkHint,
 )
 from denormalized_tpu_torch.sources.base import Source
+
+#: per-process ordinal per source NAME: two sources sharing a name (a join
+#: of two default-named MemorySources) must not share metric series — the
+#: registry dedups by (name, labels).  The first claimant of a name keeps
+#: it bare; later ones get ``name#2``, ``#3``... in plan-build order.
+_SOURCE_SERIES_ORDINALS: dict[str, int] = {}
+
+
+def _source_series_label(name: str) -> str:
+    n = _SOURCE_SERIES_ORDINALS.get(name, 0) + 1
+    _SOURCE_SERIES_ORDINALS[name] = n
+    return name if n == 1 else f"{name}#{n}"
 
 
 def _ts_of(batch: RecordBatch) -> np.ndarray:
@@ -235,8 +248,28 @@ class SourceExec(ExecOperator):
         self._ckpt = None  # (CheckpointCoordinator, node_id)
         # per partition, the offset snapshot after its last YIELDED batch
         self._yielded_offsets: list | None = None
+        import weakref
+
+        # the registry this operator was BUILT under: run-time binds (pump
+        # workers, rebuilt Kafka readers) land in the same query-scoped
+        # registry whichever thread drives the generator
+        self._obs_reg = obs.current_registry()
+        self._obs_source_label = _source_series_label(str(source.name))
         self._obs_rows_out = obs.counter(
-            "dnz_op_rows_out_total", op="source", source=str(source.name)
+            "dnz_op_rows_out_total", op="source",
+            source=self._obs_source_label,
+        )
+        # registry view of the decode-fallback count (the authoritative
+        # count stays on the readers); a weakref, so the registry never
+        # pins a finished query's operator graph
+        ref = weakref.ref(self)
+        obs.gauge_fn(
+            "dnz_decode_fallback_rows",
+            lambda: (
+                op.metrics().get("decode_fallback_rows", 0)
+                if (op := ref()) is not None else 0
+            ),
+            source=self._obs_source_label,
         )
 
     # -- checkpointing (offset persistence mirrors BatchReadMetadata,
@@ -369,7 +402,10 @@ class SourceExec(ExecOperator):
         self._obs_rows_out.add(n)
 
     def run(self) -> Iterator[StreamItem]:
-        readers = self.source.partitions()
+        # reader construction binds instruments (Kafka consumer-lag
+        # gauges): scope them to this operator's captured registry
+        with obs.bound_registry(self._obs_reg):
+            readers = self.source.partitions()
         self._readers = readers
         self._restore_offsets(readers)
         self._yielded_offsets = [r.offset_snapshot() for r in readers]
@@ -413,6 +449,13 @@ class SourceExec(ExecOperator):
                     self._count(b)
                     if idle is not None:
                         idle.observe_rows(b)
+                    if self._dr_lineage is not None:
+                        # sampled record lineage: tag rows with the
+                        # reader's own post-batch offset snapshot
+                        self._dr_lineage.ingest(
+                            self._obs_source_label, i,
+                            r.offset_snapshot(), b,
+                        )
                     yield b
                     self._yielded_offsets[i] = r.offset_snapshot()
                     if pwm is not None and (h := pwm.observe(i, b)):
@@ -438,15 +481,17 @@ class SourceExec(ExecOperator):
         the workers and closes every reader's native client."""
         from denormalized_tpu_torch.runtime.prefetch import PrefetchPump
 
-        pump = PrefetchPump(
-            readers,
-            queue_budget=self._queue_size,
-            # per-partition rebuild hooks: with these the pump SUPERVISES
-            # worker crashes (restart + seek to the last enqueued offset)
-            # instead of failing the query on the first transient error
-            reader_factories=self.source.partition_factories(),
-            source_name=str(self.source.name),
-        )
+        with obs.bound_registry(self._obs_reg):
+            pump = PrefetchPump(
+                readers,
+                queue_budget=self._queue_size,
+                # per-partition rebuild hooks: with these the pump
+                # SUPERVISES worker crashes (restart + seek to the last
+                # enqueued offset) instead of failing the query on the
+                # first transient error
+                reader_factories=self.source.partition_factories(),
+                source_name=self._obs_source_label,
+            )
         self._pump = pump
         finished = 0
         # idle-source watermark hints: live readers deliver EMPTY batches
@@ -485,6 +530,10 @@ class SourceExec(ExecOperator):
                         idle.observe_rows(batch)
                     elif h := idle.maybe_hint():
                         yield h
+                if self._dr_lineage is not None and batch.num_rows:
+                    self._dr_lineage.ingest(
+                        self._obs_source_label, idx, snap, batch
+                    )
                 yield batch
                 self._yielded_offsets[idx] = snap
                 pump.consumed(idx, bool(batch.num_rows))
@@ -511,6 +560,7 @@ class ProjectExec(ExecOperator):
         self.input_op = input_op
         self.exprs = exprs
         self.schema = schema
+        self.bind_obs("project")
 
     @property
     def children(self):
@@ -527,14 +577,18 @@ class ProjectExec(ExecOperator):
                 e = e.inner
             return e.name if isinstance(e, Column) else None
 
-        for item in self.input_op.run():
+        for item in self._doctor_input():
             if isinstance(item, RecordBatch):
+                t0 = time.perf_counter()
+                self._obs_rows_in.add(item.num_rows)
                 cols = [e.eval(item) for e in self.exprs]
                 masks = [
                     item.mask(src) if (src := passthrough_name(e)) is not None else None
                     for e in self.exprs
                 ]
-                yield RecordBatch(self.schema, cols, masks)
+                out = RecordBatch(self.schema, cols, masks)
+                self._note_batch(t0, item.num_rows)
+                yield out
             else:
                 yield item
 
@@ -544,6 +598,7 @@ class FilterExec(ExecOperator):
         self.input_op = input_op
         self.predicate = predicate
         self.schema = input_op.schema
+        self.bind_obs("filter")
 
     @property
     def children(self):
@@ -553,13 +608,19 @@ class FilterExec(ExecOperator):
         return f"FilterExec({self.predicate!r})"
 
     def run(self) -> Iterator[StreamItem]:
-        for item in self.input_op.run():
+        for item in self._doctor_input():
             if isinstance(item, RecordBatch):
+                t0 = time.perf_counter()
+                self._obs_rows_in.add(item.num_rows)
                 keep = np.asarray(self.predicate.eval(item), dtype=bool)
-                if keep.all():
-                    yield item
-                elif keep.any():
-                    yield item.filter(keep)
+                out = (
+                    item if keep.all()
+                    else item.filter(keep) if keep.any()
+                    else None
+                )
+                self._note_batch(t0, item.num_rows)
+                if out is not None:
+                    yield out
             else:
                 yield item
 
@@ -571,6 +632,7 @@ class SinkExec(ExecOperator):
         self.input_op = input_op
         self.sink = sink
         self.schema = input_op.schema
+        self.bind_obs("sink")
 
     @property
     def children(self):
@@ -580,9 +642,14 @@ class SinkExec(ExecOperator):
         return f"SinkExec({type(self.sink).__name__})"
 
     def run(self) -> Iterator[StreamItem]:
-        for item in self.input_op.run():
+        for item in self._doctor_input():
             if isinstance(item, RecordBatch):
+                # sink.write is this operator's busy time: a slow sink
+                # shows up as the bottleneck it is, not as upstream wait
+                t0 = time.perf_counter()
+                self._obs_rows_in.add(item.num_rows)
                 self.sink.write(item)
+                self._note_batch(t0, item.num_rows)
             elif isinstance(item, EndOfStream):
                 self.sink.close()
             yield item

@@ -38,13 +38,10 @@ StreamingWindowExec so a query moved between the operators sees the same
 windows.  The slice operator has no cold tier (no ``enable_spill``), as in
 the JAX package.
 
-Not ported yet (they come with the observability layer, ROADMAP §A item
-10): ``bind_obs`` and the per-operator batch histograms, the state
-observatory's watch (``statewatch.make_watch``, its per-batch update and
-``_state_watch_views``), the doctor's input-wait bracket
-(``_doctor_input``) and the lineage query id on emissions.  Every
-``dnz_slice_*``, ``dnz_mq_*`` and ``dnz_sketch_*`` instrument is bound in
-the port's registry.
+Observability: ``bind_obs("slice_window")``, the state observatory's
+watch fed the batch's gids at intern time, the doctor's input-wait
+bracket, every ``dnz_slice_*``, ``dnz_mq_*`` and ``dnz_sketch_*``
+instrument, and the subscriber's doctor query id on lineage emissions.
 """
 
 from __future__ import annotations
@@ -326,7 +323,10 @@ class SliceWindowExec(ExecOperator):
         }
 
         from denormalized_tpu_torch import obs
+        from denormalized_tpu_torch.obs import statewatch
 
+        self.bind_obs("slice_window")
+        self._sw = statewatch.make_watch("slice_window")
         self._obs_late = obs.counter("dnz_late_rows_total", op="slice_window")
         self._obs_windows = obs.counter(
             "dnz_windows_emitted_total", op="slice_window"
@@ -852,6 +852,17 @@ class SliceWindowExec(ExecOperator):
             info["oldest_event_lag_ms"] = max(0, int(wm) - int(oldest))
         return info
 
+    def _state_watch_views(self):
+        if not self._sw:
+            return []
+        if self._interner is None:
+            return [(None, self._sw, None)]
+        from denormalized_tpu_torch.ops.interner import display_keys
+
+        return [
+            (None, self._sw, lambda g: display_keys(self._interner, g))
+        ]
+
     # -- cursor / retention arithmetic -----------------------------------
     def _anchor(self, q: int, ts_min: int) -> int:
         """First window of subscriber ``q`` overlapping ``ts_min``."""
@@ -971,6 +982,7 @@ class SliceWindowExec(ExecOperator):
         t_shared0 = time.perf_counter()
         self._metrics["rows_in"] += n
         self._metrics["batches_in"] += 1
+        self._obs_rows_in.add(n)
         ts = np.asarray(
             batch.column(CANONICAL_TIMESTAMP_COLUMN), dtype=np.int64
         )
@@ -1038,6 +1050,7 @@ class SliceWindowExec(ExecOperator):
         else:
             gid = np.zeros(n, dtype=np.int32)
             ngroups = 1
+        self._sw.update(gid)
         values64, colvalid, aux = self._eval_values(batch, n)
 
         # residual re-filter masks, one per filter class, computed over
@@ -1279,6 +1292,17 @@ class SliceWindowExec(ExecOperator):
             self._obs_emit_lag.observe(
                 time.time() * 1000.0 - (j * sub.slide_ms + sub.length_ms)
             )
+        if self._dr_lineage is not None:
+            # shared pipelines tag the emission with the subscriber's
+            # doctor query id, so /queries/<id>/lineage attributes the
+            # chain to the right member query
+            qids = getattr(self, "_dr_mq_qids", None)
+            self._dr_lineage.emitted(
+                self._dr_node_id,
+                j * sub.slide_ms,
+                j * sub.slide_ms + sub.length_ms,
+                query=None if qids is None else qids.get(sub.tag),
+            )
         return RecordBatch(sub.schema, cols)
 
     def _output_low_watermark(self, hint_ts: int) -> int:
@@ -1475,7 +1499,7 @@ class SliceWindowExec(ExecOperator):
     def run(self) -> Iterator[StreamItem]:
         from denormalized_tpu_torch.runtime.tracing import span
 
-        for item in self.input_op.run():
+        for item in self._doctor_input():
             if isinstance(item, RecordBatch):
                 # boundary fast-path peek: the truthiness load is atomic and
                 # _drain_ops re-checks _pending_ops under _ops_lock; a stale
@@ -1491,12 +1515,14 @@ class SliceWindowExec(ExecOperator):
                         ).min()
                     )
                     yield from self._drain_ops(up)
+                t0 = time.perf_counter()
                 with span(
                     "slice_window.process_batch",
                     op=self.name,
                     rows=item.num_rows,
                 ):
                     out = list(self._process_batch(item))
+                self._note_batch(t0, item.num_rows)
                 yield from out
             elif isinstance(item, WatermarkHint):
                 if item.kind == "partition":

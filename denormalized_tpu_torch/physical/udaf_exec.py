@@ -25,6 +25,8 @@ from __future__ import annotations
 
 from typing import Iterator
 
+import time
+
 import numpy as np
 
 from denormalized_tpu_torch.common.columns import as_key_column
@@ -290,6 +292,7 @@ class _UdafTier:
                     start, acc = i + 1, 0
         if spilled_any:
             self._write_manifest()
+            self.op._state_info_cache = None
         self.ctrl.check_pressure(self.node_id)
 
     def _spill_chunk(self, gids_chunk: np.ndarray) -> None:
@@ -362,6 +365,7 @@ class _UdafTier:
         self.spilled_groups -= meta["groups"]
         self.ctrl.note_reload(self.node_id, 1, len(raw))
         self.ctrl.delete_block(self.node_id, f"b{bid}")
+        self.op._state_info_cache = None
 
     def _write_manifest(self) -> None:
         self.ctrl.write_manifest(
@@ -472,8 +476,22 @@ class UdafWindowExec(ExecOperator):
         # longer advances the watermark (replay-skew safety)
         self._src_watermarks = False
         self._metrics = {"rows_in": 0, "windows_emitted": 0, "late_rows": 0}
-        # heavy-hitter sketch fed the dense gids of every batch
-        self._sw = swm.StateWatch()
+        from denormalized_tpu_torch import obs
+
+        self.bind_obs("udaf")
+        # state observatory sketches, fed dense gids per batch
+        self._sw = swm.make_watch("udaf")
+        self._obs_late = obs.counter("dnz_late_rows_total", op="udaf")
+        self._obs_windows = obs.counter(
+            "dnz_windows_emitted_total", op="udaf"
+        )
+        self._obs_emit_lag = obs.histogram(
+            "dnz_emit_event_lag_ms", op="udaf"
+        )
+        self._obs_wm_lag = obs.gauge("dnz_watermark_lag_ms", op="udaf")
+        self._obs_wm_lag_hist = obs.histogram(
+            "dnz_watermark_lag_hist_ms", op="udaf"
+        )
 
     @property
     def children(self):
@@ -536,6 +554,17 @@ class UdafWindowExec(ExecOperator):
             info.update(self._tier.info())
         return info
 
+    def _state_watch_views(self):
+        if not self._sw:
+            return []
+        if self._interner is None:
+            return [(None, self._sw, None)]
+        from denormalized_tpu_torch.ops.interner import display_keys
+
+        return [
+            (None, self._sw, lambda g: display_keys(self._interner, g))
+        ]
+
     def _make_accs(self) -> list:
         return [
             a.udaf.make() if a.kind == "udaf" else _BuiltinAcc(a.kind)
@@ -547,6 +576,7 @@ class UdafWindowExec(ExecOperator):
         if n == 0:
             return
         self._metrics["rows_in"] += n
+        self._obs_rows_in.add(n)
         S = self.slide_ms
         ts = np.asarray(batch.column(CANONICAL_TIMESTAMP_COLUMN), dtype=np.int64)
         units = ts // S
@@ -609,7 +639,10 @@ class UdafWindowExec(ExecOperator):
                 late = (win < self._first_open) & (
                     (ts - win * S) < self.length_ms
                 )
-                self._metrics["late_rows"] += int(late.sum())
+                n_late = int(late.sum())
+                self._metrics["late_rows"] += n_late
+                if n_late:
+                    self._obs_late.add(n_late)
             idx = np.nonzero(in_window)[0]
             if len(idx) == 0:
                 continue
@@ -661,6 +694,10 @@ class UdafWindowExec(ExecOperator):
     def _trigger(self) -> Iterator[RecordBatch]:
         if self._watermark is None or self._first_open is None:
             return
+        if self._obs_wm_lag:
+            lag = time.time() * 1000.0 - self._watermark
+            self._obs_wm_lag.set(lag)
+            self._obs_wm_lag_hist.observe(lag)
         while self._first_open * self.slide_ms + self.length_ms <= self._watermark:
             b = self._emit(self._first_open)
             self._first_open += 1
@@ -726,6 +763,17 @@ class UdafWindowExec(ExecOperator):
         if not frame:
             return None
         self._metrics["windows_emitted"] += 1
+        self._obs_windows.add(1)
+        if self._obs_emit_lag:
+            self._obs_emit_lag.observe(
+                time.time() * 1000.0 - (j * self.slide_ms + self.length_ms)
+            )
+        if self._dr_lineage is not None:
+            self._dr_lineage.emitted(
+                self._dr_node_id,
+                j * self.slide_ms,
+                j * self.slide_ms + self.length_ms,
+            )
         m = len(frame)
         items = list(frame.items())
         cols: list[np.ndarray] = []
@@ -871,9 +919,14 @@ class UdafWindowExec(ExecOperator):
         put_json(coord, key, epoch, snap)
 
     def run(self) -> Iterator[StreamItem]:
-        for item in self.input_op.run():
+        for item in self._doctor_input():
             if isinstance(item, RecordBatch):
-                yield from self._process_batch(item)
+                # materialized inside the busy bracket: the histogram
+                # measures this operator's work, not downstream's
+                t0 = time.perf_counter()
+                out = list(self._process_batch(item))
+                self._note_batch(t0, item.num_rows)
+                yield from out
             elif isinstance(item, WatermarkHint):
                 if item.kind == "partition":
                     self._src_watermarks = True

@@ -47,6 +47,12 @@ with the window start), so an operator above does not late-drop them.
 Capacity is elastic: group capacity G and ring size W double when the
 interner or the event-time skew outgrow them (export, re-lay out, import).
 
+Observability: the operator binds ``op="window"`` instruments (rows in,
+batch time, input wait, late rows, windows emitted, emission and
+watermark lag) and a state watch fed the batch's gids at intern time.
+``state_info()`` derives the ring's bytes from the kernel spec, so an
+exporter's or the doctor's thread never reads a tensor.
+
 Checkpointing: on a :class:`Marker` the operator merges the host stripe,
 starts an export of the ring that later in-place updates cannot change
 (``export_start``: a device clone copied to the host on a side stream),
@@ -235,6 +241,7 @@ class _WindowTier:
             self.ctrl.delete_block(self.node_id, meta["id"])
         op._write_windows(js, planes)
         self.any_spilled = bool(self._blocks)
+        op._state_info_cache = None
         self.reload_ms.append((time.perf_counter() - t0) * 1e3)
 
     # -- eviction ---------------------------------------------------------
@@ -287,6 +294,7 @@ class _WindowTier:
                 if spilled_any:
                     self._write_manifest()
                     self._maybe_shrink()
+                    op._state_info_cache = None
         self.ctrl.check_pressure(self.node_id)
 
     def _maybe_shrink(self) -> None:
@@ -554,6 +562,29 @@ class StreamingWindowExec(ExecOperator):
         self._held_marker: Marker | None = None
         # cold tier (state/tiering.py): set by enable_spill
         self._tier: _WindowTier | None = None
+        # registry instruments, bound once under the query's registry so
+        # the per-batch path is attribute adds only (falsy NULLs with
+        # metrics off)
+        from denormalized_tpu_torch import obs
+
+        self.bind_obs("window")
+        # the host pipeline's worker binds into the registry this
+        # operator was built under, not the process default
+        self._obs_reg = obs.current_registry()
+        # state observatory sketches, fed the batch's dense gids on the
+        # host right after intern time
+        self._sw = swm.make_watch("window")
+        self._obs_late = obs.counter("dnz_late_rows_total", op="window")
+        self._obs_windows = obs.counter(
+            "dnz_windows_emitted_total", op="window"
+        )
+        self._obs_emit_lag = obs.histogram(
+            "dnz_emit_event_lag_ms", op="window"
+        )
+        self._obs_wm_lag = obs.gauge("dnz_watermark_lag_ms", op="window")
+        self._obs_wm_lag_hist = obs.histogram(
+            "dnz_watermark_lag_hist_ms", op="window"
+        )
 
     # ------------------------------------------------------------------
     @property
@@ -618,6 +649,17 @@ class StreamingWindowExec(ExecOperator):
         if self._tier is not None:
             info.update(self._tier.info())
         return info
+
+    def _state_watch_views(self):
+        if not self._sw:
+            return []
+        if self._interner is None:
+            return [(None, self._sw, None)]
+        from denormalized_tpu_torch.ops.interner import display_keys
+
+        return [
+            (None, self._sw, lambda g: display_keys(self._interner, g))
+        ]
 
     def metrics(self):
         m = dict(self._metrics)
@@ -748,6 +790,7 @@ class StreamingWindowExec(ExecOperator):
             return
         self._metrics["rows_in"] += n
         self._metrics["batches_in"] += 1
+        self._obs_rows_in.add(n)
         S = self.slide_ms
         ts = np.asarray(batch.column(CANONICAL_TIMESTAMP_COLUMN), dtype=np.int64)
         units, rem64 = np.divmod(ts, S)  # one pass for quotient+remainder
@@ -775,6 +818,7 @@ class StreamingWindowExec(ExecOperator):
         late = int((win_rel64 < 0).sum())
         if late:
             self._metrics["late_rows"] += late
+            self._obs_late.add(late)
 
         # group ids — intern BEFORE the capacity check so G always covers
         # every id this batch scatters
@@ -783,6 +827,7 @@ class StreamingWindowExec(ExecOperator):
             gid = self._interner.intern(key_cols)
         else:
             gid = np.zeros(n, dtype=np.int32)
+        self._sw.update(gid)
         self._ensure_capacity(int(win_rel64.max()))
 
         # value matrix + per-column validity: f64 when the backend
@@ -963,6 +1008,7 @@ class StreamingWindowExec(ExecOperator):
             n_drop = int((~keep).sum())
             if n_drop:
                 self._metrics["late_rows"] += n_drop - late
+                self._obs_late.add(n_drop - late)
             else:
                 keep = None
         if (
@@ -1018,13 +1064,18 @@ class StreamingWindowExec(ExecOperator):
             if self._device.type == "cuda" else None
         )
 
+        from denormalized_tpu_torch import obs
+
+        reg = self._obs_reg
+
         def run():
             try:
-                if stream is None:
-                    backend.accumulate(*args)
-                else:
-                    with torch.cuda.stream(stream):
+                with obs.bound_registry(reg):
+                    if stream is None:
                         backend.accumulate(*args)
+                    else:
+                        with torch.cuda.stream(stream):
+                            backend.accumulate(*args)
             except BaseException as e:  # surfaced by _join_acc/_submit_acc
                 self._acc_error = e
                 raise
@@ -1098,6 +1149,12 @@ class StreamingWindowExec(ExecOperator):
                 b = self._finalize_rows(j, self._tier.emit_rows(j))
                 if b is not None:
                     yield b
+        if self._obs_wm_lag and self._watermark_ms is not None:
+            # watermark lag (wall − watermark) at this trigger: the gauge
+            # keeps the latest, the histogram the distribution
+            lag = time.time() * 1000.0 - self._watermark_ms
+            self._obs_wm_lag.set(lag)
+            self._obs_wm_lag_hist.observe(lag)
         n_close = self._closable()
         if self._backend.accumulates_host:
             if n_close == 0:
@@ -1194,11 +1251,13 @@ class StreamingWindowExec(ExecOperator):
         active groups cross to the host."""
         slot = j % self._spec.window_slots
         if not self._emission_compaction:
-            rows = self._backend.read_slot(slot)
-            self._backend.reset_slot(slot)
+            with span("window.emit", op="window", window=j * self.slide_ms):
+                rows = self._backend.read_slot(slot)
+                self._backend.reset_slot(slot)
             return self._finalize_rows(j, rows)
-        gids, rows = self._backend.read_slot_compact(slot)
-        self._backend.reset_slot(slot)
+        with span("window.emit", op="window", window=j * self.slide_ms):
+            gids, rows = self._backend.read_slot_compact(slot)
+            self._backend.reset_slot(slot)
         # rows hold only the active groups, in ascending gid; the interner
         # bound guard of the full path applies
         ngroups = len(self._interner) if self._grouped else 1
@@ -1248,6 +1307,21 @@ class StreamingWindowExec(ExecOperator):
         start = np.full(m, j * self.slide_ms, dtype=np.int64)
         end = np.full(m, j * self.slide_ms + self.length_ms, dtype=np.int64)
         cols += [start, end, start.copy()]
+        self._obs_windows.add(1)
+        if self._obs_emit_lag:
+            # event-time emission latency, stamped where every emission
+            # path funnels through
+            self._obs_emit_lag.observe(
+                time.time() * 1000.0 - (j * self.slide_ms + self.length_ms)
+            )
+        if self._dr_lineage is not None:
+            # sampled record lineage: close every chain whose tagged row
+            # fell inside this window
+            self._dr_lineage.emitted(
+                self._dr_node_id,
+                j * self.slide_ms,
+                j * self.slide_ms + self.length_ms,
+            )
         return RecordBatch(self.schema, cols)
 
     # -- checkpointing ----------------------------------------------------
@@ -1372,12 +1446,21 @@ class StreamingWindowExec(ExecOperator):
             self._shutdown_acc()
 
     def _run_inner(self) -> Iterator[StreamItem]:
-        for item in self.input_op.run():
+        for item in self._doctor_input():
             if isinstance(item, RecordBatch):
                 # the batch's device work queues behind a pending export's
                 # clone, so the export's copy overlaps it; the held marker
-                # still leaves before any of the batch's output
-                out = list(self._process_batch(item))
+                # still leaves before any of the batch's output.  The
+                # emissions are materialized INSIDE the busy bracket (their
+                # copy to the host waits for the card), so the histogram
+                # measures this operator's own work, not time suspended
+                # downstream; nothing here synchronizes the device
+                t0 = time.perf_counter()
+                with span(
+                    "window.process_batch", op="window", rows=item.num_rows
+                ):
+                    out = list(self._process_batch(item))
+                self._note_batch(t0, item.num_rows)
                 yield from self._release_snapshot()
                 yield from out
             elif isinstance(item, WatermarkHint):

@@ -14,7 +14,16 @@ commits its epoch.  ``execute_plan`` turns SIGINT and SIGTERM into a
 :class:`ShutdownFlag` (on the main thread only): the loop stops after the
 current item, the orchestrator stops, the old handlers come back and the
 call returns normally, so the sources' ``finally`` blocks close their
-clients.  The doctor and the exporters are not ported.
+clients.
+
+Each execution resolves its metrics registry once (``_resolve_registry``:
+the thread's current registry, or the shared disabled one when
+``metrics_enabled`` is False) and builds and drives its operators under
+``obs.bound_registry``, so two queries in one process keep separate
+series.  The exporters the config opts into start with the job
+(``obs.start_exporters``, ``ctx._last_exporters``) and the job registers
+with the pipeline doctor (``doctor.register_query``, ``ctx._last_doctor``);
+both stop after the last emission.
 """
 
 from __future__ import annotations
@@ -69,11 +78,29 @@ def _install_signal_handlers(flag: ShutdownFlag):
     return restore
 
 
+def _resolve_registry(ctx):
+    """The metrics registry THIS execution binds against: the thread's
+    current registry when the config enables metrics, the shared
+    always-disabled registry otherwise — per query, so two concurrent
+    executions with different ``metrics_enabled`` settings bind live
+    handles or nulls according to their own config."""
+    from denormalized_tpu_torch import obs
+
+    if getattr(ctx.config, "metrics_enabled", True):
+        return obs.current_registry()
+    return obs.disabled_registry()
+
+
 def build_physical(plan: lp.LogicalPlan, ctx) -> ExecOperator:
+    from denormalized_tpu_torch import obs
+
     # the JAX package's rules: the same physical plan, so the same
-    # checkpoint node ids, as the JAX package builds for the query
+    # checkpoint node ids, as the JAX package builds for the query.
+    # Operators bind their instruments once, at construction, under the
+    # query's registry
     plan = optimize(plan, ctx.config.optimizer)
-    return Planner(ctx.config).create_physical_plan(plan)
+    with obs.bound_registry(_resolve_registry(ctx)):
+        return Planner(ctx.config).create_physical_plan(plan)
 
 
 def _attach_checkpointing(root: ExecOperator, ctx, checkpoint=None):
@@ -119,37 +146,94 @@ def _attach_state(root: ExecOperator, ctx, checkpoint=None):
     return spill, orch, coord
 
 
-def execute_plan(plan: lp.LogicalPlan, ctx, checkpoint=None) -> None:
-    root = build_physical(plan, ctx)
-    ctx._last_physical = root  # post-run metrics access
-    spill, orch, coord = _attach_state(root, ctx, checkpoint)
-    flag = ShutdownFlag()
-    restore = _install_signal_handlers(flag)
-    it = root.run()
+def _start_services(root, ctx):
+    """The exporters the config opts into (None when none), then the
+    doctor's registration (None when it is off) — both scoped to the
+    query's registry, bound by the caller."""
+    from denormalized_tpu_torch import obs
+    from denormalized_tpu_torch.obs import doctor
+
+    exporters = obs.start_exporters(ctx.config, registry=obs.current_registry())
+    ctx._last_exporters = exporters
     try:
-        for item in it:
-            if isinstance(item, Marker) and coord is not None:
-                # the marker drained at the root: every operator has
-                # snapshotted this epoch → make it the recovery point
-                coord.commit(item.epoch)
-            if flag.is_set() or isinstance(item, EndOfStream):
-                break
-    finally:
-        restore()
-        it.close()
-        if orch is not None:
-            orch.stop()
-        if spill is not None:
-            spill.close()
+        handle = doctor.register_query(
+            root, config=ctx.config, registry=obs.current_registry()
+        )
+    except BaseException:
+        if exporters is not None:
+            exporters.stop()
+        raise
+    ctx._last_doctor = handle
+    return exporters, handle
+
+
+def _stop_services(exporters, handle) -> None:
+    """Freeze the doctor's final snapshot (and drop its reference to the
+    operator tree) BEFORE the exporters stop, so the last JSONL snapshot,
+    the trace dump and the doctor agree on the end state."""
+    if handle is not None:
+        handle.finish()
+    if exporters is not None:
+        exporters.stop()
+
+
+def execute_plan(plan: lp.LogicalPlan, ctx, checkpoint=None) -> None:
+    from denormalized_tpu_torch import obs
+
+    reg = _resolve_registry(ctx)
+    with obs.bound_registry(reg):
+        root = build_physical(plan, ctx)
+        ctx._last_physical = root  # post-run metrics access
+        spill, orch, coord = _attach_state(root, ctx, checkpoint)
+        exporters = handle = None
+        flag = ShutdownFlag()
+        restore = lambda: None  # noqa: E731
+        it = None
+        try:
+            exporters, handle = _start_services(root, ctx)
+            restore = _install_signal_handlers(flag)
+            it = root.run()
+            for item in it:
+                if isinstance(item, Marker) and coord is not None:
+                    # the marker drained at the root: every operator has
+                    # snapshotted this epoch → make it the recovery point
+                    coord.commit(item.epoch)
+                if flag.is_set() or isinstance(item, EndOfStream):
+                    break
+        finally:
+            restore()
+            if it is not None:
+                it.close()
+            if orch is not None:
+                orch.stop()
+            if spill is not None:
+                spill.close()
+            _stop_services(exporters, handle)
 
 
 def stream_plan(plan: lp.LogicalPlan, ctx) -> Iterator[RecordBatch]:
-    root = build_physical(plan, ctx)
-    ctx._last_physical = root
-    spill, orch, coord = _attach_state(root, ctx)
-    it = root.run()
+    from denormalized_tpu_torch import obs
+
+    reg = _resolve_registry(ctx)
+    spill = orch = coord = exporters = handle = it = None
     try:
-        for item in it:
+        with obs.bound_registry(reg):
+            root = build_physical(plan, ctx)
+            ctx._last_physical = root
+            spill, orch, coord = _attach_state(root, ctx)
+            exporters, handle = _start_services(root, ctx)
+        # re-enter the binding around each RESUMPTION, never across a
+        # yield: a paused stream must not leave its registry on the
+        # consumer thread's binding stack (a query built between pulls
+        # would bind into it).  Worker threads bind through the registry
+        # their component captured at construction
+        it = root.run()
+        while True:
+            with obs.bound_registry(reg):
+                try:
+                    item = next(it)
+                except StopIteration:
+                    break
             if isinstance(item, RecordBatch):
                 yield item
             elif isinstance(item, Marker) and coord is not None:
@@ -157,8 +241,13 @@ def stream_plan(plan: lp.LogicalPlan, ctx) -> Iterator[RecordBatch]:
             elif isinstance(item, EndOfStream):
                 break
     finally:
-        it.close()
-        if orch is not None:
-            orch.stop()
-        if spill is not None:
-            spill.close()
+        with obs.bound_registry(reg):
+            # close the operator chain first (its own finally blocks: pump
+            # shutdown, worker joins), then the per-query services
+            if it is not None:
+                it.close()
+            if orch is not None:
+                orch.stop()
+            if spill is not None:
+                spill.close()
+            _stop_services(exporters, handle)

@@ -20,10 +20,10 @@ emission cursor) under the same in-band marker alignment and coordinator
 commit the single-query executor uses; restore resumes every subscriber
 exactly at its own cursor.
 
-Not ported yet (ROADMAP §A item 10): the per-query registry binding
-(``obs.bound_registry``), the exporters (``obs.start_exporters``) and the
-doctor's per-subscriber handles (``doctor.register_shared``), so each
-group's report carries ``"query_ids": None``.
+Each shared group builds and runs under its query-scoped registry
+(``obs.bound_registry``), starts the exporters its config opts into
+(``obs.start_exporters``) and files one doctor handle per subscriber
+(``doctor.register_shared``), whose ids the report's ``query_ids`` carry.
 """
 
 from __future__ import annotations
@@ -164,6 +164,9 @@ class SharedPipeline:
         labels: list[str] | None = None,
         checkpoint: bool | None = None,
     ) -> None:
+        from denormalized_tpu_torch import obs
+        from denormalized_tpu_torch.runtime import executor
+
         if not queries:
             raise PlanError("SharedPipeline needs at least one query")
         self._ctx = ctx
@@ -212,9 +215,11 @@ class SharedPipeline:
         }
         self._next_tag = len(group.members)
         self._labels = labels or [f"member{i}" for i in group.members]
-        self._root: SliceWindowExec = build_shared_root(
-            ctx, group, self._labels
-        )
+        self._reg = executor._resolve_registry(ctx)
+        with obs.bound_registry(self._reg):
+            self._root: SliceWindowExec = build_shared_root(
+                ctx, group, self._labels
+            )
         self._root.on_detach = self._on_detach
 
     @property
@@ -326,28 +331,45 @@ class SharedPipeline:
         """Drive the shared pipeline to EndOfStream on the calling
         thread, routing tagged emissions (including attach-time
         backfills) to each subscriber's sink."""
+        from denormalized_tpu_torch import obs
+        from denormalized_tpu_torch.obs import doctor
         from denormalized_tpu_torch.runtime import executor
 
         ctx = self._ctx
-        orch = None
-        try:
-            orch, coord = executor._attach_checkpointing(
-                self._root, ctx, self._checkpoint
-            )
-            ctx._checkpointing = (coord, orch)  # Context.last_checkpointing()
-            for item in self._root.run():
-                if isinstance(item, SubscriberBatch):
-                    with self._lock:
-                        sink = self._sinks.get(item.tag)
-                    if sink is not None:
-                        sink(item.batch)
-                elif isinstance(item, Marker) and coord is not None:
-                    coord.commit(item.epoch)
-                elif isinstance(item, EndOfStream):
-                    break
-        finally:
-            if orch is not None:
-                orch.stop()
+        orch = exporters = None
+        handles: list = []
+        with obs.bound_registry(self._reg):
+            try:
+                orch, coord = executor._attach_checkpointing(
+                    self._root, ctx, self._checkpoint
+                )
+                ctx._checkpointing = (coord, orch)  # last_checkpointing()
+                exporters = obs.start_exporters(
+                    ctx.config, registry=self._reg
+                )
+                ctx._last_exporters = exporters
+                handles = doctor.register_shared(
+                    self._root, len(self._group.members),
+                    config=ctx.config, registry=self._reg,
+                    labels=self._labels,
+                )
+                for item in self._root.run():
+                    if isinstance(item, SubscriberBatch):
+                        with self._lock:
+                            sink = self._sinks.get(item.tag)
+                        if sink is not None:
+                            sink(item.batch)
+                    elif isinstance(item, Marker) and coord is not None:
+                        coord.commit(item.epoch)
+                    elif isinstance(item, EndOfStream):
+                        break
+            finally:
+                if orch is not None:
+                    orch.stop()
+                for h in handles:
+                    h.finish()
+                if exporters is not None:
+                    exporters.stop()
 
 
 def _singleton_group(plan) -> ShareGroup:
@@ -389,11 +411,8 @@ def run_queries(
         {"queries": N,
          "groups": [{"members": [...], "shared": bool,
                      "unit_ms": g | None, "reason": str | None,
-                     "query_ids": None}, ...],
+                     "query_ids": [doctor ids] | None}, ...],
          "shared_queries": n, "independent_queries": m}
-
-    (``query_ids`` names the doctor's per-subscriber handles in the JAX
-    package; the port has no doctor yet, so it is None.)
 
     With ``sharing=False`` every query runs through the normal
     single-query executor (the A/B baseline).
@@ -405,6 +424,8 @@ def run_queries(
     drive each group on its own thread/process instead (one
     build_shared_root + drive_shared per group), the same rule as any
     two concurrent queries today."""
+    from denormalized_tpu_torch import obs
+    from denormalized_tpu_torch.obs import doctor
     from denormalized_tpu_torch.physical.simple_execs import CallbackSink
     from denormalized_tpu_torch.runtime import executor
 
@@ -442,17 +463,31 @@ def run_queries(
         report["shared_queries"] += len(group.members)
         sinks = [queries[i][1] for i in group.members]
         labels = [f"member{i}" for i in group.members]
-        root = build_shared_root(ctx, group, labels)
-        ctx._last_physical = root  # post-run metrics access
-        orch = None
-        try:
-            orch, coord = executor._attach_checkpointing(
-                root, ctx, checkpoint
-            )
-            ctx._checkpointing = (coord, orch)
-            drive_shared(root, sinks, coord)
-        finally:
-            if orch is not None:
-                orch.stop()
+        reg = executor._resolve_registry(ctx)
+        orch = exporters = None
+        handles: list = []
+        with obs.bound_registry(reg):
+            root = build_shared_root(ctx, group, labels)
+            ctx._last_physical = root  # post-run metrics access
+            try:
+                orch, coord = executor._attach_checkpointing(
+                    root, ctx, checkpoint
+                )
+                ctx._checkpointing = (coord, orch)
+                exporters = obs.start_exporters(ctx.config, registry=reg)
+                ctx._last_exporters = exporters
+                handles = doctor.register_shared(
+                    root, len(group.members),
+                    config=ctx.config, registry=reg, labels=labels,
+                )
+                entry["query_ids"] = [h.query_id for h in handles]
+                drive_shared(root, sinks, coord)
+            finally:
+                if orch is not None:
+                    orch.stop()
+                for h in handles:
+                    h.finish()
+                if exporters is not None:
+                    exporters.stop()
         report["groups"].append(entry)
     return report

@@ -53,9 +53,10 @@ budget (per-worker and pump-global) escalates to a structured
 last error; restart counts surface in ``SourceExec.metrics()`` and each
 restart emits a ``tracing.span`` event.
 
-Copy of ``denormalized_tpu/runtime/prefetch.py``; the port's metrics
-registry is one per process, so the workers bind their instruments there
-(the JAX package's per-query registry scoping is not ported).
+Copy of ``denormalized_tpu/runtime/prefetch.py``.  Registry scoping is
+per query: a worker captures ``obs.current_registry()`` where it is built
+(under its query's binding) and re-enters it on its own thread, so a
+supervised rebuild's binds land in the same query's series.
 """
 
 from __future__ import annotations
@@ -195,6 +196,11 @@ class PrefetchWorker:
         # series across them would break the single-writer contract.
         from denormalized_tpu_torch import obs
 
+        # captured binding: instruments bound FROM THE WORKER THREAD (a
+        # supervised rebuild constructing a fresh Kafka reader binds its
+        # consumer-lag gauge there) land in the query-scoped registry this
+        # worker was built under
+        self._obs_reg = obs.current_registry()
         self._obs_depth = obs.gauge(
             "dnz_prefetch_queue_depth",
             source=source_name, partition=str(idx),
@@ -327,10 +333,14 @@ class PrefetchWorker:
     def _run(self) -> None:
         # the end-of-stream sentinel is the consumer's ONLY liveness
         # signal from this worker: it must be guaranteed by the
-        # outermost frame, so nothing can kill the thread sentinel-less
-        # and wedge the consumer in get()
+        # outermost frame, so nothing that runs before the supervised loop
+        # (the registry re-entry, a failed import) can kill the thread
+        # sentinel-less and wedge the consumer in get()
         try:
-            self._run_supervised()
+            from denormalized_tpu_torch import obs
+
+            with obs.bound_registry(self._obs_reg):
+                self._run_supervised()
         finally:
             self.finished = True
             self._q.put((self.idx, None, None, 0.0))

@@ -8,7 +8,9 @@ that
   ``done`` event while waiting),
 - surfaces exceptions as queue items so the consumer re-raises them instead
   of mistaking a dead producer for clean end-of-input,
-- always delivers a final ``sentinel``.
+- always delivers a final ``sentinel``,
+- binds instruments into the metrics registry current where the pump was
+  spawned (the query's), not the process default, whatever the thread.
 """
 
 from __future__ import annotations
@@ -41,12 +43,16 @@ def spawn_pump(
     """Start a daemon thread feeding ``wrap(item)`` for each item of
     ``items()`` into ``q``; exceptions are enqueued wrapped too; ``sentinel``
     is always enqueued last (pre-wrapped by the caller)."""
+    from denormalized_tpu_torch import obs
+
+    reg = obs.current_registry()
 
     def run():
         try:
-            for item in items():
-                if not checked_put(q, done, wrap(item)):
-                    return
+            with obs.bound_registry(reg):
+                for item in items():
+                    if not checked_put(q, done, wrap(item)):
+                        return
         except BaseException as e:  # enqueued as data: the consumer re-raises it
             checked_put(q, done, wrap(e))
         finally:

@@ -1,8 +1,9 @@
-"""Logging and spans — counterpart of ``denormalized_tpu/runtime/tracing.py``
-trimmed to what the state code calls: the package logger and :func:`span`
-(enter/close log lines with wall time and error status when
-:func:`enable_tracing` is on).  The span recorder and Perfetto dump of the
-JAX package are not ported.
+"""Logging and spans — counterpart of ``denormalized_tpu/runtime/tracing.py``:
+the package logger and :func:`span`, which writes enter/close log lines
+with wall time and error status when :func:`enable_tracing` is on, and
+records into the span ring (``obs/spans.py``, dumped as Perfetto-loadable
+Chrome trace JSON) when a recorder is installed
+(``EngineConfig(trace_path=...)``).
 """
 
 from __future__ import annotations
@@ -27,16 +28,29 @@ def enable_tracing(level: int = logging.INFO) -> None:
     logger.setLevel(level)
 
 
+def tracing_enabled() -> bool:
+    return _TRACING
+
+
 @contextlib.contextmanager
 def span(name: str, **fields):
-    """Span with enter/close log lines; the close line carries the entry
-    fields and the error status (``status=ExcType`` when the body
-    raised)."""
-    if not _TRACING:
+    """Span with two recording surfaces, each independently on:
+
+    - log lines when :func:`enable_tracing` is on — the close line carries
+      the entry fields and the error status (``status=ExcType`` when the
+      body raised);
+    - the structured ring recorder
+      (:func:`denormalized_tpu_torch.obs.spans.enable_span_recording`),
+      whose failed spans carry ``args.error``."""
+    from denormalized_tpu_torch.obs import spans as obs_spans
+
+    rec = obs_spans.recorder()
+    if not _TRACING and rec is None:
         yield
         return
     t0 = time.perf_counter()
-    logger.info("enter %s %s", name, fields or "")
+    if _TRACING:
+        logger.info("enter %s %s", name, fields or "")
     err: str | None = None
     try:
         yield
@@ -44,7 +58,11 @@ def span(name: str, **fields):
         err = type(e).__name__
         raise
     finally:
-        logger.info(
-            "close %s time.busy=%.3fms status=%s %s",
-            name, (time.perf_counter() - t0) * 1e3, err or "ok", fields or "",
-        )
+        dur = time.perf_counter() - t0
+        if _TRACING:
+            logger.info(
+                "close %s time.busy=%.3fms status=%s %s",
+                name, dur * 1e3, err or "ok", fields or "",
+            )
+        if rec is not None:
+            rec.record(name, t0, dur, fields or None, error=err)

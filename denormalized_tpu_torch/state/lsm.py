@@ -96,10 +96,41 @@ class LsmStore:
 
     def __init__(self, path: str):
         self.path = str(path)
-        # op-latency histograms
+        # op-latency histograms (falsy no-ops when metrics are disabled,
+        # so the timing brackets cost nothing then)
         self._obs_put_ms = obs.histogram("dnz_lsm_op_ms", op="put")
         self._obs_get_ms = obs.histogram("dnz_lsm_op_ms", op="get")
         self._obs_flush_ms = obs.histogram("dnz_lsm_op_ms", op="flush")
+        # state observatory: the backend's footprint joins the dnz_state_*
+        # families under node="state_backend"; weakref'd, so the registry
+        # never pins a closed store
+        import weakref
+
+        ref = weakref.ref(self)
+
+        def _disk_bytes():
+            st = ref()
+            if st is None or st._closed:
+                return 0
+            total = 0
+            try:
+                for p in Path(st.path).iterdir():
+                    if p.is_file():
+                        total += p.stat().st_size
+            except OSError:
+                return 0
+            return total
+
+        def _live_keys():
+            st = ref()
+            if st is None or st._closed:
+                return 0
+            return len(st)
+
+        obs.gauge_fn("dnz_state_bytes", _disk_bytes, node="state_backend")
+        obs.gauge_fn(
+            "dnz_state_live_keys", _live_keys, node="state_backend"
+        )
         lib = _load_native()
         if lib is not None:
             self._lib = lib

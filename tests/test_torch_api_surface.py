@@ -475,25 +475,43 @@ def _explain_batches(pkg):
 def test_explain_analyze(capsys):
     """Twin of tests/test_examples_and_misc.py:141: explain(analyze=True)
     runs into a discard sink and prints the physical plan with each
-    operator's metrics; explain_analyze() returns that text (the JAX
-    package's text with its doctor off)."""
+    operator's metrics, then the doctor's ranked report;
+    explain_analyze() returns the doctor's report, with the JAX package's
+    node ids in the same order, and with ``doctor_enabled=False`` the
+    metrics dump (the JAX package's text then)."""
     ds = PORT.stream(PORT.context(), _explain_batches(PORT)).window(
         ["sensor_name"], [TF.count(tt.col("reading")).alias("c")], 1000)
     assert ds.explain(analyze=True) is ds
     text = capsys.readouterr().out
     assert "== physical plan (analyzed) ==" in text
     analyzed = text.split("== physical plan (analyzed) ==", 1)[1]
+    analyzed, ranked = analyzed.split("== bottleneck report ==", 1)
     assert "rows_in=3" in analyzed or "rows_out=3" in analyzed
     assert "[" in analyzed
+    assert "bottleneck:" in ranked and "rule:" in ranked
     report = ds.explain_analyze(print_output=False)
     assert capsys.readouterr().out == ""
-    assert report.splitlines()[0].startswith("SinkExec(CallbackSink)")
-    assert _tree(report) == _tree(analyzed.strip())
+    assert report.startswith("== q") and "bottleneck:" in report
+
+    def node_ids(rep):
+        return [ln.split()[0] for ln in rep.splitlines()[1:]
+                if ln.strip() and ln.strip()[0].isdigit()]
+
+    jds_doc = JAX.stream(JAX.context(), _explain_batches(JAX)).window(
+        ["sensor_name"], [JF.count(jx.col("reading")).alias("c")], 1000)
+    jranked = jds_doc.explain_analyze(print_output=False)
+    assert node_ids(report) == node_ids(jranked) != []
+    off = PORT.stream(PORT.context(doctor_enabled=False),
+                      _explain_batches(PORT)).window(
+        ["sensor_name"], [TF.count(tt.col("reading")).alias("c")], 1000)
+    plain = off.explain_analyze(print_output=False)
+    assert plain.splitlines()[0].startswith("SinkExec(CallbackSink)")
+    assert _tree(plain) == _tree(analyzed.strip())
     jds = JAX.stream(JAX.context(doctor_enabled=False),
                      _explain_batches(JAX)).window(
         ["sensor_name"], [JF.count(jx.col("reading")).alias("c")], 1000)
     jreport = jds.explain_analyze(print_output=False)
-    assert _tree(report) == _tree(jreport)
+    assert _tree(plain) == _tree(jreport)
 
 
 def _ckpt_ds(pkg, ctx, n):

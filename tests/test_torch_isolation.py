@@ -87,6 +87,19 @@ NEW_MODULES = (
     "denormalized_tpu_torch.planner.sharing",
     "denormalized_tpu_torch.physical.slice_exec",
     "denormalized_tpu_torch.runtime.multi_query",
+    # the observability slice
+    "denormalized_tpu_torch.obs.catalog",
+    "denormalized_tpu_torch.obs.spans",
+    "denormalized_tpu_torch.obs.readers",
+    "denormalized_tpu_torch.obs.jsonl",
+    "denormalized_tpu_torch.obs.prometheus",
+    "denormalized_tpu_torch.obs.doctor",
+    "denormalized_tpu_torch.obs.doctor.attribution",
+    "denormalized_tpu_torch.obs.doctor.profiler",
+    "denormalized_tpu_torch.obs.doctor.lineage",
+    "denormalized_tpu_torch.obs.doctor.statedoc",
+    "denormalized_tpu_torch.obs.doctor.registry",
+    "denormalized_tpu_torch.obs.doctor.http",
 )
 
 

@@ -340,7 +340,7 @@ def test_sketches_match_the_jax_package():
 
     rng = np.random.default_rng(5)
     j = jsw.StateWatch("join", decay_every=jsw.JOIN_SKETCH_DECAY_ROWS)
-    t = tsw.StateWatch()
+    t = tsw.StateWatch("join", decay_every=tsw.JOIN_SKETCH_DECAY_ROWS)
     for i in range(60):
         n = 20_000 if i % 2 else 3000  # every other batch is sampled
         g = np.where(rng.random(n) < 0.3, 7,

@@ -22,6 +22,7 @@ tolerance; passthrough columns exactly.
 from __future__ import annotations
 
 import shutil
+import threading
 from collections import Counter
 from types import SimpleNamespace
 
@@ -88,10 +89,12 @@ def ckpt(path) -> dict:
                 state_backend_path=path)
 
 
-def crash_after_commit(p, ctx, ds, trigger=lambda i, root: i == 1):
+def crash_after_commit(p, ctx, ds, trigger=lambda i, root: i == 1,
+                       after_trigger=lambda: None):
     """Run ``ds`` checkpointed: trigger a barrier when ``trigger(items
-    seen, root)`` first holds, commit the epoch whose marker reaches the
-    root, then crash (close the generator) → (emitted batches, root)."""
+    seen, root)`` first holds (then call ``after_trigger()``), commit the
+    epoch whose marker reaches the root, then crash (close the generator)
+    → (emitted batches, root)."""
     sink = p.Sink()
     root = p.executor.build_physical(p.lp.Sink(ds._plan, sink), ctx)
     orch = p.Orch(interval_s=9999)
@@ -103,6 +106,7 @@ def crash_after_commit(p, ctx, ds, trigger=lambda i, root: i == 1):
             out.append(item)
         if not armed and trigger(seen, root):
             orch.trigger_now()
+            after_trigger()
             armed = True
         if isinstance(item, p.Marker):
             coord.commit(item.epoch)
@@ -114,6 +118,42 @@ def crash_after_commit(p, ctx, ds, trigger=lambda i, root: i == 1):
     p.close()
     assert committed, "the barrier never aligned before the end of stream"
     return out, root
+
+
+class GatedReader:
+    """A partition reader that, before batch ``at``, waits (up to 60 s)
+    for ``gate``; offsets are the wrapped reader's."""
+
+    def __init__(self, reader, gate, at):
+        self._reader, self._gate, self._at, self._n = reader, gate, at, 0
+
+    def read(self, timeout_s=None):
+        if self._n == self._at:
+            self._gate.wait(60)
+        self._n += 1
+        return self._reader.read(timeout_s)
+
+    def offset_snapshot(self):
+        return self._reader.offset_snapshot()
+
+    def offset_restore(self, snap):
+        self._reader.offset_restore(snap)
+
+    def __getattr__(self, name):
+        return getattr(self._reader, name)
+
+
+def gated(src, gate, at):
+    """``src`` with every partition reader waiting before batch ``at``
+    until ``gate`` is set (``src`` unchanged when ``gate`` is None).  A
+    crashed run sets the gate when it triggers its barrier: otherwise a
+    starved pump thread lets the other side read to its end first, and the
+    join (no consistent cut once a side finished) drops the barrier."""
+    if gate is None:
+        return src
+    first = src.partitions
+    src.partitions = lambda: [GatedReader(r, gate, at) for r in first()]
+    return src
 
 
 def restore_and_run(p, ctx, ds, before_run=None):
@@ -167,17 +207,24 @@ def sensor_batches(p, raw):
     return [p.Batch(schema, [ts, k, v]) for ts, k, v in raw]
 
 
-def window_join(p, ctx, t_raw, h_raw):
+#: the batch of each side before which a crashed run's sources wait for
+#: its barrier (of sensor_raw's 40)
+SENSOR_GATE_AT = 12
+
+
+def window_join(p, ctx, t_raw, h_raw, gate=None):
     col, F = p.col, p.F
     left = ctx.from_source(
-        p.Source.from_batches(sensor_batches(p, t_raw),
-                              timestamp_column="occurred_at_ms"),
+        gated(p.Source.from_batches(sensor_batches(p, t_raw),
+                                    timestamp_column="occurred_at_ms"),
+              gate, SENSOR_GATE_AT),
         name="jk_t",
     ).window(["sensor_name"], [F.avg(col("reading")).alias("avg_t")], 1000)
     right = (
         ctx.from_source(
-            p.Source.from_batches(sensor_batches(p, h_raw),
-                                  timestamp_column="occurred_at_ms"),
+            gated(p.Source.from_batches(sensor_batches(p, h_raw),
+                                        timestamp_column="occurred_at_ms"),
+                  gate, SENSOR_GATE_AT),
             name="jk_h",
         )
         .window(["sensor_name"], [F.avg(col("reading")).alias("avg_h")], 1000)
@@ -229,7 +276,10 @@ def test_join_kill_and_restore(tmp_path, sensor_feed, strategy):
     path = str(tmp_path / "state")
     cfg = dict(device_strategy=strategy, **ckpt(path))
     ctx_a = p.ctx(**cfg)
-    a, _ = crash_after_commit(p, ctx_a, window_join(p, ctx_a, t_raw, h_raw))
+    gate = threading.Event()
+    a, _ = crash_after_commit(
+        p, ctx_a, window_join(p, ctx_a, t_raw, h_raw, gate=gate),
+        after_trigger=gate.set)
     ctx_b = p.ctx(**cfg)
     b, _ = restore_and_run(p, ctx_b, window_join(p, ctx_b, t_raw, h_raw))
     got_a, got_b = join_windows(a), join_windows(b)
@@ -257,14 +307,16 @@ def test_semi_join_kill_and_restore_exactly_once(tmp_path):
         return out
 
     l_raw, r_raw = raw(1, 40), raw(2, 20)
+    gate = threading.Event()
 
-    def pipeline(p, ctx):
-        left = ctx.from_source(p.Source.from_batches(
-            sensor_batches(p, l_raw), timestamp_column="occurred_at_ms"),
-            name="sj_l")
-        right = ctx.from_source(p.Source.from_batches(
-            sensor_batches(p, r_raw), timestamp_column="occurred_at_ms"),
-            name="sj_r")
+    def source(p, raw_side, gate):
+        return gated(p.Source.from_batches(sensor_batches(p, raw_side),
+                                           timestamp_column="occurred_at_ms"),
+                     gate, 12)
+
+    def pipeline(p, ctx, gate=None):
+        left = ctx.from_source(source(p, l_raw, gate), name="sj_l")
+        right = ctx.from_source(source(p, r_raw, gate), name="sj_r")
         return left.join(right, "semi", ["sensor_name"], ["sensor_name"])
 
     def rows_of(batches):
@@ -282,7 +334,8 @@ def test_semi_join_kill_and_restore_exactly_once(tmp_path):
     p = api("torch")
     path = str(tmp_path / "state_semi")
     ctx_a = p.ctx(**ckpt(path))
-    a, _ = crash_after_commit(p, ctx_a, pipeline(p, ctx_a))
+    a, _ = crash_after_commit(p, ctx_a, pipeline(p, ctx_a, gate=gate),
+                              after_trigger=gate.set)
     ctx_b = p.ctx(**ckpt(path))
     b, _ = restore_and_run(p, ctx_b, pipeline(p, ctx_b))
     combined = rows_of(a) + rows_of(b)
@@ -303,7 +356,9 @@ def keyed_schemas(p, value_dt):
     return ls, rs
 
 
-def keyed_streams(p, ctx, l_raw, r_raw, value_dt):
+def keyed_streams(p, ctx, l_raw, r_raw, value_dt, gate=None, at=12):
+    """The two keyed sources; with ``gate``, each waits before batch ``at``
+    for it (:func:`gated`)."""
     ls, rs = keyed_schemas(p, value_dt)
 
     def mk(schema, raw):
@@ -312,10 +367,11 @@ def keyed_streams(p, ctx, l_raw, r_raw, value_dt):
                 for t, k, v in raw]
 
     left = ctx.from_source(
-        p.Source.from_batches(mk(ls, l_raw), timestamp_column="ts"), name="il")
+        gated(p.Source.from_batches(mk(ls, l_raw), timestamp_column="ts"),
+              gate, at), name="il")
     right = ctx.from_source(
-        p.Source.from_batches(mk(rs, r_raw), timestamp_column="ts2"),
-        name="ir")
+        gated(p.Source.from_batches(mk(rs, r_raw), timestamp_column="ts2"),
+              gate, at), name="ir")
     return left, right
 
 
@@ -374,10 +430,10 @@ def test_banded_join_kill_restore_byte_identical(tmp_path):
     l_raw, r_raw = band_feed(1), band_feed(2)
     int_dt = lambda p: p.DT.INT64  # noqa: E731
 
-    def mk(p, path):
+    def mk(p, path, gate=None):
         ctx = p.ctx(join_adaptive=True, join_adapt_interval_s=0.0,
                     **ckpt(path))
-        left, right = keyed_streams(p, ctx, l_raw, r_raw, int_dt)
+        left, right = keyed_streams(p, ctx, l_raw, r_raw, int_dt, gate)
         return ctx, left.join(right, "inner", ["k"], ["k2"],
                               band=("ts", "ts2", -50, 50))
 
@@ -385,9 +441,11 @@ def test_banded_join_kill_restore_byte_identical(tmp_path):
     golden = pairs([mk(j, None)[1].collect()])
     p = api("torch")
     path = str(tmp_path / "state")
-    ctx_a, ds_a = mk(p, path)
+    gate = threading.Event()
+    ctx_a, ds_a = mk(p, path, gate)
     a, root_a = crash_after_commit(
-        p, ctx_a, ds_a, trigger=lambda i, root: i == 0)
+        p, ctx_a, ds_a, trigger=lambda i, root: i == 0,
+        after_trigger=gate.set)
     cut = [(s.band_wm, list(s.batch_band_max)) for s in find_join(root_a)._sides]
     ctx_b, ds_b = mk(p, path)
     seen = {}
@@ -440,22 +498,25 @@ def test_hot_blocks_restore_from_their_representatives(tmp_path):
     l_raw, r_raw = skewed(1, nb=30, rows=200), skewed(2, nb=30, rows=200)
     f64 = lambda p: p.DT.FLOAT64  # noqa: E731
 
-    def mk(p, adaptive, path):
+    def mk(p, adaptive, path, gate=None):
         ctx = p.ctx(join_adaptive=adaptive, join_adapt_interval_s=0.0,
                     **ckpt(path))
-        left, right = keyed_streams(p, ctx, l_raw, r_raw, f64)
+        # a crashed run's sources wait before batch 25 for the barrier
+        left, right = keyed_streams(p, ctx, l_raw, r_raw, f64, gate, 25)
         return ctx, left.join(right, "inner", ["k"], ["k2"])
 
     j = api("jax")
     golden = pairs([mk(j, False, None)[1].collect()])
     p = api("torch")
     path = str(tmp_path / "state")
-    ctx_a, ds_a = mk(p, True, path)
+    gate = threading.Event()
+    ctx_a, ds_a = mk(p, True, path, gate)
 
     def adapted(_i, root):
         return find_join(root)._policy.adaptations_total > 0
 
-    a, root_a = crash_after_commit(p, ctx_a, ds_a, trigger=adapted)
+    a, root_a = crash_after_commit(p, ctx_a, ds_a, trigger=adapted,
+                                   after_trigger=gate.set)
     assert any(s.hot.nslots for s in find_join(root_a)._sides)
     ctx_b, ds_b = mk(p, True, path)
     hot_at_start = {}
@@ -491,7 +552,10 @@ def test_cross_restore_gives_identical_emissions(tmp_path, sensor_feed, writer):
     w = api(writer)
     path = str(tmp_path / "state")
     ctx_a = w.ctx(emit_lag_ms=0, **ckpt(path))
-    a, _ = crash_after_commit(w, ctx_a, window_join(w, ctx_a, t_raw, h_raw))
+    gate = threading.Event()
+    a, _ = crash_after_commit(
+        w, ctx_a, window_join(w, ctx_a, t_raw, h_raw, gate=gate),
+        after_trigger=gate.set)
     copy = str(tmp_path / "state_copy")
     shutil.copytree(path, copy)
     restored = {}
@@ -518,10 +582,10 @@ def test_cross_restore_of_a_banded_join_with_hot_blocks(tmp_path):
     l_raw, r_raw = skewed(3, nb=30, rows=200), skewed(4, nb=30, rows=200)
     f64 = lambda p: p.DT.FLOAT64  # noqa: E731
 
-    def mk(p, path):
+    def mk(p, path, gate=None):
         ctx = p.ctx(join_adaptive=True, join_adapt_interval_s=0.0,
                     **ckpt(path))
-        left, right = keyed_streams(p, ctx, l_raw, r_raw, f64)
+        left, right = keyed_streams(p, ctx, l_raw, r_raw, f64, gate, 25)
         return ctx, left.join(right, "inner", ["k"], ["k2"],
                               band=("ts", "ts2", -400, 400))
 
@@ -529,10 +593,12 @@ def test_cross_restore_of_a_banded_join_with_hot_blocks(tmp_path):
     for writer in ("jax", "torch"):
         w = api(writer)
         path = str(tmp_path / f"state_{writer}")
-        ctx_a, ds_a = mk(w, path)
+        gate = threading.Event()
+        ctx_a, ds_a = mk(w, path, gate)
         a, _ = crash_after_commit(
             w, ctx_a, ds_a,
-            trigger=lambda _i, root: find_join(root)._policy.adaptations_total > 0)
+            trigger=lambda _i, root: find_join(root)._policy.adaptations_total > 0,
+            after_trigger=gate.set)
         copy = path + "_copy"
         shutil.copytree(path, copy)
         got = {}

@@ -6,8 +6,8 @@ Twins of ``tests/test_multi_query.py``: ``run_queries`` at Q = 10 over
 bench.py's ``multi_query`` spec cycle (8 sliding specs, 5 s to 60 s
 windows, 1-10 s slides, count/sum/avg), every member's rows against the
 JAX package's and against an independent slice oracle pinned to the
-group's unit; the report against the JAX package's (``query_ids`` aside:
-the port has no doctor yet); a variance group (the pivot); mixed
+group's unit; the report against the JAX package's (``query_ids`` count
+alike, the ids themselves are each process's doctor counters); a variance group (the pivot); mixed
 aggregates (an add-only member of a group whose union carries extrema);
 the fallbacks (a UDAF query and a query over another source run through
 the port's normal executor); ``sharing=False``; the
@@ -170,7 +170,8 @@ def test_run_queries_q10_equals_jax_and_oracles(agg_sets):
     raw = _raw()
     rep_j, rows_j = _run_group("jax", raw, 10, agg_sets)
     rep_t, rows_t = _run_group("torch", raw, 10, agg_sets)
-    assert rep_t["groups"][0]["query_ids"] is None
+    ids_t = rep_t["groups"][0]["query_ids"]
+    assert len(set(ids_t)) == len(rep_j["groups"][0]["query_ids"]) == 10
     assert _strip_ids(rep_t) == _strip_ids(rep_j)
     assert rep_t["shared_queries"] == 10
     assert rep_t["groups"][0]["unit_ms"] == 1000
