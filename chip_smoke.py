@@ -333,7 +333,30 @@ Phases:
     on and scraped, against the same run with metrics off: the same
     tables, no kernel launch and no scatter step, ten doctor query ids
     back, and each shared node's busy time, scaled by each member's
-    measured fraction, summing over the ten to the node's own within 1%.
+    measured fraction, summing over the ten to the node's own within 1%;
+45. the cluster runtime at cluster_scale's shape (the cluster benchjob's
+    feed: 4 partitions of 122 batches of 16,384 rows, 7,995,392 rows,
+    4,096 int64 keys, a 1 s tumbling count/sum/min/max, rings starting at
+    2,048 groups): the port's single-process run, then ``run_cluster`` at
+    n = 1, 2 and 4 worker processes on the card (the card's compute mode
+    and ``os.cpu_count()`` printed first).  Every point's rows equal to a
+    numpy oracle of the generator (counts, sums, min and max exact), every
+    worker on ``cuda:0``, and at n = 4 dense launches in every worker;
+    per point rows/s over the slowest ingest wall and over the slowest
+    ingest-to-EOS wall, and per worker its launches, rows and start-up;
+46. config 3's shape over the cluster: 100K string keys, 15 batches of
+    524,288 rows (5 partitions of 3), 4 workers through ``partial_merge``
+    (the exchange's string lane): rows equal to the oracle, merge
+    launches in every worker;
+47. recovery on phase 45's feed paced 0.1 s a batch, barriers every 0.5 s,
+    4 workers: a fault plan tears one of worker 1's exchange frames and
+    puts 25 ms on every redial, then its respawn is SIGKILLed a second
+    after its rejoin; each time worker 1 alone respawns (no full restart)
+    and the clipped union equals the oracle exactly once; then a run
+    SIGKILLed after 3 commits restores at n = 2 (rescaled), its union equal
+    to the oracle, each restored worker running device steps.  Prints
+    spawn → rejoin, ``dnz_cluster_recovery_ms``, the cluster doctor's
+    verdicts seen during the run, and the launches after the restore.
 
 Then one JSON line with each kernel's launches on its main path (phase 4
 for the dense kernel, with phases 38-39's baselines' launches under
@@ -347,7 +370,9 @@ SIGTERM; phases 31-33 run host operators only; for each kernel its
 launches under a state budget, ``budget_launches``: phase 36's dense
 launches, phase 35's merges and compactions; and with metrics and every
 exporter on, ``obs_launches``: phase 42's dense launches, phase 43's
-merges and compactions, with the join's dense launches beside), its
+merges and compactions, with the join's dense launches beside; and
+``cluster_launches``, each worker process's own count: phase 45's n = 4
+dense launches, phase 46's merges), its
 largest error against the plain version, its device time, the wrapper's
 time, the plain version's time, the library call's (for the compaction
 kernel the nonzero + index_select sequence) and the least time the card
@@ -7514,6 +7539,321 @@ def phase_obs_shared(device, batches, stream, card):
         f"{off['wall']:.3f} s, on {on['wall']:.3f} s ({card})")
 
 
+# -- phases 45-47: the cluster runtime on the card -----------------------------
+
+#: run_cluster_scale's shape: 4 partitions of 122 batches of 16,384 rows
+#: (7,995,392 rows), 4,096 int64 keys, a 1 s tumbling count/sum/min/max.
+#: The ring starts at 2,048 groups: a worker's ~1,024 keys stay within the
+#: dense kernel's 2,048 (the default growth, to twice the groups seen, took
+#: the workers holding more than 1,024 keys to 4,096 and the scatter path)
+CLUSTER_ARGS = {"partitions": 4, "batches": 122, "rows": 16_384,
+                "keys": 4_096, "batch_span_ms": 250, "window_ms": 1000,
+                "engine": {"min_group_capacity": 2048}}
+CLUSTER_POINTS = (1, 2, 4)
+#: config 3's shape over the cluster: 100K string keys, 15 batches of
+#: 524,288 rows (5 partitions of 3), through partial_merge
+CLUSTER_HIGHCARD_ARGS = {"partitions": 5, "batches": 3, "rows": 524_288,
+                         "keys": 100_000, "batch_span_ms": 1000,
+                         "window_ms": 1000,
+                         "engine": {"device_strategy": "partial_merge"}}
+#: phase 47: phase 45's feed paced to ~12 s a partition, so the faults land
+#: mid-stream, with barriers every 0.5 s
+CLUSTER_PACE_S = 0.1
+CLUSTER_CKPT_S = 0.5
+
+
+def cluster_oracle(args: dict, string_keys: bool) -> dict:
+    """The benchjob feed's windows straight from its generator with numpy
+    → {"cells": (window index * keys + key id), "count", "sum", "min",
+    "max"} over the cells that hold rows."""
+    rows, keys = args["rows"], args["keys"]
+    span, length = args["batch_span_ms"], args["window_ms"]
+    t0 = 1_700_000_000_000  # benchjob.T0
+    n_win = (args["batches"] * span) // length + 2
+    count = np.zeros(n_win * keys, np.int64)
+    total = np.zeros(n_win * keys, np.float64)
+    lo = np.full(n_win * keys, np.inf)
+    hi = np.full(n_win * keys, -np.inf)
+    i = np.arange(rows, dtype=np.int64)
+    for part in range(args["partitions"]):
+        for b in range(args["batches"]):
+            ts = t0 + b * span + (i * span) // rows
+            cell = ((ts - t0) // length) * keys + (i * 7 + part * 3 + b) % keys
+            v = ((i + part + b) % 16).astype(np.float64)
+            count += np.bincount(cell, minlength=len(count))
+            total += np.bincount(cell, weights=v, minlength=len(total))
+            np.minimum.at(lo, cell, v)
+            np.maximum.at(hi, cell, v)
+    live = np.flatnonzero(count)
+    return {"cells": live, "count": count[live], "sum": total[live],
+            "min": lo[live], "max": hi[live], "string_keys": string_keys,
+            "keys": keys, "length": length, "t0": t0}
+
+
+def check_cluster_rows(rows, want: dict, what: str) -> None:
+    """Emitted rows (dicts, or benchjob.canonical_row tuples) against the
+    oracle: every cell once, counts, sums, min and max exact (integer
+    readings keep the f32 sums exact)."""
+    from denormalized_tpu_torch.cluster.benchjob import canonical_row
+
+    if rows and isinstance(rows[0], dict):
+        rows = [canonical_row(r) for r in rows]
+    keys, length, t0 = want["keys"], want["length"], want["t0"]
+    arr = np.array([r[3:] for r in rows], dtype=np.float64).reshape(-1, 4)
+    kid = np.array([int(r[2][1:]) if want["string_keys"] else int(r[2])
+                    for r in rows], dtype=np.int64)
+    start = np.array([r[0] for r in rows], dtype=np.int64)
+    cell = ((start - t0) // length) * keys + kid
+    order = np.argsort(cell, kind="stable")
+    got_cells = cell[order]
+    fails = []
+    if len(np.unique(got_cells)) != len(got_cells):
+        fails.append(f"{len(got_cells) - len(np.unique(got_cells))} "
+                     "duplicate rows")
+    elif not np.array_equal(got_cells, want["cells"]):
+        fails.append(f"{len(got_cells)} cells, oracle {len(want['cells'])}")
+    else:
+        for j, name in enumerate(("count", "sum", "min", "max")):
+            if not np.array_equal(arr[order, j], want[name]):
+                bad = int(np.sum(arr[order, j] != want[name]))
+                fails.append(f"{name} differs in {bad} cells")
+    if fails:
+        raise AssertionError(f"{what}: " + "; ".join(fails))
+
+
+def cluster_spec(workdir: str, n: int, job: str, args: dict, **kw):
+    from denormalized_tpu_torch.cluster import ClusterSpec
+
+    return ClusterSpec(
+        workdir=workdir, n_workers=n,
+        job=f"denormalized_tpu_torch.cluster.benchjob:{job}",
+        job_args=args, liveness_timeout_s=300.0, rejoin_timeout_s=120.0,
+        **kw)
+
+
+def cluster_rows(result) -> list:
+    from denormalized_tpu_torch.cluster.reader import read_cluster
+
+    return read_cluster(result["segments"])["rows"]
+
+
+def worker_lines(result) -> str:
+    """One clause per worker: device, kernel launches, rows, start-up."""
+    out = []
+    for w, m in sorted(result["workers"].items(), key=lambda kv: int(kv[0])):
+        out.append(
+            f"w{w} {m['device']}: dense {m['dense_window_launches']}, "
+            f"merge {m['merge_partials_launches']}, compact "
+            f"{m['compact_slot_launches']}, scatter {m['scatter_steps']}, "
+            f"rows in {m['rows_in']}, out {m['rows']}, start-up "
+            f"{result['startup_s'].get(w, float('nan')):.2f} s")
+    return "; ".join(out)
+
+
+def check_cuda_workers(result, n: int, what: str) -> None:
+    devices = {m["device"] for m in result["workers"].values()}
+    if len(result["workers"]) != n or devices != {"cuda:0"}:
+        raise AssertionError(f"{what}: workers on {devices}, "
+                             f"{len(result['workers'])} of {n} reported")
+
+
+def phase_cluster_scale(card) -> dict:
+    """Phase 45 (see the module docstring)."""
+    from denormalized_tpu_torch.cluster import run_cluster
+    from denormalized_tpu_torch.cluster.benchjob import oracle_rows
+    from denormalized_tpu_torch.ops import dense_window as dw
+    from denormalized_tpu_torch.parallel import sharded_state
+
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    log(f"phase 45: compute mode {mode}, os.cpu_count() {os.cpu_count()} "
+        f"({card})")
+    t0 = time.perf_counter()
+    want = cluster_oracle(CLUSTER_ARGS, string_keys=False)
+    total = CLUSTER_ARGS["partitions"] * CLUSTER_ARGS["batches"] * \
+        CLUSTER_ARGS["rows"]
+    log(f"phase 45: numpy oracle {len(want['cells'])} rows in "
+        f"{time.perf_counter() - t0:.1f} s")
+    dw.dense_window_launches = 0
+    sharded_state.scatter_steps = 0
+    t0 = time.perf_counter()
+    single = oracle_rows(CLUSTER_ARGS, string_keys=False)
+    single_wall = time.perf_counter() - t0
+    check_cluster_rows(single, want, "phase 45 single process")
+    log(f"phase 45 single process (the port's run of the same feed, "
+        f"Context(EngineConfig(device='cuda'))): rows equal to the oracle, "
+        f"{total / single_wall:.0f} rows/s ({total} rows in "
+        f"{single_wall:.3f} s), dense launches {dw.dense_window_launches}, "
+        f"scatter steps {sharded_state.scatter_steps} ({card})")
+    points = {}
+    for n in CLUSTER_POINTS:
+        with tempfile.TemporaryDirectory() as wd:
+            t0 = time.perf_counter()
+            res = run_cluster(cluster_spec(wd, n, "bench_job", CLUSTER_ARGS))
+            wall = time.perf_counter() - t0
+            if res["status"] != "done":
+                raise AssertionError(f"phase 45 n={n}: {res['status']}")
+            check_cuda_workers(res, n, f"phase 45 n={n}")
+            check_cluster_rows(cluster_rows(res), want, f"phase 45 n={n}")
+        if res["rows_in_total"] != total:
+            raise AssertionError(f"phase 45 n={n}: {res['rows_in_total']} "
+                                 f"rows routed of {total}")
+        rate = total / res["ingest_wall_s_max"]
+        points[n] = {"rows_per_s": rate, "workers": res["workers"],
+                     "startup_s": res["startup_s"]}
+        log(f"phase 45 n={n}: rows equal to the oracle, {rate:.0f} rows/s "
+            f"(slowest ingest wall {res['ingest_wall_s_max']:.3f} s), "
+            f"{total / res['worker_wall_s_max']:.0f} rows/s over the "
+            f"slowest worker's ingest-to-EOS wall "
+            f"({res['worker_wall_s_max']:.3f} s), run {wall:.1f} s with "
+            f"start-up; {worker_lines(res)} ({card})")
+    four = points[4]["workers"]
+    if any(m["dense_window_launches"] == 0 for m in four.values()):
+        raise AssertionError(
+            "phase 45 n=4: a worker launched no dense kernel: "
+            + str({w: m["dense_window_launches"] for w, m in four.items()}))
+    log(f"phase 45: {len(CLUSTER_POINTS)} points, four processes share "
+        f"one card (time-sliced): no scaling claim ({card})")
+    return points
+
+
+def phase_cluster_highcard(card) -> dict:
+    """Phase 46 (see the module docstring)."""
+    from denormalized_tpu_torch.cluster import run_cluster
+
+    args = CLUSTER_HIGHCARD_ARGS
+    want = cluster_oracle(args, string_keys=True)
+    total = args["partitions"] * args["batches"] * args["rows"]
+    with tempfile.TemporaryDirectory() as wd:
+        t0 = time.perf_counter()
+        res = run_cluster(cluster_spec(wd, 4, "soak_job", args))
+        wall = time.perf_counter() - t0
+        if res["status"] != "done":
+            raise AssertionError(f"phase 46: {res['status']}")
+        check_cuda_workers(res, 4, "phase 46")
+        check_cluster_rows(cluster_rows(res), want, "phase 46")
+    merges = {w: m["merge_partials_launches"]
+              for w, m in res["workers"].items()}
+    if any(v == 0 for v in merges.values()):
+        raise AssertionError(f"phase 46: a worker launched no merge: {merges}")
+    log(f"phase 46 config 3's shape ({args['keys']} string keys, "
+        f"{args['partitions'] * args['batches']} x {args['rows']} rows) over "
+        f"4 workers through partial_merge: rows equal to the oracle "
+        f"({len(want['cells'])}), {total / res['ingest_wall_s_max']:.0f} "
+        f"rows/s over the slowest ingest wall "
+        f"({res['ingest_wall_s_max']:.3f} s), run {wall:.1f} s with "
+        f"start-up; {worker_lines(res)} ({card})")
+    return {"workers": res["workers"]}
+
+
+def phase_cluster_recovery(card) -> dict:
+    """Phase 47 (see the module docstring)."""
+    import threading as _threading
+
+    from denormalized_tpu_torch import obs
+    from denormalized_tpu_torch.cluster import run_cluster
+    from denormalized_tpu_torch.obs.doctor import clusterdoc
+
+    args = dict(CLUSTER_ARGS, pace_s=CLUSTER_PACE_S)
+    want = cluster_oracle(args, string_keys=False)
+    # both faults hit one worker, as the JAX package's partial soak cell
+    # does: a second worker dying before the next commit would find rows
+    # the first one's rebirth skipped for it missing from every buffer,
+    # and take the full restart (ROADMAP §C)
+    victim = 1
+    plan = {"seed": 47, "rules": [
+        # one torn frame on the victim's outbound edges ~40% into its
+        # stream (~6 sends a batch: a data and a watermark frame to each
+        # of 3 peers), when barriers have committed
+        {"site": "exchange.send", "kind": "torn",
+         "key_substr": f"{victim}->", "after": int(2.4 * args["batches"]),
+         "times": 1, "name": "torn-exchange-frame"},
+        {"site": "exchange.reconnect", "kind": "latency", "ms": 25},
+    ]}
+    hist = obs.current_registry().snapshot().get("dnz_cluster_recovery_ms")
+    n0 = hist["count"] if hist else 0
+    with tempfile.TemporaryDirectory() as wd:
+        seen: set = set()
+        stop = _threading.Event()
+
+        def watch():
+            while not stop.wait(0.05):
+                for v in clusterdoc.cluster_snapshot(wd)["verdicts"]:
+                    seen.add((v["kind"], v["worker"]))
+
+        th = _threading.Thread(target=watch, daemon=True)
+        th.start()
+        try:
+            t0 = time.perf_counter()
+            res = run_cluster(
+                cluster_spec(wd, 4, "bench_job", args,
+                             checkpoint_interval_s=CLUSTER_CKPT_S,
+                             max_restarts=0, fault_plan=plan),
+                # the respawn SIGKILLed a second after its rejoin
+                kill_plan=[{"worker": victim, "when": "recovered",
+                            "of": victim, "delay_s": 1.0}])
+            wall = time.perf_counter() - t0
+        finally:
+            stop.set()
+            th.join()
+        if res["status"] != "done" or res["restarts"]:
+            raise AssertionError(f"phase 47: {res['status']}, "
+                                 f"{res['restarts']} full restarts")
+        check_cuda_workers(res, 4, "phase 47 partial")
+        check_cluster_rows(cluster_rows(res), want, "phase 47 partial")
+        recovered = [r["worker"] for r in res["recoveries"]]
+        if recovered != [victim, victim] or not any(
+                "torn" in c for c in res["crashes"]):
+            raise AssertionError(f"phase 47: recoveries {res['recoveries']}, "
+                                 f"crashes {res['crashes']}")
+        final = clusterdoc.cluster_snapshot(wd)
+    hist = obs.current_registry().snapshot()["dnz_cluster_recovery_ms"]
+    log(f"phase 47 partial recovery (4 workers, barriers every "
+        f"{CLUSTER_CKPT_S} s, phase 45's feed paced {CLUSTER_PACE_S} s a "
+        f"batch): worker {victim}'s torn exchange frame, then its respawn "
+        f"SIGKILLed a second after its rejoin, each time respawned alone "
+        f"while its peers kept on (0 full restarts, commits "
+        f"{res['commits'][-1]}, aborted "
+        f"epochs {res['aborted_epochs']}): the clipped union equal to the "
+        f"oracle exactly once; spawn → rejoin "
+        + ", ".join(f"w{r['worker']} {r['ms']:.0f} ms"
+                    for r in res["recoveries"])
+        + f"; dnz_cluster_recovery_ms count {hist['count'] - n0}, max "
+        f"{hist['max']:.0f} ms; clusterdoc verdicts seen during the run "
+        f"{sorted(seen)}, at the end {[v['kind'] for v in final['verdicts']]}; "
+        f"run {wall:.1f} s; {worker_lines(res)} ({card})")
+    with tempfile.TemporaryDirectory() as wd:
+        first = run_cluster(
+            cluster_spec(wd, 4, "bench_job", args,
+                         checkpoint_interval_s=CLUSTER_CKPT_S, max_restarts=0),
+            kill_after_commits=3)
+        if first["status"] != "killed":
+            raise AssertionError(f"phase 47 rescale: {first['status']}")
+        t0 = time.perf_counter()
+        # the same feed unpaced: pacing only placed the kill
+        second = run_cluster(cluster_spec(
+            wd, 2, "bench_job", CLUSTER_ARGS,
+            checkpoint_interval_s=CLUSTER_CKPT_S, max_restarts=0))
+        wall = time.perf_counter() - t0
+        if second["status"] != "done" or second["rows_total"] == 0:
+            raise AssertionError(f"phase 47 rescale: {second['status']}, "
+                                 f"{second['rows_total']} rows")
+        check_cuda_workers(second, 2, "phase 47 rescale")
+        check_cluster_rows(cluster_rows(second), want, "phase 47 rescale")
+    launched = {w: m["dense_window_launches"] + m["scatter_steps"]
+                for w, m in second["workers"].items()}
+    if any(v == 0 for v in launched.values()):
+        raise AssertionError(f"phase 47 rescale: a worker ran no device "
+                             f"step after the restore: {launched}")
+    log(f"phase 47 full restart at n=2 from 4 workers' cut at epoch "
+        f"{first['commits'][-1]} (rescaled): the clipped union of both "
+        f"incarnations equal to the oracle exactly once; restore run "
+        f"{wall:.1f} s; launches after the restore: {worker_lines(second)} "
+        f"({card})")
+    return {"partial": res["workers"], "rescaled": second["workers"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7702,6 +8042,12 @@ def main(argv=None) -> int:
     phase_obs_shared(device, *mq["feed"], card)
     log(f"phases 42-44 took {time.perf_counter() - t_obs:.1f} s; the script "
         f"{time.time() - T_START:.1f} s so far ({card})")
+    t_cluster = time.perf_counter()
+    scale = phase_cluster_scale(card)
+    highcard_cluster = phase_cluster_highcard(card)
+    phase_cluster_recovery(card)
+    log(f"phases 45-47 took {time.perf_counter() - t_cluster:.1f} s; the "
+        f"script {time.time() - T_START:.1f} s so far ({card})")
 
     shared_counts = ([p["shared_launches"]
                       for p in mq["points"] + [mq["highcard"]]]
@@ -7750,6 +8096,9 @@ def main(argv=None) -> int:
         # (phase 42), and both windows of config 4 so (phase 43)
         "obs_launches": obs_cfg1["launches"],
         "obs_join_launches": obs_cfg34["join"],
+        # each worker process of phase 45's n = 4 cluster run
+        "cluster_launches": {w: m["dense_window_launches"]
+                             for w, m in scale[4]["workers"].items()},
         # the multi-query baselines (phases 38-39): each query its own
         # device window (dense launches + scatter steps); "shared" sums
         # what the shared runs of phases 38-40 launched, as counted
@@ -7786,6 +8135,9 @@ def main(argv=None) -> int:
             "merge_partials"],
         # config 3 with metrics and every exporter on (phase 43)
         "obs_launches": obs_cfg34["merge"],
+        # each worker process of phase 46's 4-worker partial_merge run
+        "cluster_launches": {w: m["merge_partials_launches"] for w, m in
+                             highcard_cluster["workers"].items()},
         "cfg3_ms": merge["cfg3_compact"]["ms"],
         "cfg3_bound_ms": merge["cfg3_compact"]["bound_ms"],
         # every phase-7 case: its kernel, device time, bound, wrapper and

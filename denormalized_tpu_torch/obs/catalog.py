@@ -1,8 +1,9 @@
 """The instrument catalog — every metric the engine emits, declared once:
 a copy of ``denormalized_tpu/obs/catalog.py`` (names, kinds, help strings
 and bucket layouts; ``tests/test_torch_obs.py`` holds the two equal).
-Binding a name that keys nothing here raises.  The ``dnz_exchange_*`` and
-``dnz_cluster_*`` declarations wait for the cluster runtime's port.
+Binding a name that keys nothing here raises.  The cluster runtime
+(``cluster/exchange.py``, ``cluster/runtime.py``, ``cluster/coordinator.py``)
+binds the ``dnz_exchange_*`` and ``dnz_cluster_*`` instruments.
 
 Naming convention:
 

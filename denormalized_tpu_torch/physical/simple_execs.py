@@ -10,8 +10,11 @@ with EndOfStream.  A source of several partitions sends per-partition
 watermarks (:class:`_PartitionWatermarks`, ``EngineConfig.
 partition_watermarks``); a live source with ``source_idle_timeout_ms``
 also sends idle hints (:class:`_IdleTracker`).  With record lineage on,
-the source tags its sampled rows at ingest.  The cluster barrier hooks are
-not ported.
+the source tags its sampled rows at ingest.  In a cluster worker the
+barriers come from the coordinator (:meth:`SourceExec.
+enable_cluster_checkpointing`), and a barrier that lands after the source's
+EOS persists the final offsets outside the stream
+(:meth:`SourceExec.persist_final_offsets`).
 """
 
 from __future__ import annotations
@@ -287,6 +290,32 @@ class SourceExec(ExecOperator):
             return epoch
 
         self._barrier_poll = poll
+
+    def enable_cluster_checkpointing(
+        self, node_id: str, coord, poll_epoch: Callable[[], int | None]
+    ) -> None:
+        """Cluster-mode wiring (``cluster/worker.py``): barriers come from
+        the coordinator's control channel instead of a local Orchestrator —
+        the same in-band injection and offset persistence, but the epoch
+        NUMBER is cluster-global so every worker's cut shares one key
+        suffix."""
+        self._ckpt = (coord, node_id)
+
+        def poll():
+            epoch = poll_epoch()
+            if epoch is not None:
+                self._persist_offsets(epoch)
+            return epoch
+
+        self._barrier_poll = poll
+
+    def persist_final_offsets(self, epoch: int) -> None:
+        """Persist the (final) yielded offsets for ``epoch`` OUTSIDE the
+        stream: a cluster worker calls this when a barrier lands after
+        this source reached EOS, so the cluster cut still records every
+        partition at its end position instead of omitting the finished
+        worker (which would replay its whole subset on restore)."""
+        self._persist_offsets(epoch)
 
     def _persist_offsets(self, epoch: int) -> None:
         from denormalized_tpu_torch.state.checkpoint import put_json

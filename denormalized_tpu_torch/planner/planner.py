@@ -16,8 +16,10 @@ stay sketch kinds on the slice path (``approx_native``, the default) and
 lower to their exact accumulators everywhere else, as in the JAX package
 (:meth:`Planner._route_approx`).  The join route threads its band,
 retention, band slack and adaptation knobs into
-:class:`StreamingJoinExec`.  Meshes are not ported yet (ROADMAP §A item
-9), so the JAX package's mesh clauses are absent.
+:class:`StreamingJoinExec`.  A logical node with a ``create_exec`` hook
+(the cluster's ``ExchangeScan`` leaf) builds its own operator.  Meshes
+are not ported yet (ROADMAP §A item 9), so the JAX package's mesh
+clauses are absent.
 """
 
 from __future__ import annotations
@@ -88,6 +90,12 @@ class Planner:
         return lowered
 
     def create_physical_plan(self, node: lp.LogicalPlan) -> ExecOperator:
+        # extension point: a logical node that knows how to build its own
+        # exec (the cluster runtime's ExchangeScan leaf) builds it here —
+        # the planner stays ignorant of subsystem-specific operators
+        hook = getattr(node, "create_exec", None)
+        if hook is not None:
+            return hook(self)
         if isinstance(node, lp.Scan):
             return SourceExec(
                 node.source,

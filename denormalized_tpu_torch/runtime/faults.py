@@ -1,7 +1,9 @@
-"""Fault injection at the Kafka, decode and state I/O boundaries.
+"""Deterministic, seedable fault injection at the I/O boundaries.
 
-Counterpart of ``denormalized_tpu/runtime/faults.py`` with the sites the
-port has.  A process-global :class:`FaultPlan` is threaded through named
+Counterpart of ``denormalized_tpu/runtime/faults.py``: the same plan
+grammar, the same sites, and the same seeded decisions, so one plan with
+one seed fires at the same calls and tears at the same byte in either
+package.  A process-global :class:`FaultPlan` is threaded through named
 **injection sites**::
 
     kafka.fetch         KafkaClient fetch           (raises SourceError)
@@ -16,39 +18,75 @@ port has.  A process-global :class:`FaultPlan` is threaded through named
     lsm.spill_put       SpillController.put_block   (StateError / torn value)
     lsm.spill_get       SpillController.get_block   (raises StateError)
     spill.manifest      SpillController.write_manifest (StateError / torn)
+    exchange.connect    ExchangeClient.connect      (raises SourceError)
+    exchange.send       ExchangeClient.send         (SourceError / torn frame)
+    exchange.recv       exchange server recv loop   (raises SourceError)
+    exchange.reconnect  ExchangeClient redial of a  (raises SourceError)
+                        down edge, per attempt
+    cluster.rejoin      respawned worker's rejoin   (raises StateError)
+                        handshake, before ready
+    cluster.replay      buffered-frame replay on a  (SourceError / torn frame)
+                        fresh exchange connection
 
 Each site calls :func:`inject` (optionally passing the key/payload being
 written).  With no plan armed ``inject`` is one attribute check and an
 immediate return.
 
-A plan is a dict given to :func:`arm`::
+## Plan grammar
 
-    {"rules": [
+A plan is JSON (or the equivalent dict through :func:`arm`)::
+
+    {"seed": 1234,
+     "rules": [
+       {"site": "kafka.fetch", "kind": "error", "prob": 0.02, "times": 6,
+        "message": "recv: injected broker flap"},
        {"site": "lsm.put", "kind": "torn", "key_substr": "@", "times": 2},
-       {"site": "checkpoint.commit", "kind": "error", "times": 2}
-    ]}
+       {"site": "exchange.*", "kind": "latency", "ms": 5, "prob": 0.01}
+     ]}
 
-Rule fields: ``site`` (one of the names above), ``kind``
-(``error``: raise the site's error class, or ``torn``: the payload cut to
-its first half), ``times`` (fire at most N times), ``after`` (skip the
-first K matching calls), ``key_substr`` (match only keys holding it) and
-``message`` (the error's text).  The first rule that fires wins the call.
+Rule fields:
 
-The message steers where a Kafka fault lands, as in the JAX package: a
-transport marker (``recv:``, ``send:``, ``connect``...) routes a
-``kafka.fetch`` error into the reader's reconnect path, ``fetch error 1``
-into its offset-out-of-range reset, and any other text (the default)
-escapes the reader and crashes its prefetch worker, which the supervisor
-of ``runtime/prefetch.py`` restarts.
+- ``site``: exact site name, a ``prefix.*`` glob, or ``*`` (all sites).
+- ``kind``: ``error`` (raise), ``latency`` (sleep ``ms`` milliseconds), or
+  ``torn`` (truncate the payload at a seeded cut point; only at sites
+  that pass a payload).
+- ``times``: fire at most N times (omitted/null = unlimited).
+- ``after``: skip the first K *matching* calls before becoming eligible.
+- ``prob``: per-call firing probability (default 1.0), drawn from the
+  rule's own RNG seeded by ``(seed, rule index)``, so the decision for
+  matching call #k does not depend on which thread made the call.
+- ``key_substr``: only match calls whose ``key`` contains this substring.
+- ``message``: error text.  It steers where a Kafka fault lands: a
+  transport marker (``recv:``, ``send:``, ``connect``...) routes a
+  ``kafka.fetch`` error into the reader's reconnect path, ``fetch error
+  1`` into its offset-out-of-range reset, and any other text (the
+  default) escapes the reader and crashes its prefetch worker, which the
+  supervisor of ``runtime/prefetch.py`` restarts.
+- ``error``: ``"source"`` or ``"state"`` to override the site's error
+  class.
+
+The first rule that fires wins the call (rules are evaluated in plan
+order); a rule that matches but does not fire still advances its
+``after`` counter.  Every firing is appended to the plan's event log
+(:meth:`FaultPlan.event_log`), counted in ``dnz_fault_injections_total``
+by site, and put on the span stream as an instant event.
+
+Arming: :func:`arm` (API) or the ``DENORMALIZED_FAULT_PLAN`` environment
+variable (inline JSON, or ``@/path/to/plan.json``), read once at import,
+which is how child processes receive a plan.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import random
 import threading
+import time
 
 from denormalized_tpu_torch.common.errors import SourceError, StateError
 
-#: the port's injection sites, and the error class each raises
+#: known sites, and the error class each raises by default
 SITES = {
     "kafka.fetch": SourceError,
     "kafka.produce": SourceError,
@@ -61,24 +99,39 @@ SITES = {
     "lsm.spill_put": StateError,
     "lsm.spill_get": StateError,
     "spill.manifest": StateError,
+    "exchange.connect": SourceError,
+    "exchange.send": SourceError,
+    "exchange.recv": SourceError,
+    "exchange.reconnect": SourceError,
+    "cluster.rejoin": StateError,
+    "cluster.replay": SourceError,
 }
 
-_KINDS = ("error", "torn")
+_KINDS = ("error", "latency", "torn")
 
 
 class FaultRule:
-    """One rule's match predicate and firing count (thread-safe under the
-    owning plan's lock)."""
+    """One rule's match predicate + seeded decision state (thread-safe
+    under the owning plan's lock)."""
 
-    def __init__(self, spec: dict, index: int):
-        self.site = spec.get("site")
-        # a typo'd site ("lsm.putt") would arm fine, match nothing, and
-        # let a test pass without ever injecting the fault — reject it
-        if self.site not in SITES:
-            raise ValueError(
-                f"fault rule {index}: site {self.site!r} is not one of "
-                f"{sorted(SITES)}"
-            )
+    def __init__(self, spec: dict, index: int, seed: int):
+        self.index = index
+        self.name = spec.get("name")  # optional label, echoed in events
+        self.site = spec.get("site", "*")
+        # a typo'd site ("lsm.putt", "kafk.*") would arm fine, match
+        # nothing, and let a chaos run report green without ever
+        # injecting the fault — reject at arm time instead
+        if self.site != "*":
+            if self.site.endswith(".*"):
+                prefix = self.site[:-1]
+                known = any(s.startswith(prefix) for s in SITES)
+            else:
+                known = self.site in SITES
+            if not known:
+                raise ValueError(
+                    f"fault rule {index}: site {self.site!r} matches no "
+                    f"known site (expected '*' or one of {sorted(SITES)})"
+                )
         self.kind = spec.get("kind", "error")
         if self.kind not in _KINDS:
             raise ValueError(
@@ -88,57 +141,145 @@ class FaultRule:
         times = spec.get("times")
         self.times = None if times is None else int(times)
         self.after = int(spec.get("after", 0))
+        self.prob = float(spec.get("prob", 1.0))
         self.key_substr = spec.get("key_substr")
         self.message = spec.get("message")
+        self.error = spec.get("error")
+        self.ms = float(spec.get("ms", 0.0))
+        # decision RNG: a pure function of (seed, rule index) — the k-th
+        # matching call's draw is identical across runs and across the
+        # thread interleavings that produced it
+        self._rng = random.Random(int(seed) * 1_000_003 + index)
         self.hits = 0  # matching calls seen
         self.fired = 0  # times this rule actually fired
 
     def matches(self, site: str, key: str | None) -> bool:
-        if self.site != site:
-            return False
-        return self.key_substr is None or (
-            key is not None and self.key_substr in key
-        )
+        if self.site != "*" and self.site != site:
+            if not (self.site.endswith(".*")
+                    and site.startswith(self.site[:-1])):
+                return False
+        if self.key_substr is not None:
+            if key is None or self.key_substr not in key:
+                return False
+        return True
 
-    def fire(self) -> bool:
-        """Count one matching call; True (and counted) once the first
-        ``after`` calls are past, unless the rule has fired ``times``
-        times."""
+    def decide(self) -> bool:
+        """Advance this rule's deterministic counters for one matching
+        call; True when the rule fires."""
         self.hits += 1
         if self.times is not None and self.fired >= self.times:
             return False
         if self.hits <= self.after:
             return False
+        if self.prob < 1.0 and self._rng.random() >= self.prob:
+            return False
         self.fired += 1
         return True
 
+    def error_class(self, site: str):
+        if self.error == "source":
+            return SourceError
+        if self.error == "state":
+            return StateError
+        cls = SITES.get(site)
+        if cls is not None:
+            return cls
+        head = site.split(".", 1)[0]
+        return StateError if head in ("lsm", "checkpoint", "state") \
+            else SourceError
+
 
 class FaultPlan:
-    """A set of rules, applied in order at every injection site."""
+    """A seeded set of rules plus the log of everything they did."""
 
-    def __init__(self, spec: dict):
+    def __init__(self, spec: dict | str):
+        if isinstance(spec, str):
+            spec = json.loads(spec)
+        self.seed = int(spec.get("seed", 0))
         self.rules = [
-            FaultRule(r, i) for i, r in enumerate(spec.get("rules", []))
+            FaultRule(r, i, self.seed)
+            for i, r in enumerate(spec.get("rules", []))
         ]
+        self.events: list[dict] = []
         self._lock = threading.Lock()
+        # per-site registry counters, bound lazily on first firing (a
+        # plan can be armed before the obs registry is configured)
+        self._obs_counters: dict[str, object] = {}
 
+    # -- the one entry point every site goes through ---------------------
     def on(self, site: str, key: str | None = None, payload=None):
         """Apply the plan to one call at ``site``; returns the (possibly
-        torn) payload or raises the site's error class."""
+        torn) payload, raises the rule's error class, or sleeps."""
+        sleep_s = 0.0
+        raise_exc = None
+        fired_event = None
         with self._lock:
             for rule in self.rules:
                 if not rule.matches(site, key):
                     continue
                 if rule.kind == "torn" and not payload:
-                    # nothing to tear at a payload-less call: keep the
-                    # rule's budget for a call that carries bytes
+                    # nothing to tear at a payload-less call: leave the
+                    # rule's budget (times/after/RNG) untouched for a
+                    # call that carries bytes — consuming it here would
+                    # log a vacuous "fired" while the planned tear
+                    # silently never happens
                     continue
-                if not rule.fire():
+                if not rule.decide():
                     continue
-                if rule.kind == "torn":
-                    return payload[: len(payload) // 2]
-                raise SITES[site](rule.message or f"injected fault at {site}")
+                event = {
+                    "site": site,
+                    "rule": rule.index,
+                    "kind": rule.kind,
+                    "hit": rule.hits,
+                    "fire": rule.fired,
+                }
+                if rule.name:
+                    event["name"] = rule.name
+                if rule.kind == "latency":
+                    sleep_s = rule.ms / 1000.0
+                    event["ms"] = rule.ms
+                elif rule.kind == "torn":
+                    # payload is non-empty: payload-less calls were
+                    # filtered before decide()
+                    keep = rule._rng.randrange(0, len(payload))
+                    event["torn_to"] = keep
+                    event["torn_from"] = len(payload)
+                    if key is not None:
+                        event["key"] = key
+                    payload = payload[:keep]
+                else:  # error
+                    msg = rule.message or f"injected fault at {site}"
+                    event["message"] = msg
+                    raise_exc = rule.error_class(site)(msg)
+                self.events.append(event)
+                fired_event = event
+                break  # first firing rule wins the call
+        if fired_event is not None:
+            # outside the plan lock: fault events ride the SAME metric +
+            # span streams as everything else (counter per site for the
+            # Prometheus/JSONL timeline, an instant event in the trace)
+            self._record_obs(site, fired_event)
+        if sleep_s > 0.0:
+            time.sleep(sleep_s)
+        if raise_exc is not None:
+            raise raise_exc
         return payload
+
+    def _record_obs(self, site: str, event: dict) -> None:
+        from denormalized_tpu_torch import obs
+
+        c = self._obs_counters.get(site)
+        if c is None:
+            c = obs.counter("dnz_fault_injections_total", site=site)
+            self._obs_counters[site] = c
+        c.add(1)
+        rec = obs.spans.recorder()
+        if rec is not None:
+            rec.instant(f"fault.{site}", dict(event))
+
+    def event_log(self) -> list[dict]:
+        with self._lock:
+            return [dict(e) for e in self.events]
 
 
 # -- process-global plan --------------------------------------------------
@@ -146,11 +287,13 @@ class FaultPlan:
 _PLAN: FaultPlan | None = None
 
 
-def arm(spec: dict) -> FaultPlan:
+def arm(plan: FaultPlan | dict | str) -> FaultPlan:
     """Install a process-global plan (replacing any previous one)."""
     global _PLAN
-    _PLAN = FaultPlan(spec)
-    return _PLAN
+    if not isinstance(plan, FaultPlan):
+        plan = FaultPlan(plan)
+    _PLAN = plan
+    return plan
 
 
 def disarm() -> None:
@@ -165,8 +308,28 @@ def armed() -> bool:
 def inject(site: str, key: str | None = None, payload=None):
     """Site hook: no-op (returns ``payload`` unchanged) unless a plan is
     armed.  Sites sit at I/O-operation granularity — one call per fetch,
-    produce, decoded batch, state op or commit — never per row."""
+    produce, state op, or commit — never per row."""
     p = _PLAN
     if p is None:
         return payload
     return p.on(site, key=key, payload=payload)
+
+
+# env arming at import: how child processes (SIGKILL harnesses, cluster
+# workers) receive the plan without API plumbing
+_env_plan = os.environ.get("DENORMALIZED_FAULT_PLAN")
+if _env_plan:
+    try:
+        if _env_plan.startswith("@"):
+            with open(_env_plan[1:]) as _f:
+                _env_plan = _f.read()
+        arm(_env_plan)
+    except Exception as _e:
+        # this runs at engine import — a stale/malformed value must name
+        # its source, not surface as a bare JSONDecodeError deep inside
+        # an unrelated import chain
+        raise RuntimeError(
+            f"DENORMALIZED_FAULT_PLAN is set but unusable "
+            f"({_env_plan[:80]!r}): {_e}"
+        ) from _e
+del _env_plan

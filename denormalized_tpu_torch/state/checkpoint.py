@@ -4,7 +4,8 @@ physical plan.
 Counterpart of ``denormalized_tpu/state/checkpoint.py`` for one process:
 the same keys, framing, manifests, retention and fallback, so either
 package restores the other's store, windows' and joins' snapshots alike.
-The cluster coordinator's hooks are not ported.
+In a cluster worker, the cluster coordinator's abort of an in-flight epoch
+drops that epoch's blobs (:meth:`CheckpointCoordinator.note_aborted`).
 
 Mirrors the reference's checkpoint topology (SURVEY.md §3.4): sources persist
 their offsets when a barrier passes (kafka_stream_read.rs:275-289) and window
@@ -512,6 +513,30 @@ class CheckpointCoordinator:
                 "leftover epochs will be swept at next startup", epoch, e,
             )
         self._known_epochs = retained | {epoch}
+
+    def note_aborted(self, epoch: int) -> None:
+        """The cluster coordinator aborted in-flight epoch ``epoch`` (a
+        peer died before the barrier aligned everywhere; the number is
+        never reused — epochs are VALUES here, not dense indexes, and
+        commit/GC/history already tolerate gaps).  Eagerly drop any blobs
+        this worker wrote for it — source offsets persisted at the barrier
+        poll, early keyed snapshots — instead of letting them linger until
+        the next commit's sweep.  Best-effort and race-tolerant: a put
+        landing after the delete is collected by that later sweep; an
+        epoch at or below the committed point is ignored (it is durable,
+        not abortable)."""
+        if self.committed_epoch is not None and epoch <= self.committed_epoch:
+            return
+        keys = self._epoch_keys.pop(epoch, []) or []
+        self._known_epochs.discard(epoch)
+        try:
+            for key in keys:
+                self.backend.delete(f"{key}@{epoch}")
+            self.backend.delete(f"manifest@{epoch}")
+        except StateError:
+            # cleanup only — the startup sweep or the next commit's GC
+            # collects leftovers; an abort must never fail the worker
+            pass
 
     # -- read side -------------------------------------------------------
     def get_snapshot(self, key: str) -> bytes | None:

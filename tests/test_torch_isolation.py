@@ -100,6 +100,21 @@ NEW_MODULES = (
     "denormalized_tpu_torch.obs.doctor.statedoc",
     "denormalized_tpu_torch.obs.doctor.registry",
     "denormalized_tpu_torch.obs.doctor.http",
+    # the cluster slice
+    "denormalized_tpu_torch.cluster",
+    "denormalized_tpu_torch.cluster.benchjob",
+    "denormalized_tpu_torch.cluster.coordinator",
+    "denormalized_tpu_torch.cluster.exchange",
+    "denormalized_tpu_torch.cluster.framing",
+    "denormalized_tpu_torch.cluster.hashing",
+    "denormalized_tpu_torch.cluster.reader",
+    "denormalized_tpu_torch.cluster.rescale",
+    "denormalized_tpu_torch.cluster.runtime",
+    "denormalized_tpu_torch.cluster.spec",
+    "denormalized_tpu_torch.cluster.split",
+    "denormalized_tpu_torch.cluster.worker",
+    "denormalized_tpu_torch.obs.doctor.clusterdoc",
+    "denormalized_tpu_torch.common.lockwitness",
 )
 
 
@@ -189,6 +204,47 @@ def test_source_scan_finds_no_jax_or_reference_import(path):
             if node.module and forbidden(node.module):
                 hits.append(node.module)
     assert not hits, f"{path}: imports {hits}"
+
+
+def test_spawned_cluster_worker_holds_no_jax(tmp_path):
+    """A port cluster's worker processes (spawned ``python -m
+    denormalized_tpu_torch.cluster.worker``) load neither jax nor anything
+    of denormalized_tpu: each writes its module list when it exits."""
+    import json
+
+    from denormalized_tpu_torch.cluster import ClusterSpec, run_cluster
+
+    tests_dir = str(Path(__file__).resolve().parent)
+    probe = tmp_path / "probe"
+    result = run_cluster(ClusterSpec(
+        workdir=str(tmp_path / "wd"), n_workers=2,
+        job="torch_cluster_jobs:isolated_job",
+        job_args={"partitions": 2, "batches": 3, "rows": 16, "keys": 5,
+                  "probe": str(probe), "engine": {"device": "cpu"}},
+        sys_path=[tests_dir], liveness_timeout_s=120.0,
+    ))
+    assert result["status"] == "done"
+    reports = [json.loads(p.read_text())
+               for p in tmp_path.glob("probe.*")]
+    assert len(reports) == 2
+    for r in reports:
+        assert r["bad"] == [] and r["n_modules"] > 100
+
+
+def test_cluster_worker_without_cuda_raises(tmp_path):
+    """A worker's device is its job's (EngineConfig's "cuda" by default):
+    with no card the worker fails, and nothing retries on the CPU."""
+    from denormalized_tpu_torch.cluster import ClusterSpec, run_cluster
+    from denormalized_tpu_torch.common.errors import StateError
+
+    tests_dir = str(Path(__file__).resolve().parent)
+    with pytest.raises(StateError, match="no CUDA device"):
+        run_cluster(ClusterSpec(
+            workdir=str(tmp_path), n_workers=1,
+            job="torch_cluster_jobs:windowed_job",
+            job_args={"partitions": 1, "batches": 2, "rows": 8},
+            sys_path=[tests_dir], liveness_timeout_s=60.0, max_restarts=0,
+        ))
 
 
 def test_context_without_cuda_raises(monkeypatch):

@@ -20,7 +20,11 @@ under a budget, ``38`` the multi-query sweep (Q = 1, 10, 100 shared
 against independent device windows, and Q = 10 at config 3's shape),
 ``39`` query_dense with its control and join_dense (over phase 38's
 stream, made here), ``40`` the sketch lanes of approx_scale, ``41`` live
-registration across a SIGKILL over Kafka.  It builds every kernel (printing ptxas' register and
+registration across a SIGKILL over Kafka, ``45`` the cluster runtime at
+cluster_scale's shape (n = 1, 2, 4 and the single-process run), ``46``
+config 3's shape over 4 workers through ``partial_merge``, ``47`` partial
+recovery from a SIGKILL and a torn exchange frame, then a full restart
+rescaled to n = 2.  It builds every kernel (printing ptxas' register and
 shared-memory lines), makes phase 4's and phase 10's streams from seed 0,
 and calls the same ``chip_smoke`` functions as the full script, each
 step checked as there.  A failing step is printed with its traceback and
@@ -41,7 +45,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 STEPS = ("25k", "7", "24", "24h", "25", "25j", "26", "27", "28", "29", "30",
          "31", "32", "33u", "33s", "34", "35", "36", "37c", "37j", "37h",
-         "38", "39", "40", "41")
+         "38", "39", "40", "41", "45", "46", "47")
 
 
 def main(argv: list[str]) -> int:
@@ -146,6 +150,9 @@ def main(argv: list[str]) -> int:
                                            card),
         "40": lambda: cs.phase_sketches(device, seed + 15, card),
         "41": lambda: cs.phase_live_registration(device, seed + 16, card),
+        "45": lambda: cs.phase_cluster_scale(card),
+        "46": lambda: cs.phase_cluster_highcard(card),
+        "47": lambda: cs.phase_cluster_recovery(card),
     }
     failed = []
     for step in steps:
