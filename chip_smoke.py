@@ -281,7 +281,7 @@ Phases:
     (the lexsort lane pinned for residual classes); its no-overlap control
     (50 queries each pinning a sensor) with subsumption on and off over
     the stream's first QD_CONTROL_BATCHES batches; then ``join_dense``: 25
-    queries over one fact x dim band join (150,000 fact rows, band 0-999
+    queries over one fact x dim band join (JD_ROWS fact rows, band 0-999
     ms) through ONE shared ``StreamingJoinExec`` against the 8 distinct
     queries as independent join + window pipelines on the card, with the
     join's measured ``shared_cost_ms`` and the members' fractions;
@@ -356,7 +356,29 @@ Phases:
     SIGKILLed after 3 commits restores at n = 2 (rescaled), its union equal
     to the oracle, each restored worker running device steps.  Prints
     spawn → rejoin, ``dnz_cluster_recovery_ms``, the cluster doctor's
-    verdicts seen during the run, and the launches after the restore.
+    verdicts seen during the run, and the launches after the restore;
+48. the sharded window layouts, every shard on the one card
+    (``EngineConfig(device="cuda:0", mesh_devices=n)``): config 1 (phase
+    4's stream) at n = 2 and 4 under partial/final (``auto`` at 128
+    groups) and the key-sharded partial merge, then two_level at 2 x 2;
+    each against the oracle, with a scatter step a batch (row shipping)
+    or a merge launch a stripe (partial merge, g_shift = shard x G_local)
+    in EVERY shard, the process-wide counts equal to the shards' sums, and
+    no dense launch;
+49. config 3 (phase 10's stream) at n = 2 and 4 under key-sharded
+    (``auto`` above 4,096 groups) and the key-sharded partial merge with
+    ``emission_compaction`` (a compaction launch a window in every shard),
+    the same way;
+50. the merge kernel on every shard's plane of config 3 at n = 4 (a stripe
+    of its first 1,048,576 rows over the global group space, g_shift =
+    shard x G_local) and the compaction kernel on shard 1's busiest slot,
+    each against its plain version on the card; device, wrapper, plain
+    times and bound;
+51. a key-sharded checkpoint of config 3 at n = 4, crashed after one
+    committed epoch, restored into n = 2 and into one device: each union
+    equal to the oracle;
+52. ``dryrun_multichip(4, "cuda:0")``: every layout's values against the
+    single-device golden.
 
 Then one JSON line with each kernel's launches on its main path (phase 4
 for the dense kernel, with phases 38-39's baselines' launches under
@@ -372,8 +394,8 @@ launches, phase 35's merges and compactions; and with metrics and every
 exporter on, ``obs_launches``: phase 42's dense launches, phase 43's
 merges and compactions, with the join's dense launches beside; and
 ``cluster_launches``, each worker process's own count: phase 45's n = 4
-dense launches, phase 46's merges), its
-largest error against the plain version, its device time, the wrapper's
+dense launches, phase 46's merges; and ``shard_launches``, each shard's own count in phases 48-52),
+its largest error against the plain version, its device time, the wrapper's
 time, the plain version's time, the library call's (for the compaction
 kernel the nonzero + index_select sequence) and the least time the card
 could take (for the merge kernels also each phase-7 case's kernel, times,
@@ -6029,15 +6051,15 @@ MQ_INDEPENDENT_CAP_S = 35.0
 QD_THRESHOLDS = [30.0, 38.0, 42.0, 46.0, 50.0, 52.0, 55.0, 35.0]
 QD_QUERIES = 50
 #: the no-overlap control's feed: its 2 x 50 pipelines each string-compare
-#: every row on the host (~9 s a side at 15 batches on the card's host)
-QD_CONTROL_BATCHES = 8
+#: every row on the host (~11 s a side at 8 batches on the card's host)
+QD_CONTROL_BATCHES = 4
 #: join_dense (bench.py): 25 queries over one fact x dim band join
 JD_QUERIES = 25
 JD_SPECS = [
     (3_000, 1_000), (2_000, 1_000), (4_000, 2_000), (2_000, 2_000),
     (3_000, 3_000), (4_000, 1_000), (5_000, 1_000), (6_000, 2_000),
 ]
-JD_ROWS = 1_048_576  # 64 batches: 524 s of event time at 2 rows a ms
+JD_ROWS = 524_288  # 32 batches: 262 s of event time at 2 rows a ms
 JD_BATCH = 16_384
 #: approx_scale (bench.py): 4 keys, 100 ms windows sliding by 25 ms
 #: the sketch lane's feed: 256 batches of 16,384, so the 1M point's
@@ -7854,6 +7876,388 @@ def phase_cluster_recovery(card) -> dict:
     return {"partial": res["workers"], "rescaled": second["workers"]}
 
 
+# -- phases 48-52: the sharded window layouts -----------------------------------
+
+SHARD_COUNTS = (2, 4)
+# the shard count whose kernels phase 50 holds against their plain versions
+SHARD_KERNEL_N = 4
+
+
+def sharded_cfg(layout: str, n: int, **cfg) -> dict:
+    """The engine config of ``layout`` over ``n`` shards on the one card:
+    the strategies a user sets (``auto`` picks the row-shipping layout by
+    the group count: partial/final up to 4,096 groups, key-sharded
+    above); ``strategy`` is :func:`run_job`'s device strategy."""
+    if layout == "partial_merge/key_sharded":
+        return dict(mesh_devices=n, strategy="partial_merge", **cfg)
+    return dict(mesh_devices=n, mesh_slices=2 if layout == "two_level" else None,
+                shard_strategy="auto", strategy="auto", **cfg)
+
+
+def run_sharded(device, phase, job, layout, n, batches, stream, num_keys,
+                card, **cfg):
+    """One job through ``layout`` on ``n`` shards of ``device``, with every
+    kernel count and the scatter steps set to 0 just before it, checked
+    against the numpy oracle and shard by shard: a scatter step a batch in
+    every shard (row shipping), a merge launch a stripe in every shard
+    (partial merge), a compaction launch a window in every shard
+    (``emission_compaction``); the process-wide counts equal the shards'
+    sums → {rows_per_s, wall, launches, shards, merges, windows}."""
+    from denormalized_tpu_torch.ops import compact_slot as cs
+    from denormalized_tpu_torch.ops import dense_window as dw
+    from denormalized_tpu_torch.ops import merge_partials as mp
+    from denormalized_tpu_torch.parallel import sharded_state as ss
+
+    ts, kid, val = stream
+    pm = layout == "partial_merge/key_sharded"
+    what = f"phase {phase} {JOB_NAMES[job]} via {layout} at n={n}"
+    dw.dense_window_launches = 0
+    mp.merge_partials_launches = 0
+    cs.compact_slot_launches = 0
+    ss.scatter_steps = 0
+    ctx, res, wall = run_job(device, batches, job, **sharded_cfg(layout, n, **cfg))
+    launches = {"dense_window": dw.dense_window_launches,
+                "merge_partials": mp.merge_partials_launches,
+                "compact_slot": cs.compact_slot_launches,
+                "scatter_steps": ss.scatter_steps}
+    op = window_exec_of(ctx)
+    b = op.backend
+    m = op.metrics()
+    if b.strategy_name != layout or b.n != n:
+        raise AssertionError(f"{what}: ran {b.strategy_name} on {b.n} shards")
+    devices = {str(sh.device) for sh in b.shards.values()}
+    if devices != {str(device)}:
+        raise AssertionError(f"{what}: shards on {devices}")
+    windows = m["windows_emitted"]
+    if launches["dense_window"]:
+        raise AssertionError(f"{what}: the dense kernel launched "
+                             f"{launches['dense_window']} times")
+    if pm:
+        if (b.merges == 0 or b.shard_merges != [b.merges] * n
+                or launches["merge_partials"] != n * b.merges
+                or b.stripe.numpy_batches or launches["scatter_steps"]):
+            raise AssertionError(
+                f"{what}: {b.merges} stripes, shard merges {b.shard_merges}, "
+                f"{launches['merge_partials']} merge launches, "
+                f"{launches['scatter_steps']} scatter steps, numpy reducer "
+                f"batches {b.stripe.numpy_batches}")
+        dispatch = (f"{b.merges} stripes, a merge launch a stripe in every "
+                    f"shard {b.shard_merges} = {launches['merge_partials']} "
+                    f"launches (g_shift = shard x {b.spec.group_capacity})")
+    else:
+        if (b.shard_scatter != [len(batches)] * n
+                or launches["scatter_steps"] != n * len(batches)
+                or launches["merge_partials"]):
+            raise AssertionError(
+                f"{what}: shard scatter steps {b.shard_scatter}, "
+                f"{launches['scatter_steps']} steps for {len(batches)} "
+                f"batches, {launches['merge_partials']} merge launches")
+        dispatch = (f"a scatter step a batch in every shard "
+                    f"{b.shard_scatter} = {launches['scatter_steps']} steps")
+    if cfg.get("emission_compaction"):
+        if (windows == 0 or b.shard_compactions != [windows] * n
+                or launches["compact_slot"] != n * windows):
+            raise AssertionError(
+                f"{what}: shard compactions {b.shard_compactions}, "
+                f"{launches['compact_slot']} launches for {windows} windows")
+        dispatch += (f", a compaction launch a window in every shard "
+                     f"{b.shard_compactions} = {launches['compact_slot']} "
+                     f"launches")
+    elif launches["compact_slot"]:
+        raise AssertionError(f"{what}: {launches['compact_slot']} "
+                             f"compaction launches without compaction")
+    exp = oracle(ts, kid, val, 1000, 1000, num_keys)
+    check = {"tumbling": check_tumbling, "highcard": check_highcard}[job]
+    rows_out = check(res, exp, num_keys)
+    log(f"{what}: {len(ts)} rows in {len(batches)} batches, {rows_out} "
+        f"window rows match the oracle, {windows} windows, {dispatch}; G "
+        f"{b.group_capacity} ({b.spec.group_capacity} a shard), wall "
+        f"{wall:.3f} s, {len(ts) / wall:.0f} rows/s, {m['bytes_h2d']} B to "
+        f"and {m['bytes_d2h']} B from the card, every shard on {device} "
+        f"({card})")
+    return dict(rows_per_s=len(ts) / wall, wall=wall, launches=launches,
+                shards={"scatter": list(b.shard_scatter),
+                        "merges": list(b.shard_merges),
+                        "compactions": list(b.shard_compactions)},
+                merges=b.merges if pm else 0, windows=windows)
+
+
+def phase_sharded_cfg1(device, batches, stream, rates, card) -> dict:
+    """Phase 48: config 1 (phase 4's stream, 10 keys) at n = 2 and 4 shards
+    of the card under partial/final ('auto' at 128 groups) and the
+    key-sharded partial merge, then two_level at 2 x 2 → {run: result}."""
+    out = {}
+    for n in SHARD_COUNTS:
+        for layout in ("partial_final", "partial_merge/key_sharded"):
+            out[f"cfg1_{layout.split('/')[0]}_n{n}"] = run_sharded(
+                device, 48, "tumbling", layout, n, batches, stream, NUM_KEYS,
+                card)
+    out["cfg1_two_level_2x2"] = run_sharded(
+        device, 48, "tumbling", "two_level", 4, batches, stream, NUM_KEYS,
+        card)
+    log("phase 48 config 1 rows/s: " + ", ".join(
+        f"{k} {v['rows_per_s']:.0f}" for k, v in out.items())
+        + f"; one device: auto (phase 4) {rates['auto']:.0f}, partial_merge "
+        f"(phase 8) {rates['partial_merge']:.0f} ({card})")
+    return out
+
+
+def phase_sharded_highcard(device, batches, stream, rates, card) -> dict:
+    """Phase 49: config 3 (phase 10's stream: 100K string keys, 524,288-row
+    batches) at n = 2 and 4 shards of the card under key-sharded ('auto'
+    above 4,096 groups) and the key-sharded partial merge with
+    ``emission_compaction`` → {run: result}."""
+    out = {}
+    cfg = dict(min_group_capacity=2 * HIGHCARD_KEYS)
+    for n in SHARD_COUNTS:
+        out[f"cfg3_key_sharded_n{n}"] = run_sharded(
+            device, 49, "highcard", "key_sharded", n, batches, stream,
+            HIGHCARD_KEYS, card, **cfg)
+        out[f"cfg3_partial_merge_compaction_n{n}"] = run_sharded(
+            device, 49, "highcard", "partial_merge/key_sharded", n, batches,
+            stream, HIGHCARD_KEYS, card, emission_compaction=True, **cfg)
+    log("phase 49 config 3 rows/s: " + ", ".join(
+        f"{k} {v['rows_per_s']:.0f}" for k, v in out.items())
+        + f"; one device (phase 10): partial_merge "
+        f"{rates['partial_merge']:.0f}, auto {rates['auto']:.0f} ({card})")
+    return out
+
+
+def phase_shard_kernels(device, seed: int, stream, card) -> dict:
+    """Phase 50: the two kernels the sharded path launches a shard, on a
+    shard's plane at config 3's shape over n = SHARD_KERNEL_N shards, each
+    against its plain version on the card.  The stripe is config 3's
+    first 1,048,576 rows packed over the global group space (G_total = 2 x
+    100K keys rounded to 128 x n) by the port's own HostPartialStripe; each
+    shard's seeded ring folds it with its g_shift (counts, min and max
+    exact, sums to rtol=1e-5); then shard 1's busiest slot is compacted by
+    the kernel and by the plain version (count, gids and planes bit for
+    bit).  Device time, wrapper time, plain time and bound of shard 1's
+    merge and compaction → {merge: {...}, compact: {...}}."""
+    from denormalized_tpu_torch.ops import compact_slot as cs
+    from denormalized_tpu_torch.ops import merge_partials as mp
+    from denormalized_tpu_torch.ops import segment_agg as sa
+    from denormalized_tpu_torch.ops.host_partial import HostPartialStripe
+    from denormalized_tpu_torch.physical.window_exec import _round_capacity
+
+    n = SHARD_KERNEL_N
+    G_total = _round_capacity(2 * HIGHCARD_KEYS, n)
+    G = G_total // n
+    spec = sa.WindowKernelSpec(
+        components=tuple(sa.components_for(HIGHCARD_AGGS)), num_value_cols=1,
+        window_slots=16, group_capacity=G, length_ms=1000, slide_ms=1000)
+    ts, kid, val = (a[:2 * HIGHCARD_BATCH_ROWS] for a in stream)
+    units = ts // 1000
+    stripe = HostPartialStripe(spec, G_total)
+    stripe.add_batch((units - units.min()).astype(np.int64),
+                     (ts % 1000).astype(np.int32), kid.astype(np.int32),
+                     val[:, None], None, None)
+    rng = np.random.default_rng(seed)
+    packed_np, a_pad, _u, lean, dense = stripe.take_packed(int(rng.integers(0, 16)))
+    packed = torch.from_numpy(packed_np).to(device)
+    host = seeded_ring(spec, rng)
+    before = mp.merge_partials_launches
+    err, rings = 0.0, {}
+    for i in range(n):
+        shift = dict(G_total=G_total, g_shift=i * G)
+        got = sa.import_state(spec, host, device)
+        want = sa.import_state(spec, host, device)
+        mp.merge_partials(spec, stripe.SUB, a_pad, lean, dense, got, packed,
+                          **shift)
+        sa.merge_partials_reference(spec, stripe.SUB, a_pad, lean, dense,
+                                    want, packed, **shift)
+        err = max(err, compare_rings(spec, got, want, f"phase 50 shard {i}"))
+        rings[i] = got
+    torch.cuda.synchronize(device)
+    if mp.merge_partials_launches - before != n:
+        raise AssertionError("phase 50: the merge kernel did not launch once "
+                             "a shard")
+    shift = dict(G_total=G_total, g_shift=G)
+    scratch = sa.import_state(spec, host, device)
+
+    def merge():
+        mp.merge_partials(spec, stripe.SUB, a_pad, lean, dense, scratch,
+                          packed, **shift)
+
+    def merge_plain():
+        sa.merge_partials_reference(spec, stripe.SUB, a_pad, lean, dense,
+                                    scratch, packed, **shift)
+
+    ms, ms_by = kernel_device_ms(merge, MERGE_KERNEL)
+    bound_ms, bound_by, n_cells = merge_bound(spec, stripe.SUB, packed_np,
+                                              a_pad, dense, **shift)
+    merge_out = dict(branch=mp.merge_branch(spec, dense), ms=ms, ms_by=ms_by,
+                     host_ms=time_ms(merge, device, iters=200),
+                     plain_ms=time_ms(merge_plain, device),
+                     bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+    log(f"phase 50 merge on a shard's plane: n={n}, G_total={G_total}, "
+        f"G={G} a shard, {'dense' if dense else 'compact'} stripe "
+        f"{tuple(packed.shape)} (a_pad {a_pad}), {merge_out['branch']} "
+        f"kernel; every shard's ring (g_shift 0..{(n - 1) * G}) matches the "
+        f"plain version (max_abs_err={err:.3g}); shard 1 ({n_cells} ring "
+        f"cells touched): device {ms:.5f} ms ({ms_by}), wrapper "
+        f"{merge_out['host_ms']:.4f} ms, plain {merge_out['plain_ms']:.4f} "
+        f"ms, bound {bound_ms:.6f} ms ({bound_by}) ({card})")
+
+    ring = rings[1]
+    slot = int((ring["count_star"] > 0).sum(dim=1).argmax())
+    labels = [c.label for c in spec.components]
+    counts = ring["count_star"][slot]
+    planes = [ring[lb][slot] for lb in labels]
+    before = cs.compact_slot_launches
+    k_n, gids, outs = cs.compact_slot(counts, planes)
+    torch.cuda.synchronize(device)
+    if cs.compact_slot_launches - before != 1:
+        raise AssertionError("phase 50: the compaction kernel did not "
+                             "launch once")
+    rn, rgids, routs = cs.compact_slot_reference(counts, planes)
+    k = int(k_n.item())
+    if k != int(rn.item()) or not torch.equal(gids[:k], rgids):
+        raise AssertionError(f"phase 50: compaction gives {k} cells, the "
+                             f"plain version {int(rn.item())}, or other gids")
+    for lb, o, r in zip(labels, outs, routs):
+        ib = torch.int64 if o.element_size() == 8 else torch.int32
+        if not torch.equal(o[:k].view(ib), r.view(ib)):
+            raise AssertionError(f"phase 50: compacted plane {lb} differs")
+
+    def compact():
+        cs.compact_slot(counts, planes)
+
+    def compact_plain():
+        cs.compact_slot_reference(counts, planes)
+
+    def library():
+        idx = torch.nonzero(counts > 0).squeeze(1)
+        for p in planes:
+            p.index_select(0, idx)
+
+    c_ms, c_by, names = compact_device_ms(compact)
+    compact_out = dict(
+        active=k, ms=c_ms, ms_by=c_by, host_ms=time_ms(compact, device,
+                                                       iters=200),
+        plain_ms=time_ms(compact_plain, device),
+        library_ms=time_ms(library, device),
+        bound_ms=compact_bound(counts, planes), bound_by="bytes",
+        max_abs_err=0.0)
+    log(f"phase 50 compaction on shard 1's plane: slot {slot}, G={G}, {k} "
+        f"active cells, {len(planes)} planes: count, gids and planes equal "
+        f"the plain version bit for bit; device {c_ms:.5f} ms ({c_by}, "
+        f"{names}), wrapper {compact_out['host_ms']:.4f} ms, plain "
+        f"{compact_out['plain_ms']:.4f} ms, library sequence "
+        f"{compact_out['library_ms']:.4f} ms, bound "
+        f"{compact_out['bound_ms']:.6f} ms (bytes) ({card})")
+    return {"merge": merge_out, "compact": compact_out}
+
+
+def sharded_ckpt_crash(device, batches, path, n):
+    """Config 3 through the key-sharded layout on ``n`` shards with
+    checkpoints on ``path``: a barrier forced after the root's second
+    item, the epoch committed when its marker reaches the root, then a
+    crash (the run's generator closed) → (emitted rows, epoch, backend)."""
+    from denormalized_tpu_torch.logical import plan as lp
+    from denormalized_tpu_torch.physical.base import Marker
+    from denormalized_tpu_torch.physical.simple_execs import CollectSink
+    from denormalized_tpu_torch.runtime import executor
+    from denormalized_tpu_torch.state import checkpoint as ck
+    from denormalized_tpu_torch.state import lsm
+    from denormalized_tpu_torch.state.orchestrator import Orchestrator
+
+    ctx, ds = job_stream(device, batches, "highcard", **sharded_cfg(
+        "key_sharded", n, min_group_capacity=2 * HIGHCARD_KEYS,
+        **ckpt_config(path)))
+    root = executor.build_physical(lp.Sink(ds._plan, CollectSink()), ctx)
+    orch = Orchestrator(interval_s=9999)
+    coord = ck.wire_checkpointing(root, ctx, orch)
+    emitted, epoch, seen = {}, None, 0
+    it = root.run()
+    for item in it:
+        if hasattr(item, "num_rows"):
+            emitted.update(highcard_rows(item))
+        if seen == 1:
+            orch.trigger_now()
+        if isinstance(item, Marker):
+            coord.commit(item.epoch)
+            epoch = item.epoch
+            break
+        seen += 1
+    it.close()
+    orch.stop()
+    lsm.close_global_state_backend()
+    return emitted, epoch, root.input_op.backend
+
+
+def phase_sharded_ckpt(device, batches, stream, card) -> dict:
+    """Phase 51: a key-sharded checkpoint of config 3 at n = 4 (merged
+    (W, G_total) planes, each shard's export on its side stream) restores
+    into n = 2 and into one device; each restored run's union with the
+    crashed run's rows equals the oracle → {target: {epoch, rows}}."""
+    import shutil
+
+    from denormalized_tpu_torch.state import lsm
+
+    ts, kid, val = stream
+    exp = oracle(ts, kid, val, 1000, 1000, HIGHCARD_KEYS)
+    base = tempfile.mkdtemp(prefix="dnz_shard_ckpt_")
+    out = {}
+    try:
+        src = os.path.join(base, "n4")
+        a, epoch, crashed = sharded_ckpt_crash(device, batches, src, 4)
+        if epoch is None or crashed.n != 4 or 0 in crashed.shard_scatter:
+            raise AssertionError(f"phase 51: no epoch committed ({epoch}) or "
+                                 f"a shard ran no step {crashed.shard_scatter}")
+        for name, extra in (("key_sharded_n2", sharded_cfg("key_sharded", 2)),
+                            ("one_device", {})):
+            path = os.path.join(base, name)
+            shutil.copytree(src, path)
+            ctx, res, wall = run_job(
+                device, batches, "highcard", min_group_capacity=2 * HIGHCARD_KEYS,
+                **ckpt_config(path), **extra)
+            lsm.close_global_state_backend()
+            coord = ctx.last_checkpointing()[0]
+            op = window_exec_of(ctx)
+            b = highcard_rows(res)
+            rows_in = op.metrics()["rows_in"]
+            if coord.restored_epoch != epoch or rows_in >= len(ts):
+                raise AssertionError(
+                    f"phase 51 {name}: restored epoch {coord.restored_epoch} "
+                    f"(committed {epoch}), {rows_in} rows read")
+            union = dict(a)
+            union.update(b)
+            rows = check_highcard_rows(union, exp)
+            out[name] = dict(epoch=epoch, rows=rows,
+                             strategy=op.backend.strategy_name)
+            log(f"phase 51 config 3 key-sharded checkpoint at n=4 (epoch "
+                f"{epoch}, {len(a)} rows emitted before the crash) restored "
+                f"into {name} ({op.backend.strategy_name}): {rows_in} rows "
+                f"read after the restore, the union's {rows} window rows "
+                f"match the oracle, wall {wall:.3f} s ({card})")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
+def phase_sharded_dryrun(device, card) -> dict:
+    """Phase 52: the port's multichip dry run at n = 4 shards of the card
+    (``denormalized_tpu_torch/testing/multichip.py``): every layout's
+    values against the single-device golden (counts, min, max exact,
+    avg and stddev to rel 1e-9) → {layout: per-shard counts}."""
+    from denormalized_tpu_torch.testing.multichip import dryrun_multichip
+
+    backends = dryrun_multichip(4, str(device))
+    out = {name: {"scatter": list(b.shard_scatter),
+                  "merges": list(b.shard_merges)}
+           for name, b in backends.items()}
+    for name, counts in out.items():
+        if not any(counts["scatter"]) and not any(counts["merges"]):
+            raise AssertionError(f"phase 52 {name}: no shard ran a step")
+        if 0 in (counts["merges"] if name == "partial_merge"
+                 else counts["scatter"]):
+            raise AssertionError(f"phase 52 {name}: a shard ran none {counts}")
+    log(f"phase 52 dryrun_multichip(4, {device}): every layout value-parity "
+        f"OK vs the single-device golden; per-shard steps {out} ({card})")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7967,6 +8371,8 @@ def main(argv=None) -> int:
                 sliding_stream, NUM_KEYS, card)
     highcard_rates, highcard_batches, highcard_stream = phase_highcard(
         device, args.seed + 4, card)
+    log(f"phases 1-10: the script {time.time() - T_START:.1f} s so far "
+        f"({card})")
     restored_launches = phase_ckpt_sigkill(device, args.seed, batches, stream,
                                            tumbling, card)
     phase_ckpt_highcard(device, args.seed + 4, highcard_batches,
@@ -7985,6 +8391,8 @@ def main(argv=None) -> int:
     phase_join_skew(device, args.seed, card)
     functions_launches = phase_functions(device, batches, stream, card)
     phase_eval_torch(device, args.seed + 9, card)
+    log(f"phases 11-20: the script {time.time() - T_START:.1f} s so far "
+        f"({card})")
     kafka = phase_kafka_e2e(device, stream, card)
     pace, staged, lat_stream = phase_kafka_latency(
         device, args.seed + 7, kafka["rows_per_s"], card)
@@ -8009,6 +8417,8 @@ def main(argv=None) -> int:
     avro = phase_kafka_e2e(device, stream, card, fmt="avro", phase=29)
     log(f"phase 29 rows/s side by side: Avro {avro['rows_per_s']:.0f}, JSON "
         f"(phase 21) {kafka['rows_per_s']:.0f} ({card})")
+    log(f"phases 21-29: the script {time.time() - T_START:.1f} s so far "
+        f"({card})")
     csv_run = phase_csv_explain(device, batches, stream, card)
     phase_udaf(device, batches, stream, card)
     phase_sessions(device, args.seed + 12, card)
@@ -8021,6 +8431,8 @@ def main(argv=None) -> int:
     phase_spill_join(device, (highcard_batches, highcard_stream),
                      highcard_right, card)
     phase_spill_host(device, args.seed + 12, card)
+    log(f"phases 30-37: the script {time.time() - T_START:.1f} s so far "
+        f"({card})")
     took = {}
     t_mq = time.perf_counter()
     mq = phase_multi_query(device, args.seed + 14, card)
@@ -8047,6 +8459,19 @@ def main(argv=None) -> int:
     highcard_cluster = phase_cluster_highcard(card)
     phase_cluster_recovery(card)
     log(f"phases 45-47 took {time.perf_counter() - t_cluster:.1f} s; the "
+        f"script {time.time() - T_START:.1f} s so far ({card})")
+    t_shard = time.perf_counter()
+    sharded = phase_sharded_cfg1(
+        device, batches, stream, {"auto": tumbling["rows_per_s"],
+                                  "partial_merge": cfg1_pm["rows_per_s"]},
+        card)
+    sharded.update(phase_sharded_highcard(
+        device, highcard_batches, highcard_stream, highcard_rates, card))
+    shard_kern = phase_shard_kernels(device, args.seed + 17, highcard_stream,
+                                     card)
+    phase_sharded_ckpt(device, highcard_batches, highcard_stream, card)
+    dryrun = phase_sharded_dryrun(device, card)
+    log(f"phases 48-52 took {time.perf_counter() - t_shard:.1f} s; the "
         f"script {time.time() - T_START:.1f} s so far ({card})")
 
     shared_counts = ([p["shared_launches"]
@@ -8099,6 +8524,9 @@ def main(argv=None) -> int:
         # each worker process of phase 45's n = 4 cluster run
         "cluster_launches": {w: m["dense_window_launches"]
                              for w, m in scale[4]["workers"].items()},
+        # (no shard_launches: the sharded layouts ship rows through the
+        # scatter program, as the JAX package's do, and phases 48-49 check
+        # that no shard launched this kernel)
         # the multi-query baselines (phases 38-39): each query its own
         # device window (dense launches + scatter steps); "shared" sums
         # what the shared runs of phases 38-40 launched, as counted
@@ -8119,7 +8547,8 @@ def main(argv=None) -> int:
         "replaces": "denormalized_tpu/ops/segment_agg.py:365",
         # launches on config 1 through partial_merge (phase 8)
         "launches": cfg1_pm["launches"]["merge_partials"],
-        "max_abs_err": max(k["max_abs_err"] for k in merge.values()),
+        "max_abs_err": max([k["max_abs_err"] for k in merge.values()]
+                           + [shard_kern["merge"]["max_abs_err"]]),
         # device time of one launch at cfg1_dense, apart from the wrapper
         "ms": m1["ms"],
         "ms_by": m1["ms_by"],
@@ -8138,6 +8567,16 @@ def main(argv=None) -> int:
         # each worker process of phase 46's 4-worker partial_merge run
         "cluster_launches": {w: m["merge_partials_launches"] for w, m in
                              highcard_cluster["workers"].items()},
+        # launches in each shard of the key-sharded partial merge (phases
+        # 48-49, one a stripe a shard, g_shift = shard x G_local), and the
+        # dry run's (phase 52)
+        "shard_launches": {
+            **{run: r["shards"]["merges"] for run, r in sharded.items()
+               if r["merges"]},
+            "dryrun_n4": dryrun["partial_merge"]["merges"]},
+        # the kernel on a shard's plane at config 3 over 4 shards (phase
+        # 50): shard 1's device time, wrapper, plain version and bound
+        "shard_plane": shard_kern["merge"],
         "cfg3_ms": merge["cfg3_compact"]["ms"],
         "cfg3_bound_ms": merge["cfg3_compact"]["bound_ms"],
         # every phase-7 case: its kernel, device time, bound, wrapper and
@@ -8180,6 +8619,13 @@ def main(argv=None) -> int:
         "obs_launches": obs_cfg34["compact"],
         # both windows of config 4 at 100K keys, emitting from two threads
         "join_launches": compact_join,
+        # launches in each shard of config 3's key-sharded partial merge
+        # with emission_compaction (phase 49): one a window a shard
+        "shard_launches": {run: r["shards"]["compactions"]
+                           for run, r in sharded.items()
+                           if any(r["shards"]["compactions"])},
+        # the kernel on shard 1's plane at config 3 over 4 shards (phase 50)
+        "shard_plane": shard_kern["compact"],
         "cases": {name: {key: case[key] for key in (
             "active", "ms", "ms_by", "host_ms", "read_ms", "plain_ms",
             "library_ms", "bound_ms")} for name, case in compact.items()},

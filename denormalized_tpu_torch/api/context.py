@@ -13,6 +13,8 @@ join knobs (``join_retention_ms``, ``join_adaptive``,
 ``join_adapt_interval_s``, ``join_band_slack_ms``),
 ``partition_watermarks``, ``source_idle_timeout_ms``, the window
 operator's ``accum_dtype``, ``emission_compaction`` and ``host_pipeline``,
+the sharded layouts' ``mesh_devices``, ``mesh_slices`` and
+``shard_strategy``,
 the multi-query engine's ``slice_windows``, ``slice_unit_ms``,
 ``slice_sort_lane``, ``approx_native`` and ``mq_subsumption``, and the
 observability knobs (``metrics_enabled``, ``prometheus_port``,
@@ -78,6 +80,19 @@ class EngineConfig:
     #                     and fold the stripe into the ring with one launch
     #                     of the merge kernel (ops/merge_partials.py)
     device_strategy: str = "auto"
+    # sharding (parallel/): number of ring shards to split group state
+    # over; None = one device.  The shards' devices follow ``device``:
+    # "cuda" (no index) means every visible card, one shard a card (asking
+    # for more shards than cards raises); a named device ("cuda:0",
+    # "cpu") holds every shard
+    mesh_devices: int | None = None
+    # 2-D layout: split mesh_devices into this many row-parallel slices
+    # (keys sharded within each slice, cross-slice merge at emission only
+    # — the dp x tp analog; see parallel/sharded_state.TwoLevelWindowState)
+    mesh_slices: int | None = None
+    # 'auto' | 'key_sharded' | 'partial_final' | 'two_level'
+    # (see parallel/sharded_state.py)
+    shard_strategy: str = "auto"
     # partial_merge pacing: merge the host stripe after this many rows even
     # if no window closed, and defer emission up to emit_lag_ms after a
     # window becomes closable, so replay-speed runs close several windows

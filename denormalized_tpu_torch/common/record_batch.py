@@ -8,8 +8,8 @@ as padded tensors — batches themselves never hold device tensors.
 Counterpart of ``denormalized_tpu/common/record_batch.py``: a column is a
 numpy array or an Arrow-layout :class:`~denormalized_tpu_torch.common.
 columns.Column` (strings from the JSON parser stay ``StringColumn``s), with
-the constructors and transforms the window, join and Kafka paths use and
-``to_pyarrow`` for ``sink(as_pyarrow=True)``.
+its constructors (``from_pydict``, ``from_pyarrow``), transforms, and
+``to_pyarrow`` / ``to_pandas``.
 
 Nullability: a column may carry a boolean validity mask; ``None`` mask means
 all-valid (Arrow's convention).
@@ -18,7 +18,7 @@ all-valid (Arrow's convention).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Mapping, Sequence
 
 import numpy as np
 
@@ -67,6 +67,24 @@ class RecordBatch:
         self.num_rows = n
 
     # -- constructors ----------------------------------------------------
+    @staticmethod
+    def from_pydict(
+        data: Mapping[str, Sequence], schema: Schema | None = None
+    ) -> "RecordBatch":
+        if schema is None:
+            fields, cols = [], []
+            for name, vals in data.items():
+                arr = _coerce_column(vals)
+                fields.append(Field(name, DataType.from_numpy(arr.dtype)))
+                cols.append(arr)
+            return RecordBatch(Schema(fields), cols)
+        cols = []
+        for f in schema:
+            if f.name not in data:
+                raise SchemaError(f"missing column {f.name!r}")
+            cols.append(np.asarray(data[f.name], dtype=f.dtype.to_numpy()))
+        return RecordBatch(schema, cols)
+
     @staticmethod
     def empty(schema: Schema) -> "RecordBatch":
         return RecordBatch(
@@ -131,6 +149,45 @@ class RecordBatch:
             fields.append(pa.field(f.name, arr.type, nullable=f.nullable))
         return pa.RecordBatch.from_arrays(arrays, schema=pa.schema(fields))
 
+    def to_pandas(self):
+        """Convert to a ``pandas.DataFrame`` (via pyarrow)."""
+        return self.to_pyarrow().to_pandas()
+
+    @staticmethod
+    def from_pyarrow(rb) -> "RecordBatch":
+        """Build from a ``pyarrow.RecordBatch`` / ``pyarrow.Table`` slice."""
+        import pyarrow as pa
+
+        fields, cols, masks = [], [], []
+        for pf in rb.schema:
+            col = rb.column(pf.name)
+            if isinstance(col, pa.ChunkedArray):
+                col = col.combine_chunks()
+            dtype = _dtype_from_arrow(pa, pf.type)
+            valid = None
+            if col.null_count:
+                valid = np.asarray(pa.compute.is_valid(col).to_numpy(
+                    zero_copy_only=False), dtype=bool)
+            if dtype in (DataType.STRING, DataType.STRUCT, DataType.LIST):
+                arr = np.empty(len(col), dtype=object)
+                arr[:] = col.to_pylist()
+            else:
+                if pa.types.is_timestamp(pf.type):
+                    # normalize us/ns (e.g. pandas-origin) to millisecond
+                    # values BEFORE the integer reinterpretation
+                    col = col.cast(pa.timestamp("ms")).cast(pa.int64())
+                if col.null_count:
+                    fill = False if pa.types.is_boolean(col.type) else 0
+                    col = col.fill_null(fill)
+                arr = np.asarray(
+                    col.to_numpy(zero_copy_only=False),
+                    dtype=dtype.to_numpy(),
+                )
+            fields.append(Field(pf.name, dtype, nullable=pf.nullable))
+            cols.append(arr)
+            masks.append(valid)
+        return RecordBatch(Schema(fields), cols, masks)
+
     # -- transforms ------------------------------------------------------
     def select(self, names: Sequence[str]) -> "RecordBatch":
         idx = [self.schema.index_of(n) for n in names]
@@ -139,6 +196,10 @@ class RecordBatch:
             [self.columns[i] for i in idx],
             [self.masks[i] for i in idx],
         )
+
+    def drop(self, names: Sequence[str]) -> "RecordBatch":
+        keep = [f.name for f in self.schema if f.name not in set(names)]
+        return self.select(keep)
 
     def with_column(
         self, field: Field, col: np.ndarray, mask: np.ndarray | None = None
@@ -254,3 +315,38 @@ def _pa_type_of_field(pa, f):
         if child is not None:
             return pa.list_(child)
     return None
+
+
+def _dtype_from_arrow(pa, t) -> DataType:
+    if pa.types.is_timestamp(t):
+        return DataType.TIMESTAMP_MS
+    if pa.types.is_int32(t):
+        return DataType.INT32
+    if pa.types.is_uint64(t):
+        # values above 2**63-1 would wrap negative in the int64 engine
+        # representation — refuse loudly rather than corrupt silently
+        raise SchemaError("uint64 arrow columns are not representable")
+    if pa.types.is_integer(t):
+        return DataType.INT64
+    if pa.types.is_float32(t):
+        return DataType.FLOAT32
+    if pa.types.is_floating(t):
+        return DataType.FLOAT64
+    if pa.types.is_boolean(t):
+        return DataType.BOOL
+    if pa.types.is_string(t) or pa.types.is_large_string(t):
+        return DataType.STRING
+    if pa.types.is_struct(t):
+        return DataType.STRUCT
+    if pa.types.is_list(t) or pa.types.is_large_list(t):
+        return DataType.LIST
+    raise SchemaError(f"unsupported arrow type {t!r}")
+
+
+def _coerce_column(vals: Sequence) -> np.ndarray:
+    arr = np.asarray(vals)
+    if arr.dtype.kind == "U":
+        arr = arr.astype(object)
+    if arr.dtype.kind == "O" and arr.shape[0] and isinstance(arr[0], bool):
+        arr = arr.astype(bool)
+    return arr

@@ -116,9 +116,11 @@ def _next_pow2(n: int) -> int:
     return 1 << max(0, (n - 1)).bit_length()
 
 
-def _round_capacity(g: int) -> int:
-    """Round a group capacity up to a multiple of 128."""
-    return -(-g // 128) * 128
+def _round_capacity(g: int, n_dev: int = 1) -> int:
+    """Round a group capacity up so every shard is a multiple of 128 lanes
+    (and the total divides evenly over the mesh)."""
+    unit = 128 * n_dev
+    return -(-g // unit) * unit
 
 
 def watermark_floor(wm_ms: int, length_ms: int, slide_ms: int) -> int:
@@ -389,6 +391,8 @@ class StreamingWindowExec(ExecOperator):
         emit_lag_ms: int | None = None,
         host_pipeline: bool = False,
         emit_on_close: bool = True,
+        mesh=None,
+        shard_strategy: str = "auto",
     ) -> None:
         if window_type is WindowType.SESSION:
             raise PlanError(
@@ -459,12 +463,14 @@ class StreamingWindowExec(ExecOperator):
             GroupInterner(len(self.group_exprs)) if self._grouped else None
         )
         self._device_strategy = device_strategy
+        self._mesh = mesh
+        self._shard_strategy = shard_strategy
         self._spec = sa.WindowKernelSpec(
             components=components,
             num_value_cols=len(self._value_exprs),
             window_slots=min_window_slots,
             group_capacity=_round_capacity(
-                min_group_capacity if self._grouped else 128
+                min_group_capacity if self._grouped else 128, self._n_dev
             ),
             length_ms=self.length_ms,
             slide_ms=self.slide_ms,
@@ -472,7 +478,7 @@ class StreamingWindowExec(ExecOperator):
             compensated=compensated_sums,
         )
         self._backend = make_sharded_state(
-            self._spec, self._device, device_strategy
+            self._spec, self._device, device_strategy, mesh, shard_strategy
         )
         self._emission_compaction = emission_compaction
         # on-device finalization: emission ships final output planes + an
@@ -596,6 +602,11 @@ class StreamingWindowExec(ExecOperator):
         """The window-state backend currently holding the ring."""
         return self._backend
 
+    @property
+    def _n_dev(self) -> int:
+        """Shards of the mesh (1 without one)."""
+        return 1 if self._mesh is None else self._mesh.size
+
     def _label(self):
         w = f"{self.window_type.value} {self.length_ms}ms"
         if self.slide_ms != self.length_ms:
@@ -695,7 +706,9 @@ class StreamingWindowExec(ExecOperator):
             num_value_cols=self._spec.num_value_cols,
             # W stays as carried: a window's slot is its absolute index mod W
             window_slots=int(W),
-            group_capacity=_round_capacity(max(int(G), self._spec.group_capacity)),
+            group_capacity=_round_capacity(
+                max(int(G), self._spec.group_capacity), self._n_dev
+            ),
             length_ms=self.length_ms,
             slide_ms=self.slide_ms,
             accum_dtype=self._spec.accum_dtype,
@@ -714,21 +727,13 @@ class StreamingWindowExec(ExecOperator):
     def _replace_backend(self) -> None:
         old = self._backend
         self._backend = make_sharded_state(
-            self._spec, self._device, self._device_strategy
+            self._spec, self._device, self._device_strategy, self._mesh,
+            self._shard_strategy,
         )
-        # link-traffic and dispatch counters live on the backend instance;
-        # a replacement carries them so they cover the whole run
-        self._backend.bytes_h2d += old.bytes_h2d
-        self._backend.bytes_d2h += old.bytes_d2h
-        self._backend.dense_updates += old.dense_updates
-        self._backend.scatter_updates += old.scatter_updates
-        if self._backend.accumulates_host:
-            self._backend.merges += old.merges
-            new, prev = self._backend.stripe, old.stripe
-            new.native_batches += prev.native_batches
-            new.numpy_batches += prev.numpy_batches
-            new.reduce_s += prev.reduce_s
-            new.pack_s += prev.pack_s
+        # link-traffic and dispatch counters (per shard on a mesh) live on
+        # the backend instance; a replacement carries them so they cover
+        # the whole run
+        self._backend.carry_counters(old)
         if self._finals_specs is not None:
             self._backend.prepare_finals(self._finals_specs)
 
@@ -776,7 +781,7 @@ class StreamingWindowExec(ExecOperator):
         if self._grouped and len(self._interner) > 0.9 * cap:
             self._grow(
                 group_capacity=_round_capacity(
-                    _next_pow2(int(len(self._interner) * 2))
+                    _next_pow2(int(len(self._interner) * 2)), self._n_dev
                 )
             )
         if max_win_rel >= self._spec.window_slots:
@@ -949,8 +954,11 @@ class StreamingWindowExec(ExecOperator):
         """Row shipping: pad the batch to a pow2 bucket and run one device
         step on it."""
         win_rel = np.clip(win_rel64, -1, self._spec.window_slots).astype(np.int32)
-        # pad to a pow2 bucket: padding rows are invalid (row_valid False)
+        # pad to a pow2 bucket, divisible by the mesh so the partial
+        # layouts split rows evenly: padding rows are invalid (row_valid
+        # False)
         Bp = max(self._min_batch_bucket, _next_pow2(n))
+        Bp = -(-Bp // self._n_dev) * self._n_dev
         row_valid = np.zeros(Bp, dtype=bool)
         row_valid[:n] = True
 
@@ -1256,8 +1264,15 @@ class StreamingWindowExec(ExecOperator):
                 self._backend.reset_slot(slot)
             return self._finalize_rows(j, rows)
         with span("window.emit", op="window", window=j * self.slide_ms):
-            gids, rows = self._backend.read_slot_compact(slot)
+            compacted = self._backend.read_slot_compact(slot)
+            if compacted is None:
+                # a row-shipping sharded layout does not compact: the whole
+                # slot crosses, as in the JAX package
+                rows = self._backend.read_slot(slot)
             self._backend.reset_slot(slot)
+        if compacted is None:
+            return self._finalize_rows(j, rows)
+        gids, rows = compacted
         # rows hold only the active groups, in ascending gid; the interner
         # bound guard of the full path applies
         ngroups = len(self._interner) if self._grouped else 1

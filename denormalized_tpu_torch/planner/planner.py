@@ -11,15 +11,18 @@ a window holding any accumulator aggregate :class:`UdafWindowExec`; under
 :class:`SliceWindowExec` (one subscriber, with ``slice_unit_ms`` and
 ``slice_sort_lane``); otherwise :class:`StreamingWindowExec`, with the
 engine config's explicit ``device``, kernel strategy, ``accum_dtype``,
-``emission_compaction`` and ``host_pipeline``.  Approximate aggregates
-stay sketch kinds on the slice path (``approx_native``, the default) and
-lower to their exact accumulators everywhere else, as in the JAX package
+``emission_compaction``, ``host_pipeline`` and the mesh of its sharded
+layouts (:meth:`Planner._mesh`: ``mesh_devices`` shards, 2-D with
+``mesh_slices``, laid out by ``shard_strategy``, on devices drawn from the
+engine's ``device``, over every process of a job under a process group).  A mesh keeps windows on the device ring: the slice
+path and native sketches are off under one, as in the JAX package, and
+sessions and accumulator windows ignore it.  Approximate aggregates stay
+sketch kinds on the slice path (``approx_native``, the default) and lower
+to their exact accumulators everywhere else
 (:meth:`Planner._route_approx`).  The join route threads its band,
 retention, band slack and adaptation knobs into
 :class:`StreamingJoinExec`.  A logical node with a ``create_exec`` hook
-(the cluster's ``ExchangeScan`` leaf) builds its own operator.  Meshes
-are not ported yet (ROADMAP §A item 9), so the JAX package's mesh
-clauses are absent.
+(the cluster's ``ExchangeScan`` leaf) builds its own operator.
 """
 
 from __future__ import annotations
@@ -29,6 +32,12 @@ import os
 from denormalized_tpu_torch.common.errors import PlanError
 from denormalized_tpu_torch.logical import plan as lp
 from denormalized_tpu_torch.logical.expr import SKETCH_AGG_KINDS, AggregateExpr
+from denormalized_tpu_torch.parallel.distributed import job_devices
+from denormalized_tpu_torch.parallel.mesh import (
+    Mesh,
+    make_mesh,
+    make_mesh_2d,
+)
 from denormalized_tpu_torch.physical.base import ExecOperator
 from denormalized_tpu_torch.physical.join_exec import StreamingJoinExec
 from denormalized_tpu_torch.physical.simple_execs import (
@@ -68,6 +77,7 @@ class Planner:
             node.window_type is not lp.WindowType.SESSION
             and self.config.slice_windows
             and self.config.approx_native
+            and not self.config.mesh_devices
             and not any(a.kind == "udaf" for a in aggs)
         )
         if native:
@@ -88,6 +98,43 @@ class Planner:
             else:
                 lowered.append(a)
         return lowered
+
+    def _mesh(self):
+        """The window ring's mesh, or None for one device; raises on the
+        JAX package's refusals (slices without devices, devices not a
+        multiple of slices, a slice count not a power of two).  In a
+        multi-process job ``mesh_devices`` counts the job's shards, as
+        ``jax.devices()`` does after ``jax.distributed.initialize``: each
+        process holds its share (:func:`job_devices`)."""
+        c = self.config
+        if c.mesh_slices and not c.mesh_devices:
+            raise ValueError(
+                "mesh_slices requires mesh_devices (the 2-D layout needs "
+                "the total device count) — the job would otherwise silently "
+                "run single-device"
+            )
+        if not c.mesh_devices:
+            return None
+        n_dev = c.mesh_devices
+        devices = job_devices(c.resolved_device(), n_dev)
+        if not c.mesh_slices:
+            return devices if isinstance(devices, Mesh) else make_mesh(
+                n_dev, devices=devices)
+        n_sl = c.mesh_slices
+        if n_sl > n_dev or n_dev % n_sl:
+            raise ValueError(
+                f"mesh_devices={n_dev} must be a multiple of "
+                f"mesh_slices={n_sl} (each slice gets "
+                f"mesh_devices/mesh_slices key shards)"
+            )
+        if n_sl & (n_sl - 1):
+            # batches bucket to powers of two and rows split across
+            # slices: a non-pow2 slice count would fail on the first batch
+            raise ValueError(
+                f"mesh_slices={n_sl} must be a power of two (batches are "
+                f"pow2-bucketed and rows split across slices)"
+            )
+        return make_mesh_2d(n_sl, n_dev // n_sl, devices=devices)
 
     def create_physical_plan(self, node: lp.LogicalPlan) -> ExecOperator:
         # extension point: a logical node that knows how to build its own
@@ -114,6 +161,7 @@ class Planner:
             c = self.config
             child = self.create_physical_plan(node.input)
             aggr_exprs = self._route_approx(node)
+            mesh = self._mesh()
             if node.window_type is lp.WindowType.SESSION:
                 # sessions take builtin AND accumulator aggregates in one
                 # operator; the switch selects the JAX package's
@@ -140,12 +188,12 @@ class Planner:
                     node.slide_ms,
                     emit_on_close=c.emit_on_close,
                 )
-            if c.slice_windows:
+            if c.slice_windows and not c.mesh_devices:
                 # slice-fold path (docs/multi_query.md): every foldable
                 # aggregate folds from slice partials, so a sliding window
                 # pays O(1) per row + O(L/slide) per emitted window instead
                 # of the k-way fan-out.  Host kernel: nothing runs on the
-                # card
+                # card (a device mesh keeps the ring operator)
                 return SliceWindowExec(
                     child,
                     node.group_exprs,
@@ -180,6 +228,8 @@ class Planner:
                 emit_lag_ms=c.emit_lag_ms,
                 host_pipeline=c.host_pipeline,
                 emit_on_close=c.emit_on_close,
+                mesh=mesh,
+                shard_strategy=c.shard_strategy,
             )
         if isinstance(node, lp.Join):
             c = self.config

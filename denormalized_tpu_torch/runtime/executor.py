@@ -209,6 +209,9 @@ def execute_plan(plan: lp.LogicalPlan, ctx, checkpoint=None) -> None:
             if spill is not None:
                 spill.close()
             _stop_services(exporters, handle)
+            from denormalized_tpu_torch.runtime.tracing import log_metrics
+
+            log_metrics(root)
 
 
 def stream_plan(plan: lp.LogicalPlan, ctx) -> Iterator[RecordBatch]:

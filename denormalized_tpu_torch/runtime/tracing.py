@@ -3,7 +3,9 @@ the package logger and :func:`span`, which writes enter/close log lines
 with wall time and error status when :func:`enable_tracing` is on, and
 records into the span ring (``obs/spans.py``, dumped as Perfetto-loadable
 Chrome trace JSON) when a recorder is installed
-(``EngineConfig(trace_path=...)``).
+(``EngineConfig(trace_path=...)``); and :func:`collect_metrics` /
+:func:`log_metrics`, the per-operator metrics of a plan tree (logged at the
+end of a run while tracing is on).
 """
 
 from __future__ import annotations
@@ -66,3 +68,23 @@ def span(name: str, **fields):
             )
         if rec is not None:
             rec.record(name, t0, dur, fields or None, error=err)
+
+
+def collect_metrics(root) -> dict[str, dict]:
+    """Per-operator metrics over a physical plan tree, keyed by the same
+    DFS ids used for checkpoint node ids."""
+    from denormalized_tpu_torch.state.checkpoint import assign_node_ids, walk
+
+    ids = assign_node_ids(root)
+    out = {}
+    for op in walk(root):
+        m = op.metrics()
+        if m:
+            out[ids[id(op)]] = m
+    return out
+
+
+def log_metrics(root) -> None:
+    if _TRACING:
+        for node, m in collect_metrics(root).items():
+            logger.info("metrics %s %s", node, m)

@@ -3,14 +3,15 @@
 The deliberate test seam the reference lacks (SURVEY.md §4: its de-facto
 integration test is running examples against a live Kafka docker image).  A
 :class:`MemorySource` replays pre-built batches deterministically, partitioned
-like a Kafka topic.  Counterpart of ``denormalized_tpu/sources/memory.py``
-(the generator source is not ported yet).
+like a Kafka topic; :class:`GeneratorSource` synthesizes load in-process (the
+`emit_measurements` analog, examples/examples/emit_measurements.rs:17-84)
+without a broker.  Counterpart of ``denormalized_tpu/sources/memory.py``.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Sequence
+from typing import Callable, Iterable, Sequence
 
 from denormalized_tpu_torch.common.record_batch import RecordBatch
 from denormalized_tpu_torch.common.schema import Schema
@@ -99,3 +100,64 @@ class MemorySource(Source):
     @property
     def unbounded(self) -> bool:
         return False
+
+
+class _GeneratorPartition(PartitionReader):
+    def __init__(
+        self,
+        gen: Iterable[RecordBatch],
+        timestamp_column: str | None,
+        timestamp_unit: str = "ms",
+    ) -> None:
+        self._it = iter(gen)
+        self._ts_col = timestamp_column
+        self._ts_unit = timestamp_unit
+        self._count = 0
+
+    def read(self, timeout_s: float | None = None):
+        try:
+            b = next(self._it)
+        except StopIteration:
+            return None
+        self._count += 1
+        return attach_canonical_timestamp(
+            b, self._ts_col, fallback_ms=int(time.time() * 1000),
+            timestamp_unit=self._ts_unit,
+        )
+
+    def offset_snapshot(self) -> dict:
+        return {"count": self._count}
+
+
+class GeneratorSource(Source):
+    """Synthesized stream: one generator factory per partition."""
+
+    def __init__(
+        self,
+        user_schema: Schema,
+        partition_factories: Sequence[Callable[[], Iterable[RecordBatch]]],
+        timestamp_column: str | None = None,
+        unbounded: bool = True,
+        name: str = "generator",
+        timestamp_unit: str = "ms",
+    ) -> None:
+        self._schema = canonicalize_schema(user_schema)
+        self._factories = list(partition_factories)
+        self._ts_col = timestamp_column
+        self._ts_unit = validate_ts_unit(timestamp_unit)
+        self._unbounded = unbounded
+        self.name = name
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+    def partitions(self) -> list[PartitionReader]:
+        return [
+            _GeneratorPartition(f(), self._ts_col, self._ts_unit)
+            for f in self._factories
+        ]
+
+    @property
+    def unbounded(self) -> bool:
+        return self._unbounded

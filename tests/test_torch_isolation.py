@@ -115,6 +115,11 @@ NEW_MODULES = (
     "denormalized_tpu_torch.cluster.worker",
     "denormalized_tpu_torch.obs.doctor.clusterdoc",
     "denormalized_tpu_torch.common.lockwitness",
+    # the sharded layouts' slice
+    "denormalized_tpu_torch.parallel",
+    "denormalized_tpu_torch.parallel.mesh",
+    "denormalized_tpu_torch.parallel.distributed",
+    "denormalized_tpu_torch.testing.multichip",
 )
 
 

@@ -304,8 +304,8 @@ def test_emit_lag_default_per_device(monkeypatch, device, lag_s):
     under test.)"""
     monkeypatch.setattr(
         twe, "make_sharded_state",
-        lambda spec, _dev, strategy: tss.make_sharded_state(spec, "cpu",
-                                                            strategy),
+        lambda spec, _dev, strategy, *mesh: tss.make_sharded_state(
+            spec, "cpu", strategy, *mesh),
     )
     ctx = tt.Context(tt.EngineConfig(device="cpu"))
     ds = ctx.from_source(

@@ -4,8 +4,9 @@ recycling interner) held against the JAX package on the same seeded input.
 
 Twins of the session tests of ``tests/test_session_and_udaf.py`` (four),
 ``tests/test_session_vectorized.py`` (all fourteen, with their seeds),
-``tests/test_session_out_of_order.py`` (the first five; the sixth is a
-mesh test, ROADMAP §A item 9), ``tests/test_session_properties.py`` (all
+``tests/test_session_out_of_order.py`` (the first five; the sixth, a
+mesh test, is in ``tests/test_torch_sharded_jobs.py``),
+``tests/test_session_properties.py`` (all
 three; hypothesis with ``derandomize=True``, so the examples are the same
 every run) and ``tests/test_session_checkpoint_soa.py`` (both, the
 reference-interop one included), plus the live path (a mock-broker topic,

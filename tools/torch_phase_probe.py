@@ -24,7 +24,12 @@ registration across a SIGKILL over Kafka, ``45`` the cluster runtime at
 cluster_scale's shape (n = 1, 2, 4 and the single-process run), ``46``
 config 3's shape over 4 workers through ``partial_merge``, ``47`` partial
 recovery from a SIGKILL and a torn exchange frame, then a full restart
-rescaled to n = 2.  It builds every kernel (printing ptxas' register and
+rescaled to n = 2, ``48`` config 1 on 2 and 4 shards of the card
+(partial/final, the key-sharded partial merge, two_level at 2 x 2),
+``49`` config 3 on 2 and 4 shards (key-sharded, the key-sharded partial
+merge with compaction), ``50`` the merge and compaction kernels on a
+shard's plane, ``51`` a key-sharded checkpoint at n = 4 restored into
+n = 2 and one device, ``52`` ``dryrun_multichip(4, "cuda:0")``.  It builds every kernel (printing ptxas' register and
 shared-memory lines), makes phase 4's and phase 10's streams from seed 0,
 and calls the same ``chip_smoke`` functions as the full script, each
 step checked as there.  A failing step is printed with its traceback and
@@ -45,7 +50,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 STEPS = ("25k", "7", "24", "24h", "25", "25j", "26", "27", "28", "29", "30",
          "31", "32", "33u", "33s", "34", "35", "36", "37c", "37j", "37h",
-         "38", "39", "40", "41", "45", "46", "47")
+         "38", "39", "40", "41", "45", "46", "47", "48", "49", "50", "51",
+         "52")
 
 
 def main(argv: list[str]) -> int:
@@ -153,6 +159,13 @@ def main(argv: list[str]) -> int:
         "45": lambda: cs.phase_cluster_scale(card),
         "46": lambda: cs.phase_cluster_highcard(card),
         "47": lambda: cs.phase_cluster_recovery(card),
+        "48": lambda: cs.phase_sharded_cfg1(device, batches, stream,
+                                            no_rates, card),
+        "49": lambda: cs.phase_sharded_highcard(device, hb, hs, no_rates,
+                                                card),
+        "50": lambda: cs.phase_shard_kernels(device, seed + 17, hs, card),
+        "51": lambda: cs.phase_sharded_ckpt(device, hb, hs, card),
+        "52": lambda: cs.phase_sharded_dryrun(device, card),
     }
     failed = []
     for step in steps:
