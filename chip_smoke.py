@@ -109,12 +109,12 @@ Phases:
     window rows a side;
 18. bench.py's ``join_skew`` shape, uncut: a zipf(1.2) side (10,000 keys)
     band-joined (±50 ms) against a mostly-uniform side with a 0.0004 share
-    of the hottest key, 500,000 rows a side in 8,192-row batches, once
+    of the hottest key, 250,000 rows a side in 8,192-row batches, once
     adaptive and once static: the same rows in both runs, as many pairs as
     a numpy searchsorted oracle counts, adaptations > 0 in the adaptive
     run, and both rows/s with their ratio (host code on the card's host);
 19. the projection half of ``examples/functions_tour.py`` over phase 4's
-    first 15 batches: lower(replace(...)), a three-branch CASE,
+    first 4 batches: lower(replace(...)), a three-branch CASE,
     date_trunc and a length filter feeding the dense window grouped by
     (sensor, band), against the oracle: rows/s, host prep, and the host
     time of each string map and of CASE;
@@ -122,8 +122,8 @@ Phases:
     zero), a three-branch CASE, casts, isnan and nanvl over 1M seeded
     float32 / int64 rows, each result on the card and equal to the host
     ``eval`` (rtol=1e-6 for sqrt, exact for the rest), with its time;
-21. bench.py's ``kafka_e2e`` through the port's live path: phase 4's
-    stream JSON-encoded (readings to 6 decimals, as bench.py writes them)
+21. bench.py's ``kafka_e2e`` through the port's live path: the first 4M
+    rows of phase 4's stream (half of it) JSON-encoded (readings to 6 decimals, as bench.py writes them)
     into a 4-partition topic of the port's own mock broker
     (``testing/mock_kafka.py``), interleaved by partition, then
     ``from_topic`` → the dense window with
@@ -184,7 +184,7 @@ Phases:
     emit lag against the oracle, beside phases 8 and 10, with the emission
     blocks drained a trigger later counted and every merge (the worker
     thread's included) launched on the main thread's stream;
-29. phase 21 over Avro: phase 4's stream as ``Measurement`` Avro records
+29. phase 21 over Avro: phase 21's rows as ``Measurement`` Avro records
     (tests/test_kafka.py's record, encoded with numpy: zigzag varints,
     length-prefixed names, the union branch before each float64 reading)
     in 4 partitions, ``from_topic(encoding="avro", avro_schema=...)`` →
@@ -192,12 +192,12 @@ Phases:
     window against the oracle, late rows 0, no Python-decoded row, dense
     launches = window batches; rows/s beside phase 21's;
 30. examples/csv_streaming.py's job through the port's ``CsvSource`` over
-    a CSV of phase 4's first 15 batches against the oracle (dense launches
+    a CSV of phase 4's first 8 batches against the oracle (dense launches
     = window batches); ``explain(analyze=True)`` of config 1 on the card
     with checkpointing set through ``EngineConfig.set`` (the analyzed plan
     carries the window's device steps, every one a dense launch; no epoch
     committed: a checkpointed run after it restores nothing); then config
-    1 over the same 15 batches with ``EngineConfig(optimizer=False)``
+    1 over the same 8 batches with ``EngineConfig(optimizer=False)``
     against the default: the optimized plan is the logical one, the
     differing plan lines are printed, and the rows equal the oracle's both
     ways;
@@ -207,14 +207,14 @@ Phases:
     ``MemorySource`` and over phase 21's 4-partition JSON topic
     (``decode_fallback_rows`` 0), then one window holding median,
     count_distinct, approx_distinct, first_value, string_agg, corr and
-    percentile_cont over phase 4's first 15 batches, each against a numpy
+    percentile_cont over phase 4's first 8 batches, each against a numpy
     oracle (approx_distinct within 5 standard errors of the exact count):
     rows/s, rows in, late rows;
 32. session windows: bench.py's ``session`` shape (each event-second's
     rows in its first 600 ms, 300 ms gap, count/min/max/avg by
     sensor_name) over phase 4's size and key count, then its
     ``session_scale`` point at 100K keys (1,966,080 rows) through the
-    vectorized operator and its first 262,144 rows through
+    vectorized operator and its first 131,072 rows through
     ``DENORMALIZED_SESSION_REFERENCE=1``'s operator, each against the
     interval oracle: rows/s, sessions emitted, late rows, the interner's
     live keys and free gids;
@@ -261,15 +261,15 @@ Phases:
     budget and not: the same rows (the join's averages to rtol=1e-5, the
     host jobs' in the same order) and spills > 0;
 38. the multi-query engine (``runtime/multi_query.py``, the host slice
-    store): bench.py's ``multi_query`` at config 1's row count (61 batches
-    of 131,072, 64 keys): Q = 1, 10 and 100 sliding count/sum/avg queries
+    store): bench.py's ``multi_query`` at a quarter of config 1's row count
+    (MQ_ROWS: 15 batches of 131,072, 64 keys): Q = 1, 10 and 100 sliding count/sum/avg queries
     over bench.py's 8-spec cycle, over ONE base DataStream, each run one
     ingest into one slice store, against the same Q queries as
     independent pipelines through the device window (the dense kernel, or
     the scatter program where a batch spans more than 8 ring slots; Q =
     100 cut to a stated prefix if Q = 10 says all 100 would pass
-    MQ_INDEPENDENT_CAP_S); then Q = 10 at config 3's shape (100K keys, 15
-    batches of 524,288) with the store's peak bytes and live units.
+    MQ_INDEPENDENT_CAP_S); then Q = 10 at config 3's shape (100K keys,
+    MQ_HIGHCARD_BATCHES batches of 524,288) with the store's peak bytes and live units.
     Every shared query bit-identical to its independent slice oracle
     (``slice_windows=True``, the group's unit) and within PERF.md §2's
     gate of the numpy oracle and of its device-window baseline; the
@@ -286,7 +286,7 @@ Phases:
     queries as independent join + window pipelines on the card, with the
     join's measured ``shared_cost_ms`` and the members' fractions;
 40. bench.py's ``approx_scale`` (approx_distinct, approx_median,
-    approx_top_k(10), 100 ms / 25 ms, 4 keys, 393,216 rows) at 1K and 1M
+    approx_top_k(10), 100 ms / 25 ms, 4 keys, 98,304 rows) at 1K and 1M
     distinct values: the sketch lane (``slice_windows=True``) against the
     accumulator lane (``approx_native=False``, the UDAF operator), every
     row within docs/approx_aggregates.md's bounds of the exact answer,
@@ -335,9 +335,9 @@ Phases:
     back, and each shared node's busy time, scaled by each member's
     measured fraction, summing over the ten to the node's own within 1%;
 45. the cluster runtime at cluster_scale's shape (the cluster benchjob's
-    feed: 4 partitions of 122 batches of 16,384 rows, 7,995,392 rows,
-    4,096 int64 keys, a 1 s tumbling count/sum/min/max, rings starting at
-    2,048 groups): the port's single-process run, then ``run_cluster`` at
+    feed: 4 partitions of 61 batches of 16,384 rows, 3,997,696 rows, half
+    the bench's depth, 4,096 int64 keys, a 1 s tumbling
+    count/sum/min/max, rings starting at 2,048 groups): the port's single-process run, then ``run_cluster`` at
     n = 1, 2 and 4 worker processes on the card (the card's compute mode
     and ``os.cpu_count()`` printed first).  Every point's rows equal to a
     numpy oracle of the generator (counts, sums, min and max exact), every
@@ -348,7 +348,8 @@ Phases:
     524,288 rows (5 partitions of 3), 4 workers through ``partial_merge``
     (the exchange's string lane): rows equal to the oracle, merge
     launches in every worker;
-47. recovery on phase 45's feed paced 0.1 s a batch, barriers every 0.5 s,
+47. recovery on cluster_scale's full feed (122 batches a partition) paced
+    0.1 s a batch, barriers every 0.5 s,
     4 workers: a fault plan tears one of worker 1's exchange frames and
     puts 25 ms on every redial, then its respawn is SIGKILLed a second
     after its rejoin; each time worker 1 alone respawns (no full restart)
@@ -364,7 +365,10 @@ Phases:
     each against the oracle, with a scatter step a batch (row shipping)
     or a merge launch a stripe (partial merge, g_shift = shard x G_local)
     in EVERY shard, the process-wide counts equal to the shards' sums, and
-    no dense launch;
+    no dense launch; at n = 4 (and 2 x 2), one step of each layout (the
+    10th batch's update, or the first stripe's merge) replayed under the
+    profiler after the job: its device time apart from its copies to the
+    card, against the bytes it must move;
 49. config 3 (phase 10's stream) at n = 2 and 4 under key-sharded
     (``auto`` above 4,096 groups) and the key-sharded partial merge with
     ``emission_compaction`` (a compaction launch a window in every shard),
@@ -378,7 +382,20 @@ Phases:
     committed epoch, restored into n = 2 and into one device: each union
     equal to the oracle;
 52. ``dryrun_multichip(4, "cuda:0")``: every layout's values against the
-    single-device golden.
+    single-device golden;
+53. the port's soak, ``tools/torch_soak.py``, as a subprocess on the card:
+    ``simple`` and then ``join`` (the JAX soak's tumbling job and its
+    skew-adaptive band join into a window: 10 keys, 4,096-row batches at
+    200,000 rows a second), each a 45 s feed checkpointed every 2 s,
+    SIGKILLed every 20 s and restored, each segment a process of its own
+    on the card.  Every gate of the soak: the union of the segments'
+    committed windows equal to the golden (0 lost, spurious or
+    mismatched), EOS, a kill, every recovery to a first emission under
+    30 s, no module of JAX or of the JAX package in a child, the device
+    memory gate (on segments that ran 60 s past their first emission)
+    and every restored segment launching the hand kernels the first
+    launched, the dense kernel among them.  Prints each segment's
+    start-up split, launches, device memory and RSS.
 
 Then one JSON line with each kernel's launches on its main path (phase 4
 for the dense kernel, with phases 38-39's baselines' launches under
@@ -394,7 +411,8 @@ launches, phase 35's merges and compactions; and with metrics and every
 exporter on, ``obs_launches``: phase 42's dense launches, phase 43's
 merges and compactions, with the join's dense launches beside; and
 ``cluster_launches``, each worker process's own count: phase 45's n = 4
-dense launches, phase 46's merges; and ``shard_launches``, each shard's own count in phases 48-52),
+dense launches, phase 46's merges; and ``shard_launches``, each shard's own count in phases 48-52;
+and ``soak_launches``, each segment's dense launches in phase 53's soaks),
 its largest error against the plain version, its device time, the wrapper's
 time, the plain version's time, the library call's (for the compaction
 kernel the nonzero + index_select sequence) and the least time the card
@@ -2689,7 +2707,7 @@ def phase_join_expressions_highcard(device, left, right, rates, card):
 
 
 # bench.py join_skew (bench.py:1807-1935), uncut
-SKEW_ROWS_SIDE = 500_000
+SKEW_ROWS_SIDE = 250_000  # bench.py's 500,000, halved for the time limit
 SKEW_BATCH = 8_192
 SKEW_KEYSPACE = 10_000
 SKEW_DIM_DENSITY = 0.0004
@@ -2781,7 +2799,7 @@ def run_skew(device, left, right, adaptive: bool):
 def phase_join_skew(device, seed, card):
     """Phase 18: bench.py's join_skew shape (a zipf(1.2) left side, a
     mostly-uniform right side with a thin share of the hottest key,
-    500,000 rows a side in 8,192-row batches, band ±50 ms), once adaptive
+    250,000 rows a side in 8,192-row batches, band ±50 ms), once adaptive
     and once with ``join_adaptive=False``: both emit the same multiset,
     equal in count to a numpy oracle's pairs, and the adaptive run
     adapts.  Host code on the card's host."""
@@ -2802,7 +2820,7 @@ def phase_join_skew(device, seed, card):
     if ad["total"] <= 0:
         raise AssertionError("phase 18: the adaptive run never adapted")
     top = np.bincount(left[1]).max() / SKEW_ROWS_SIDE
-    log(f"phase 18 join_skew (bench.py shape): {SKEW_ROWS_SIDE} rows a side "
+    log(f"phase 18 join_skew (bench.py shape, halved): {SKEW_ROWS_SIDE} rows a side "
         f"in {SKEW_BATCH}-row batches, top key {100 * top:.1f}% of the "
         f"left rows, {want} pairs match the oracle and are equal in both "
         f"modes; adaptive {a_rate:.0f} rows/s (wall {a_wall:.3f} s; "
@@ -2816,7 +2834,7 @@ def phase_join_skew(device, seed, card):
         f"logged, not enforced) ({card})")
 
 
-FUNCTIONS_BATCHES = 15
+FUNCTIONS_BATCHES = 4
 BANDS = ("hot", "cold", "mild")
 
 
@@ -2848,7 +2866,7 @@ def functions_stream(device, batches, **cfg):
 
 def phase_functions(device, batches, stream, card):
     """Phase 19: scalar functions and CASE feeding the dense window (a
-    two-column group key) over phase 4's first 15 batches, against the
+    two-column group key) over phase 4's first FUNCTIONS_BATCHES batches, against the
     numpy oracle → the dense launches of its run."""
     from denormalized_tpu_torch.ops import dense_window as dw
 
@@ -2988,6 +3006,9 @@ KAFKA_DEADLINE_S = 240.0
 LAT_ROWS = 24 * EVENTS_PER_SEC  # 24 windows → 22 latency samples
 LAT_CHUNK = 8192  # rows a paced append, over all partitions
 CKPT_KAFKA_ROWS = 6 * EVENTS_PER_SEC  # phase 23's feed: 6 windows
+#: phases 21 and 29 run the first 4M rows of phase 4's stream (half of it,
+#: for the time limit)
+KAFKA_E2E_ROWS = 4_000_000
 E2E_COLUMNS = ("occurred_at_ms", "sensor_name", "reading")
 
 
@@ -3396,7 +3417,8 @@ def check_native_path(ctx, what: str, fmt: str = "json"):
 
 
 def phase_kafka_e2e(device, stream, card, fmt="json", phase=21):
-    """Phase 21: bench.py's ``kafka_e2e`` on phase 4's stream: its JSON
+    """Phase 21: bench.py's ``kafka_e2e`` on phase 4's stream (its first
+    KAFKA_E2E_ROWS rows in the full script): its JSON
     records produced into a 4-partition topic, interleaved by partition,
     then ``from_topic`` → the dense window on the card through the native
     client, the native parser and four prefetch workers, after a warm-up
@@ -4550,7 +4572,7 @@ def phase_host_pipeline(device, jobs, rates, card):
 
 # -- phase 30: CSV, explain(analyze=True), EngineConfig.set -------------------
 
-CSV_BATCHES = 15  # phase 4's first batches written to the CSV
+CSV_BATCHES = 8  # phase 4's first batches written to the CSV
 
 
 def csv_text(ts, kid, val) -> bytes:
@@ -4734,11 +4756,11 @@ def phase_csv_explain(device, batches, stream, card):
 
 # -- phases 31-34: UDAFs, sessions, their checkpoints, graceful SIGTERM ------
 
-UDAF_AGG_BATCHES = 15  # phase 4's first batches under the seven accumulators
+UDAF_AGG_BATCHES = 8  # phase 4's first batches under the seven accumulators
 SESSION_GAP_MS = 300  # bench.py's session gap
 SESSION_SCALE_KEYS = 100_000  # bench.py's session_scale point
 SESSION_SCALE_ROWS = 2_000_000  # → 15 batches, 1,966,080 rows
-SESSION_REF_ROWS = 262_144  # bench.py's BENCH_SESSION_REF_ROWS
+SESSION_REF_ROWS = 131_072  # half bench.py's BENCH_SESSION_REF_ROWS
 
 
 def spread_accumulator():
@@ -6043,6 +6065,11 @@ MQ_SPECS = [
 ]
 MQ_KEYS = 64  # bench.py's BENCH_MQ_KEYS / BENCH_QD_KEYS
 MQ_SWEEP = (1, 10, 100)
+#: phase 38's feed (15 batches of 131,072: a quarter of config 1's), and
+#: its config-3-shaped feed's batches of 524,288 (half of config 3's), cut
+#: for the time limit
+MQ_ROWS = 2_000_000
+MQ_HIGHCARD_BATCHES = 8
 #: wall the Q = 100 independent baseline may take; past it (reckoned from
 #: the Q = 10 run) it runs a stated prefix of the queries
 MQ_INDEPENDENT_CAP_S = 35.0
@@ -6052,23 +6079,23 @@ QD_THRESHOLDS = [30.0, 38.0, 42.0, 46.0, 50.0, 52.0, 55.0, 35.0]
 QD_QUERIES = 50
 #: the no-overlap control's feed: its 2 x 50 pipelines each string-compare
 #: every row on the host (~11 s a side at 8 batches on the card's host)
-QD_CONTROL_BATCHES = 4
+QD_CONTROL_BATCHES = 2
 #: join_dense (bench.py): 25 queries over one fact x dim band join
 JD_QUERIES = 25
 JD_SPECS = [
     (3_000, 1_000), (2_000, 1_000), (4_000, 2_000), (2_000, 2_000),
     (3_000, 3_000), (4_000, 1_000), (5_000, 1_000), (6_000, 2_000),
 ]
-JD_ROWS = 524_288  # 32 batches: 262 s of event time at 2 rows a ms
+JD_ROWS = 131_072  # 8 batches: 65 s of event time at 2 rows a ms
 JD_BATCH = 16_384
 #: approx_scale (bench.py): 4 keys, 100 ms windows sliding by 25 ms
-#: the sketch lane's feed: 256 batches of 16,384, so the 1M point's
-#: readings hold ~985K distinct values (bench.py's smoke: 400,000 rows)
-AP_ROWS = 4_194_304
-#: the accumulator lane (per-row Python, ~0.1M rows/s) runs the first 24
-AP_ACC_ROWS = 393_216
-#: the exact control's feed: 1,024 batches, so each run takes ~0.5 s
-AP_CONTROL_ROWS = 16_777_216
+#: the sketch lane's feed: 128 batches of 16,384, so the 1M point's
+#: readings hold ~865K distinct values (bench.py's smoke: 400,000 rows)
+AP_ROWS = 2_097_152
+#: the accumulator lane (per-row Python, ~0.1M rows/s) runs the first 6
+AP_ACC_ROWS = 98_304
+#: the exact control's feed: 256 batches, so each run takes ~0.12 s
+AP_CONTROL_ROWS = 4_194_304
 AP_BATCH = 16_384
 AP_KEYS = 4
 AP_CARDS = (1_000, 1_000_000)
@@ -6293,8 +6320,7 @@ def phase_multi_query(device, seed: int, card: str):
     keys): Q = 1, 10, 100 shared queries (one ingest into one slice store)
     against Q independent device-window pipelines, then Q = 10 at config
     3's shape (100K keys), where the store holds real state."""
-    ts, kid, val = stream = gen_stream(TOTAL_ROWS, BATCH_ROWS, MQ_KEYS,
-                                       seed)
+    ts, kid, val = stream = gen_stream(MQ_ROWS, BATCH_ROWS, MQ_KEYS, seed)
     batches = to_batches(ts, kid, val, BATCH_ROWS, MQ_KEYS)
     oracles: dict = {}
     cap = [None, MQ_INDEPENDENT_CAP_S]
@@ -6322,9 +6348,9 @@ def phase_multi_query(device, seed: int, card: str):
             f"scatter steps, every row within 1e-4 of the shared; speedup "
             f"{p['speedup']:.2f}x ({card})")
 
-    # config 3's shape: 100K keys, 15 batches of 524,288
+    # config 3's shape: 100K keys, MQ_HIGHCARD_BATCHES batches of 524,288
     hts, hkid, hval = hstream = gen_stream(
-        15 * HIGHCARD_BATCH_ROWS, HIGHCARD_BATCH_ROWS, HIGHCARD_KEYS,
+        MQ_HIGHCARD_BATCHES * HIGHCARD_BATCH_ROWS, HIGHCARD_BATCH_ROWS, HIGHCARD_KEYS,
         seed + 1)
     hbatches = to_batches(hts, hkid, hval, HIGHCARD_BATCH_ROWS,
                           HIGHCARD_KEYS)
@@ -7572,6 +7598,9 @@ CLUSTER_ARGS = {"partitions": 4, "batches": 122, "rows": 16_384,
                 "keys": 4_096, "batch_span_ms": 250, "window_ms": 1000,
                 "engine": {"min_group_capacity": 2048}}
 CLUSTER_POINTS = (1, 2, 4)
+#: phase 45's feed: that shape at 61 batches a partition (3,997,696 rows),
+#: half the bench's depth, for the time limit
+CLUSTER_SCALE_ARGS = dict(CLUSTER_ARGS, batches=61)
 #: config 3's shape over the cluster: 100K string keys, 15 batches of
 #: 524,288 rows (5 partitions of 3), through partial_merge
 CLUSTER_HIGHCARD_ARGS = {"partitions": 5, "batches": 3, "rows": 524_288,
@@ -7692,15 +7721,15 @@ def phase_cluster_scale(card) -> dict:
     log(f"phase 45: compute mode {mode}, os.cpu_count() {os.cpu_count()} "
         f"({card})")
     t0 = time.perf_counter()
-    want = cluster_oracle(CLUSTER_ARGS, string_keys=False)
-    total = CLUSTER_ARGS["partitions"] * CLUSTER_ARGS["batches"] * \
-        CLUSTER_ARGS["rows"]
+    want = cluster_oracle(CLUSTER_SCALE_ARGS, string_keys=False)
+    total = CLUSTER_SCALE_ARGS["partitions"] * CLUSTER_SCALE_ARGS["batches"] * \
+        CLUSTER_SCALE_ARGS["rows"]
     log(f"phase 45: numpy oracle {len(want['cells'])} rows in "
         f"{time.perf_counter() - t0:.1f} s")
     dw.dense_window_launches = 0
     sharded_state.scatter_steps = 0
     t0 = time.perf_counter()
-    single = oracle_rows(CLUSTER_ARGS, string_keys=False)
+    single = oracle_rows(CLUSTER_SCALE_ARGS, string_keys=False)
     single_wall = time.perf_counter() - t0
     check_cluster_rows(single, want, "phase 45 single process")
     log(f"phase 45 single process (the port's run of the same feed, "
@@ -7712,7 +7741,7 @@ def phase_cluster_scale(card) -> dict:
     for n in CLUSTER_POINTS:
         with tempfile.TemporaryDirectory() as wd:
             t0 = time.perf_counter()
-            res = run_cluster(cluster_spec(wd, n, "bench_job", CLUSTER_ARGS))
+            res = run_cluster(cluster_spec(wd, n, "bench_job", CLUSTER_SCALE_ARGS))
             wall = time.perf_counter() - t0
             if res["status"] != "done":
                 raise AssertionError(f"phase 45 n={n}: {res['status']}")
@@ -7894,15 +7923,140 @@ def sharded_cfg(layout: str, n: int, **cfg) -> dict:
                 shard_strategy="auto", strategy="auto", **cfg)
 
 
+#: the step of each layout that phases 48-49 replay under the profiler,
+#: after the job: the row-shipping update, or the stripe merge
+STEP_METHOD = {"partial_final": "update", "key_sharded": "update",
+               "two_level": "update", "partial_merge/key_sharded": "_merge"}
+#: which call of the step is replayed (1-based): a batch past the ring's
+#: growth, or the first stripe (config 1 merges only 2)
+PROFILED_CALL = {"update": 10, "_merge": 1}
+
+
+def layout_class(layout: str):
+    from denormalized_tpu_torch.parallel import sharded_state as ss
+
+    return {"partial_final": ss.PartialFinalWindowState,
+            "key_sharded": ss.KeyShardedWindowState,
+            "two_level": ss.TwoLevelWindowState,
+            "partial_merge/key_sharded":
+                ss.KeyShardedPartialMergeWindowState}[layout]
+
+
+@contextlib.contextmanager
+def capture_step(layout: str, on: bool):
+    """While a job runs (and ``on``), copy the host arguments of the
+    :data:`PROFILED_CALL` call of ``layout``'s step (:data:`STEP_METHOD`)
+    → a dict that then holds ``args`` and ``kwargs``."""
+    seen: dict = {"calls": 0}
+    if not on:
+        yield seen
+        return
+    cls = layout_class(layout)
+    name = STEP_METHOD[layout]
+    nth = PROFILED_CALL[name]
+    real = cls.__dict__[name]
+
+    def step(self, *a, **k):
+        seen["calls"] += 1
+        if seen["calls"] == nth:
+            seen["args"] = tuple(np.array(x, copy=True)
+                                 if isinstance(x, np.ndarray) else x
+                                 for x in a)
+            seen["kwargs"] = dict(k)
+        return real(self, *a, **k)
+
+    setattr(cls, name, step)
+    try:
+        yield seen
+    finally:
+        setattr(cls, name, real)
+
+
+def step_bound(b, layout: str, args, kwargs) -> tuple[float, int]:
+    """Least time of one step of a sharded layout on this batch → (ms,
+    bytes).  A row-shipping update reads the batch once in every shard
+    that gets it (the whole batch in each key shard, its part in each
+    partial shard) and reads and writes every ring cell its valid rows land
+    in once (8 B a component; 16 B for a float64 plane).  The key-sharded
+    partial merge is one merge launch a shard: the sum of
+    :func:`merge_bound` over the shards (each launch walks the replicated
+    stripe)."""
+    spec = b.spec
+    if layout == "partial_merge/key_sharded":
+        packed, a_pad, _lean, dense = args[:4]
+        G = spec.group_capacity
+        ms = sum(merge_bound(spec, b._stripe.SUB, np.asarray(packed), a_pad,
+                             dense, G_total=b.group_capacity,
+                             g_shift=i * G)[0] for i in b.shards)
+        return ms, int(ms * 1e-3 * HBM_BYTES_PER_S)
+    values, colvalid, win_rel, rem, gid, row_valid = (np.asarray(a)
+                                                      for a in args[:6])
+    batch = sum(int(a.nbytes) for a in
+                (values, colvalid, win_rel, rem, gid, row_valid))
+    parts = {"key_sharded": 1, "partial_final": b.n,
+             "two_level": getattr(b, "n_slices", 1)}[layout]
+    readers = {"key_sharded": b.n, "partial_final": 1,
+               "two_level": getattr(b, "n_keys", 1)}[layout]
+    G_total = b.group_capacity
+    per = len(gid) // parts
+    cells = 0
+    for p in range(parts):
+        rows = slice(p * per, (p + 1) * per)
+        ok = row_valid[rows].astype(bool)
+        w = win_rel[rows][ok].astype(np.int64)
+        g = gid[rows][ok].astype(np.int64)
+        cells += len(np.unique(np.concatenate([
+            (w - f) * G_total + g for f in range(spec.length_units)])))
+    cell_bytes = sum(2 * (4 if c.kind == "count" else
+                          torch.empty(0, dtype=spec.accum_dtype).element_size())
+                     for c in spec.components)
+    nbytes = readers * batch + cells * cell_bytes
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def profile_step(b, layout: str, seen: dict) -> dict:
+    """Replay the captured step of a finished job's backend ``b`` under
+    torch.profiler (after a warm call) → its device time: kernels and
+    fills (``ms``) apart from the copies to the card (``copy_ms``), the
+    kernels it ran, and :func:`step_bound`."""
+    name = STEP_METHOD[layout]
+    if "args" not in seen:
+        raise AssertionError(f"{layout}: {seen['calls']} {name} calls, "
+                             f"fewer than the {PROFILED_CALL[name]} to replay")
+    args, kwargs = seen["args"], seen["kwargs"]
+
+    def step():
+        getattr(b, STEP_METHOD[layout])(*args, **kwargs)
+
+    step()
+    torch.cuda.synchronize()
+    for _ in range(PROFILER_TRIES):
+        evts = device_events(profile(step))
+        if evts:
+            break
+    else:
+        raise AssertionError(f"{layout}: the profiler recorded no device "
+                             f"event in {PROFILER_TRIES} sessions")
+    copies = [e for e in evts if e.name.startswith("Memcpy")]
+    work = [e for e in evts if not e.name.startswith("Memcpy")]
+    bound_ms, nbytes = step_bound(b, layout, args, kwargs)
+    return dict(
+        ms=sum(e.time_range.elapsed_us() for e in work) / 1e3,
+        copy_ms=sum(e.time_range.elapsed_us() for e in copies) / 1e3,
+        kernels=len(work), bound_ms=bound_ms, bound_bytes=nbytes)
+
+
 def run_sharded(device, phase, job, layout, n, batches, stream, num_keys,
-                card, **cfg):
+                card, profile_one=False, **cfg):
     """One job through ``layout`` on ``n`` shards of ``device``, with every
     kernel count and the scatter steps set to 0 just before it, checked
     against the numpy oracle and shard by shard: a scatter step a batch in
     every shard (row shipping), a merge launch a stripe in every shard
     (partial merge), a compaction launch a window in every shard
     (``emission_compaction``); the process-wide counts equal the shards'
-    sums → {rows_per_s, wall, launches, shards, merges, windows}."""
+    sums → {rows_per_s, wall, launches, shards, merges, windows}.  With
+    ``profile_one``, one batch's step of the layout is then replayed under
+    the profiler (:func:`profile_step`), under ``step``."""
     from denormalized_tpu_torch.ops import compact_slot as cs
     from denormalized_tpu_torch.ops import dense_window as dw
     from denormalized_tpu_torch.ops import merge_partials as mp
@@ -7915,7 +8069,9 @@ def run_sharded(device, phase, job, layout, n, batches, stream, num_keys,
     mp.merge_partials_launches = 0
     cs.compact_slot_launches = 0
     ss.scatter_steps = 0
-    ctx, res, wall = run_job(device, batches, job, **sharded_cfg(layout, n, **cfg))
+    with capture_step(layout, profile_one) as seen:
+        ctx, res, wall = run_job(device, batches, job,
+                                 **sharded_cfg(layout, n, **cfg))
     launches = {"dense_window": dw.dense_window_launches,
                 "merge_partials": mp.merge_partials_launches,
                 "compact_slot": cs.compact_slot_launches,
@@ -7969,13 +8125,23 @@ def run_sharded(device, phase, job, layout, n, batches, stream, num_keys,
     exp = oracle(ts, kid, val, 1000, 1000, num_keys)
     check = {"tumbling": check_tumbling, "highcard": check_highcard}[job]
     rows_out = check(res, exp, num_keys)
+    step = profile_step(b, layout, seen) if profile_one else None
+    step_text = (
+        f"; {STEP_METHOD[layout].strip('_')} call "
+        f"{PROFILED_CALL[STEP_METHOD[layout]]} replayed under the profiler: "
+        f"device {step['ms']:.5f} ms in "
+        f"{step['kernels']} kernels and fills (+ {step['copy_ms']:.5f} ms "
+        f"of copies to the card), bound {step['bound_ms']:.6f} ms "
+        f"({step['bound_bytes']} B at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)"
+    ) if step else ""
     log(f"{what}: {len(ts)} rows in {len(batches)} batches, {rows_out} "
         f"window rows match the oracle, {windows} windows, {dispatch}; G "
         f"{b.group_capacity} ({b.spec.group_capacity} a shard), wall "
         f"{wall:.3f} s, {len(ts) / wall:.0f} rows/s, {m['bytes_h2d']} B to "
-        f"and {m['bytes_d2h']} B from the card, every shard on {device} "
-        f"({card})")
+        f"and {m['bytes_d2h']} B from the card, every shard on {device}"
+        f"{step_text} ({card})")
     return dict(rows_per_s=len(ts) / wall, wall=wall, launches=launches,
+                step=step,
                 shards={"scatter": list(b.shard_scatter),
                         "merges": list(b.shard_merges),
                         "compactions": list(b.shard_compactions)},
@@ -7991,10 +8157,10 @@ def phase_sharded_cfg1(device, batches, stream, rates, card) -> dict:
         for layout in ("partial_final", "partial_merge/key_sharded"):
             out[f"cfg1_{layout.split('/')[0]}_n{n}"] = run_sharded(
                 device, 48, "tumbling", layout, n, batches, stream, NUM_KEYS,
-                card)
+                card, profile_one=n == SHARD_KERNEL_N)
     out["cfg1_two_level_2x2"] = run_sharded(
         device, 48, "tumbling", "two_level", 4, batches, stream, NUM_KEYS,
-        card)
+        card, profile_one=True)
     log("phase 48 config 1 rows/s: " + ", ".join(
         f"{k} {v['rows_per_s']:.0f}" for k, v in out.items())
         + f"; one device: auto (phase 4) {rates['auto']:.0f}, partial_merge "
@@ -8012,10 +8178,11 @@ def phase_sharded_highcard(device, batches, stream, rates, card) -> dict:
     for n in SHARD_COUNTS:
         out[f"cfg3_key_sharded_n{n}"] = run_sharded(
             device, 49, "highcard", "key_sharded", n, batches, stream,
-            HIGHCARD_KEYS, card, **cfg)
+            HIGHCARD_KEYS, card, profile_one=n == SHARD_KERNEL_N, **cfg)
         out[f"cfg3_partial_merge_compaction_n{n}"] = run_sharded(
             device, 49, "highcard", "partial_merge/key_sharded", n, batches,
-            stream, HIGHCARD_KEYS, card, emission_compaction=True, **cfg)
+            stream, HIGHCARD_KEYS, card, profile_one=n == SHARD_KERNEL_N,
+            emission_compaction=True, **cfg)
     log("phase 49 config 3 rows/s: " + ", ".join(
         f"{k} {v['rows_per_s']:.0f}" for k, v in out.items())
         + f"; one device (phase 10): partial_merge "
@@ -8258,6 +8425,113 @@ def phase_sharded_dryrun(device, card) -> dict:
     return out
 
 
+
+#: phase 53: the port's soak on the card, each pipeline a subprocess
+SOAK_PIPELINES = ("simple", "join")
+SOAK_ARGS = ("--minutes", "0.75", "--kill-every", "20")
+SOAK_TIMEOUT_S = 300.0
+
+
+def run_soak(pipeline: str, wd: str) -> tuple[dict, float]:
+    """``tools/torch_soak.py`` on the card in its own process group (the
+    kernels and host libraries already built by phase 2) → (its report,
+    wall s).  On a timeout the whole group, the soak's child included, is
+    killed."""
+    import signal as _signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(wd, f"soak_{pipeline}.json")
+    cmd = [sys.executable, os.path.join(root, "tools", "torch_soak.py"),
+           "--pipeline", pipeline, *SOAK_ARGS, "--device", "cuda",
+           "--no-build", "--out", out]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=SOAK_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, _signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"phase 53 {pipeline}: the soak ran past "
+                             f"{SOAK_TIMEOUT_S:.0f} s")
+    wall = time.perf_counter() - t0
+    if not os.path.exists(out):
+        raise AssertionError(f"phase 53 {pipeline}: no report (exit "
+                             f"{proc.returncode}): {stderr[-2000:]}")
+    with open(out) as f:
+        report = json.load(f)
+    if proc.returncode != 0 or not report.get("ok"):
+        keep = {k: v for k, v in report.items()
+                if k not in ("segments", "telemetry", "child_metrics")}
+        raise AssertionError(f"phase 53 {pipeline}: exit {proc.returncode}, "
+                             f"report {json.dumps(keep)[:3000]}; stderr "
+                             f"{stderr[-1500:]}")
+    return report, wall
+
+
+def phase_torch_soak(card) -> dict:
+    """Phase 53: the port's soak (``tools/torch_soak.py``) on the card,
+    ``simple`` and then ``join``, each a 45 s feed SIGKILLed every 20 s and
+    restored (see the module docstring) → {pipeline: report}."""
+    name = torch.cuda.get_device_name(0)
+    out = {}
+    with tempfile.TemporaryDirectory() as wd:
+        for pipeline in SOAK_PIPELINES:
+            r, wall = run_soak(pipeline, wd)
+            gates = r["device_gates"]
+            problems = []
+            if (r["windows_lost"] or r["windows_spurious"]
+                    or r["windows_mismatched"]
+                    or r["emitted_windows"] != r["golden_windows"]
+                    or not r["golden_windows"]):
+                problems.append("windows against the golden")
+            if not r["eos_done_seen"] or r["kills"] < 1:
+                problems.append("EOS or kills")
+            if any(t >= 30 for t in r["recovery_first_emit_s"]):
+                problems.append("recovery")
+            if r["child_foreign_modules"]:
+                problems.append(f"child modules {r['child_foreign_modules']}")
+            if not (gates["memory"]["ok"] and gates["launches"]["ok"]):
+                problems.append("device gates")
+            if "dense_window" not in gates["launches"]["first_segment"]:
+                problems.append("no dense launch in the first segment")
+            if any(sg["device_name"] != name for sg in r["segments"]):
+                problems.append("a segment off the card")
+            if problems:
+                raise AssertionError(f"phase 53 {pipeline}: {problems}: "
+                                     f"{json.dumps(gates)}")
+            log(f"phase 53 soak {pipeline} ({' '.join(SOAK_ARGS)}, "
+                f"{r['total_rows']} rows at {r['pace_rows_per_s']:.0f} "
+                f"rows/s): {r['kills']} SIGKILLs, {len(r['segments'])} "
+                f"segments, {r['emitted_windows']} windows = the golden's, "
+                f"0 lost, 0 spurious, 0 mismatched, "
+                f"{r['duplicate_emissions']} duplicate emissions, "
+                f"{r['uncommitted_clipped']} uncommitted lines clipped, "
+                f"recovery to the first emission {r['recovery_first_emit_s']}"
+                f" s, child modules of jax/denormalized_tpu: none; memory "
+                f"gate over {gates['memory']['segments_gated']} segments "
+                f"({gates['memory']['bound']}), launch gate: every restored "
+                f"segment launched {gates['launches']['first_segment']} as "
+                f"the first; wall {wall:.1f} s ({card})")
+            for sg in r["segments"]:
+                mem = sg["device_mem"]
+                log(f"phase 53 soak {pipeline} segment {sg['segment']}: "
+                    f"{sg['wall_s']} s on {sg['device_name']}, start-up "
+                    f"(s from spawn) imports {sg['startup']['imports_s']}, "
+                    f"CUDA ready {sg['startup']['cuda_ready_s']}, kernels "
+                    f"loaded {sg['startup']['kernels_loaded_s']}, first "
+                    f"emission {sg['first_emit_s']}; launches "
+                    f"{sg['launches']}; device memory (allocated, reserved, "
+                    f"max allocated B) at the first emission "
+                    f"{mem['at_first_emit']}, max {mem['max']}, end "
+                    f"{mem['end']}, allocated slope "
+                    f"{mem['alloc_slope_bytes_per_s']} B/s; RSS kB "
+                    f"{sg['rss_kb']}; memory gate {sg['mem_gate']} ({card})")
+            out[pipeline] = r
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8393,7 +8667,8 @@ def main(argv=None) -> int:
     phase_eval_torch(device, args.seed + 9, card)
     log(f"phases 11-20: the script {time.time() - T_START:.1f} s so far "
         f"({card})")
-    kafka = phase_kafka_e2e(device, stream, card)
+    e2e_stream = tuple(a[:KAFKA_E2E_ROWS] for a in stream)
+    kafka = phase_kafka_e2e(device, e2e_stream, card)
     pace, staged, lat_stream = phase_kafka_latency(
         device, args.seed + 7, kafka["rows_per_s"], card)
     phase_kafka_ckpt(device, pace, staged, lat_stream, card)
@@ -8414,7 +8689,7 @@ def main(argv=None) -> int:
          "highcard": (highcard_batches, highcard_stream, HIGHCARD_KEYS)},
         {"tumbling": cfg1_pm["rows_per_s"],
          "highcard": highcard_rates["partial_merge"]}, card)
-    avro = phase_kafka_e2e(device, stream, card, fmt="avro", phase=29)
+    avro = phase_kafka_e2e(device, e2e_stream, card, fmt="avro", phase=29)
     log(f"phase 29 rows/s side by side: Avro {avro['rows_per_s']:.0f}, JSON "
         f"(phase 21) {kafka['rows_per_s']:.0f} ({card})")
     log(f"phases 21-29: the script {time.time() - T_START:.1f} s so far "
@@ -8473,6 +8748,10 @@ def main(argv=None) -> int:
     dryrun = phase_sharded_dryrun(device, card)
     log(f"phases 48-52 took {time.perf_counter() - t_shard:.1f} s; the "
         f"script {time.time() - T_START:.1f} s so far ({card})")
+    t_soak = time.perf_counter()
+    soak = phase_torch_soak(card)
+    log(f"phase 53 took {time.perf_counter() - t_soak:.1f} s; the script "
+        f"{time.time() - T_START:.1f} s so far ({card})")
 
     shared_counts = ([p["shared_launches"]
                       for p in mq["points"] + [mq["highcard"]]]
@@ -8504,7 +8783,7 @@ def main(argv=None) -> int:
         # launches of both windows under phase 14's join (61 a side)
         "join_launches": plain_join["launches"]["dense_window"],
         # both windows under phase 16's join_on (61 a side), and phase
-        # 19's window behind the scalar functions (15 batches)
+        # 19's window behind the scalar functions (4 batches)
         "join_expressions_launches": expressions_launches,
         "functions_launches": functions_launches,
         # launches on phase 21's kafka_e2e run, one a window batch
@@ -8524,6 +8803,11 @@ def main(argv=None) -> int:
         # each worker process of phase 45's n = 4 cluster run
         "cluster_launches": {w: m["dense_window_launches"]
                              for w, m in scale[4]["workers"].items()},
+        # each segment's launches in phase 53's soaks (a SIGKILLed
+        # segment's last once-a-second reading)
+        "soak_launches": {p: [sg["launches"]["dense_window"]
+                              for sg in r["segments"]]
+                          for p, r in soak.items()},
         # (no shard_launches: the sharded layouts ship rows through the
         # scatter program, as the JAX package's do, and phases 48-49 check
         # that no shard launched this kernel)

@@ -275,6 +275,9 @@ class SourceExec(ExecOperator):
             source=self._obs_source_label,
         )
 
+    def set_barrier_source(self, poll: Callable[[], int | None]) -> None:
+        self._barrier_poll = poll
+
     # -- checkpointing (offset persistence mirrors BatchReadMetadata,
     # kafka_stream_read.rs:49-65,275-289; restore :110-140) -------------
     def enable_checkpointing(self, node_id: str, coord, orch) -> None:

@@ -281,6 +281,14 @@ class FaultPlan:
         with self._lock:
             return [dict(e) for e in self.events]
 
+    def fired_sites(self) -> dict[str, int]:
+        """Per-site count of fired injections (observability/asserts)."""
+        out: dict[str, int] = {}
+        with self._lock:
+            for e in self.events:
+                out[e["site"]] = out.get(e["site"], 0) + 1
+        return out
+
 
 # -- process-global plan --------------------------------------------------
 
@@ -299,6 +307,10 @@ def arm(plan: FaultPlan | dict | str) -> FaultPlan:
 def disarm() -> None:
     global _PLAN
     _PLAN = None
+
+
+def plan() -> FaultPlan | None:
+    return _PLAN
 
 
 def armed() -> bool:

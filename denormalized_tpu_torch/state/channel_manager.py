@@ -64,3 +64,7 @@ def remove_channel(tag: str) -> None:
     with _LOCK:
         _CHANNELS.pop(tag, None)
 
+
+def all_tags() -> list[str]:
+    with _LOCK:
+        return list(_CHANNELS)

@@ -6,7 +6,7 @@ put/get/delete/close with a process-global instance
 (``initialize_global_state_backend``), the
 same segment format on disk — so each package opens the other's store —
 and the same pure-Python engine when no compiler is available (logged, and
-counted in :data:`python_engine_stores`).
+counted in :data:`python_engine_stores`) or ``DENORMALIZED_LSM_PY`` is set.
 """
 
 from __future__ import annotations
@@ -33,6 +33,11 @@ python_engine_stores = 0
 
 def _load_native():
     global _LIB, _LIB_FAILED
+    if os.environ.get("DENORMALIZED_LSM_PY"):
+        # force the pure-Python engine (chaos soak / tests: its replay
+        # accounting and torn-tail handling must be exercisable on boxes
+        # where the native build exists)
+        return None
     if _LIB is not None or _LIB_FAILED:
         return _LIB
     with _BUILD_LOCK:
@@ -404,6 +409,12 @@ def initialize_global_state_backend(path: str) -> LsmStore:
                 _GLOBAL.close()
             _GLOBAL = LsmStore(path)
         return _GLOBAL
+
+
+def get_global_state_backend() -> LsmStore:
+    if _GLOBAL is None:
+        raise StateError("state backend not initialized")
+    return _GLOBAL
 
 
 def close_global_state_backend() -> None:

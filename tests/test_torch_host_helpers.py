@@ -311,3 +311,149 @@ def test_collect_metrics_keys_match_jax(caplog):
     lines = [r.getMessage() for r in caplog.records
              if r.getMessage().startswith("metrics ")]
     assert any("StreamingWindowExec" in m and "rows_in" in m for m in lines)
+
+
+# -- fault plan, state backend, barrier source, channel registry ----------
+
+_PLAN_SPEC = {"seed": 17, "rules": [
+    {"name": "flap", "site": "kafka.fetch", "kind": "error",
+     "message": "recv: injected", "prob": 0.05, "times": 9},
+    {"name": "crash", "site": "kafka.fetch", "kind": "error",
+     "after": 120, "times": 1},
+    {"name": "torn", "site": "lsm.put", "kind": "torn", "key_substr": "@",
+     "prob": 0.2, "times": 3},
+    {"name": "hiccup", "site": "checkpoint.commit", "kind": "error",
+     "prob": 0.3, "times": 2},
+    {"name": "slow", "site": "lsm.flush", "kind": "latency", "ms": 0,
+     "prob": 0.25},
+]}
+
+
+def _drive_plan(plan):
+    for i in range(600):
+        for site, key, payload in (
+            ("kafka.fetch", "t:0", None),
+            ("lsm.put", f"window_1@{i}", b"x" * 32),
+            ("checkpoint.commit", None, None),
+            ("lsm.flush", None, None),
+        ):
+            if site != "kafka.fetch" and i % 7:
+                continue
+            try:
+                plan.on(site, key=key, payload=payload)
+            except Exception:
+                pass
+    return plan
+
+
+def test_fault_plan_fired_sites_and_plan_match_jax():
+    """``FaultPlan.fired_sites()`` and the module's ``plan()``: the same
+    spec and seed fire the same sites the same number of times in both
+    packages, and ``plan()`` is None unarmed and the armed plan after
+    ``arm``."""
+    from denormalized_tpu.runtime import faults as jfaults
+    from denormalized_tpu_torch.runtime import faults
+
+    got = _drive_plan(faults.FaultPlan(dict(_PLAN_SPEC)))
+    want = _drive_plan(jfaults.FaultPlan(dict(_PLAN_SPEC)))
+    assert got.fired_sites() == want.fired_sites()
+    assert set(got.fired_sites()) == {
+        "kafka.fetch", "lsm.put", "checkpoint.commit", "lsm.flush"}
+    assert sum(got.fired_sites().values()) == len(got.event_log())
+    assert got.event_log() == want.event_log()
+    assert faults.FaultPlan(dict(_PLAN_SPEC)).fired_sites() == {}
+
+    for mod in (faults, jfaults):
+        mod.disarm()
+        try:
+            assert mod.plan() is None
+            armed = mod.arm(dict(_PLAN_SPEC))
+            assert mod.plan() is armed and mod.plan().seed == 17
+        finally:
+            mod.disarm()
+        assert mod.plan() is None
+
+
+def test_get_global_state_backend_matches_jax(tmp_path):
+    """Raises the package's ``StateError`` with the JAX message while no
+    store is set up, returns the process-global store once one is, and
+    raises again after it is closed."""
+    from denormalized_tpu.common.errors import StateError as JStateError
+    from denormalized_tpu.state import lsm as jlsm
+    from denormalized_tpu_torch.common.errors import StateError as TStateError
+    from denormalized_tpu_torch.state import lsm
+
+    for mod, err, sub in ((lsm, TStateError, "t"), (jlsm, JStateError, "j")):
+        mod.close_global_state_backend()
+        with pytest.raises(err, match="state backend not initialized"):
+            mod.get_global_state_backend()
+        store = mod.initialize_global_state_backend(str(tmp_path / sub))
+        try:
+            assert mod.get_global_state_backend() is store
+            store.put(b"k", b"v")
+            assert mod.get_global_state_backend().get(b"k") == b"v"
+        finally:
+            mod.close_global_state_backend()
+        with pytest.raises(err):
+            mod.get_global_state_backend()
+
+
+def test_set_barrier_source_matches_jax():
+    """A source's injected barrier poll puts the same markers between the
+    same batches in both packages."""
+    from denormalized_tpu.physical.base import Marker as JMarker
+    from denormalized_tpu.physical.simple_execs import SourceExec as JExec
+    from denormalized_tpu.sources.memory import MemorySource as JSource
+    from denormalized_tpu_torch.physical.base import Marker
+    from denormalized_tpu_torch.physical.simple_execs import SourceExec
+
+    def items(exec_cls, marker_cls, source):
+        exec_ = exec_cls(source, idle_timeout_ms=None)
+        calls = [0]
+
+        def poll():
+            calls[0] += 1
+            return calls[0] // 3 if calls[0] % 3 == 0 else None
+
+        exec_.set_barrier_source(poll)
+        out = []
+        for it in exec_.run():
+            if isinstance(it, marker_cls):
+                out.append(("marker", it.epoch))
+            elif hasattr(it, "num_rows"):
+                out.append(("batch", it.num_rows,
+                            np.asarray(it.column("reading")).tolist()))
+        return out, calls[0]
+
+    def feed(pkg):
+        return [_sensor(T0 + b * 500 + np.arange(40), ["a", "b"] * 20,
+                        np.arange(40.0) + b, pkg) for b in range(8)]
+
+    got = items(SourceExec, Marker, MemorySource.from_batches(
+        feed("torch"), timestamp_column="occurred_at_ms"))
+    want = items(JExec, JMarker, JSource.from_batches(
+        feed("jax"), timestamp_column="occurred_at_ms"))
+    assert got == want
+    assert [e for e in got[0] if e[0] == "marker"]
+    assert sum(1 for e in got[0] if e[0] == "batch" and e[1]) == 8
+
+
+def test_channel_registry_all_tags_matches_jax():
+    """``all_tags()`` lists every registered tag, in creation order, and
+    drops removed ones, as the JAX registry does."""
+    from denormalized_tpu.state import channel_manager as jcm
+    from denormalized_tpu_torch.state import channel_manager as cm
+
+    tags = ["orchestrator_twin", "src_0_twin", "src_1_twin", "win_2_twin"]
+    seen = []
+    for mod in (cm, jcm):
+        before = set(mod.all_tags())
+        for t in tags:
+            mod.create_channel(t)
+        mod.create_channel(tags[0])  # idempotent
+        mod.remove_channel(tags[1])
+        seen.append([t for t in mod.all_tags() if t not in before])
+        for t in tags:
+            mod.remove_channel(t)
+        assert not set(tags) & set(mod.all_tags())
+    assert seen[0] == seen[1] == [tags[0], tags[2], tags[3]]

@@ -1,0 +1,1458 @@
+"""Long-running soak of the PyTorch/CUDA port (``denormalized_tpu_torch``)
+on its device: one checkpointed streaming job, paced for minutes,
+SIGKILLed and restored again and again, held to a numpy golden, with the
+card's memory, the process's RSS and the hand kernels' launches recorded.
+
+    python tools/torch_soak.py [--pipeline simple|sliding|join|session|udaf|
+                                kafka|approx|query_dense|join_dense]
+                               [--chaos] [--device cuda|cpu]
+                               [--minutes 12] [--pace 200000]
+                               [--kill-every 90] [--out PATH]
+
+The feed, the golden folds, the exactly-once reading of the segments'
+output (epoch clipping), the chaos schedule and the dense query schedules
+are those of the JAX package's soak (``tools/soak.py``, imported for its
+pure helpers: that module loads only the standard library and numpy), so
+both packages are held to one golden at one shape: 10 keys, 4,096-row
+batches, 1 s windows, the same pace and seeds.  The approx golden folds
+with the JAX package's numpy sketches, loaded by path
+(``tools/soak.py::_sk``), so the port's HLL estimates are held to the
+reference's with exact integer equality.
+
+The child (``--child``, spawned by the parent for every segment) imports
+``torch`` and ``denormalized_tpu_torch`` only, never ``jax`` nor
+``denormalized_tpu``, and runs ``EngineConfig(device=--device)``, ``cuda``
+by default: a child that finds no card, or cannot load a kernel, exits
+non-zero; nothing falls back to the CPU.  Besides its window lines it
+writes, into the same file so that a SIGKILLed segment leaves them behind:
+
+- a ``ready`` line: the device's name and the seconds from spawn to the
+  imports done, to the CUDA context ready and to the three kernel
+  libraries loaded;
+- a ``device`` line once a second: ``torch.cuda.memory_allocated``,
+  ``memory_reserved``, ``max_memory_allocated``, the child's RSS and the
+  launch counters of ``ops/dense_window.py``, ``ops/merge_partials.py``
+  and ``ops/compact_slot.py``;
+- at its exit, the ``jax``/``denormalized_tpu`` modules it holds (none).
+
+The parent builds every kernel once before the first spawn (one ``nvcc``
+a source, in parallel; ``--no-build`` when the caller has), samples the
+child's RSS, kills it every ``--kill-every`` seconds (the last segment
+runs to its end), respawns it, and reports per segment the start-up split, device memory and RSS at the
+first emission, at the maximum and at the end (and their slopes), and the
+launches.  Gates: those of ``tools/soak.py`` (0 windows lost, spurious or
+mismatched, the emitted windows equal to the golden's, EOS seen, at least
+one kill, every recovery to a first emission under 30 s), plus two on the
+device (``device_gates``): the memory bound below, and every restored
+segment launching exactly the hand kernels the first segment launched.
+The parent exits 1 when a gate fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import signal
+import subprocess
+import sys
+import threading
+import time
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parent.parent
+if str(REPO) not in sys.path:
+    sys.path.insert(0, str(REPO))
+
+from tools import soak as S  # noqa: E402  (standard library + numpy)
+
+PIPELINES = ("simple", "sliding", "join", "session", "udaf", "kafka",
+             "approx", "query_dense", "join_dense")
+RECOVERY_LIMIT_S = 30.0
+
+#: device-memory gate.  A segment that ran at least MEM_MIN_RUN_S past its
+#: first emission must keep ``memory_allocated`` over its last MEM_TAIL_S
+#: within MEM_REL x its value MEM_REF_AT_S after the first emission, plus
+#: MEM_ABS_BYTES.  Why this bound: after warm-up the live bytes on the card
+#: are set by the job's shape (the window ring, W slots x G groups, and the
+#: few batches in flight), not by its age; 10% covers one growth step of
+#: the ring's slots and the 16 MiB the batches in flight, the pinned
+#: staging's device side and the compaction scratch, so a buffer leaked
+#: every batch or every window (thousands of each over a minute) crosses it.
+MEM_MIN_RUN_S = 60.0
+MEM_REF_AT_S = 30.0
+MEM_TAIL_S = 10.0
+MEM_REL = 0.10
+MEM_ABS_BYTES = 16 << 20
+MEM_BOUND_REASON = (
+    "after warm-up the card's live bytes are set by the job's shape (ring "
+    "W x G, batches in flight), not its age: 10% covers a ring growth "
+    "step, 16 MiB the in-flight batches and cached scratch; a buffer "
+    "leaked a batch or a window crosses it within the minute"
+)
+
+
+def _foreign_modules() -> list[str]:
+    """Modules of JAX or of the JAX package loaded in this process."""
+    return sorted(
+        m for m in sys.modules
+        if m in ("jax", "jaxlib", "denormalized_tpu")
+        or m.startswith(("jax.", "jaxlib.", "denormalized_tpu."))
+    )
+
+
+# -- child ---------------------------------------------------------------
+
+
+class _Out:
+    """The segment's line-buffered output, shared by the emission loop and
+    the device sampler thread (one lock, so lines never interleave)."""
+
+    def __init__(self, path: str):
+        self._f = open(path, "a", buffering=1)
+        self._lock = threading.Lock()
+
+    def event(self, obj: dict) -> None:
+        line = json.dumps(obj) + "\n"
+        with self._lock:
+            self._f.write(line)
+
+    def close(self) -> None:
+        with self._lock:
+            self._f.close()
+
+
+def _device_startup(torch, device: str, spawn_t: float) -> dict:
+    """CUDA context and kernel libraries up front, timed from the spawn.
+    Exits non-zero when the device is a card and there is none; a kernel
+    library that does not build or load raises."""
+    info: dict = {"imports_s": round(time.time() - spawn_t, 3),
+                  "torch": torch.__version__}
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        info.update(device_name=str(dev), cuda_ready_s=None,
+                    kernels_loaded_s=None)
+        return info
+    if not torch.cuda.is_available():
+        print("torch_soak child: no CUDA device (torch.cuda.is_available() "
+              "is False)", file=sys.stderr)
+        sys.exit(3)
+    torch.zeros(1, device=dev)
+    torch.cuda.synchronize(dev)
+    info["cuda_ready_s"] = round(time.time() - spawn_t, 3)
+    from denormalized_tpu_torch.ops import cuda_build
+
+    for name in cuda_build.sources():
+        cuda_build.load(name)
+    info["kernels_loaded_s"] = round(time.time() - spawn_t, 3)
+    info["device_name"] = torch.cuda.get_device_name(dev)
+    return info
+
+
+def _launches() -> dict:
+    from denormalized_tpu_torch.ops import compact_slot, dense_window
+    from denormalized_tpu_torch.ops import merge_partials
+
+    return {
+        "dense_window": dense_window.dense_window_launches,
+        "merge_partials": merge_partials.merge_partials_launches,
+        "compact_slot": compact_slot.compact_slot_launches,
+    }
+
+
+def _device_record(torch, device: str) -> dict:
+    dev = torch.device(device)
+    rec: dict = {"event": "device", "t": time.time()}
+    if dev.type == "cuda":
+        rec["alloc"] = torch.cuda.memory_allocated(dev)
+        rec["reserved"] = torch.cuda.memory_reserved(dev)
+        rec["max_alloc"] = torch.cuda.max_memory_allocated(dev)
+    else:
+        rec["alloc"] = rec["reserved"] = rec["max_alloc"] = None
+    rec["rss_kb"] = S.rss_kb(os.getpid())
+    rec["launches"] = _launches()
+    return rec
+
+
+def _start_device_sampler(out: _Out, torch, device: str):
+    """A device line now and once a second until the returned event is
+    set."""
+    stop = threading.Event()
+    out.event(_device_record(torch, device))
+
+    def run():
+        while not stop.wait(1.0):
+            out.event(_device_record(torch, device))
+
+    threading.Thread(target=run, daemon=True, name="soak-device").start()
+    return stop
+
+
+def child_main() -> None:
+    spawn_t = float(os.environ.get("SOAK_SPAWN_T") or time.time())
+    device = os.environ.get("SOAK_DEVICE", "cuda")
+    import torch
+
+    from denormalized_tpu_torch import Context, EngineConfig, col
+    from denormalized_tpu_torch.api import functions as F
+    from denormalized_tpu_torch.common.constants import (
+        WINDOW_END_COLUMN,
+        WINDOW_START_COLUMN,
+    )
+    from denormalized_tpu_torch.common.record_batch import RecordBatch
+    from denormalized_tpu_torch.common.schema import DataType, Field, Schema
+    from denormalized_tpu_torch.sources.base import (
+        PartitionReader,
+        Source,
+        attach_canonical_timestamp,
+        canonicalize_schema,
+    )
+
+    startup = _device_startup(torch, device, spawn_t)
+    pipeline = os.environ.get("SOAK_PIPELINE", "simple")
+    batch_rows = int(os.environ["SOAK_BATCH_ROWS"])
+    pace = float(os.environ["SOAK_PACE"])
+    total_batches = int(os.environ["SOAK_TOTAL_BATCHES"])
+    ckpt_dir = os.environ["SOAK_CKPT_DIR"]
+    out_path = os.environ["SOAK_OUT"]
+    n_keys = S.N_KEYS
+
+    schema = Schema([
+        Field("occurred_at_ms", DataType.INT64, nullable=False),
+        Field("sensor_name", DataType.STRING, nullable=False),
+        Field("reading", DataType.FLOAT64),
+    ])
+    key_names = np.array([f"sensor_{k}" for k in range(n_keys)], dtype=object)
+
+    class SoakPartition(PartitionReader):
+        """The JAX soak's deterministic paced feed: batch i regenerates
+        from its index, so ``offset_restore`` is a fast-forward; pacing
+        re-anchors at the restored index."""
+
+        def __init__(self, seed):
+            self._seed = seed
+            self._i = 0
+            self._anchor_wall = None
+            self._anchor_i = 0
+
+        def read(self, timeout_s=None):
+            if self._i >= total_batches:
+                return None
+            now = time.monotonic()
+            if self._anchor_wall is None:
+                self._anchor_wall = now
+                self._anchor_i = self._i
+            due = self._anchor_wall + (
+                (self._i - self._anchor_i) * batch_rows / pace
+            )
+            if now < due:
+                time.sleep(min(due - now, timeout_s or (due - now)))
+                if time.monotonic() < due:
+                    return attach_canonical_timestamp(
+                        RecordBatch.empty(schema), "occurred_at_ms",
+                        fallback_ms=int(time.time() * 1000),
+                    )
+            if pipeline == "join":
+                ts, keys, vals = S.join_batch_arrays(
+                    self._i, batch_rows, pace, total_batches
+                )
+            elif pipeline == "join_dense":
+                ts, keys, vals = S.jd_batch_arrays(self._i, batch_rows, pace)
+            else:
+                ts, keys, vals = S.batch_arrays(
+                    self._i, batch_rows, pace, seed=self._seed
+                )
+            if pipeline == "session":
+                ts = S.burst_ts(ts)
+            self._i += 1
+            b = RecordBatch(schema, [ts, key_names[keys], vals])
+            return attach_canonical_timestamp(
+                b, "occurred_at_ms", fallback_ms=int(time.time() * 1000)
+            )
+
+        def offset_snapshot(self):
+            return {"i": self._i}
+
+        def offset_restore(self, snap):
+            self._i = int(snap["i"])
+            self._anchor_wall = None
+
+    canon = canonicalize_schema(schema)
+
+    class SoakSource(Source):
+        def __init__(self, seed, name):
+            self._seed = seed
+            self.name = name
+
+        @property
+        def schema(self):
+            return canon
+
+        def partitions(self):
+            return [SoakPartition(self._seed)]
+
+        @property
+        def unbounded(self):
+            return False
+
+    cfg = EngineConfig(
+        device=device,
+        min_batch_bucket=batch_rows,
+        min_window_slots=32,
+        checkpoint=True,
+        checkpoint_interval_s=float(os.environ.get("SOAK_CKPT_S", 2.0)),
+        state_backend_path=ckpt_dir,
+        emit_on_close=True,
+        source_idle_timeout_ms=int(
+            os.environ.get("SOAK_IDLE_MS", 1000)
+        ) or None,
+        metrics_jsonl_path=os.environ.get("SOAK_OBS_OUT"),
+        metrics_jsonl_interval_s=1.0,
+    )
+    ctx = Context(cfg)
+
+    def coordinator():
+        return ctx.last_checkpointing()[0]
+
+    def qd_aggs():
+        # the foldable set minus variance, as the JAX soak's
+        return [
+            F.count(col("reading")).alias("count"),
+            F.sum(col("reading")).alias("sum"),
+            F.min(col("reading")).alias("min"),
+            F.max(col("reading")).alias("max"),
+            F.avg(col("reading")).alias("average"),
+        ]
+
+    dim_user = Schema([
+        Field("dim_at_ms", DataType.INT64, nullable=False),
+        Field("dim_sensor", DataType.STRING, nullable=False),
+        Field("w", DataType.FLOAT64),
+    ])
+    dim_schema = canonicalize_schema(dim_user)
+    dim_seconds = -(-total_batches * batch_rows // int(pace)) + 1
+    t0_sec = S.T0 // 1000
+
+    class DimPartition(PartitionReader):
+        """One batch an event-second: ``n_keys`` enrichment rows at the
+        second's boundary, paced at one batch a wall second
+        (``paced=False`` replays densely for the oracle)."""
+
+        def __init__(self, paced=True):
+            self._paced = paced
+            self._i = 0
+            self._anchor_wall = None
+            self._anchor_i = 0
+
+        def read(self, timeout_s=None):
+            if self._i >= dim_seconds:
+                return None
+            if self._paced:
+                now = time.monotonic()
+                if self._anchor_wall is None:
+                    self._anchor_wall = now
+                    self._anchor_i = self._i
+                due = self._anchor_wall + (self._i - self._anchor_i)
+                if now < due:
+                    time.sleep(min(due - now, timeout_s or (due - now)))
+                    if time.monotonic() < due:
+                        return attach_canonical_timestamp(
+                            RecordBatch.empty(dim_user), "dim_at_ms",
+                            fallback_ms=int(time.time() * 1000),
+                        )
+            s = self._i
+            self._i += 1
+            ts = np.full(n_keys, (t0_sec + s) * 1000, dtype=np.int64)
+            vals = np.array([S.dim_value(k, s) for k in range(n_keys)])
+            b = RecordBatch(dim_user, [ts, key_names.copy(), vals])
+            return attach_canonical_timestamp(
+                b, "dim_at_ms", fallback_ms=int(time.time() * 1000)
+            )
+
+        def offset_snapshot(self):
+            return {"i": self._i}
+
+        def offset_restore(self, snap):
+            self._i = int(snap["i"])
+            self._anchor_wall = None
+
+    class DimSource(Source):
+        name = "soak_dim"
+
+        def __init__(self, paced=True):
+            self._paced = paced
+
+        @property
+        def schema(self):
+            return dim_schema
+
+        def partitions(self):
+            return [DimPartition(self._paced)]
+
+        @property
+        def unbounded(self):
+            return False
+
+    out = _Out(out_path)
+    out.event({"event": "ready", "t": time.time(), **startup})
+    sampler = _start_device_sampler(out, torch, device)
+
+    def finish(extra=None):
+        sampler.set()
+        out.event(_device_record(torch, device))
+        out.event({"event": "done", "t": time.time(),
+                   "foreign_modules": _foreign_modules(), **(extra or {})})
+        out.close()
+
+    if pipeline in ("query_dense", "join_dense"):
+        # the JAX soak's live multi-query registry: the schedule is event
+        # time keyed, so every incarnation re-issues it verbatim (restored
+        # subscribers adopt their cursors, departed tags stay departed)
+        from denormalized_tpu_torch.runtime.multi_query import SharedPipeline
+
+        if pipeline == "join_dense":
+            cfg.join_retention_ms = S.JD_RETENTION_MS
+            cfg.join_band_slack_ms = 0
+            sched = S.jd_schedule(total_batches, batch_rows, pace)
+            unit_ms = S.JD_UNIT_MS
+            fact = ctx.from_source(
+                SoakSource(S.SEED_LEFT, "soak_fact"), name="soak_fact"
+            )
+            dim = ctx.from_source(DimSource(), name="soak_dim")
+            base = fact.join(
+                dim, "inner", ["sensor_name"], ["dim_sensor"],
+                band=("occurred_at_ms", "dim_at_ms", 0, S.JOIN_BAND_MS - 1),
+            )
+        else:
+            sched = S.qd_schedule(total_batches, batch_rows, pace)
+            unit_ms = S.QD_UNIT_MS
+            base = ctx.from_source(
+                SoakSource(S.SEED_LEFT, "soak_qd"), name="soak_qd"
+            )
+        aggs = qd_aggs()
+
+        def q_stream(spec):
+            return base.filter(col("reading") > spec["thr"]).window(
+                ["sensor_name"], aggs, spec["L"], spec["S"]
+            )
+
+        announced: list = []
+
+        def mk_sink(qid):
+            def sink(b):
+                coord = coordinator()
+                if not announced:
+                    announced.append(True)
+                    out.event({
+                        "event": "restored",
+                        "epoch": ((coord.restored_epoch or 0)
+                                  if coord is not None else None),
+                    })
+                ep = ((coord.committed_epoch or 0) + 1
+                      if coord is not None else None)
+                ws = b.column(WINDOW_START_COLUMN)
+                names = b.column("sensor_name")
+                cols = [b.column(c)
+                        for c in ("count", "sum", "min", "max", "average")]
+                for i in range(b.num_rows):
+                    rec = {
+                        "q": qid, "ws": int(ws[i]), "key": str(names[i]),
+                        "count": int(cols[0][i]), "sum": float(cols[1][i]),
+                        "min": float(cols[2][i]), "max": float(cols[3][i]),
+                        "avg": float(cols[4][i]),
+                    }
+                    if ep is not None:
+                        rec["ep"] = ep
+                    out.event(rec)
+            return sink
+
+        initial = [s for s in sched if "join" not in s]
+        sp = SharedPipeline(
+            ctx,
+            [(q_stream(s), mk_sink(s["qid"])) for s in initial],
+            labels=[f"q{s['qid']}" for s in initial],
+        )
+        assert sp.root.unit_ms == unit_ms, sp.root.unit_ms
+        out.event({"event": "build", "t": time.time()})
+        for s in sched:
+            if "join" in s:
+                tag = sp.register(q_stream(s), mk_sink(s["qid"]),
+                                  label=f"q{s['qid']}", when_ts=s["join"])
+                assert tag == s["qid"], (tag, s["qid"])
+        for s in sched:
+            if "leave" in s:
+                sp.deregister(s["qid"], when_ts=s["leave"])
+        sp.run()
+        m = sp.root.metrics()
+        out.event({"event": "metrics", **{
+            k: v for k, v in m.items() if isinstance(v, (int, float))
+        }})
+        finish()
+        return
+
+    if pipeline in ("query_dense_oracle", "join_dense_oracle"):
+        # per-query independent uninterrupted runs over the same feed,
+        # replayed densely, pinned to the shared group's unit: the
+        # byte-identity referent of the live shared run
+        from denormalized_tpu_torch.sources.memory import MemorySource
+
+        joined = pipeline == "join_dense_oracle"
+        sched = (S.jd_schedule(total_batches, batch_rows, pace) if joined
+                 else S.qd_schedule(total_batches, batch_rows, pace))
+        feed = []
+        for i in range(total_batches):
+            if joined:
+                ts, keys, vals = S.jd_batch_arrays(i, batch_rows, pace)
+            else:
+                ts, keys, vals = S.batch_arrays(i, batch_rows, pace,
+                                                seed=S.SEED_LEFT)
+            feed.append(RecordBatch(schema, [ts, key_names[keys], vals]))
+        for spec in sched:
+            ocfg = EngineConfig(
+                device=device,
+                min_batch_bucket=batch_rows,
+                min_window_slots=32,
+                slice_windows=True,
+                slice_unit_ms=S.JD_UNIT_MS if joined else S.QD_UNIT_MS,
+                emit_on_close=True,
+            )
+            if joined:
+                ocfg.join_retention_ms = S.JD_RETENTION_MS
+                ocfg.join_band_slack_ms = 0
+            octx = Context(ocfg)
+            src = octx.from_source(
+                MemorySource.from_batches(
+                    feed, timestamp_column="occurred_at_ms"),
+                name="soak_fact" if joined else "soak_qd",
+            )
+            if joined:
+                src = src.join(
+                    octx.from_source(DimSource(paced=False), name="soak_dim"),
+                    "inner", ["sensor_name"], ["dim_sensor"],
+                    band=("occurred_at_ms", "dim_at_ms", 0,
+                          S.JOIN_BAND_MS - 1),
+                )
+            ds = src.filter(col("reading") > spec["thr"]).window(
+                ["sensor_name"], qd_aggs(), spec["L"], spec["S"]
+            )
+            for b in ds.stream():
+                if not b.schema.has(WINDOW_START_COLUMN):
+                    continue
+                ws = b.column(WINDOW_START_COLUMN)
+                names = b.column("sensor_name")
+                cols = [b.column(c)
+                        for c in ("count", "sum", "min", "max", "average")]
+                for i in range(b.num_rows):
+                    out.event({
+                        "q": spec["qid"], "ws": int(ws[i]),
+                        "key": str(names[i]), "count": int(cols[0][i]),
+                        "sum": float(cols[1][i]), "min": float(cols[2][i]),
+                        "max": float(cols[3][i]), "avg": float(cols[4][i]),
+                    })
+        finish()
+        return
+
+    last_close_ws = (int(os.environ["SOAK_LAST_CLOSE_WS"])
+                     if pipeline == "kafka" else None)
+    if pipeline == "kafka":
+        # broker -> native wire client -> native JSON decode -> window;
+        # offsets restored by seek, the feed running on across kills
+        ds = ctx.from_topic(
+            "soak", schema=schema,
+            bootstrap_servers=os.environ["SOAK_BOOTSTRAP"],
+            timestamp_column="occurred_at_ms",
+        ).window(
+            ["sensor_name"],
+            [F.count(col("reading")).alias("count"),
+             F.min(col("reading")).alias("min"),
+             F.max(col("reading")).alias("max"),
+             F.avg(col("reading")).alias("average")],
+            S.WINDOW_MS,
+        )
+    elif pipeline == "udaf":
+        from denormalized_tpu_torch.api.udaf import Accumulator
+
+        class Spread(Accumulator):
+            def __init__(self):
+                self.lo = float("inf")
+                self.hi = float("-inf")
+
+            def update(self, values):
+                if len(values):
+                    self.lo = min(self.lo, float(values.min()))
+                    self.hi = max(self.hi, float(values.max()))
+
+            def merge(self, states):
+                self.lo = min(self.lo, states[0])
+                self.hi = max(self.hi, states[1])
+
+            def state(self):
+                return [self.lo, self.hi]
+
+            def evaluate(self):
+                return self.hi - self.lo if self.hi >= self.lo else 0.0
+
+        spread = F.udaf(Spread, DataType.FLOAT64, "spread")
+        ds = ctx.from_source(
+            SoakSource(S.SEED_LEFT, "soak_u"), name="soak_u"
+        ).window(
+            ["sensor_name"],
+            [spread(col("reading")).alias("spread"),
+             F.count(col("reading")).alias("count")],
+            S.WINDOW_MS,
+        )
+    elif pipeline == "approx":
+        cfg.slice_windows = True
+        cfg.slice_unit_ms = S.SLIDE_MS  # kills land mid-window, mid-slice
+        ds = ctx.from_source(
+            SoakSource(S.SEED_LEFT, "soak_ax"), name="soak_ax"
+        ).window(
+            ["sensor_name"],
+            [F.count(col("reading")).alias("count"),
+             F.approx_distinct(col("reading")).alias("distinct")],
+            S.WINDOW_MS,
+        )
+    elif pipeline == "session":
+        ds = ctx.from_source(
+            SoakSource(S.SEED_LEFT, "soak_s"), name="soak_s"
+        ).session_window(
+            ["sensor_name"],
+            [F.count(col("reading")).alias("count"),
+             F.min(col("reading")).alias("min"),
+             F.max(col("reading")).alias("max"),
+             F.avg(col("reading")).alias("average")],
+            S.SESSION_GAP_MS,
+        )
+    elif pipeline == "join":
+        # the skewed, late fact stream band-joined to the per-second
+        # dimension stream, then windowed (the JAX soak's join)
+        cfg.join_retention_ms = S.JOIN_RETENTION_MS
+        cfg.join_band_slack_ms = S.JOIN_LATE_MS
+        left = ctx.from_source(
+            SoakSource(S.SEED_LEFT, "soak_fact"), name="soak_fact"
+        )
+        right = ctx.from_source(DimSource(), name="soak_dim")
+        ds = left.join(
+            right, "inner", ["sensor_name"], ["dim_sensor"],
+            band=("occurred_at_ms", "dim_at_ms", 0, S.JOIN_BAND_MS - 1),
+        ).window(
+            ["sensor_name"],
+            [F.count(col("reading")).alias("count"),
+             F.avg(col("reading")).alias("avg_t"),
+             F.avg(col("w")).alias("avg_h")],
+            S.WINDOW_MS,
+        )
+    else:
+        ds = ctx.from_source(
+            SoakSource(S.SEED_LEFT, "soak"), name="soak"
+        ).window(
+            ["sensor_name"],
+            [F.count(col("reading")).alias("count"),
+             F.min(col("reading")).alias("min"),
+             F.max(col("reading")).alias("max"),
+             F.avg(col("reading")).alias("average")],
+            S.WINDOW_MS,
+            S.SLIDE_MS if pipeline == "sliding" else None,
+        )
+    it = ds.stream()
+    stop = False
+    coord = None
+    announced = False
+    last_chaos_write = 0.0
+    chaos_log_seen = 0
+
+    def write_chaos_event() -> None:
+        """Self-healing and fault state, rewritten every few seconds so a
+        SIGKILLed segment leaves its (nearly) final fault log behind."""
+        from denormalized_tpu_torch.common.errors import StateError
+        from denormalized_tpu_torch.runtime import faults
+        from denormalized_tpu_torch.runtime.tracing import collect_metrics
+        from denormalized_tpu_torch.state.lsm import get_global_state_backend
+
+        chaos: dict = {}
+        if coord is not None:
+            chaos["commit_retries"] = coord.commit_retries
+            chaos["restored_from_fallback"] = bool(
+                coord.restored_from_fallback)
+        try:
+            chaos["replay_truncated"] = int(
+                get_global_state_backend().replay_truncated)
+        except StateError:  # no store yet: nothing to report
+            pass
+        if ctx._last_physical is not None:
+            chaos["prefetch_restarts"] = sum(
+                m.get("prefetch_restarts", 0)
+                for m in collect_metrics(ctx._last_physical).values()
+            )
+        p = faults.plan()
+        if p is not None:
+            chaos["fault_log"] = p.event_log()
+        if chaos:
+            out.event({"event": "chaos", **chaos})
+
+    from denormalized_tpu_torch.runtime import faults as fault_mod
+
+    for batch in it:
+        # chaos state every 5 s and whenever the fault log grew, so an
+        # injection just before a SIGKILL stays in the segment's record
+        mono = time.monotonic()
+        plan = fault_mod.plan()
+        log_len = len(plan.events) if plan is not None else 0
+        if mono - last_chaos_write > 5.0 or log_len > chaos_log_seen:
+            last_chaos_write = mono
+            chaos_log_seen = log_len
+            write_chaos_event()
+        if not announced:
+            # exactly-once output: the recovery point before any window
+            # line (the parent clips the predecessor's uncommitted suffix)
+            coord = coordinator()
+            out.event({
+                "event": "restored",
+                "epoch": ((coord.restored_epoch or 0)
+                          if coord is not None else None),
+            })
+            announced = True
+        if not batch.schema.has(WINDOW_START_COLUMN):
+            continue
+        now = round(time.time(), 3)
+        ws = batch.column(WINDOW_START_COLUMN)
+        names = batch.column("sensor_name")
+        for i in range(batch.num_rows):
+            rec = {"t": now, "ws": int(ws[i]), "key": str(names[i]),
+                   "count": int(batch.column("count")[i])}
+            if pipeline == "udaf":
+                rec["spread"] = round(float(batch.column("spread")[i]), 4)
+            elif pipeline == "join":
+                rec["avg_t"] = round(float(batch.column("avg_t")[i]), 4)
+                rec["avg_h"] = round(float(batch.column("avg_h")[i]), 4)
+            elif pipeline == "approx":
+                rec["distinct"] = int(batch.column("distinct")[i])
+            else:
+                rec["min"] = round(float(batch.column("min")[i]), 4)
+                rec["max"] = round(float(batch.column("max")[i]), 4)
+                rec["avg"] = round(float(batch.column("average")[i]), 4)
+                if pipeline == "session":
+                    rec["we"] = int(batch.column(WINDOW_END_COLUMN)[i])
+            if coord is not None:
+                # in-flight epoch: committed once epoch `ep` commits
+                rec["ep"] = (coord.committed_epoch or 0) + 1
+            out.event(rec)
+            if last_close_ws is not None and rec["ws"] >= last_close_ws:
+                stop = True  # unbounded source: close at the target
+        if stop:
+            it.close()
+            break
+    from denormalized_tpu_torch.runtime.tracing import collect_metrics
+
+    sums: dict = {}
+    for m in collect_metrics(ctx._last_physical).values():
+        for k, v in m.items():
+            if isinstance(v, (int, float)):
+                sums[k] = sums.get(k, 0) + v
+    out.event({"event": "metrics", **{k: sums[k] for k in (
+        "late_rows", "rows_out", "rows_in", "batches_out",
+        "prefetch_restarts", "prefetch_restarted_partitions",
+        "salvaged_rows", "hot_keys", "adaptations",
+    ) if k in sums}})
+    write_chaos_event()
+    finish()
+
+
+def build_main() -> None:
+    """Build every CUDA kernel (one nvcc a source, all started together)
+    and, meanwhile, the host libraries the pipelines load, so no segment
+    pays a compiler."""
+    import sysconfig
+    from concurrent.futures import ThreadPoolExecutor
+
+    from denormalized_tpu_torch.native.build import load as load_native
+    from denormalized_tpu_torch.ops import cuda_build
+    from denormalized_tpu_torch.ops.interner import native_interner
+
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(lambda: (
+            load_native("partial_agg"), native_interner(),
+            load_native("lsmkv"), load_native("json_parser"),
+            load_native("kafka_client", ("-lz",)),
+            load_native("pyassemble", (
+                f"-I{sysconfig.get_paths()['include']}",), pydll=True)))
+        built = cuda_build.build_all()
+        host.result()
+    print(f"torch_soak: built {', '.join(sorted(built))} and the host "
+          "libraries", file=sys.stderr)
+
+
+# -- parent --------------------------------------------------------------
+
+
+#: seconds before the Kafka feed's first append at which the first segment
+#: is spawned (its start-up on the card takes ~10 s of them)
+KAFKA_SPAWN_LEAD_S = 5.0
+
+
+def kafka_prep_and_feed(args, total_batches, log):
+    """``tools/soak.py::kafka_prep_and_feed`` over the port's mock broker:
+    the parent-owned broker (the durable log that survives child kills),
+    every chunk staged up front, event time re-anchored just past the
+    staging's estimated end and each batch appended when the wall clock
+    reaches its event time → (broker, last_close_ws, feed_anchor).  The
+    estimate times three batches after a warm-up one (the JAX soak's times
+    the first alone, whose one-time costs made a slow host's estimate ~4x
+    long, so a run's first segments saw no rows)."""
+    from denormalized_tpu_torch.testing.mock_kafka import MockKafkaBroker
+
+    parts = S.KAFKA_PARTS
+
+    def stage(i, base):
+        ts, keys, vals = S.batch_arrays(i, args.batch_rows, args.pace,
+                                        seed=S.SEED_LEFT)
+        rows = S.encode_json_rows(ts, keys, vals)
+        return ts, [MockKafkaBroker.stage_batched(
+            rows[p::parts], ts_ms=int(ts[0]),
+            records_per_batch=len(rows[p::parts]), base_offset=base[p])
+            for p in range(parts)]
+
+    broker = MockKafkaBroker().start()
+    broker.create_topic("soak", partitions=parts)
+    stage(0, [0] * parts)  # warm-up
+    n_cal = min(3, total_batches)
+    t_cal = time.monotonic()
+    for i in range(n_cal):
+        stage(i, [0] * parts)
+    per_batch = (time.monotonic() - t_cal) / max(n_cal, 1)
+    est_s = per_batch * total_batches * 1.3 + 2.0
+    if "SOAK_T0" not in os.environ:
+        S.T0 = (int((time.time() + est_s) * 1000) // S.WINDOW_MS
+                * S.WINDOW_MS)
+    log(f"kafka soak: staging est {est_s:.0f}s, event origin T0={S.T0}")
+    span_ms = int(total_batches * args.batch_rows * 1000.0 / args.pace)
+    last_close_ws = ((S.T0 + span_ms) // S.WINDOW_MS - 2) * S.WINDOW_MS
+    staged = [[] for _ in range(parts)]
+    base = [0] * parts
+    for i in range(total_batches):
+        _ts, chunks = stage(i, base)
+        for p in range(parts):
+            staged[p].append(chunks[p])
+            base[p] += len(chunks[p])
+    log(f"kafka soak: staged {total_batches} chunks, "
+        f"{S.T0 / 1000.0 - time.time():.1f} s before the feed starts")
+    feed_anchor = {"epoch": S.T0 / 1000.0}
+
+    def feed():
+        t0_wall = S.T0 / 1000.0
+        for i in range(total_batches):
+            delay = t0_wall + (i + 1) * args.batch_rows / args.pace - time.time()
+            if delay > 0:
+                time.sleep(delay)
+            for p in range(parts):
+                broker.append_staged("soak", p, staged[p][i])
+
+    threading.Thread(target=feed, daemon=True).start()
+    return broker, last_close_ws, feed_anchor
+
+
+def chaos_sim_sequence(spec: dict) -> list[dict]:
+    """``tools/soak.py::chaos_sim_sequence`` on the port's ``FaultPlan``:
+    a fresh plan through a fixed call sequence → its event log."""
+    from denormalized_tpu_torch.common.errors import DenormalizedError
+    from denormalized_tpu_torch.runtime.faults import FaultPlan
+
+    p = FaultPlan(dict(spec))
+    for i in range(1200):
+        calls = [("kafka.fetch", "soak:0", None)]
+        if i % 20 == 0:
+            calls.append(("lsm.put", f"window_1@{1000 + i}", b"x" * 64))
+        if i % 40 == 0:
+            calls += [("checkpoint.commit", None, None),
+                      ("lsm.flush", None, None)]
+        for site, key, payload in calls:
+            try:
+                p.on(site, key=key, payload=payload)
+            except DenormalizedError:  # an injected fault: the point
+                pass
+    return p.event_log()
+
+
+def _port_obs_readers():
+    """The port's stdlib-only telemetry readers, loaded by path (the
+    parent does not import torch for them)."""
+    import importlib.util
+
+    path = REPO / "denormalized_tpu_torch" / "obs" / "readers.py"
+    spec = importlib.util.spec_from_file_location("_torch_soak_readers", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def derive_telemetry(obs_paths, anchor_epoch_ms=None) -> dict:
+    """``tools/soak.py::derive_telemetry`` over the port's readers."""
+    real = S._obs_readers
+    S._obs_readers = _port_obs_readers
+    try:
+        return S.derive_telemetry(obs_paths, anchor_epoch_ms)
+    finally:
+        S._obs_readers = real
+
+
+def dense_verify(args, env, work, wins, seg_paths, total_batches, *,
+                 sched_fn, oracle_pipeline) -> dict:
+    """``tools/soak.py::qd_verify`` with this tool's own oracle child (on
+    the same device): every live query's committed emissions byte-identical
+    to its independent uninterrupted run from its first exact window,
+    warm backfills owed by continuous filter classes present, and one
+    pipeline build a segment."""
+    oracle_path = os.path.join(work, "qd_oracle.jsonl")
+    oenv = dict(env, SOAK_PIPELINE=oracle_pipeline, SOAK_OUT=oracle_path,
+                SOAK_SPAWN_T=str(time.time()))
+    rc = subprocess.call([sys.executable, os.path.abspath(__file__),
+                          "--child"], env=oenv, stdout=sys.stderr,
+                         stderr=sys.stderr)
+    oracle: dict = {}
+    if rc == 0:
+        for o in _json_lines(oracle_path):
+            if "ws" in o:
+                oracle.setdefault(o["q"], {})[(o["key"], o["ws"])] = (
+                    o["count"], o["sum"], o["min"], o["max"], o["avg"])
+    builds = [sum(1 for o in _json_lines(p) if o.get("event") == "build")
+              for p in seg_paths]
+    per_q: dict = {}
+    for (ws, key, q), occs in wins.items():
+        per_q.setdefault(q, {}).setdefault((key, ws), []).extend(
+            v for v, _seg in occs)
+    sched = sched_fn(total_batches, args.batch_rows, args.pace)
+    specs = {s["qid"]: s for s in sched}
+    failures, silent, missing_backfill = [], [], []
+    backfilled = 0
+    for q, spec in specs.items():
+        got = per_q.get(q)
+        if not got:
+            silent.append(q)
+            continue
+        want_all = oracle.get(q, {})
+        min_ws = min(ws for (_k, ws) in got)
+        max_ws = max(ws for (_k, ws) in got)
+        leave = spec.get("leave")
+        if leave is None:
+            want = {kw: v for kw, v in want_all.items() if kw[1] >= min_ws}
+        else:
+            want = {kw: v for kw, v in want_all.items()
+                    if min_ws <= kw[1] <= max_ws}
+            if max_ws > leave + spec["L"]:
+                failures.append((q, "emitted past its leave", max_ws, leave))
+        incoherent = [kw for kw, vs in got.items()
+                      if any(v != vs[0] for v in vs[1:])]
+        if incoherent:
+            failures.append((q, "inconsistent duplicate emissions",
+                             incoherent[:2], None))
+        flat = {kw: vs[0] for kw, vs in got.items()}
+        if flat != want:
+            failures.append((q, "diverged from oracle", {
+                "missing": sorted(set(want) - set(flat))[:2],
+                "extra": sorted(set(flat) - set(want))[:2],
+                "value_diff": [kw for kw in set(flat) & set(want)
+                               if flat[kw] != want[kw]][:2],
+            }, None))
+        join = spec.get("join")
+        if join is not None:
+            if min_ws < join:
+                backfilled += 1
+            elif S.qd_class_continuous(specs, q):
+                missing_backfill.append(q)
+    return {
+        "oracle_rc": rc,
+        "oracle_windows": sum(len(v) for v in oracle.values()),
+        "queries": len(specs),
+        "joined_live": sum(1 for s in sched if "join" in s),
+        "departed": sum(1 for s in sched if "leave" in s),
+        "pipeline_builds_per_segment": builds,
+        "max_builds_per_segment": max(builds, default=0),
+        "queries_silent": silent,
+        "backfilled_joiners": backfilled,
+        "backfill_missing": missing_backfill,
+        "failures": len(failures),
+        "failure_sample": failures[:3],
+    }
+
+
+def _json_lines(path):
+    """Every whole JSON line of ``path`` (a torn tail line is skipped)."""
+    try:
+        f = open(path)
+    except FileNotFoundError:
+        return
+    with f:
+        for line in f:
+            try:
+                yield json.loads(line)
+            except json.JSONDecodeError:
+                continue
+
+
+def _slope(points) -> float | None:
+    """Least-squares slope of (t, value) points, a unit a second."""
+    if len(points) < 2:
+        return None
+    t = np.array([p[0] for p in points], dtype=np.float64)
+    v = np.array([p[1] for p in points], dtype=np.float64)
+    if np.ptp(t) <= 0:
+        return None
+    return float(np.polyfit(t - t[0], v, 1)[0])
+
+
+def segment_device_report(path, first_emit_wall, rss_samples) -> dict:
+    """A segment's start-up split, device memory, RSS and launches from
+    its ``ready`` and ``device`` lines and the parent's RSS samples
+    (``(wall, kB)``, taken after the first emission)."""
+    ready, recs = {}, []
+    for o in _json_lines(path):
+        if o.get("event") == "ready":
+            ready = o
+        elif o.get("event") == "device":
+            recs.append(o)
+    rep: dict = {
+        "device_name": ready.get("device_name"),
+        "startup": {k: ready.get(k) for k in
+                    ("imports_s", "cuda_ready_s", "kernels_loaded_s")},
+        "launches": dict(recs[-1]["launches"]) if recs else {},
+        "device_samples": len(recs),
+    }
+
+    def mem(r):
+        return None if r is None else {
+            k: r.get(k) for k in ("alloc", "reserved", "max_alloc")}
+
+    fe = first_emit_wall
+    at_fe = (next((r for r in recs if r["t"] >= fe), None)
+             if fe is not None else None)
+    with_alloc = [r for r in recs if r.get("alloc") is not None]
+    rep["device_mem"] = {
+        "at_first_emit": mem(at_fe),
+        "max": ({"alloc": max(r["alloc"] for r in with_alloc),
+                 "reserved": max(r["reserved"] for r in with_alloc),
+                 "max_alloc": max(r["max_alloc"] for r in with_alloc)}
+                if with_alloc else None),
+        "end": mem(recs[-1]) if recs else None,
+        "alloc_slope_bytes_per_s": (
+            _slope([(r["t"], r["alloc"]) for r in with_alloc
+                    if r["t"] >= fe + MEM_REF_AT_S])
+            if fe is not None else None),
+    }
+    rss = [kb for _t, kb in rss_samples]
+    rep["rss_kb"] = {
+        "at_first_emit": rss[0] if rss else None,
+        "max": max(rss) if rss else None,
+        "end": rss[-1] if rss else None,
+        "slope_kb_per_s": (
+            _slope([p for p in rss_samples if p[0] >= fe + MEM_REF_AT_S])
+            if fe is not None else None),
+    }
+    gate = {"applies": False}
+    if fe is not None and with_alloc:
+        ran = with_alloc[-1]["t"] - fe
+        gate["ran_past_first_emit_s"] = round(ran, 1)
+        ref = next((r for r in with_alloc if r["t"] >= fe + MEM_REF_AT_S),
+                   None)
+        if ran >= MEM_MIN_RUN_S and ref is not None:
+            tail = [r["alloc"] for r in with_alloc
+                    if r["t"] >= with_alloc[-1]["t"] - MEM_TAIL_S]
+            bound = MEM_REL * ref["alloc"] + MEM_ABS_BYTES
+            gate.update(
+                applies=True, ref_alloc=ref["alloc"], tail_min=min(tail),
+                tail_max=max(tail), bound_bytes=int(bound),
+                ok=all(abs(a - ref["alloc"]) <= bound for a in tail),
+            )
+    rep["mem_gate"] = gate
+    return rep
+
+
+def device_gates(segments) -> dict:
+    """The memory gate over every segment it applies to, and the launch
+    gate: each restored segment launches exactly the hand kernels the
+    first segment launched."""
+    mem = [dict(segment=s["segment"], **s["mem_gate"]) for s in segments
+           if s["mem_gate"].get("applies")]
+
+    def launched(s):
+        return sorted(k for k, n in s["launches"].items() if n > 0)
+
+    first = launched(segments[0]) if segments else []
+    per_seg = [{"segment": s["segment"], "launched": launched(s)}
+               for s in segments]
+    wrong = [p for p in per_seg[1:] if p["launched"] != first]
+    return {
+        "memory": {
+            "bound": f"|alloc - ref| <= {MEM_REL:.0%} of ref + "
+                     f"{MEM_ABS_BYTES >> 20} MiB over the last "
+                     f"{MEM_TAIL_S:.0f} s, ref = alloc {MEM_REF_AT_S:.0f} s "
+                     f"after the first emission, segments that ran "
+                     f">= {MEM_MIN_RUN_S:.0f} s past it",
+            "reason": MEM_BOUND_REASON,
+            "segments_gated": len(mem),
+            "segments": mem,
+            "ok": all(m["ok"] for m in mem),
+        },
+        "launches": {
+            "first_segment": first,
+            "per_segment": per_seg,
+            "restored_differing": [p["segment"] for p in wrong],
+            "ok": bool(segments) and not wrong,
+        },
+    }
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--child", action="store_true")
+    ap.add_argument("--build", action="store_true")
+    ap.add_argument("--no-build", action="store_true",
+                    help="skip the build before the first segment (the "
+                    "caller built the kernels and host libraries)")
+    ap.add_argument("--minutes", type=float, default=12.0)
+    ap.add_argument("--pace", type=float, default=200_000.0)
+    ap.add_argument("--batch-rows", type=int, default=4096)
+    ap.add_argument("--kill-every", type=float, default=90.0)
+    ap.add_argument("--pipeline", choices=PIPELINES, default="simple")
+    ap.add_argument("--device", default="cuda",
+                    help="the child's EngineConfig.device (cuda by default; "
+                    "cpu for the tests)")
+    ap.add_argument("--chaos", action="store_true",
+                    help="arm tools/soak.py's seeded FaultPlan (broker "
+                    "flaps, a worker crash, torn state writes, commit "
+                    "hiccups) on the kafka pipeline; implies --pipeline "
+                    "kafka")
+    ap.add_argument("--chaos-seed", type=int, default=1234)
+    ap.add_argument("--out", default=None,
+                    help="the JSON report (default torch_soak_<pipeline>.json "
+                    "in the working directory)")
+    args = ap.parse_args()
+    if args.child:
+        child_main()
+        return
+    if args.build:
+        build_main()
+        return
+    if args.chaos:
+        if args.pipeline not in ("simple", "kafka"):
+            ap.error("--chaos runs on the kafka pipeline only")
+        args.pipeline = "kafka"
+    if args.out is None:
+        name = "chaos" if args.chaos else args.pipeline
+        args.out = f"torch_soak_{name}.json"
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    sys.exit(0 if run_parent(args) else 1)
+
+
+def run_parent(args) -> bool:
+    import shutil
+    import tempfile
+
+    total_batches = int(args.minutes * 60 * args.pace / args.batch_rows)
+    work = tempfile.mkdtemp(prefix="torch_soak_")
+    ckpt_dir = os.path.join(work, "ckpt")
+    os.makedirs(ckpt_dir)
+    if "SOAK_T0" not in os.environ:
+        S.T0 = int(time.time()) * 1000 // S.WINDOW_MS * S.WINDOW_MS
+    report: dict = {
+        "pipeline": args.pipeline,
+        "device": args.device,
+        "minutes": args.minutes,
+        "pace_rows_per_s": args.pace,
+        "batch_rows": args.batch_rows,
+        "total_rows": total_batches * args.batch_rows,
+        "kill_every_s": args.kill_every,
+        "segments": [],
+    }
+
+    def write(extra=None):
+        report.update(extra or {})
+        Path(args.out).write_text(json.dumps(report, indent=1))
+
+    def log(msg):
+        print(f"torch_soak: {msg}", file=sys.stderr, flush=True)
+
+    env = dict(os.environ)
+    env.update({
+        "SOAK_BATCH_ROWS": str(args.batch_rows),
+        "SOAK_PACE": str(args.pace),
+        "SOAK_TOTAL_BATCHES": str(total_batches),
+        "SOAK_CKPT_DIR": ckpt_dir,
+        "SOAK_PIPELINE": args.pipeline,
+        "SOAK_DEVICE": args.device,
+    })
+    if args.device.startswith("cuda") and not args.no_build:
+        t_build = time.monotonic()
+        rc = subprocess.call([sys.executable, os.path.abspath(__file__),
+                              "--build"], stdout=sys.stderr,
+                             stderr=sys.stderr)
+        report["build_s"] = round(time.monotonic() - t_build, 1)
+        if rc != 0:
+            write({"aborted": f"kernel build rc={rc}", "ok": False})
+            log(f"kernel build failed (rc={rc})")
+            return False
+    chaos_spec = chaos_deterministic = None
+    if args.chaos:
+        chaos_spec = S.chaos_plan(args.chaos_seed)
+        seq_a, seq_b = (chaos_sim_sequence(chaos_spec),
+                        chaos_sim_sequence(chaos_spec))
+        chaos_deterministic = bool(seq_a and seq_a == seq_b)
+        report["chaos"] = {
+            "seed": args.chaos_seed, "plan": chaos_spec,
+            "fault_plan_deterministic": chaos_deterministic,
+            "sim_injections": len(seq_a),
+        }
+        env["DENORMALIZED_FAULT_PLAN"] = json.dumps(chaos_spec)
+        env["DENORMALIZED_LSM_PY"] = "1"
+    broker = last_close_ws = None
+    feed_anchor: dict = {}
+    if args.pipeline == "kafka":
+        broker, last_close_ws, feed_anchor = kafka_prep_and_feed(
+            args, total_batches, log)
+        env["SOAK_BOOTSTRAP"] = broker.bootstrap
+        env["SOAK_LAST_CLOSE_WS"] = str(last_close_ws)
+        # the first segment starts just before the feed does, so it reads
+        # rows before its kill (its launches are the launch gate's base)
+        time.sleep(max(0.0, S.T0 / 1000.0 - KAFKA_SPAWN_LEAD_S - time.time()))
+    env["SOAK_T0"] = str(S.T0)  # after kafka's re-anchoring
+
+    fold = {
+        "join": lambda agg, i, br, pc: S.golden_update_join(
+            agg, i, br, pc, total_batches),
+        "session": S.golden_update_session,
+        "sliding": S.golden_update_sliding,
+        "approx": S.golden_update_approx,
+        "query_dense": lambda agg, i, br, pc: None,
+        "join_dense": lambda agg, i, br, pc: None,
+    }.get(args.pipeline, S.golden_update)  # udaf: the tumbling fold
+    golden: dict = {}
+    golden_i = 0
+    seg_paths, obs_paths = [], []
+    seg = kills = 0
+    t_start = time.monotonic()
+    aborted = None
+    recovery_times = []
+    done = False
+    proc = None
+    try:
+        while not done:
+            seg += 1
+            out_path = os.path.join(work, f"emit_{seg}.jsonl")
+            obs_path = os.path.join(work, f"obs_{seg}.jsonl")
+            seg_paths.append(out_path)
+            obs_paths.append(obs_path)
+            t_spawn = time.monotonic()
+            seg_env = dict(env, SOAK_OUT=out_path, SOAK_OBS_OUT=obs_path,
+                           SOAK_SPAWN_T=repr(time.time()))
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--child"],
+                env=seg_env, stdout=sys.stderr, stderr=sys.stderr)
+            first_emit = first_emit_wall = None
+            rss = []  # (wall, kB), only after the first emission
+            kill_at = t_spawn + args.kill_every
+            while True:
+                rc = proc.poll()
+                if rc is not None:
+                    if rc != 0:
+                        aborted = f"segment {seg} child rc={rc}"
+                    done = True
+                    break
+                now = time.monotonic()
+                if first_emit is not None and (r := S.rss_kb(proc.pid)):
+                    rss.append((time.time(), r))
+                if first_emit is None and S.read_emissions([out_path])[0]:
+                    first_emit = now - t_spawn
+                    first_emit_wall = time.time()
+                    if seg > 1:
+                        recovery_times.append(round(first_emit, 2))
+                target_i = min(total_batches, int(
+                    (now - t_start) * args.pace / args.batch_rows) + 200)
+                while golden_i < target_i:
+                    fold(golden, golden_i, args.batch_rows, args.pace)
+                    golden_i += 1
+                if now >= kill_at:
+                    # never kill the final drain
+                    if golden_i >= total_batches:
+                        kill_at = float("inf")
+                        time.sleep(0.5)
+                        continue
+                    os.kill(proc.pid, signal.SIGKILL)
+                    kills += 1
+                    proc.wait(10)
+                    break
+                time.sleep(0.5)
+            dev = segment_device_report(out_path, first_emit_wall, rss)
+            report["segments"].append({
+                "segment": seg,
+                "wall_s": round(time.monotonic() - t_spawn, 1),
+                "first_emit_s": round(first_emit, 2) if first_emit else None,
+                **dev,
+            })
+            s = report["segments"][-1]
+            log(f"segment {seg}: {s['wall_s']} s, first emission "
+                f"{s['first_emit_s']} s, start-up {s['startup']}, launches "
+                f"{s['launches']}, device memory {s['device_mem']}, RSS kB "
+                f"{s['rss_kb']}")
+            write()
+            if aborted:
+                break
+        while golden_i < total_batches and not aborted:
+            fold(golden, golden_i, args.batch_rows, args.pace)
+            golden_i += 1
+        wins, dupes, done_seen, child_metrics, clipped = S.read_emissions(
+            seg_paths)
+        foreign = sorted({m for p in seg_paths for o in _json_lines(p)
+                          if o.get("event") == "done"
+                          for m in o.get("foreign_modules", [])})
+        gates = device_gates(report["segments"])
+        common = {
+            "aborted": aborted,
+            "eos_done_seen": done_seen,
+            "kills": kills,
+            "recovery_first_emit_s": recovery_times,
+            "duplicate_emissions": dupes,
+            "uncommitted_clipped": clipped,
+            "child_metrics": child_metrics,
+            "child_foreign_modules": foreign,
+            "device_gates": gates,
+            "rows_per_s": round(total_batches * args.batch_rows
+                                / (time.monotonic() - t_start), 1),
+        }
+        base_ok = bool(
+            not aborted and done_seen and kills >= 1
+            and all(t < RECOVERY_LIMIT_S for t in recovery_times)
+            and not foreign and gates["memory"]["ok"]
+            and gates["launches"]["ok"])
+        try:
+            telemetry = derive_telemetry(
+                obs_paths, anchor_epoch_ms=(feed_anchor["epoch"] * 1000.0
+                                            if feed_anchor else None))
+        except Exception as e:  # dnzlint: allow(broad-except) telemetry is reporting, not verification
+            telemetry = {"error": str(e)}
+        if args.pipeline in ("query_dense", "join_dense"):
+            dense_join = args.pipeline == "join_dense"
+            qd = None if aborted else dense_verify(
+                args, env, work, wins, seg_paths, total_batches,
+                sched_fn=S.jd_schedule if dense_join else S.qd_schedule,
+                oracle_pipeline=f"{args.pipeline}_oracle")
+            ok = bool(
+                base_ok and kills >= 2 and qd is not None
+                and qd["oracle_rc"] == 0 and qd["oracle_windows"] > 0
+                and qd["failures"] == 0 and not qd["queries_silent"]
+                and not qd["backfill_missing"]
+                and qd["backfilled_joiners"] >= (3 if dense_join else 10)
+                and qd["max_builds_per_segment"] == 1)
+            write({**common, "telemetry": telemetry,
+                   "emitted_rows": sum(len(v) for v in wins.values()),
+                   args.pipeline: qd, "ok": ok})
+            print(json.dumps({"ok": ok, "pipeline": args.pipeline,
+                              "kills": kills, "failures": qd and qd["failures"],
+                              "aborted": aborted}))
+            return ok
+        if args.pipeline == "kafka" and not aborted:
+            # windows past the last closable one may or may not close
+            # before the child exits: clip both sides to it
+            golden = {k: g for k, g in golden.items()
+                      if k[0] <= last_close_ws}
+            wins = {k: v for k, v in wins.items() if k[0] <= last_close_ws}
+        if args.pipeline == "session" and not aborted:
+            # emissions key on the session start (min ts in the burst)
+            golden = {(int(g[4]), k[1]): g for k, g in golden.items()}
+        lost, spurious, mismatched = [], [], []
+        if not aborted:
+            for k, g in golden.items():
+                occs = wins.get(k)
+                if not occs:
+                    lost.append(k)
+                    continue
+                want = _golden_row(args.pipeline, k, g)
+                for got, seg_idx in occs:  # every occurrence, dupes too
+                    if len(got) != len(want) or any(
+                            abs(a - b) > 1e-3 for a, b in zip(got, want)):
+                        mismatched.append((k, got, want,
+                                           {"segment": seg_idx}))
+            spurious = [k for k in wins if k not in golden]
+        chaos_ok = True
+        if args.chaos:
+            chaos_report = _chaos_report(seg_paths)
+            report["chaos"].update(chaos_report)
+            chaos_ok = bool(chaos_deterministic and len(
+                chaos_report["required_rules_fired"])
+                == len(S.CHAOS_REQUIRED_RULES))
+        ok = bool(base_ok and not lost and not spurious and not mismatched
+                  and len(wins) == len(golden) > 0 and chaos_ok)
+        write({**common, "telemetry": telemetry,
+               "golden_windows": len(golden), "emitted_windows": len(wins),
+               "windows_lost": len(lost),
+               "windows_spurious": len(spurious),
+               "windows_mismatched": len(mismatched),
+               "mismatch_sample": mismatched[:3],
+               "spurious_sample": spurious[:3], "ok": ok})
+        print(json.dumps({
+            "ok": ok, "pipeline": args.pipeline, "kills": kills,
+            "windows": len(wins), "lost": len(lost), "dupes": dupes,
+            "aborted": aborted,
+            "memory_gate": gates["memory"]["ok"],
+            "launch_gate": gates["launches"]["ok"],
+        }))
+        return ok
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(10)
+        if broker is not None:
+            broker.stop()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _golden_row(pipeline, k, g) -> tuple:
+    """The golden's (window, key) cell as the child's rounded record."""
+    if pipeline == "join":
+        cnt, sm = g
+        return (cnt, round(sm / cnt, 4),
+                S.dim_value(int(k[1].rsplit("_", 1)[1]),
+                            k[0] // 1000 - S.T0 // 1000))
+    if pipeline == "session":
+        cnt, mn, mx, sm, t0, t1 = g
+        return (cnt, round(mn, 4), round(mx, 4), round(sm / cnt, 4), t0,
+                t1 + S.SESSION_GAP_MS)
+    if pipeline == "udaf":
+        cnt, mn, mx, _sm = g
+        return (cnt, round(mx - mn, 4))
+    if pipeline == "approx":
+        # exact integer equality with the JAX package's sketch kernels
+        cnt, plane = g
+        return (cnt, int(S._sk().hll_estimate(plane)[0]))
+    cnt, mn, mx, sm = g
+    return (cnt, round(mn, 4), round(mx, 4), round(sm / cnt, 4))
+
+
+def _chaos_report(seg_paths) -> dict:
+    events = S.read_chaos_events(seg_paths)
+    rules: dict = {}
+    sites: dict = {}
+    for ev in events:
+        for e in ev.get("fault_log", []):
+            name = e.get("name", f"rule{e.get('rule')}")
+            rules[name] = rules.get(name, 0) + 1
+            sites[e["site"]] = sites.get(e["site"], 0) + 1
+    return {
+        "segments_reporting": len(events),
+        "injections_fired": sum(rules.values()),
+        "fired_rules": rules,
+        "fired_sites": sites,
+        "required_rules_fired": sorted(
+            r for r in S.CHAOS_REQUIRED_RULES if r in rules),
+        "commit_retries": sum(ev.get("commit_retries", 0) for ev in events),
+        "fallback_restores": sum(
+            1 for ev in events if ev.get("restored_from_fallback")),
+        "replay_truncated": sum(
+            ev.get("replay_truncated", 0) for ev in events),
+        "prefetch_restarts": sum(
+            ev.get("prefetch_restarts", 0) for ev in events),
+    }
+
+
+if __name__ == "__main__":
+    main()
