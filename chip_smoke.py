@@ -222,8 +222,8 @@ Phases:
     script re-invoked as a checkpointed child (``--host-child``) is
     SIGKILLed after two commits with more than a third of its stream
     unread, a second child restores on the same store and runs to the
-    end; the union of their rows against the oracle, the operator's
-    snapshot bytes, spawn → restore;
+    end (the two jobs side by side); the union of their rows against the
+    oracle, the operator's snapshot bytes, spawn → restore;
 34. graceful SIGTERM (ROADMAP C3): phase 22's chunks fed at its pace into
     a fresh topic, the script re-invoked (``--sigterm-child``) runs phase
     21's job through ``print_stream()`` checkpointed every 0.5 s and gets
@@ -384,18 +384,34 @@ Phases:
 52. ``dryrun_multichip(4, "cuda:0")``: every layout's values against the
     single-device golden;
 53. the port's soak, ``tools/torch_soak.py``, as a subprocess on the card:
-    ``simple`` and then ``join`` (the JAX soak's tumbling job and its
+    ``simple`` and ``join`` (the JAX soak's tumbling job and its
     skew-adaptive band join into a window: 10 keys, 4,096-row batches at
-    200,000 rows a second), each a 45 s feed checkpointed every 2 s,
-    SIGKILLed every 20 s and restored, each segment a process of its own
-    on the card.  Every gate of the soak: the union of the segments'
-    committed windows equal to the golden (0 lost, spurious or
-    mismatched), EOS, a kill, every recovery to a first emission under
-    30 s, no module of JAX or of the JAX package in a child, the device
-    memory gate (on segments that ran 60 s past their first emission)
-    and every restored segment launching the hand kernels the first
-    launched, the dense kernel among them.  Prints each segment's
-    start-up split, launches, device memory and RSS.
+    200,000 rows a second), beside phase 54's soak and phases 48-52, each
+    a 24 s feed checkpointed every 2 s, SIGKILLed 20 s after a child's
+    ready line and restored, each segment a process of its own on the
+    card.  Every gate of the soak: the union
+    of the segments' committed windows equal to the golden (0 lost,
+    spurious or mismatched), EOS, a kill, every recovery to a first
+    emission under 30 s, no module of JAX or of the JAX package in a
+    child, the device memory gate (on segments that ran 60 s past their
+    first emission) and every restored segment launching the hand kernels
+    the first launched, the dense kernel among them.  Prints each
+    segment's start-up split, launches, device memory and RSS;
+54. the cold tier's soak, ``tools/torch_soak.py --pipeline bigstate``, as
+    a subprocess on the card at the JAX bigstate smoke's settings:
+    200,000 simultaneously-open sessions (4,096-row batches), closed in
+    waves of 20,000; an unbudgeted reference run, then the same feed under
+    a fifth of its working set with the cold tier, checkpoints every 2 s,
+    the spill-site fault plan and two SIGKILLs, each 5 s after a child's
+    ready line.  Every gate of the soak: the sessions byte-identical to
+    the reference's (0 lost, spurious or mismatched), EOS in both runs, a
+    kill after a committed epoch with spilled state at the cut, blocks
+    spilled, evictable state within 1.25x the budget, the budgeted run's
+    RSS peak 35% of the working set below the reference's and its RSS
+    above its ready lines at most 0.9x the reference's, every spill fault
+    rule fired, no module of JAX in a child, both device gates, no hand
+    kernel launched.  Prints both runs' sessions, spill counters, fired
+    rules, raw and net RSS ratios and each segment's start-up split.
 
 Then one JSON line with each kernel's launches on its main path (phase 4
 for the dense kernel, with phases 38-39's baselines' launches under
@@ -8426,110 +8442,223 @@ def phase_sharded_dryrun(device, card) -> dict:
 
 
 
-#: phase 53: the port's soak on the card, each pipeline a subprocess
+#: phase 53: the port's soak on the card, each pipeline a subprocess (a
+#: 24 s feed: the kill lands 20 s after the first child's ready line)
 SOAK_PIPELINES = ("simple", "join")
-SOAK_ARGS = ("--minutes", "0.75", "--kill-every", "20")
+SOAK_ARGS = ("--minutes", "0.4", "--kill-every", "20")
 SOAK_TIMEOUT_S = 300.0
+#: phase 54: the cold tier's soak at the JAX bigstate smoke's settings,
+#: each kill 5 s after its child's ready line (past the first commit)
+BIGSTATE_ARGS = ("--keys", "200000", "--wave-keys", "20000", "--ckpt-s",
+                 "2", "--kill-every", "5")
 
 
-def run_soak(pipeline: str, wd: str) -> tuple[dict, float]:
-    """``tools/torch_soak.py`` on the card in its own process group (the
-    kernels and host libraries already built by phase 2) → (its report,
-    wall s).  On a timeout the whole group, the soak's child included, is
-    killed."""
+def start_soaks(wd: str, specs) -> list:
+    """``tools/torch_soak.py`` once a ``(pipeline, args, phase)`` of
+    ``specs``, side by side on the card, each in its own process group
+    with its output in ``wd`` (the kernels and host libraries already built
+    by phase 2) → the runs, for ``wait_soaks``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    try:
+        for pipeline, args, phase in specs:
+            out = os.path.join(wd, f"soak_{pipeline}.json")
+            with open(os.path.join(wd, f"soak_{pipeline}.log"), "w") as lf:
+                proc = subprocess.Popen(
+                    [sys.executable,
+                     os.path.join(root, "tools", "torch_soak.py"),
+                     "--pipeline", pipeline, *args, "--device", "cuda",
+                     "--no-build", "--out", out],
+                    cwd=root, stdout=lf, stderr=subprocess.STDOUT,
+                    start_new_session=True)
+            runs.append({"pipeline": pipeline, "phase": phase, "out": out,
+                         "log": lf.name, "proc": proc,
+                         "t0": time.perf_counter(), "wall": None})
+    except BaseException:
+        stop_soaks(runs)
+        raise
+    return runs
+
+
+def stop_soaks(runs) -> None:
+    """SIGKILL every soak's process group still running (its children
+    included)."""
     import signal as _signal
 
-    root = os.path.dirname(os.path.abspath(__file__))
-    out = os.path.join(wd, f"soak_{pipeline}.json")
-    cmd = [sys.executable, os.path.join(root, "tools", "torch_soak.py"),
-           "--pipeline", pipeline, *SOAK_ARGS, "--device", "cuda",
-           "--no-build", "--out", out]
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True,
-                            start_new_session=True)
+    for r in runs:
+        if r["proc"].poll() is None:
+            os.killpg(r["proc"].pid, _signal.SIGKILL)
+            r["proc"].wait()
+
+
+def wait_soaks(runs) -> dict:
+    """Wait for ``start_soaks``' runs → {pipeline: (report, wall s)}.  Past
+    SOAK_TIMEOUT_S every group still running is killed; no group outlives
+    the call."""
     try:
-        stdout, stderr = proc.communicate(timeout=SOAK_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, _signal.SIGKILL)
-        proc.communicate()
-        raise AssertionError(f"phase 53 {pipeline}: the soak ran past "
-                             f"{SOAK_TIMEOUT_S:.0f} s")
-    wall = time.perf_counter() - t0
-    if not os.path.exists(out):
-        raise AssertionError(f"phase 53 {pipeline}: no report (exit "
-                             f"{proc.returncode}): {stderr[-2000:]}")
-    with open(out) as f:
+        while any(r["wall"] is None for r in runs):
+            for r in runs:
+                if r["wall"] is None and r["proc"].poll() is not None:
+                    r["wall"] = time.perf_counter() - r["t0"]
+            late = [r for r in runs if r["wall"] is None and
+                    time.perf_counter() - r["t0"] > SOAK_TIMEOUT_S]
+            if late:
+                raise AssertionError(
+                    f"phase {late[0]['phase']} {late[0]['pipeline']}: the "
+                    f"soak ran past {SOAK_TIMEOUT_S:.0f} s")
+            time.sleep(0.2)
+    finally:
+        stop_soaks(runs)
+    return {r["pipeline"]: (read_soak(r), r["wall"]) for r in runs}
+
+
+def read_soak(run: dict) -> dict:
+    """A finished soak's report; an AssertionError with the report (its
+    gates' verdicts first) and its output's tail if it failed."""
+    rc, what = run["proc"].returncode, f"phase {run['phase']} {run['pipeline']}"
+    with open(run["log"]) as f:
+        tail = f.read()[-1500:]
+    if not os.path.exists(run["out"]):
+        raise AssertionError(f"{what}: no report (exit {rc}): {tail}")
+    with open(run["out"]) as f:
         report = json.load(f)
-    if proc.returncode != 0 or not report.get("ok"):
-        keep = {k: v for k, v in report.items()
-                if k not in ("segments", "telemetry", "child_metrics")}
-        raise AssertionError(f"phase 53 {pipeline}: exit {proc.returncode}, "
-                             f"report {json.dumps(keep)[:3000]}; stderr "
-                             f"{stderr[-1500:]}")
-    return report, wall
+    if rc != 0 or not report.get("ok"):
+        keep = {"gates": report.get("gates"), **{
+            k: v for k, v in report.items()
+            if k not in ("segments", "telemetry", "child_metrics", "gates")}}
+        raise AssertionError(f"{what}: exit {rc}, report "
+                             f"{json.dumps(keep)[:4000]}; output {tail}")
+    return report
 
 
-def phase_torch_soak(card) -> dict:
+def phase_torch_soak(card, runs=None) -> dict:
     """Phase 53: the port's soak (``tools/torch_soak.py``) on the card,
-    ``simple`` and then ``join``, each a 45 s feed SIGKILLed every 20 s and
-    restored (see the module docstring) → {pipeline: report}."""
+    ``simple`` and ``join`` side by side, each a 24 s feed SIGKILLed 20 s
+    after a child's ready line and restored (see the module docstring),
+    checked from ``runs`` (``wait_soaks``' result) or run here →
+    {pipeline: report}."""
     name = torch.cuda.get_device_name(0)
+    if runs is None:
+        with tempfile.TemporaryDirectory() as wd:
+            runs = wait_soaks(start_soaks(
+                wd, [(p, SOAK_ARGS, 53) for p in SOAK_PIPELINES]))
     out = {}
-    with tempfile.TemporaryDirectory() as wd:
-        for pipeline in SOAK_PIPELINES:
-            r, wall = run_soak(pipeline, wd)
-            gates = r["device_gates"]
-            problems = []
-            if (r["windows_lost"] or r["windows_spurious"]
-                    or r["windows_mismatched"]
-                    or r["emitted_windows"] != r["golden_windows"]
-                    or not r["golden_windows"]):
-                problems.append("windows against the golden")
-            if not r["eos_done_seen"] or r["kills"] < 1:
-                problems.append("EOS or kills")
-            if any(t >= 30 for t in r["recovery_first_emit_s"]):
-                problems.append("recovery")
-            if r["child_foreign_modules"]:
-                problems.append(f"child modules {r['child_foreign_modules']}")
-            if not (gates["memory"]["ok"] and gates["launches"]["ok"]):
-                problems.append("device gates")
-            if "dense_window" not in gates["launches"]["first_segment"]:
-                problems.append("no dense launch in the first segment")
-            if any(sg["device_name"] != name for sg in r["segments"]):
-                problems.append("a segment off the card")
-            if problems:
-                raise AssertionError(f"phase 53 {pipeline}: {problems}: "
-                                     f"{json.dumps(gates)}")
-            log(f"phase 53 soak {pipeline} ({' '.join(SOAK_ARGS)}, "
-                f"{r['total_rows']} rows at {r['pace_rows_per_s']:.0f} "
-                f"rows/s): {r['kills']} SIGKILLs, {len(r['segments'])} "
-                f"segments, {r['emitted_windows']} windows = the golden's, "
-                f"0 lost, 0 spurious, 0 mismatched, "
-                f"{r['duplicate_emissions']} duplicate emissions, "
-                f"{r['uncommitted_clipped']} uncommitted lines clipped, "
-                f"recovery to the first emission {r['recovery_first_emit_s']}"
-                f" s, child modules of jax/denormalized_tpu: none; memory "
-                f"gate over {gates['memory']['segments_gated']} segments "
-                f"({gates['memory']['bound']}), launch gate: every restored "
-                f"segment launched {gates['launches']['first_segment']} as "
-                f"the first; wall {wall:.1f} s ({card})")
-            for sg in r["segments"]:
-                mem = sg["device_mem"]
-                log(f"phase 53 soak {pipeline} segment {sg['segment']}: "
-                    f"{sg['wall_s']} s on {sg['device_name']}, start-up "
-                    f"(s from spawn) imports {sg['startup']['imports_s']}, "
-                    f"CUDA ready {sg['startup']['cuda_ready_s']}, kernels "
-                    f"loaded {sg['startup']['kernels_loaded_s']}, first "
-                    f"emission {sg['first_emit_s']}; launches "
-                    f"{sg['launches']}; device memory (allocated, reserved, "
-                    f"max allocated B) at the first emission "
-                    f"{mem['at_first_emit']}, max {mem['max']}, end "
-                    f"{mem['end']}, allocated slope "
-                    f"{mem['alloc_slope_bytes_per_s']} B/s; RSS kB "
-                    f"{sg['rss_kb']}; memory gate {sg['mem_gate']} ({card})")
-            out[pipeline] = r
+    for pipeline in SOAK_PIPELINES:
+        r, wall = runs[pipeline]
+        gates = r["device_gates"]
+        problems = []
+        if (r["windows_lost"] or r["windows_spurious"]
+                or r["windows_mismatched"]
+                or r["emitted_windows"] != r["golden_windows"]
+                or not r["golden_windows"]):
+            problems.append("windows against the golden")
+        if not r["eos_done_seen"] or r["kills"] < 1:
+            problems.append("EOS or kills")
+        if any(t >= 30 for t in r["recovery_first_emit_s"]):
+            problems.append("recovery")
+        if r["child_foreign_modules"]:
+            problems.append(f"child modules {r['child_foreign_modules']}")
+        if not (gates["memory"]["ok"] and gates["launches"]["ok"]):
+            problems.append("device gates")
+        if "dense_window" not in gates["launches"]["first_segment"]:
+            problems.append("no dense launch in the first segment")
+        if any(sg["device_name"] != name for sg in r["segments"]):
+            problems.append("a segment off the card")
+        if problems:
+            raise AssertionError(f"phase 53 {pipeline}: {problems}: "
+                                 f"{json.dumps(gates)}")
+        log(f"phase 53 soak {pipeline} ({' '.join(SOAK_ARGS)}, "
+            f"{r['total_rows']} rows at {r['pace_rows_per_s']:.0f} "
+            f"rows/s): {r['kills']} SIGKILLs, {len(r['segments'])} "
+            f"segments, {r['emitted_windows']} windows = the golden's, "
+            f"0 lost, 0 spurious, 0 mismatched, "
+            f"{r['duplicate_emissions']} duplicate emissions, "
+            f"{r['uncommitted_clipped']} uncommitted lines clipped, "
+            f"recovery to the first emission {r['recovery_first_emit_s']}"
+            f" s, child modules of jax/denormalized_tpu: none; memory "
+            f"gate over {gates['memory']['segments_gated']} segments "
+            f"({gates['memory']['bound']}), launch gate: every restored "
+            f"segment launched {gates['launches']['first_segment']} as "
+            f"the first; wall {wall:.1f} s ({card})")
+        for sg in r["segments"]:
+            mem = sg["device_mem"]
+            log(f"phase 53 soak {pipeline} segment {sg['segment']}: "
+                f"{sg['wall_s']} s on {sg['device_name']}, start-up "
+                f"(s from spawn) imports {sg['startup']['imports_s']}, "
+                f"CUDA ready {sg['startup']['cuda_ready_s']}, kernels "
+                f"loaded {sg['startup']['kernels_loaded_s']}, first "
+                f"emission {sg['first_emit_s']}; launches "
+                f"{sg['launches']}; device memory (allocated, reserved, "
+                f"max allocated B) at the first emission "
+                f"{mem['at_first_emit']}, max {mem['max']}, end "
+                f"{mem['end']}, allocated slope "
+                f"{mem['alloc_slope_bytes_per_s']} B/s; RSS kB "
+                f"{sg['rss_kb']}; memory gate {sg['mem_gate']} ({card})")
+        out[pipeline] = r
     return out
+
+
+def phases_sharded(device, seed, batches, stream, highcard_batches,
+                   highcard_stream, cfg1_rates, highcard_rates, card):
+    """Phases 48-52 (the sharded layouts) → (the sharded runs, phase 50's
+    kernels on a shard's plane, the dry run)."""
+    sharded = phase_sharded_cfg1(device, batches, stream, cfg1_rates, card)
+    sharded.update(phase_sharded_highcard(
+        device, highcard_batches, highcard_stream, highcard_rates, card))
+    shard_kern = phase_shard_kernels(device, seed + 17, highcard_stream,
+                                     card)
+    phase_sharded_ckpt(device, highcard_batches, highcard_stream, card)
+    return sharded, shard_kern, phase_sharded_dryrun(device, card)
+
+
+def phase_bigstate_soak(card, run=None) -> dict:
+    """Phase 54: the cold tier's soak (``tools/torch_soak.py --pipeline
+    bigstate``) on the card at the JAX bigstate smoke's settings (see the
+    module docstring), checked from ``run`` (``wait_soaks``' (report,
+    wall)) or run here → its report."""
+    name = torch.cuda.get_device_name(0)
+    if run is None:
+        with tempfile.TemporaryDirectory() as wd:
+            run = wait_soaks(start_soaks(
+                wd, [("bigstate", BIGSTATE_ARGS, 54)]))["bigstate"]
+    r, wall = run
+    problems = [gate for gate, ok in r["gates"].items() if not ok]
+    if any(sg["device_name"] != name for sg in r["segments"]):
+        problems.append("a segment off the card")
+    if any(sum(sg["launches"].values()) for sg in r["segments"]):
+        problems.append("a hand kernel launched by the host session window")
+    if problems:
+        raise AssertionError(f"phase 54 bigstate: {problems}: "
+                             f"{json.dumps(r['gates'])}")
+    ref, bud = r["reference"], r["budgeted"]
+    log(f"phase 54 soak bigstate ({' '.join(BIGSTATE_ARGS)}, "
+        f"{r['batch_rows']}-row batches): reference {ref['sessions']} "
+        f"sessions in {ref['wall_s']} s, working set "
+        f"{ref['working_set_bytes']} B; budgeted ({r['budget_bytes']} B, "
+        f"1/{r['budget_ratio']}) {bud['sessions']} sessions in "
+        f"{bud['wall_s']} s, 0 lost, 0 spurious, 0 mismatched, "
+        f"{bud['duplicate_emissions']} duplicate emissions, "
+        f"{bud['uncommitted_clipped']} uncommitted lines clipped; "
+        f"{bud['kills']} SIGKILLs, cuts {bud['cuts']}; spill "
+        f"{bud['spill']}; evictable max {bud['evictable_state_bytes_max']} "
+        f"B, resident max {bud['resident_state_bytes_max']} B; fault rules "
+        f"fired {r['chaos_spill']['fired_rules']}; RSS kB reference "
+        f"{ref['rss']}, budgeted {bud['rss']}: ratio raw "
+        f"{r['rss_ratio_raw']}, net of the ready lines {r['rss_ratio_net']}"
+        f", saved {r['rss_saved_mb']} MB (>= {r['rss_saved_required_mb']}"
+        f" MB); every gate {r['gates']}; wall {wall:.1f} s ({card})")
+    for sg in r["segments"]:
+        log(f"phase 54 bigstate {sg['run']} segment {sg['segment']}: "
+            f"{sg['wall_s']} s on {sg['device_name']}, killed "
+            f"{sg['killed']}, start-up (s from spawn) imports "
+            f"{sg['startup']['imports_s']}, CUDA ready "
+            f"{sg['startup']['cuda_ready_s']}, kernels loaded "
+            f"{sg['startup']['kernels_loaded_s']}, first emission "
+            f"{sg['first_emit_s']}; RSS kB at the ready line "
+            f"{sg['rss_ready_kb']}, max {sg['rss_max_kb']} (net "
+            f"{sg['rss_net_max_kb']}); launches {sg['launches']}; device "
+            f"memory max {sg['device_mem']['max']} ({card})")
+    return r
 
 
 def main(argv=None) -> int:
@@ -8697,8 +8826,13 @@ def main(argv=None) -> int:
     csv_run = phase_csv_explain(device, batches, stream, card)
     phase_udaf(device, batches, stream, card)
     phase_sessions(device, args.seed + 12, card)
-    phase_host_ckpt(device, args.seed, "udaf", card)
-    phase_host_ckpt(device, args.seed + 12, "session", card)
+    # phase 33's two jobs each drive children of their own: side by side
+    with ThreadPoolExecutor(2) as pool:
+        for job in [pool.submit(phase_host_ckpt, device, args.seed, "udaf",
+                                card),
+                    pool.submit(phase_host_ckpt, device, args.seed + 12,
+                                "session", card)]:
+            job.result()
     sigterm = phase_sigterm(device, pace, staged, lat_stream, card)
     spill = phase_spill_highcard(device, args.seed + 13, card)
     cfg1_spill_launches = phase_spill_cfg1(device, batches, stream, card)
@@ -8735,23 +8869,31 @@ def main(argv=None) -> int:
     phase_cluster_recovery(card)
     log(f"phases 45-47 took {time.perf_counter() - t_cluster:.1f} s; the "
         f"script {time.time() - T_START:.1f} s so far ({card})")
-    t_shard = time.perf_counter()
-    sharded = phase_sharded_cfg1(
-        device, batches, stream, {"auto": tumbling["rows_per_s"],
-                                  "partial_merge": cfg1_pm["rows_per_s"]},
-        card)
-    sharded.update(phase_sharded_highcard(
-        device, highcard_batches, highcard_stream, highcard_rates, card))
-    shard_kern = phase_shard_kernels(device, args.seed + 17, highcard_stream,
-                                     card)
-    phase_sharded_ckpt(device, highcard_batches, highcard_stream, card)
-    dryrun = phase_sharded_dryrun(device, card)
-    log(f"phases 48-52 took {time.perf_counter() - t_shard:.1f} s; the "
-        f"script {time.time() - T_START:.1f} s so far ({card})")
-    t_soak = time.perf_counter()
-    soak = phase_torch_soak(card)
-    log(f"phase 53 took {time.perf_counter() - t_soak:.1f} s; the script "
-        f"{time.time() - T_START:.1f} s so far ({card})")
+    # phases 53-54's soaks are processes of their own on the card's host:
+    # they start here, run beside phases 48-52 and each other, and each is
+    # checked as its phase once all have ended
+    soak_wd = tempfile.TemporaryDirectory()
+    soak_runs = start_soaks(
+        soak_wd.name, [(p, SOAK_ARGS, 53) for p in SOAK_PIPELINES]
+        + [("bigstate", BIGSTATE_ARGS, 54)])
+    t_soak = t_shard = time.perf_counter()
+    try:
+        sharded, shard_kern, dryrun = phases_sharded(
+            device, args.seed, batches, stream, highcard_batches,
+            highcard_stream, {"auto": tumbling["rows_per_s"],
+                              "partial_merge": cfg1_pm["rows_per_s"]},
+            highcard_rates, card)
+        log(f"phases 48-52 took {time.perf_counter() - t_shard:.1f} s; the "
+            f"script {time.time() - T_START:.1f} s so far ({card})")
+        runs = wait_soaks(soak_runs)
+    finally:
+        stop_soaks(soak_runs)
+        soak_wd.cleanup()
+    soak = phase_torch_soak(card, runs)
+    phase_bigstate_soak(card, runs["bigstate"])
+    log(f"phases 53-54 took {time.perf_counter() - t_soak:.1f} s from their "
+        f"start beside phases 48-52; the script {time.time() - T_START:.1f} "
+        f"s so far ({card})")
 
     shared_counts = ([p["shared_launches"]
                       for p in mq["points"] + [mq["highcard"]]]

@@ -19,12 +19,14 @@ DENSE_SMOKE = ["--minutes", "0.5", "--kill-every", "8", "--pace", "40000",
 
 def run_soak(tmp_path, pipeline, args, timeout=240) -> dict:
     """One soak on the CPU → its JSON report (asserting the parent's exit
-    code only after the report is read, so a failure shows the report)."""
+    code only after the report is read, so a failure shows the report).
+    Each child takes one torch thread: several soaks share the host, and
+    a thread a core each made them oversubscribe it."""
     out = tmp_path / "soak.json"
     sel = ["--chaos"] if pipeline == "chaos" else ["--pipeline", pipeline]
     proc = subprocess.run(
-        [sys.executable, str(SOAK), *sel, "--device", "cpu", *args,
-         "--out", str(out)],
+        [sys.executable, str(SOAK), *sel, "--device", "cpu",
+         "--torch-threads", "1", *args, "--out", str(out)],
         capture_output=True, text=True, timeout=timeout,
     )
     assert out.exists(), proc.stderr[-2000:]

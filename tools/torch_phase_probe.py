@@ -30,7 +30,8 @@ rescaled to n = 2, ``48`` config 1 on 2 and 4 shards of the card
 merge with compaction), ``50`` the merge and compaction kernels on a
 shard's plane, ``51`` a key-sharded checkpoint at n = 4 restored into
 n = 2 and one device, ``52`` ``dryrun_multichip(4, "cuda:0")``, ``53``
-the port's soak (``tools/torch_soak.py``: ``simple`` and ``join``).  It builds every kernel (printing ptxas' register and
+the port's soak (``tools/torch_soak.py``: ``simple`` and ``join``),
+``54`` the cold tier's soak (``bigstate``).  It builds every kernel (printing ptxas' register and
 shared-memory lines), makes phase 4's and phase 10's streams from seed 0,
 and calls the same ``chip_smoke`` functions as the full script, each
 step checked as there.  A failing step is printed with its traceback and
@@ -52,7 +53,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 STEPS = ("25k", "7", "24", "24h", "25", "25j", "26", "27", "28", "29", "30",
          "31", "32", "33u", "33s", "34", "35", "36", "37c", "37j", "37h",
          "38", "39", "40", "41", "45", "46", "47", "48", "49", "50", "51",
-         "52", "53")
+         "52", "53", "54")
 
 
 def main(argv: list[str]) -> int:
@@ -167,6 +168,7 @@ def main(argv: list[str]) -> int:
         "51": lambda: cs.phase_sharded_ckpt(device, hb, hs, card),
         "52": lambda: cs.phase_sharded_dryrun(device, card),
         "53": lambda: cs.phase_torch_soak(card),
+        "54": lambda: cs.phase_bigstate_soak(card),
     }
     failed = []
     for step in steps:

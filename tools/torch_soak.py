@@ -7,7 +7,12 @@ card's memory, the process's RSS and the hand kernels' launches recorded.
                                 kafka|approx|query_dense|join_dense]
                                [--chaos] [--device cuda|cpu]
                                [--minutes 12] [--pace 200000]
-                               [--kill-every 90] [--out PATH]
+                               [--kill-every 90] [--torch-threads N]
+                               [--out PATH]
+    python tools/torch_soak.py --pipeline bigstate [--keys 10000000]
+                               [--wave-keys 100000] [--state-budget B]
+                               [--ckpt-s 20] [--max-kills 2]
+                               [--no-chaos-spill] [--kill-every 90] ...
 
 The feed, the golden folds, the exactly-once reading of the segments'
 output (epoch clipping), the chaos schedule and the dense query schedules
@@ -26,9 +31,9 @@ by default: a child that finds no card, or cannot load a kernel, exits
 non-zero; nothing falls back to the CPU.  Besides its window lines it
 writes, into the same file so that a SIGKILLed segment leaves them behind:
 
-- a ``ready`` line: the device's name and the seconds from spawn to the
+- a ``ready`` line: the device's name, the seconds from spawn to the
   imports done, to the CUDA context ready and to the three kernel
-  libraries loaded;
+  libraries loaded, and the child's RSS then (its fixed part);
 - a ``device`` line once a second: ``torch.cuda.memory_allocated``,
   ``memory_reserved``, ``max_memory_allocated``, the child's RSS and the
   launch counters of ``ops/dense_window.py``, ``ops/merge_partials.py``
@@ -37,15 +42,25 @@ writes, into the same file so that a SIGKILLed segment leaves them behind:
 
 The parent builds every kernel once before the first spawn (one ``nvcc``
 a source, in parallel; ``--no-build`` when the caller has), samples the
-child's RSS, kills it every ``--kill-every`` seconds (the last segment
-runs to its end), respawns it, and reports per segment the start-up split, device memory and RSS at the
-first emission, at the maximum and at the end (and their slopes), and the
-launches.  Gates: those of ``tools/soak.py`` (0 windows lost, spurious or
+child's RSS, kills it ``--kill-every`` seconds after its ready line (not
+its spawn: on the card the imports and the CUDA context take 6-11 s; no
+kill once the child has read its feed's end or the feed's length has
+passed since the first child was ready), respawns it, and reports per
+segment the start-up split, device memory and RSS at the first emission,
+at the maximum and at the end (and their slopes), and the launches.
+``--torch-threads`` bounds each child's torch threads (the CPU tests pass
+1: several soaks share their host).  Gates: those of ``tools/soak.py`` (0 windows lost, spurious or
 mismatched, the emitted windows equal to the golden's, EOS seen, at least
 one kill, every recovery to a first emission under 30 s), plus two on the
 device (``device_gates``): the memory bound below, and every restored
 segment launching exactly the hand kernels the first segment launched.
 The parent exits 1 when a gate fails.
+
+``--pipeline bigstate`` is ``tools/soak.py::bigstate_main`` (the cold
+tier, larger-than-memory session state, under SIGKILLs and the spill-site
+fault plan): see ``run_bigstate``.  Its child writes its ready, device,
+``state`` (``state_info()`` and the committed epoch, once a second) and
+chaos lines to ``<segment>.jsonl.state``, beside the session lines.
 """
 
 from __future__ import annotations
@@ -69,8 +84,10 @@ if str(REPO) not in sys.path:
 from tools import soak as S  # noqa: E402  (standard library + numpy)
 
 PIPELINES = ("simple", "sliding", "join", "session", "udaf", "kafka",
-             "approx", "query_dense", "join_dense")
+             "approx", "query_dense", "join_dense", "bigstate")
 RECOVERY_LIMIT_S = 30.0
+#: bigstate: rows a close wave (sessions each wave opens and keeps open)
+BIGSTATE_WAVE_ROWS = 64
 
 #: device-memory gate.  A segment that ran at least MEM_MIN_RUN_S past its
 #: first emission must keep ``memory_allocated`` over its last MEM_TAIL_S
@@ -176,15 +193,17 @@ def _device_record(torch, device: str) -> dict:
     return rec
 
 
-def _start_device_sampler(out: _Out, torch, device: str):
+def _start_device_sampler(out: _Out, torch, device: str, extra=None):
     """A device line now and once a second until the returned event is
-    set."""
+    set, each followed by the lines ``extra()`` returns (if given)."""
     stop = threading.Event()
     out.event(_device_record(torch, device))
 
     def run():
         while not stop.wait(1.0):
             out.event(_device_record(torch, device))
+            for ev in (extra() if extra is not None else ()):
+                out.event(ev)
 
     threading.Thread(target=run, daemon=True, name="soak-device").start()
     return stop
@@ -195,6 +214,9 @@ def child_main() -> None:
     device = os.environ.get("SOAK_DEVICE", "cuda")
     import torch
 
+    threads = int(os.environ.get("SOAK_TORCH_THREADS") or 0)
+    if threads:
+        torch.set_num_threads(threads)
     from denormalized_tpu_torch import Context, EngineConfig, col
     from denormalized_tpu_torch.api import functions as F
     from denormalized_tpu_torch.common.constants import (
@@ -234,11 +256,16 @@ def child_main() -> None:
         def __init__(self, seed):
             self._seed = seed
             self._i = 0
+            self._eof = False
             self._anchor_wall = None
             self._anchor_i = 0
 
         def read(self, timeout_s=None):
             if self._i >= total_batches:
+                if not self._eof:
+                    # the feed is read: the parent kills no more from here
+                    self._eof = True
+                    out.event({"event": "eof", "t": time.time()})
                 return None
             now = time.monotonic()
             if self._anchor_wall is None:
@@ -395,16 +422,73 @@ def child_main() -> None:
         def unbounded(self):
             return False
 
+    from denormalized_tpu_torch.runtime import faults as fault_mod
+
+    fault_lines_seen = 0
+
+    def bigstate_lines() -> list[dict]:
+        """The session operator's state accounting (``state_info``) and
+        the coordinator's committed epoch, and the fault log whenever it
+        grew: once a second, since phase A emits nothing for minutes."""
+        nonlocal fault_lines_seen
+        from denormalized_tpu_torch.physical.session_exec import (
+            SessionWindowExec,
+        )
+
+        lines = []
+        # the job's operators exist once ds.stream() has built them
+        root = getattr(ctx, "_last_physical", None)
+        stack = [root] if root is not None else []
+        while stack:
+            op = stack.pop()
+            if isinstance(op, SessionWindowExec):
+                try:
+                    info = op.state_info()
+                except Exception:  # dnzlint: allow(broad-except) a read racing the operator's writer skips a sample
+                    break
+                coord = coordinator()
+                lines.append({
+                    "event": "state", "t": time.time(),
+                    "bytes": info.get("state_bytes"),
+                    "evictable": info.get("evictable_bytes"),
+                    "live_keys": info.get("live_keys"),
+                    "spilled_bytes": info.get("spilled_bytes", 0),
+                    "spilled_keys": info.get("spilled_keys", 0),
+                    "spilled_blocks": info.get("spilled_blocks", 0),
+                    "spill": info.get("spill"),
+                    "committed_epoch": (coord.committed_epoch
+                                        if coord is not None else None),
+                })
+                break
+            stack.extend(op.children)
+        plan = fault_mod.plan()
+        if plan is not None and len(plan.events) > fault_lines_seen:
+            fault_lines_seen = len(plan.events)
+            lines.append({"event": "chaos", "fault_log": plan.event_log()})
+        return lines
+
     out = _Out(out_path)
-    out.event({"event": "ready", "t": time.time(), **startup})
-    sampler = _start_device_sampler(out, torch, device)
+    # bigstate's ready, device, state and chaos lines go to a file of their
+    # own, so the parent reads them without parsing millions of sessions
+    side = _Out(out_path + ".state") if pipeline == "bigstate" else out
+    # the RSS at the ready line is the process's fixed part (imports, the
+    # CUDA context, the kernel libraries), taken before the first batch
+    side.event({"event": "ready", "t": time.time(),
+                "rss_kb": S.rss_kb(os.getpid()), **startup})
+    sampler = _start_device_sampler(
+        side, torch, device,
+        extra=bigstate_lines if pipeline == "bigstate" else None)
 
     def finish(extra=None):
         sampler.set()
-        out.event(_device_record(torch, device))
-        out.event({"event": "done", "t": time.time(),
-                   "foreign_modules": _foreign_modules(), **(extra or {})})
+        side.event(_device_record(torch, device))
+        done = {"event": "done", "t": time.time(),
+                "foreign_modules": _foreign_modules(), **(extra or {})}
+        out.event(done)
         out.close()
+        if side is not out:
+            side.event(done)
+            side.close()
 
     if pipeline in ("query_dense", "join_dense"):
         # the JAX soak's live multi-query registry: the schedule is event
@@ -614,6 +698,88 @@ def child_main() -> None:
              F.approx_distinct(col("reading")).alias("distinct")],
             S.WINDOW_MS,
         )
+    elif pipeline == "bigstate":
+        # the JAX soak's larger-than-memory sessions: phase A opens
+        # SOAK_BS_KEYS singleton sessions (gap = phase A's event span, so
+        # all stay open at once), phase B advances the watermark in waves
+        # of SOAK_BS_WAVE keys (64 rows a wave) so sessions close a wave at
+        # a time.  A budgeted child (SOAK_BS_BUDGET > 0) runs the cold tier
+        # and checkpoints; the reference child runs the same feed with
+        # neither
+        bs_keys = int(os.environ["SOAK_BS_KEYS"])
+        bs_wave = int(os.environ["SOAK_BS_WAVE"])
+        bs_budget = int(os.environ.get("SOAK_BS_BUDGET") or 0)
+        if bs_budget:
+            cfg.state_budget_bytes = bs_budget
+        else:
+            cfg.checkpoint = False
+        bs_gap = bs_keys  # 1 ms a key
+        a_batches = -(-bs_keys // batch_rows)
+        waves = -(-bs_keys // bs_wave)
+        bs_user = Schema([
+            Field("occurred_at_ms", DataType.INT64, nullable=False),
+            Field("sensor_id", DataType.INT64, nullable=False),
+            Field("reading", DataType.FLOAT64),
+        ])
+        bs_schema = canonicalize_schema(bs_user)
+
+        class BigstatePartition(PartitionReader):
+            """Batch i regenerates from its index (restore = fast-forward);
+            unpaced."""
+
+            def __init__(self):
+                self._i = 0
+
+            def read(self, timeout_s=None):
+                i = self._i
+                if i >= a_batches + waves:
+                    return None
+                self._i += 1
+                if i < a_batches:
+                    lo = i * batch_rows
+                    kids = np.arange(lo, min(lo + batch_rows, bs_keys),
+                                     dtype=np.int64)
+                    ts = S.T0 + kids
+                else:
+                    j = i - a_batches + 1
+                    base = bs_keys + (j - 1) * BIGSTATE_WAVE_ROWS
+                    kids = np.arange(base, base + BIGSTATE_WAVE_ROWS,
+                                     dtype=np.int64)
+                    ts = np.full(BIGSTATE_WAVE_ROWS,
+                                 S.T0 + bs_gap + j * bs_wave, dtype=np.int64)
+                vals = (kids % 997) * 0.5 + 1.0
+                return attach_canonical_timestamp(
+                    RecordBatch(bs_user, [ts, kids, vals]), "occurred_at_ms",
+                    fallback_ms=int(time.time() * 1000))
+
+            def offset_snapshot(self):
+                return {"i": self._i}
+
+            def offset_restore(self, snap):
+                self._i = int(snap["i"])
+
+        class BigstateSource(Source):
+            name = "bigstate"
+
+            @property
+            def schema(self):
+                return bs_schema
+
+            def partitions(self):
+                return [BigstatePartition()]
+
+            @property
+            def unbounded(self):
+                return False
+
+        ds = ctx.from_source(BigstateSource(), name="bigstate").session_window(
+            ["sensor_id"],
+            [F.count(col("reading")).alias("count"),
+             F.min(col("reading")).alias("min"),
+             F.max(col("reading")).alias("max"),
+             F.avg(col("reading")).alias("average")],
+            bs_gap,
+        )
     elif pipeline == "session":
         ds = ctx.from_source(
             SoakSource(S.SEED_LEFT, "soak_s"), name="soak_s"
@@ -690,9 +856,7 @@ def child_main() -> None:
         if p is not None:
             chaos["fault_log"] = p.event_log()
         if chaos:
-            out.event({"event": "chaos", **chaos})
-
-    from denormalized_tpu_torch.runtime import faults as fault_mod
+            side.event({"event": "chaos", **chaos})
 
     for batch in it:
         # chaos state every 5 s and whenever the fault log grew, so an
@@ -717,24 +881,33 @@ def child_main() -> None:
         if not batch.schema.has(WINDOW_START_COLUMN):
             continue
         now = round(time.time(), 3)
-        ws = batch.column(WINDOW_START_COLUMN)
-        names = batch.column("sensor_name")
+
+        def column(name):
+            return batch.column(name).tolist()
+
+        ws = column(WINDOW_START_COLUMN)
+        names = column("sensor_id" if pipeline == "bigstate"
+                       else "sensor_name")
+        counts = column("count")
+        if pipeline == "udaf":
+            cols = {"spread": column("spread")}
+        elif pipeline == "join":
+            cols = {"avg_t": column("avg_t"), "avg_h": column("avg_h")}
+        elif pipeline == "approx":
+            cols = {"distinct": column("distinct")}
+        else:
+            cols = {"min": column("min"), "max": column("max"),
+                    "avg": column("average")}
+            if pipeline in ("session", "bigstate"):
+                cols["we"] = column(WINDOW_END_COLUMN)
         for i in range(batch.num_rows):
-            rec = {"t": now, "ws": int(ws[i]), "key": str(names[i]),
-                   "count": int(batch.column("count")[i])}
-            if pipeline == "udaf":
-                rec["spread"] = round(float(batch.column("spread")[i]), 4)
-            elif pipeline == "join":
-                rec["avg_t"] = round(float(batch.column("avg_t")[i]), 4)
-                rec["avg_h"] = round(float(batch.column("avg_h")[i]), 4)
-            elif pipeline == "approx":
-                rec["distinct"] = int(batch.column("distinct")[i])
-            else:
-                rec["min"] = round(float(batch.column("min")[i]), 4)
-                rec["max"] = round(float(batch.column("max")[i]), 4)
-                rec["avg"] = round(float(batch.column("average")[i]), 4)
-                if pipeline == "session":
-                    rec["we"] = int(batch.column(WINDOW_END_COLUMN)[i])
+            rec = {"t": now, "ws": int(ws[i]),
+                   "key": (int(names[i]) if pipeline == "bigstate"
+                           else str(names[i])),
+                   "count": int(counts[i])}
+            for k, v in cols.items():
+                rec[k] = (int(v[i]) if k in ("distinct", "we")
+                          else round(float(v[i]), 4))
             if coord is not None:
                 # in-flight epoch: committed once epoch `ep` commits
                 rec["ep"] = (coord.committed_epoch or 0) + 1
@@ -977,6 +1150,61 @@ def dense_verify(args, env, work, wins, seg_paths, total_batches, *,
     }
 
 
+class _Scan:
+    """The whole lines a growing file gained since the last call."""
+
+    def __init__(self, path):
+        self.path = path
+        self._pos = 0
+
+    def lines(self) -> list[bytes]:
+        try:
+            f = open(self.path, "rb")
+        except FileNotFoundError:
+            return []
+        with f:
+            f.seek(self._pos)
+            data = f.read()
+        end = data.rfind(b"\n") + 1
+        self._pos += end
+        return data[:end].splitlines()
+
+
+class _Watch:
+    """A running segment's files: its ready line (wall time, RSS), the
+    wall time at which its first window line was seen and, with
+    ``eof=True``, whether its source has read the feed's end (the scan of
+    the window lines then goes on past the first)."""
+
+    def __init__(self, out_path, side_path, eof=False):
+        self._side = _Scan(side_path)
+        self._out = _Scan(out_path)
+        self._want_eof = eof
+        self.ready: dict | None = None
+        self.first_emit_wall: float | None = None
+        self.eof = False
+
+    def poll(self) -> None:
+        if self.ready is None:
+            for line in self._side.lines():
+                if b'"ready"' in line:
+                    self.ready = json.loads(line)
+                    break
+        if self.first_emit_wall is None or (self._want_eof and not self.eof):
+            lines = self._out.lines()
+            if self.first_emit_wall is None and any(
+                    b'"ws"' in line for line in lines):
+                self.first_emit_wall = time.time()
+            self.eof = self.eof or any(b'"eof"' in line for line in lines)
+
+    def kill_due(self, kill_every: float) -> bool:
+        """The kill clock starts at the ready line, not at the spawn: on
+        the card a child spends 6-11 s importing and starting CUDA, and a
+        kill in that time cuts nothing the restore must rebuild."""
+        return (self.ready is not None
+                and time.time() >= self.ready["t"] + kill_every)
+
+
 def _json_lines(path):
     """Every whole JSON line of ``path`` (a torn tail line is skipped)."""
     try:
@@ -1124,6 +1352,26 @@ def main():
                     "hiccups) on the kafka pipeline; implies --pipeline "
                     "kafka")
     ap.add_argument("--chaos-seed", type=int, default=1234)
+    ap.add_argument("--torch-threads", type=int, default=0,
+                    help="torch.set_num_threads in every child (0: torch's "
+                    "default, one a core; the CPU tests pass 1, as several "
+                    "soaks share a host)")
+    ap.add_argument("--keys", type=int, default=10_000_000,
+                    help="bigstate: simultaneously-open sessions")
+    ap.add_argument("--wave-keys", type=int, default=100_000,
+                    help="bigstate: sessions closed per watermark wave")
+    ap.add_argument("--state-budget", type=int, default=0,
+                    help="bigstate: budget bytes (0 = working set / 5)")
+    ap.add_argument("--ckpt-s", type=float, default=20.0,
+                    help="bigstate: checkpoint interval")
+    ap.add_argument("--max-kills", type=int, default=2,
+                    help="bigstate: SIGKILLs issued mid-run")
+    ap.add_argument("--chaos-spill", action="store_true", default=True,
+                    help="bigstate: arm tools/soak.py's spill-site fault "
+                    "plan (reload flaps, an eviction-write failure, a torn "
+                    "manifest; default on)")
+    ap.add_argument("--no-chaos-spill", dest="chaos_spill",
+                    action="store_false")
     ap.add_argument("--out", default=None,
                     help="the JSON report (default torch_soak_<pipeline>.json "
                     "in the working directory)")
@@ -1142,7 +1390,25 @@ def main():
         name = "chaos" if args.chaos else args.pipeline
         args.out = f"torch_soak_{name}.json"
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-    sys.exit(0 if run_parent(args) else 1)
+    run = run_bigstate if args.pipeline == "bigstate" else run_parent
+    sys.exit(0 if run(args) else 1)
+
+
+def build_kernels(args, report: dict, log) -> bool:
+    """The ``--build`` subprocess, before the first segment on a card
+    (skipped with ``--no-build``) → False, the report marked, if it
+    failed."""
+    if not args.device.startswith("cuda") or args.no_build:
+        return True
+    t_build = time.monotonic()
+    rc = subprocess.call([sys.executable, os.path.abspath(__file__),
+                          "--build"], stdout=sys.stderr, stderr=sys.stderr)
+    report["build_s"] = round(time.monotonic() - t_build, 1)
+    if rc != 0:
+        report.update(aborted=f"kernel build rc={rc}", ok=False)
+        log(f"kernel build failed (rc={rc})")
+        return False
+    return True
 
 
 def run_parent(args) -> bool:
@@ -1181,17 +1447,11 @@ def run_parent(args) -> bool:
         "SOAK_CKPT_DIR": ckpt_dir,
         "SOAK_PIPELINE": args.pipeline,
         "SOAK_DEVICE": args.device,
+        "SOAK_TORCH_THREADS": str(args.torch_threads),
     })
-    if args.device.startswith("cuda") and not args.no_build:
-        t_build = time.monotonic()
-        rc = subprocess.call([sys.executable, os.path.abspath(__file__),
-                              "--build"], stdout=sys.stderr,
-                             stderr=sys.stderr)
-        report["build_s"] = round(time.monotonic() - t_build, 1)
-        if rc != 0:
-            write({"aborted": f"kernel build rc={rc}", "ok": False})
-            log(f"kernel build failed (rc={rc})")
-            return False
+    if not build_kernels(args, report, log):
+        write()
+        return False
     chaos_spec = chaos_deterministic = None
     if args.chaos:
         chaos_spec = S.chaos_plan(args.chaos_seed)
@@ -1235,6 +1495,8 @@ def run_parent(args) -> bool:
     recovery_times = []
     done = False
     proc = None
+    feed_t0 = None  # wall time of the first segment's ready line
+    feed_s = total_batches * args.batch_rows / args.pace
     try:
         while not done:
             seg += 1
@@ -1250,7 +1512,7 @@ def run_parent(args) -> bool:
                 env=seg_env, stdout=sys.stderr, stderr=sys.stderr)
             first_emit = first_emit_wall = None
             rss = []  # (wall, kB), only after the first emission
-            kill_at = t_spawn + args.kill_every
+            watch = _Watch(out_path, out_path, eof=True)
             while True:
                 rc = proc.poll()
                 if rc is not None:
@@ -1261,9 +1523,10 @@ def run_parent(args) -> bool:
                 now = time.monotonic()
                 if first_emit is not None and (r := S.rss_kb(proc.pid)):
                     rss.append((time.time(), r))
-                if first_emit is None and S.read_emissions([out_path])[0]:
+                watch.poll()
+                if first_emit is None and watch.first_emit_wall is not None:
                     first_emit = now - t_spawn
-                    first_emit_wall = time.time()
+                    first_emit_wall = watch.first_emit_wall
                     if seg > 1:
                         recovery_times.append(round(first_emit, 2))
                 target_i = min(total_batches, int(
@@ -1271,12 +1534,17 @@ def run_parent(args) -> bool:
                 while golden_i < target_i:
                     fold(golden, golden_i, args.batch_rows, args.pace)
                     golden_i += 1
-                if now >= kill_at:
-                    # never kill the final drain
-                    if golden_i >= total_batches:
-                        kill_at = float("inf")
-                        time.sleep(0.5)
-                        continue
+                if feed_t0 is None and watch.ready is not None:
+                    feed_t0 = watch.ready["t"]
+                # never kill the final drain: once the child has read its
+                # feed's end, or the feed's length has passed since the
+                # first child was ready (Kafka's feed runs on the wall
+                # clock from its own origin)
+                final_drain = (
+                    golden_i >= total_batches if args.pipeline == "kafka"
+                    else watch.eof or (feed_t0 is not None
+                                       and time.time() >= feed_t0 + feed_s))
+                if not final_drain and watch.kill_due(args.kill_every):
                     os.kill(proc.pid, signal.SIGKILL)
                     kills += 1
                     proc.wait(10)
@@ -1403,6 +1671,329 @@ def run_parent(args) -> bool:
             proc.wait(10)
         if broker is not None:
             broker.stop()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+#: bigstate's RSS gates.  The saving, ``tools/soak.py``'s: the budgeted
+#: run's peak RSS at least 35% of the reference's working set below the
+#: reference's.  The ratio, unlike ``tools/soak.py``'s, divides the RSS
+#: above each segment's ready line (after the imports, the CUDA context
+#: and the kernel libraries, before the first batch: the same point in
+#: both runs), as whole-process peaks count a process's fixed part as if it
+#: were state: at ``--keys 200000 --wave-keys 20000`` the JAX package's own
+#: run on the CPU read 224,312 / 237,152 kB = 0.946 from a 26.1 MB working
+#: set, and a child on the card holds ~4.9 GB before its first batch,
+#: which would pull even the 10M-key run's 3,409,628 / 4,018,484 kB to
+#: about 0.93.
+BIGSTATE_RSS_RATIO_MAX = 0.9
+BIGSTATE_RSS_SAVED_SHARE = 0.35
+#: evictable resident state may exceed the budget by the estimate's gap
+#: and the batch being folded (``tools/soak.py``'s slack)
+BIGSTATE_EVICTABLE_SLACK = 1.25
+
+
+def bigstate_cut(side_path, t_cut: float, ready: dict | None) -> dict:
+    """A kill's cut from its segment's ``state`` lines: the last one
+    written before the SIGKILL (committed epoch, spilled keys, bytes and
+    blocks, live keys)."""
+    last = None
+    for o in _json_lines(side_path):
+        if o.get("event") == "state" and o.get("t", 0) <= t_cut:
+            last = o
+    cut = {"t": round(t_cut, 3),
+           "after_ready_s": (round(t_cut - ready["t"], 2)
+                             if ready else None)}
+    for k in ("committed_epoch", "spilled_keys", "spilled_bytes",
+              "spilled_blocks", "live_keys", "bytes", "evictable"):
+        cut[k] = last.get(k) if last else None
+    cut["state_line_age_s"] = round(t_cut - last["t"], 2) if last else None
+    return cut
+
+
+def bigstate_rss(segments) -> dict:
+    """A run's RSS: the whole process's peak (``raw``), and the peak above
+    each segment's own ready-line RSS (``net``)."""
+    raw = [s["rss_max_kb"] for s in segments if s["rss_max_kb"]]
+    net = [s["rss_net_max_kb"] for s in segments
+           if s["rss_net_max_kb"] is not None]
+    return {"raw_max_kb": max(raw, default=None),
+            "net_max_kb": max(net, default=None),
+            "ready_kb": [s["rss_ready_kb"] for s in segments]}
+
+
+def bigstate_gates(*, keys, waves, ref, bud, working_set, budget,
+                   chaos_spill) -> dict:
+    """Every gate of the bigstate soak → {gate: bool}.  ``ref`` and
+    ``bud`` are the two runs' summaries (sessions, cuts, states, RSS)."""
+    ref_rss, bud_rss = ref["rss"], bud["rss"]
+    saved = ((ref_rss["raw_max_kb"] - bud_rss["raw_max_kb"]) * 1024
+             if ref_rss["raw_max_kb"] and bud_rss["raw_max_kb"] else None)
+    net_ratio = (bud_rss["net_max_kb"] / ref_rss["net_max_kb"]
+                 if ref_rss["net_max_kb"] and bud_rss["net_max_kb"]
+                 is not None else None)
+    return {
+        "not_aborted": not ref["aborted"] and not bud["aborted"],
+        "eos_both_runs": ref["done"] and bud["done"],
+        "sessions_expected": ref["sessions"] == keys
+        + waves * BIGSTATE_WAVE_ROWS,
+        "none_lost_spurious_mismatched": not (
+            bud["lost"] or bud["spurious"] or bud["mismatched"]),
+        "kills": len(bud["cuts"]) >= 1,
+        "kill_after_commit_with_spill": any(
+            c["committed_epoch"] and (c["spilled_bytes"] or 0) > 0
+            for c in bud["cuts"]),
+        "spilled": bud["spill"].get("spill_blocks_total", 0) > 0,
+        "evictable_within_budget": bud["evictable_max"]
+        <= BIGSTATE_EVICTABLE_SLACK * budget,
+        "rss_saved": saved is not None
+        and saved >= BIGSTATE_RSS_SAVED_SHARE * working_set,
+        "rss_net_ratio": net_ratio is not None
+        and net_ratio <= BIGSTATE_RSS_RATIO_MAX,
+        "fault_rules_fired": not chaos_spill or all(
+            r in bud["fired_rules"] for r in S.BIGSTATE_REQUIRED_RULES),
+    }
+
+
+def run_bigstate(args) -> bool:
+    """``tools/soak.py::bigstate_main`` on the port: an unbudgeted
+    reference run over ``--keys`` simultaneously-open sessions, then the
+    same feed under a state budget (``--state-budget``, by default a fifth
+    of the reference's working set) with the cold tier and checkpoints on,
+    the spill-site fault plan armed and ``--max-kills`` SIGKILLs, each
+    ``--kill-every`` s after its segment's ready line.  Gates
+    (``bigstate_gates``): ``tools/soak.py``'s, its RSS ratio taken net of
+    each segment's ready-line RSS, a kill after a committed epoch with
+    spilled state at the cut, no module of JAX in a child, and both device
+    gates over every segment of both runs."""
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="torch_soak_bs_")
+    a_batches = -(-args.keys // args.batch_rows)
+    waves = -(-args.keys // args.wave_keys)
+    report: dict = {
+        "pipeline": "bigstate", "device": args.device, "keys": args.keys,
+        "wave_keys": args.wave_keys, "batch_rows": args.batch_rows,
+        "kill_every_s": args.kill_every, "ckpt_s": args.ckpt_s,
+        "max_kills": args.max_kills, "phaseA_batches": a_batches,
+        "close_waves": waves, "segments": [],
+    }
+
+    def write():
+        Path(args.out).write_text(json.dumps(report, indent=1))
+
+    def log(msg):
+        print(f"torch_soak: {msg}", file=sys.stderr, flush=True)
+
+    env = dict(os.environ)
+    env.update({
+        "SOAK_BATCH_ROWS": str(args.batch_rows),
+        "SOAK_PACE": str(args.pace),
+        "SOAK_TOTAL_BATCHES": str(a_batches + waves),
+        "SOAK_PIPELINE": "bigstate",
+        "SOAK_BS_KEYS": str(args.keys),
+        "SOAK_BS_WAVE": str(args.wave_keys),
+        "SOAK_T0": str(S.T0),
+        "SOAK_CKPT_S": str(args.ckpt_s),
+        "SOAK_DEVICE": args.device,
+        "SOAK_TORCH_THREADS": str(args.torch_threads),
+    })
+    if not build_kernels(args, report, log):
+        write()
+        return False
+
+    def run(tag: str, budget: int, max_kills: int) -> dict:
+        ckpt = os.path.join(work, f"ckpt_{tag}")
+        os.makedirs(ckpt)
+        renv = dict(env, SOAK_BS_BUDGET=str(budget), SOAK_CKPT_DIR=ckpt)
+        if budget and args.chaos_spill:
+            renv["DENORMALIZED_FAULT_PLAN"] = json.dumps(
+                S.bigstate_fault_plan(args.chaos_seed))
+        paths, cuts, aborted = [], [], None
+        t0 = time.monotonic()
+        while True:
+            path = os.path.join(work, f"{tag}_{len(paths) + 1}.jsonl")
+            side = path + ".state"
+            paths.append(path)
+            t_spawn, spawn_wall = time.monotonic(), time.time()
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--child"],
+                env=dict(renv, SOAK_OUT=path, SOAK_SPAWN_T=repr(spawn_wall)),
+                stdout=sys.stderr, stderr=sys.stderr)
+            watch = _Watch(path, side)
+            rss = []  # (wall, kB) from the spawn
+            t_cut = None
+            try:
+                while proc.poll() is None:
+                    if r := S.rss_kb(proc.pid):
+                        rss.append((time.time(), r))
+                    watch.poll()
+                    if len(cuts) < max_kills and watch.kill_due(
+                            args.kill_every):
+                        t_cut = time.time()
+                        os.kill(proc.pid, signal.SIGKILL)
+                        proc.wait(10)
+                        break
+                    time.sleep(0.5)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(10)
+            watch.poll()
+            fe = watch.first_emit_wall
+            ready = watch.ready
+            after_ready = [kb for t, kb in rss if ready and t >= ready["t"]]
+            ready_kb = ready.get("rss_kb") if ready else None
+            seg = {
+                "segment": len(report["segments"]) + 1, "run": tag,
+                "wall_s": round(time.monotonic() - t_spawn, 1),
+                "first_emit_s": round(fe - spawn_wall, 2) if fe else None,
+                "killed": t_cut is not None,
+                "rss_ready_kb": ready_kb,
+                "rss_max_kb": max((kb for _t, kb in rss), default=None),
+                "rss_net_max_kb": (max(after_ready) - ready_kb
+                                   if after_ready and ready_kb else None),
+                **segment_device_report(
+                    side, fe, [p for p in rss if fe and p[0] >= fe]),
+            }
+            report["segments"].append(seg)
+            log(f"bigstate {tag} segment {seg['segment']}: {seg['wall_s']} "
+                f"s, killed {seg['killed']}, start-up {seg['startup']}, RSS "
+                f"kB ready {ready_kb}, max {seg['rss_max_kb']}, launches "
+                f"{seg['launches']}")
+            if t_cut is not None:
+                cuts.append(dict(segment=seg["segment"],
+                                 **bigstate_cut(side, t_cut, ready)))
+                log(f"bigstate {tag} cut: {cuts[-1]}")
+                continue
+            if proc.returncode != 0:
+                aborted = f"{tag} segment {seg['segment']} child " \
+                          f"rc={proc.returncode}"
+            break
+        sides = [p + ".state" for p in paths]
+        states = S.read_state_events(sides)
+        last_spill: dict = {}
+        for st in states:
+            if st.get("spill"):
+                last_spill[st["_path"]] = st["spill"]
+        spill: dict = {}
+        for sp in last_spill.values():  # counters restart with each child
+            for k, v in sp.items():
+                if isinstance(v, (int, float)):
+                    spill[k] = spill.get(k, 0) + v
+        segs = [s for s in report["segments"] if s["run"] == tag]
+        return {
+            "wall_s": round(time.monotonic() - t0, 1), "paths": paths,
+            "aborted": aborted, "cuts": cuts,
+            # the reference's is the working set; the budgeted run's, its
+            # resident state (the interned keys stay resident by design)
+            "bytes_max": max((st.get("bytes") or 0 for st in states),
+                             default=0),
+            "evictable_max": max((st.get("evictable") or 0 for st in states),
+                                 default=0),
+            "spill": spill, "rss": bigstate_rss(segs),
+            "fired_rules": _chaos_report(sides)["fired_rules"],
+            "foreign_modules": sorted({
+                m for p in sides for o in _json_lines(p)
+                if o.get("event") == "done"
+                for m in o.get("foreign_modules", [])}),
+        }
+
+    try:
+        ref = run("reference", 0, 0)
+        working_set = ref["bytes_max"]
+        budget = args.state_budget or max(working_set // 5, 1_000_000)
+        log(f"bigstate reference: {ref['wall_s']} s, working set "
+            f"{working_set} B, budget {budget} B")
+        bud = run("budgeted", budget, args.max_kills)
+        wins_ref, ref_dupes, ref["done"], _m, _c = S.read_emissions(
+            ref["paths"])
+        wins_b, dupes, bud["done"], _m, clipped = S.read_emissions(
+            bud["paths"])
+        # every budgeted occurrence, re-emissions after a restore too,
+        # must equal the reference's
+        lost = [k for k in wins_ref if k not in wins_b]
+        spurious = [k for k in wins_b if k not in wins_ref]
+        mismatched = 0
+        mismatch_sample = []
+        for k, occs in wins_ref.items():
+            for vals, _seg in wins_b.get(k, ()):
+                if vals != occs[0][0]:
+                    mismatched += 1
+                    if len(mismatch_sample) < 3:
+                        mismatch_sample.append((k, vals, occs[0][0]))
+        ref["sessions"], bud["sessions"] = len(wins_ref), len(wins_b)
+        bud.update(lost=len(lost), spurious=len(spurious),
+                   mismatched=mismatched)
+        del wins_ref, wins_b
+        gates = bigstate_gates(keys=args.keys, waves=waves, ref=ref, bud=bud,
+                               working_set=working_set, budget=budget,
+                               chaos_spill=args.chaos_spill)
+        dev = device_gates(report["segments"])
+        foreign = sorted(set(ref["foreign_modules"])
+                         | set(bud["foreign_modules"]))
+        gates.update(child_modules=not foreign,
+                     device_memory=dev["memory"]["ok"],
+                     device_launches=dev["launches"]["ok"])
+        ref_rss, bud_rss = ref["rss"], bud["rss"]
+
+        def ratio(a, b):
+            return round(a / b, 4) if a is not None and b else None
+
+        report.update({
+            "reference": {"working_set_bytes": working_set, **{
+                k: ref[k] for k in ("wall_s", "sessions", "rss")}},
+            "budget_bytes": budget,
+            "budget_ratio": round(working_set / budget, 2),
+            "budgeted": {
+                **{k: bud[k] for k in (
+                    "wall_s", "sessions", "spill", "rss", "cuts")},
+                "resident_state_bytes_max": bud["bytes_max"],
+                "evictable_state_bytes_max": bud["evictable_max"],
+                "kills": len(bud["cuts"]),
+                "duplicate_emissions": dupes,
+                "uncommitted_clipped": clipped,
+            },
+            "reference_duplicate_emissions": ref_dupes,
+            "chaos_spill": {
+                "armed": bool(args.chaos_spill),
+                "fired_rules": bud["fired_rules"],
+                "required_rules_fired": sorted(
+                    r for r in S.BIGSTATE_REQUIRED_RULES
+                    if r in bud["fired_rules"]),
+            },
+            "sessions_expected": args.keys + waves * BIGSTATE_WAVE_ROWS,
+            "sessions_lost": len(lost),
+            "sessions_spurious": len(spurious),
+            "sessions_mismatched": mismatched,
+            "mismatch_sample": mismatch_sample,
+            "rss_ratio_raw": ratio(bud_rss["raw_max_kb"],
+                                   ref_rss["raw_max_kb"]),
+            "rss_ratio_net": ratio(bud_rss["net_max_kb"],
+                                   ref_rss["net_max_kb"]),
+            "rss_saved_mb": (round((ref_rss["raw_max_kb"]
+                                    - bud_rss["raw_max_kb"]) / 1024, 1)
+                             if ref_rss["raw_max_kb"]
+                             and bud_rss["raw_max_kb"] else None),
+            "rss_saved_required_mb": round(
+                BIGSTATE_RSS_SAVED_SHARE * working_set / 2**20, 1),
+            "child_foreign_modules": foreign,
+            "device_gates": dev,
+            "aborted": ref["aborted"] or bud["aborted"],
+            "gates": gates,
+            "ok": all(gates.values()),
+        })
+        write()
+        print(json.dumps({
+            "ok": report["ok"], "pipeline": "bigstate",
+            "sessions": bud["sessions"], "kills": len(bud["cuts"]),
+            "spill_blocks": bud["spill"].get("spill_blocks_total", 0),
+            "rss_ratio_raw": report["rss_ratio_raw"],
+            "rss_ratio_net": report["rss_ratio_net"],
+            "failed_gates": sorted(k for k, v in gates.items() if not v),
+        }))
+        return report["ok"]
+    finally:
         shutil.rmtree(work, ignore_errors=True)
 
 
