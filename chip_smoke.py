@@ -107,9 +107,10 @@ Phases:
 17. the same query at config 3's key count over phase 15's streams
     (``auto``): rows/s beside phase 15's and ``upper``'s time over ~100K
     window rows a side;
-18. bench.py's ``join_skew`` shape, uncut: a zipf(1.2) side (10,000 keys)
-    band-joined (±50 ms) against a mostly-uniform side with a 0.0004 share
-    of the hottest key, 250,000 rows a side in 8,192-row batches, once
+18. bench.py's ``join_skew`` shape at a quarter of its depth: a zipf(1.2)
+    side (10,000 keys) band-joined (±50 ms) against a mostly-uniform side
+    with a 0.0004 share of the hottest key, 125,000 rows a side in
+    8,192-row batches, once
     adaptive and once static: the same rows in both runs, as many pairs as
     a numpy searchsorted oracle counts, adaptations > 0 in the adaptive
     run, and both rows/s with their ratio (host code on the card's host);
@@ -348,8 +349,8 @@ Phases:
     524,288 rows (5 partitions of 3), 4 workers through ``partial_merge``
     (the exchange's string lane): rows equal to the oracle, merge
     launches in every worker;
-47. recovery on cluster_scale's full feed (122 batches a partition) paced
-    0.1 s a batch, barriers every 0.5 s,
+47. recovery on phase 45's feed (61 batches a partition, half
+    cluster_scale's) paced 0.1 s a batch, barriers every 0.5 s,
     4 workers: a fault plan tears one of worker 1's exchange frames and
     puts 25 ms on every redial, then its respawn is SIGKILLed a second
     after its rejoin; each time worker 1 alone respawns (no full restart)
@@ -411,7 +412,25 @@ Phases:
     above its ready lines at most 0.9x the reference's, every spill fault
     rule fired, no module of JAX in a child, both device gates, no hand
     kernel launched.  Prints both runs' sessions, spill counters, fired
-    rules, raw and net RSS ratios and each segment's start-up split.
+    rules, raw and net RSS ratios and each segment's start-up split;
+55. the cluster soak, ``tools/torch_soak.py --pipeline cluster``, as a
+    subprocess on the card at the JAX cluster smoke's settings, alone
+    (after phases 53-54 have ended: a loaded host slows the workers'
+    heartbeats and barriers): 6 partitions of 210 batches of 1,024 rows,
+    97 string keys, a read every 0.05 s a partition, over 3 worker
+    processes on the card with barriers every second; one torn exchange
+    frame and a SIGKILL of worker 2 after a committed epoch, 4.2 s after
+    the last worker's ready line.  Two cells: ``full_restart`` (every
+    failure restarts the whole cluster) and ``partial`` (only worker 2 is
+    respawned, ``max_restarts=0``).  Every gate of the JAX cell: done, the
+    clipped union of every segment equal to the uninterrupted oracle
+    exactly once, a kill, the torn frame fired; two or more full restarts,
+    or none with only the victim's partial segments, each restored, and
+    its recoveries timed; plus a kill after a committed epoch, every
+    worker's last generation on ``cuda`` with dense launches, no module of
+    JAX in the tool or its workers.  Prints each cell's windows, clipped
+    lines, commits, aborted epochs, restarts, recoveries, each spawn's
+    start-up, each worker's launches and the wall.
 
 Then one JSON line with each kernel's launches on its main path (phase 4
 for the dense kernel, with phases 38-39's baselines' launches under
@@ -428,7 +447,9 @@ exporter on, ``obs_launches``: phase 42's dense launches, phase 43's
 merges and compactions, with the join's dense launches beside; and
 ``cluster_launches``, each worker process's own count: phase 45's n = 4
 dense launches, phase 46's merges; and ``shard_launches``, each shard's own count in phases 48-52;
-and ``soak_launches``, each segment's dense launches in phase 53's soaks),
+and ``soak_launches``, each segment's dense launches in phase 53's soaks;
+and ``cluster_soak_launches``, each worker's last generation's dense
+launches in each cell of phase 55),
 its largest error against the plain version, its device time, the wrapper's
 time, the plain version's time, the library call's (for the compaction
 kernel the nonzero + index_select sequence) and the least time the card
@@ -476,6 +497,10 @@ HIGHCARD_BATCH_ROWS = 524_288
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+    # a timeline on the standard error: seconds since the start, the line's
+    # head (the standard output stays as the contract reads it)
+    print(f"{time.time() - T_START:8.1f} {msg[:70]}", file=sys.stderr,
+          flush=True)
 
 
 # -- data ------------------------------------------------------------------
@@ -2675,11 +2700,8 @@ def check_join_expressions(res, left_stream, right_stream, num_keys) -> int:
     if set(got) != set(exp):
         raise AssertionError(
             f"row sets differ: {len(got)} joined vs {len(exp)} expected")
-    for k, (a, b) in exp.items():
-        ga, gb = got[k]
-        if not (np.isclose(ga, a, rtol=1e-4, atol=0)
-                and np.isclose(gb, b, rtol=1e-4, atol=0)):
-            raise AssertionError(f"{k}: got {got[k]}, expected {(a, b)}")
+    keys = list(exp)
+    assert_close_rows(keys, [got[k] for k in keys], [exp[k] for k in keys])
     log(f"  residual: {len(both)} windows held by both sides, "
         f"{len(both) - len(exp)} dropped by average_humidity > "
         f"average_temperature - 100")
@@ -2723,7 +2745,7 @@ def phase_join_expressions_highcard(device, left, right, rates, card):
 
 
 # bench.py join_skew (bench.py:1807-1935), uncut
-SKEW_ROWS_SIDE = 250_000  # bench.py's 500,000, halved for the time limit
+SKEW_ROWS_SIDE = 125_000  # bench.py's 500,000, a quarter for the time limit
 SKEW_BATCH = 8_192
 SKEW_KEYSPACE = 10_000
 SKEW_DIM_DENSITY = 0.0004
@@ -2836,7 +2858,7 @@ def phase_join_skew(device, seed, card):
     if ad["total"] <= 0:
         raise AssertionError("phase 18: the adaptive run never adapted")
     top = np.bincount(left[1]).max() / SKEW_ROWS_SIDE
-    log(f"phase 18 join_skew (bench.py shape, halved): {SKEW_ROWS_SIDE} rows a side "
+    log(f"phase 18 join_skew (bench.py shape, a quarter): {SKEW_ROWS_SIDE} rows a side "
         f"in {SKEW_BATCH}-row batches, top key {100 * top:.1f}% of the "
         f"left rows, {want} pairs match the oracle and are equal in both "
         f"modes; adaptive {a_rate:.0f} rows/s (wall {a_wall:.3f} s; "
@@ -7623,7 +7645,7 @@ CLUSTER_HIGHCARD_ARGS = {"partitions": 5, "batches": 3, "rows": 524_288,
                          "keys": 100_000, "batch_span_ms": 1000,
                          "window_ms": 1000,
                          "engine": {"device_strategy": "partial_merge"}}
-#: phase 47: phase 45's feed paced to ~12 s a partition, so the faults land
+#: phase 47: phase 45's feed paced to ~6 s a partition, so the tear lands
 #: mid-stream, with barriers every 0.5 s
 CLUSTER_PACE_S = 0.1
 CLUSTER_CKPT_S = 0.5
@@ -7822,7 +7844,7 @@ def phase_cluster_recovery(card) -> dict:
     from denormalized_tpu_torch.cluster import run_cluster
     from denormalized_tpu_torch.obs.doctor import clusterdoc
 
-    args = dict(CLUSTER_ARGS, pace_s=CLUSTER_PACE_S)
+    args = dict(CLUSTER_SCALE_ARGS, pace_s=CLUSTER_PACE_S)
     want = cluster_oracle(args, string_keys=False)
     # both faults hit one worker, as the JAX package's partial soak cell
     # does: a second worker dying before the next commit would find rows
@@ -7900,7 +7922,7 @@ def phase_cluster_recovery(card) -> dict:
         t0 = time.perf_counter()
         # the same feed unpaced: pacing only placed the kill
         second = run_cluster(cluster_spec(
-            wd, 2, "bench_job", CLUSTER_ARGS,
+            wd, 2, "bench_job", CLUSTER_SCALE_ARGS,
             checkpoint_interval_s=CLUSTER_CKPT_S, max_restarts=0))
         wall = time.perf_counter() - t0
         if second["status"] != "done" or second["rows_total"] == 0:
@@ -8451,6 +8473,8 @@ SOAK_TIMEOUT_S = 300.0
 #: each kill 5 s after its child's ready line (past the first commit)
 BIGSTATE_ARGS = ("--keys", "200000", "--wave-keys", "20000", "--ckpt-s",
                  "2", "--kill-every", "5")
+#: phase 55: the cluster soak at the JAX cluster smoke's settings
+CLUSTER_SOAK_ARGS = ("--minutes", "0.35")
 
 
 def start_soaks(wd: str, specs) -> list:
@@ -8659,6 +8683,56 @@ def phase_bigstate_soak(card, run=None) -> dict:
             f"{sg['rss_net_max_kb']}); launches {sg['launches']}; device "
             f"memory max {sg['device_mem']['max']} ({card})")
     return r
+
+
+def phase_cluster_soak(card) -> dict:
+    """Phase 55: the cluster soak (``tools/torch_soak.py --pipeline
+    cluster``) on the card at the JAX cluster smoke's settings, run alone
+    (see the module docstring) → {cell: report}."""
+    name = torch.cuda.get_device_name(0)
+    with tempfile.TemporaryDirectory() as wd:
+        r, wall = wait_soaks(start_soaks(
+            wd, [("cluster", CLUSTER_SOAK_ARGS, 55)]))["cluster"]
+    problems = [f"{mode}: {gate}" for mode, c in r["cells"].items()
+                for gate, ok in c["gates"].items() if not ok]
+    if set(r["cells"]) != {"full_restart", "partial"}:
+        problems.append(f"cells {sorted(r['cells'])}")
+    if r["card"] != name or r["parent_foreign_modules"]:
+        problems.append(f"card {r['card']}, parent modules "
+                        f"{r['parent_foreign_modules']}")
+    if problems:
+        raise AssertionError(f"phase 55 cluster: {problems}: "
+                             f"{json.dumps(r['cells'])[:4000]}")
+    for mode, c in r["cells"].items():
+        log(f"phase 55 cluster soak [{mode}] ({' '.join(CLUSTER_SOAK_ARGS)}: "
+            f"{c['workers_n']} workers, {c['partitions']} partitions of "
+            f"{c['batches']} batches, {c['total_rows']} rows): "
+            f"{c['emitted_windows_kept']} windows = the oracle's "
+            f"{c['oracle_windows']}, 0 lost, 0 spurious, 0 duplicated, "
+            f"{c['clipped_uncommitted']} uncommitted lines clipped; "
+            f"{len(c['commits'])} commits, aborted epochs "
+            f"{c['aborted_epochs']}; restarts {c['restarts']}, worker "
+            f"restarts {c['worker_restarts']}; kills (committed epoch before "
+            f"it, s after the last ready line) "
+            + ", ".join(f"w{k['worker']} ({k['committed']}, "
+                        f"{k['after_ready_s']})" for k in c["kills"])
+            + f"; torn frames fired {c['exchange_faults_fired']}; crashes "
+            f"{[why.splitlines()[0][:160] for why in c['crashes']]}; spawn "
+            "→ rejoin "
+            + (", ".join(f"w{x['worker']} {x['ms']:.0f} ms"
+                         for x in c["recoveries"]) or "none")
+            + "; spawn → ready "
+            + ", ".join(f"w{x['worker']} {x['s']:.2f} s"
+                        for x in c["startups"])
+            + "; last generation "
+            + ", ".join(f"w{w} {m['device']} dense {m['dense_window_launches']}"
+                        f" scatter {m['scatter_steps']}"
+                        for w, m in sorted(c["workers"].items()))
+            + f"; wall {c['wall_s']:.1f} s "
+            f"({card})")
+    log(f"phase 55: the oracle {r['oracle_s']:.1f} s, the tool {wall:.1f} s "
+        f"({card})")
+    return r["cells"]
 
 
 def main(argv=None) -> int:
@@ -8894,6 +8968,11 @@ def main(argv=None) -> int:
     log(f"phases 53-54 took {time.perf_counter() - t_soak:.1f} s from their "
         f"start beside phases 48-52; the script {time.time() - T_START:.1f} "
         f"s so far ({card})")
+    # phase 55 alone: nothing else of the script runs beside the cluster
+    t_cluster = time.perf_counter()
+    cluster_soak = phase_cluster_soak(card)
+    log(f"phase 55 took {time.perf_counter() - t_cluster:.1f} s; the script "
+        f"{time.time() - T_START:.1f} s so far ({card})")
 
     shared_counts = ([p["shared_launches"]
                       for p in mq["points"] + [mq["highcard"]]]
@@ -8950,6 +9029,12 @@ def main(argv=None) -> int:
         "soak_launches": {p: [sg["launches"]["dense_window"]
                               for sg in r["segments"]]
                           for p, r in soak.items()},
+        # each worker's last generation in phase 55's cluster soak cells
+        # (the victim's respawn included)
+        "cluster_soak_launches": {
+            mode: {w: m["dense_window_launches"]
+                   for w, m in c["workers"].items()}
+            for mode, c in cluster_soak.items()},
         # (no shard_launches: the sharded layouts ship rows through the
         # scatter program, as the JAX package's do, and phases 48-49 check
         # that no shard launched this kernel)

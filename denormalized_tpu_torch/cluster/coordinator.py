@@ -166,7 +166,9 @@ class Coordinator:
         self.kill_worker_id = kill_worker_id
         #: scripted chaos for recovery interleavings (tests): ordered
         #: entries fired one at a time — ``{"worker": w}`` plus either
-        #: ``"after_s"`` (seconds into the incarnation) or ``"when"``:
+        #: ``"after_s"`` (seconds into the incarnation),
+        #: ``"after_ready_s"`` (seconds since the last worker reported
+        #: ready, no worker mid-rejoin) or ``"when"``:
         #: "inflight" (a barrier is aligning), "recovering" (some
         #: worker — optionally ``"of"`` — is mid-rejoin), or
         #: "recovered" with ``"of"`` (that worker finished a rejoin);
@@ -202,6 +204,12 @@ class Coordinator:
         self.recoveries: list[dict] = []  # {"worker", "ms"} per rejoin
         self.aborted_epochs: list[int] = []
         self.crash_log: list[str] = []  # why each (re)start happened
+        #: every SIGKILL this coordinator sent (kill plan, timed kill):
+        #: worker, incarnation, the committed epoch before it and its
+        #: seconds after the last worker's ready
+        self.kills: list[dict] = []
+        #: spawn → "ready" seconds of every spawn, full or partial
+        self.startups: list[dict] = []
         #: generation token: bumped before each spawn; control events
         #: are tagged with the token current when their connection was
         #: accepted, so a killed generation's buffered acks/eos can
@@ -585,6 +593,8 @@ class Coordinator:
                     "recoveries": list(self.recoveries),
                     "aborted_epochs": list(self.aborted_epochs),
                     "killed_workers": detail.get("killed_workers", 0),
+                    "kills": list(self.kills),
+                    "startups": list(self.startups),
                     "out_files": {
                         str(k): v for k, v in self.out_files.items()
                     },
@@ -665,6 +675,8 @@ class Coordinator:
         )
         kp_armed: float | None = None
         killed_workers = 0
+        # when the last worker (re)joined: every worker ready, none mid-rejoin
+        all_ready_at: float | None = None
         inc_t0 = time.monotonic()
         last_liveness = time.monotonic()
         last_seen: dict[int, float] = {
@@ -673,6 +685,24 @@ class Coordinator:
         partial_ok = (
             bool(spec.partial_recovery) and self._checkpointing()
         )
+
+        def sigkill(wid: int) -> None:
+            # wait for the death to take, so the next poll sees it and
+            # no barrier is issued to a worker already gone
+            p = self._procs[wid]
+            self.kills.append({
+                "worker": wid, "seq": seq, "gen": self._wgen.get(wid, 0),
+                "committed": committed or None,
+                "after_ready_s": (
+                    round(time.monotonic() - all_ready_at, 3)
+                    if all_ready_at is not None else None
+                ),
+            })
+            os.kill(p.pid, signal.SIGKILL)
+            try:
+                p.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                pass
 
         def fail(why: str) -> tuple[str, dict]:
             self._kill_all()
@@ -806,7 +836,7 @@ class Coordinator:
                 # chaos: SIGKILL one worker mid-stream
                 p = self._procs.get(self.kill_worker_id)
                 if p is not None and p.poll() is None:
-                    os.kill(p.pid, signal.SIGKILL)
+                    sigkill(self.kill_worker_id)
                     killed_workers += 1
                 kill_at = None
                 continue
@@ -817,6 +847,11 @@ class Coordinator:
                     cond = False  # wait until the cut exists
                 elif "after_s" in ent:
                     cond = now - inc_t0 >= float(ent["after_s"])
+                elif "after_ready_s" in ent:
+                    cond = (
+                        all_ready_at is not None and not recovering
+                        and now - all_ready_at >= float(ent["after_ready_s"])
+                    )
                 elif when == "inflight":
                     cond = inflight_epoch is not None
                 elif when == "recovering":
@@ -838,7 +873,7 @@ class Coordinator:
                         p is not None and p.poll() is None
                         and int(ent["worker"]) not in pending_death
                     ):
-                        os.kill(p.pid, signal.SIGKILL)
+                        sigkill(int(ent["worker"]))
                         killed_workers += 1
                     self._kp_idx += 1
                     kp_armed = None
@@ -866,12 +901,14 @@ class Coordinator:
                         f"{spec.rejoin_timeout_s}s"
                     )
             # barrier cadence: serial (commit e before issuing e+1),
-            # held while any worker is mid-rejoin; aborted epoch
-            # numbers are never reused within this incarnation
+            # held while any worker is mid-rejoin or its death is
+            # pending; aborted epoch numbers are never reused within
+            # this incarnation
             if (
                 self._checkpointing()
                 and len(ready) == n
                 and not recovering
+                and not pending_death
                 and inflight_epoch is None
                 and next_barrier_at is not None
                 and now >= next_barrier_at
@@ -907,6 +944,11 @@ class Coordinator:
                     self.startup_s[wid] = round(
                         time.perf_counter() - self._spawned_at[wid], 4
                     )
+                    self.startups.append({
+                        "worker": wid, "seq": seq,
+                        "gen": self._wgen.get(wid, 0),
+                        "s": self.startup_s[wid],
+                    })
                 if wid in recovering:
                     # rejoin handshake: the respawn must echo exactly
                     # the partition subset this slot owns — anything
@@ -936,6 +978,8 @@ class Coordinator:
                     write_state()
                 ready[wid] = msg
                 if len(ready) == n:
+                    if not recovering:
+                        all_ready_at = time.monotonic()
                     if self.read_manifest() is None:
                         self._write_manifest({
                             "n_workers": n,

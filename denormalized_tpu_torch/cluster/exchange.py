@@ -162,8 +162,11 @@ class ExchangeClient:
         """Dial + hello + read resume, retrying handshake failures
         (peer not listening yet, peer mid-restart, injected
         ``exchange.reconnect`` faults) with bounded exponential backoff
-        until ``deadline_s``.  Replay-phase errors are NOT retried —
-        a tagged fallback or a torn replay frame propagates."""
+        until ``deadline_s``.  A peer that dies while its replay is
+        written is retried too: its next incarnation's resume decides the
+        replay anew (the JAX client lets the broken pipe kill its worker).
+        Other replay-phase errors are NOT retried — a tagged fallback or a
+        torn replay frame propagates."""
         deadline = time.monotonic() + deadline_s
         backoff = _RECONNECT_BACKOFF_S[0]
         last: Exception | None = None
@@ -196,7 +199,14 @@ class ExchangeClient:
                 backoff = min(backoff * 2, _RECONNECT_BACKOFF_S[1])
                 continue
             self._sock = s
-            self._apply_resume(resume)
+            try:
+                self._apply_resume(resume)
+            except OSError as e:
+                self.close()
+                last = e
+                time.sleep(backoff)
+                backoff = min(backoff * 2, _RECONNECT_BACKOFF_S[1])
+                continue
             return
         raise SourceError(
             f"exchange connect {self.edge} failed after {deadline_s}s: {last}"

@@ -83,24 +83,27 @@ def read_cluster(segments: list) -> dict:
     for i, rec in enumerate(recs):
         done_files += rec["done"]
         for slot, rows in rec["slots"]:
-            # boundary for THIS slot: the first later emitting segment
-            # that re-covers it (any full restart, or this very
-            # worker's own partial respawn) — None = nothing after
-            # regenerates this slot's output, keep everything
+            # boundary for THIS slot: the restore epoch of the first
+            # later emitting segment that re-covers it (any full restart,
+            # or this very worker's own partial respawn); a restart from
+            # no commit re-covers everything (0) — the JAX reader keeps
+            # everything then and duplicates the re-emitted windows.
+            # None = nothing after regenerates this slot's output, keep
+            # everything
             boundary = None
             for j in range(i + 1, len(recs)):
                 nxt = recs[j]
                 if nxt["worker"] is not None and nxt["worker"] != slot:
                     continue  # a PEER's recovery never re-emits us
                 if nxt["emitting"]:
-                    boundary = nxt["restored"]
+                    boundary = nxt["restored"] or 0
                     break
             for o in rows:
                 ep = o.get("ep")
                 if (
                     boundary is not None
                     and ep is not None
-                    and ep > (boundary or 0)
+                    and ep > boundary
                 ):
                     clipped += 1
                     continue

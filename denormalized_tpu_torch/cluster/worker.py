@@ -397,10 +397,14 @@ def run_worker(args) -> int:
     wid, n = args.worker, spec.n_workers
     # n workers share the host: each takes its share of the cores for
     # torch's intra-op threads (the host-side ops, and the plain versions
-    # on the CPU), instead of n processes each spinning one per core
+    # on the CPU), instead of n processes each spinning one per core;
+    # DENORMALIZED_WORKER_TORCH_THREADS overrides it on a host shared with
+    # other jobs
     import torch
 
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+    torch.set_num_threads(
+        int(os.environ.get("DENORMALIZED_WORKER_TORCH_THREADS") or 0)
+        or max(1, (os.cpu_count() or 1) // n))
     if spec.fault_plan:
         faults.arm(spec.fault_plan)
     job = resolve_job(spec)
@@ -609,6 +613,14 @@ def run_worker(args) -> int:
             # rejoin_timeout_s / budget machinery must degrade to the
             # full-cluster restart, never wedge
             faults.inject("cluster.rejoin", key=f"w{wid}")
+        # the outbound edges' handshakes come before "ready": a respawn
+        # reports its rejoin once it holds each surviving receiver's dedup
+        # ledger, so a peer that dies after the rejoin is one this
+        # incarnation already deduplicated against (the JAX worker
+        # connects after "ready", and a peer killed in between meets a
+        # sender with no ledger)
+        for c in clients.values():
+            c.connect()
         ctrl.send({
             "ev": "ready",
             "restored_epoch": (
@@ -628,8 +640,6 @@ def run_worker(args) -> int:
         router = ExchangeRouter(
             ingest_root, sq.key_columns, wid, n, clients, server
         )
-        for c in clients.values():
-            c.connect()
         ingest_err: list[BaseException] = []
 
         def ingest_main():

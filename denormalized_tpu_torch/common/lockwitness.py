@@ -244,6 +244,7 @@ class WitnessedLock:
 
 _GLOBAL = Witness()
 _installed = False
+_replaced = (_REAL_LOCK, _REAL_RLOCK)  # what install() patched over
 
 
 def witness() -> Witness:
@@ -281,21 +282,24 @@ def install() -> None:
     subsequently CREATED by engine code are witnessed — module-level
     engine locks are covered when this runs before the engine
     imports."""
-    global _installed
+    global _installed, _replaced
     if _installed:
         return
     _installed = True
+    _replaced = (threading.Lock, threading.RLock)
     threading.Lock = _make_factory(_REAL_LOCK, "Lock")
     threading.RLock = _make_factory(_REAL_RLOCK, "RLock")
 
 
 def uninstall() -> None:
+    """Put back the factories ``install`` replaced: another witness (the
+    JAX package's, in a shared test process) may have patched them after
+    this module was imported."""
     global _installed
     if not _installed:
         return
     _installed = False
-    threading.Lock = _REAL_LOCK
-    threading.RLock = _REAL_RLOCK
+    threading.Lock, threading.RLock = _replaced
 
 
 @contextmanager

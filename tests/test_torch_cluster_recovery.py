@@ -118,6 +118,13 @@ def test_peer_dies_right_after_a_rejoin_at_the_same_epoch(tmp_path, oracle):
         ],
     )
     assert result["status"] == "done"
+    # the precondition, held by construction: worker 1's respawn took its
+    # dedup ledger from worker 0 before reporting its rejoin, and no
+    # barrier was issued between the two deaths, so worker 0 died at the
+    # epoch worker 1 restored from
+    first, second = result["kills"]
+    assert (first["worker"], second["worker"]) == (1, 0)
+    assert first["committed"] == second["committed"] is not None
     assert result["restarts"] == 1
     assert any("never sent" in c for c in result["crashes"])
     _assert_exact(result, oracle)

@@ -10,6 +10,7 @@ frames the receiver already holds."""
 
 import os
 import signal
+import socket
 import subprocess
 import sys
 import threading
@@ -155,3 +156,59 @@ def test_tear_heal_after_a_rebirth_replays_nothing_twice(tmp_path):
         jexchange, jframing, JBatch, _schema(JS, JF, JD), tmp_path)
     assert port == 20  # the two post-barrier batches, once
     assert "cannot tear-heal" in jax  # refused: the reference's fault
+
+
+def _receiver_dies_mid_replay(exchange, framing, batch_cls, schema, tmp_path):
+    """A partial sender holds 8 buffered frames of 256 KB (past the
+    socket's buffers); its reborn receiver answers the hello as a fresh
+    receiver and dies while the tail is written; the next incarnation
+    listens on the same path → the frames it got, or the error."""
+    batch = batch_cls(schema, [np.arange(16_384), np.ones(16_384)])
+    path = str(tmp_path / f"m{exchange is texchange}.sock")
+    cli = exchange.ExchangeClient(1, 0, path, partial=True)
+    for i in range(8):
+        cli._buffer("data", None, framing.encode_data(batch, i, part=1))
+    cli._sent_idx = 8
+    box = {}
+
+    def receivers():
+        lst = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        lst.bind(path)
+        lst.listen(1)
+        conn, _ = lst.accept()
+        framing.read_frame(conn)  # the hello
+        conn.sendall(framing.encode_resume(-1, 0, 0, {}))
+        conn.close()  # dies with the replay unread
+        lst.close()
+        os.unlink(path)
+        box["srv"] = exchange.ExchangeServer(0, 2, path, schema,
+                                             partial=True)
+
+    th = threading.Thread(target=receivers, daemon=True)
+    th.start()
+    try:
+        cli._dial_and_resume(10.0, reconnect=True)
+        th.join(10)
+        edge = box["srv"].edges[1]
+        _wait(lambda: edge.frames_seen == 8)
+        return edge.frames_seen
+    except OSError as e:
+        return repr(e)
+    finally:
+        cli.close()
+        th.join(10)
+        if "srv" in box:
+            box["srv"].stop()
+
+
+def test_a_receiver_dying_mid_replay_is_redialled(tmp_path):
+    """The port's redial retries a replay whose receiver died: the next
+    incarnation gets the whole buffered tail.  The JAX client lets the
+    broken pipe out, which kills a survivor's ingest (a SIGKILLed respawn
+    in phase 47 took a healthy peer with it)."""
+    port = _receiver_dies_mid_replay(
+        texchange, tframing, TBatch, _schema(TS, TF, TD), tmp_path)
+    jax = _receiver_dies_mid_replay(
+        jexchange, jframing, JBatch, _schema(JS, JF, JD), tmp_path)
+    assert port == 8
+    assert "Broken pipe" in jax or "reset" in jax, jax

@@ -31,7 +31,7 @@ merge with compaction), ``50`` the merge and compaction kernels on a
 shard's plane, ``51`` a key-sharded checkpoint at n = 4 restored into
 n = 2 and one device, ``52`` ``dryrun_multichip(4, "cuda:0")``, ``53``
 the port's soak (``tools/torch_soak.py``: ``simple`` and ``join``),
-``54`` the cold tier's soak (``bigstate``).  It builds every kernel (printing ptxas' register and
+``54`` the cold tier's soak (``bigstate``), ``55`` the cluster soak.  It builds every kernel (printing ptxas' register and
 shared-memory lines), makes phase 4's and phase 10's streams from seed 0,
 and calls the same ``chip_smoke`` functions as the full script, each
 step checked as there.  A failing step is printed with its traceback and
@@ -53,7 +53,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 STEPS = ("25k", "7", "24", "24h", "25", "25j", "26", "27", "28", "29", "30",
          "31", "32", "33u", "33s", "34", "35", "36", "37c", "37j", "37h",
          "38", "39", "40", "41", "45", "46", "47", "48", "49", "50", "51",
-         "52", "53", "54")
+         "52", "53", "54", "55")
 
 
 def main(argv: list[str]) -> int:
@@ -169,6 +169,7 @@ def main(argv: list[str]) -> int:
         "52": lambda: cs.phase_sharded_dryrun(device, card),
         "53": lambda: cs.phase_torch_soak(card),
         "54": lambda: cs.phase_bigstate_soak(card),
+        "55": lambda: cs.phase_cluster_soak(card),
     }
     failed = []
     for step in steps:

@@ -13,6 +13,10 @@ card's memory, the process's RSS and the hand kernels' launches recorded.
                                [--wave-keys 100000] [--state-budget B]
                                [--ckpt-s 20] [--max-kills 2]
                                [--no-chaos-spill] [--kill-every 90] ...
+    python tools/torch_soak.py --pipeline cluster [--cluster-workers 3]
+                               [--cluster-partitions 6] [--partial]
+                               [--minutes 12] [--batch-rows 4096]
+                               [--kill-every 90] [--chaos-seed 1234] ...
 
 The feed, the golden folds, the exactly-once reading of the segments'
 output (epoch clipping), the chaos schedule and the dense query schedules
@@ -61,6 +65,12 @@ tier, larger-than-memory session state, under SIGKILLs and the spill-site
 fault plan): see ``run_bigstate``.  Its child writes its ready, device,
 ``state`` (``state_info()`` and the committed epoch, once a second) and
 chaos lines to ``<segment>.jsonl.state``, beside the session lines.
+
+``--pipeline cluster`` is ``tools/soak.py::cluster_main`` (the job over
+worker processes, a torn exchange frame and a SIGKILL, in a full-restart
+and a partial-recovery cell): see ``cluster_cell``.  The oracle runs in this
+process and the workers on ``--device``; this process and the workers
+import ``torch`` and ``denormalized_tpu_torch`` only.
 """
 
 from __future__ import annotations
@@ -84,7 +94,7 @@ if str(REPO) not in sys.path:
 from tools import soak as S  # noqa: E402  (standard library + numpy)
 
 PIPELINES = ("simple", "sliding", "join", "session", "udaf", "kafka",
-             "approx", "query_dense", "join_dense", "bigstate")
+             "approx", "query_dense", "join_dense", "bigstate", "cluster")
 RECOVERY_LIMIT_S = 30.0
 #: bigstate: rows a close wave (sessions each wave opens and keeps open)
 BIGSTATE_WAVE_ROWS = 64
@@ -1372,6 +1382,13 @@ def main():
                     "manifest; default on)")
     ap.add_argument("--no-chaos-spill", dest="chaos_spill",
                     action="store_false")
+    ap.add_argument("--cluster-workers", type=int, default=3,
+                    help="cluster: worker processes")
+    ap.add_argument("--cluster-partitions", type=int, default=6,
+                    help="cluster: source partitions (static assignment)")
+    ap.add_argument("--partial", action="store_true",
+                    help="cluster: run only the partial-recovery cell "
+                    "(default: the full-restart cell, then the partial)")
     ap.add_argument("--out", default=None,
                     help="the JSON report (default torch_soak_<pipeline>.json "
                     "in the working directory)")
@@ -1390,7 +1407,8 @@ def main():
         name = "chaos" if args.chaos else args.pipeline
         args.out = f"torch_soak_{name}.json"
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-    run = run_bigstate if args.pipeline == "bigstate" else run_parent
+    run = {"bigstate": run_bigstate, "cluster": run_cluster_soak}.get(
+        args.pipeline, run_parent)
     sys.exit(0 if run(args) else 1)
 
 
@@ -1690,6 +1708,12 @@ BIGSTATE_RSS_SAVED_SHARE = 0.35
 #: evictable resident state may exceed the budget by the estimate's gap
 #: and the batch being folded (``tools/soak.py``'s slack)
 BIGSTATE_EVICTABLE_SLACK = 1.25
+#: a kill due ``--kill-every`` s after the ready line waits for a ``state``
+#: line with a committed epoch and spilled bytes, at most this long: on a
+#: loaded host the first 2 s checkpoint and the first spill can both come
+#: after the smoke's 5 s, and a cut before them proves nothing of a restore
+#: mid-spill
+BIGSTATE_CUT_WAIT_S = 30.0
 
 
 def bigstate_cut(side_path, t_cut: float, ready: dict | None) -> dict:
@@ -1760,7 +1784,9 @@ def run_bigstate(args) -> bool:
     same feed under a state budget (``--state-budget``, by default a fifth
     of the reference's working set) with the cold tier and checkpoints on,
     the spill-site fault plan armed and ``--max-kills`` SIGKILLs, each
-    ``--kill-every`` s after its segment's ready line.  Gates
+    ``--kill-every`` s after its segment's ready line and once its last
+    ``state`` line shows a committed epoch with spilled state (at most
+    ``BIGSTATE_CUT_WAIT_S`` later).  Gates
     (``bigstate_gates``): ``tools/soak.py``'s, its RSS ratio taken net of
     each segment's ready-line RSS, a kill after a committed epoch with
     spilled state at the cut, no module of JAX in a child, and both device
@@ -1821,6 +1847,8 @@ def run_bigstate(args) -> bool:
                 env=dict(renv, SOAK_OUT=path, SOAK_SPAWN_T=repr(spawn_wall)),
                 stdout=sys.stderr, stderr=sys.stderr)
             watch = _Watch(path, side)
+            states = _Scan(side)
+            cut_ok = False  # the last state line: a commit, spilled bytes
             rss = []  # (wall, kB) from the spawn
             t_cut = None
             try:
@@ -1828,8 +1856,14 @@ def run_bigstate(args) -> bool:
                     if r := S.rss_kb(proc.pid):
                         rss.append((time.time(), r))
                     watch.poll()
+                    for line in states.lines():
+                        if b'"state"' in line:
+                            o = json.loads(line)
+                            cut_ok = bool(o.get("committed_epoch")) and (
+                                o.get("spilled_bytes") or 0) > 0
                     if len(cuts) < max_kills and watch.kill_due(
-                            args.kill_every):
+                            args.kill_every) and (cut_ok or watch.kill_due(
+                                args.kill_every + BIGSTATE_CUT_WAIT_S)):
                         t_cut = time.time()
                         os.kill(proc.pid, signal.SIGKILL)
                         proc.wait(10)
@@ -1995,6 +2029,308 @@ def run_bigstate(args) -> bool:
         return report["ok"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+# -- cluster ---------------------------------------------------------------
+
+#: ``tools/soak.py::_cluster_cell``'s job: 97 string keys, batches of
+#: min(--batch-rows, 1,024) rows spanning 250 ms, 1 s windows, a read every
+#: 0.05 s a partition, barriers every second
+CLUSTER_KEYS = 97
+CLUSTER_PACE_S = 0.05
+CLUSTER_CKPT_S = 1.0
+#: the victim's SIGKILL lands at most this share of one partition's stream
+#: after the last worker's ready line (the JAX cell's share)
+CLUSTER_KILL_SHARE = 0.4
+
+
+def cluster_job_args(args) -> dict:
+    """The JAX cell's job arguments, the workers on ``--device``."""
+    return {
+        "partitions": args.cluster_partitions,
+        "batches": max(20, int(args.minutes * 60 / CLUSTER_PACE_S / 2)),
+        "rows": min(args.batch_rows, 1024),
+        "keys": CLUSTER_KEYS,
+        "batch_span_ms": 250,
+        "window_ms": 1000,
+        "pace_s": CLUSTER_PACE_S,
+        "engine": {"device": args.device},
+    }
+
+
+def cluster_kill_delay(args, job_args: dict) -> float:
+    """Seconds from the last worker's ready line to the victim's SIGKILL:
+    ``--kill-every``, capped at 40% of one partition's stream (``batches x
+    pace_s``).  A worker reads its partitions one after another, so this
+    lands before 40% of its own stream too.  The JAX cell kills
+    ``min(kill_every, 0.4 x per-worker wall)`` after the spawn
+    (``tools/soak.py:2470-2475``), which on the card lands before the
+    workers' 8-13 s start-up ends and so before the first commit; here the
+    clock starts at the ready lines and the kill also waits for a commit."""
+    partition_s = job_args["batches"] * job_args["pace_s"]
+    return round(min(args.kill_every, CLUSTER_KILL_SHARE * partition_s), 3)
+
+
+def cluster_fault_plan(args, partial: bool, victim: int) -> dict:
+    """The JAX cell's one torn ``exchange.send`` frame: on worker 0's edges
+    after 40 frames (full restart), on the victim's after 150 (partial:
+    past the first commit)."""
+    return {"seed": args.chaos_seed, "rules": [{
+        "site": "exchange.send", "kind": "torn",
+        "key_substr": f"{victim}->" if partial else "0->",
+        "after": 150 if partial else 40, "times": 1,
+        "name": "torn-exchange-frame",
+    }]}
+
+
+def cluster_soak_job(args: dict) -> dict:
+    """``benchjob.soak_job`` in a worker that writes, when it exits, the
+    modules of JAX or of the JAX package it holds to ``args["probe"]``
+    .<pid> (a SIGKILLed incarnation writes none)."""
+    import atexit
+
+    from denormalized_tpu_torch.cluster import benchjob
+
+    def probe():
+        with open(f"{args['probe']}.{os.getpid()}", "w") as f:
+            json.dump(_foreign_modules(), f)
+
+    atexit.register(probe)
+    return benchjob.soak_job(args)
+
+
+def cluster_gates(cell: dict, *, partial: bool, victim: int, n: int,
+                  device: str) -> dict:
+    """Every gate of one cluster cell → {gate: bool}: the JAX cell's, a
+    kill after a committed epoch, every worker's last generation on
+    ``device`` (on a card, with dense launches), and no module of JAX in
+    the workers that exited."""
+    kind = device.split(":")[0]
+    workers = cell["workers"]
+    gates = {
+        "done": cell["status"] == "done",
+        "exactly_once": cell["lost"] == cell["spurious"]
+        == cell["duplicate_emissions"] == 0,
+        "killed": cell["sigkills"] >= 1,
+        "torn_frame_fired": cell["exchange_faults_fired"] >= 1,
+        "kill_after_commit": any(k["committed"] for k in cell["kills"]),
+        "card": len(workers) == n and all(
+            w["device"].split(":")[0] == kind
+            and (kind != "cuda" or w["dense_window_launches"] > 0)
+            for w in workers.values()),
+        "worker_modules": cell["worker_probes"] >= n
+        and not cell["worker_foreign_modules"],
+    }
+    if partial:
+        segs = cell["partial_segments"]
+        gates.update(
+            no_full_restart=cell["restarts"] == 0,
+            worker_restarted=cell["worker_restarts"] >= 1,
+            partial_only_victim=bool(segs) and all(
+                s["worker"] == victim for s in segs),
+            partial_restored=bool(segs) and all(
+                (s["restored"] or 0) >= 1 for s in segs),
+            victim_recovered=any(r["worker"] == victim and r["ms"] > 0
+                                 for r in cell["recoveries"]),
+            recovery_histogram=cell["recovery_ms_histogram"].get(
+                "count", 0) >= 1,
+        )
+    else:
+        gates["restarts"] = cell["restarts"] >= 2
+    return gates
+
+
+def cluster_oracle(args) -> tuple[list, float]:
+    """The uninterrupted single-process oracle of the cells' job on
+    ``--device``, read unpaced (the pace only sleeps between reads) →
+    (sorted canonical rows, seconds)."""
+    from denormalized_tpu_torch.cluster import benchjob
+
+    t0 = time.perf_counter()
+    rows = benchjob.oracle_rows(dict(cluster_job_args(args), pace_s=0.0),
+                                string_keys=True)
+    return rows, time.perf_counter() - t0
+
+
+def cluster_cell(args, partial: bool, oracle: list, log) -> dict:
+    """One cell of ``tools/soak.py::_cluster_cell`` on the port: the paced
+    job over ``--cluster-workers`` worker processes on ``--device``, one
+    torn exchange frame and a SIGKILL of the last worker after a committed
+    epoch, the clipped union of every segment held to the uninterrupted
+    single-process oracle exactly once.  ``full_restart`` restarts the
+    whole cluster at each failure (at least 2); ``partial`` respawns only
+    the victim (``max_restarts=0``: a full restart fails the cell)."""
+    import shutil
+    import tempfile
+    from collections import Counter
+
+    from denormalized_tpu_torch import obs
+    from denormalized_tpu_torch.cluster import ClusterSpec, run_cluster
+    from denormalized_tpu_torch.cluster import benchjob
+    from denormalized_tpu_torch.cluster.reader import read_cluster
+
+    n = args.cluster_workers
+    victim = n - 1
+    mode = "partial" if partial else "full_restart"
+    job_args = cluster_job_args(args)
+    delay = cluster_kill_delay(args, job_args)
+    work = tempfile.mkdtemp(prefix="torch_soak_cl_")
+    job_args["probe"] = os.path.join(work, "probe")
+    log(f"cluster [{mode}]: {n} workers, {job_args['partitions']} "
+        f"partitions, {job_args['batches']} batches a partition, worker "
+        f"{victim} SIGKILLed {delay} s after the last ready line, past a "
+        f"commit")
+    try:
+        def recovery_hist() -> dict:
+            return dict(obs.registry().snapshot().get(
+                "dnz_cluster_recovery_ms") or {})
+
+        count0 = recovery_hist().get("count", 0)
+        spec = ClusterSpec(
+            workdir=work, n_workers=n,
+            job="tools.torch_soak:cluster_soak_job", job_args=job_args,
+            sys_path=[str(REPO)], checkpoint_interval_s=CLUSTER_CKPT_S,
+            sink="jsonl", max_restarts=0 if partial else 4,
+            liveness_timeout_s=300.0, metrics_jsonl=True,
+            fault_plan=cluster_fault_plan(args, partial, victim),
+            partial_recovery=partial)
+        t0 = time.perf_counter()
+        try:
+            result = run_cluster(spec, kill_plan=[{
+                "worker": victim, "min_commits": 1,
+                "after_ready_s": delay}])
+        except Exception as e:  # a full restart past max_restarts
+            result = {"status": f"raised {type(e).__name__}: {e}"}
+        wall = time.perf_counter() - t0
+        got = (read_cluster(result["segments"]) if "segments" in result
+               else {"rows": [], "clipped": 0})
+        counts = Counter(benchjob.canonical_row(r) for r in got["rows"])
+        dupes = sum(c - 1 for c in counts.values() if c > 1)
+        want = Counter(oracle)
+        obs_dir = os.path.join(work, "obs")
+        merged = _port_obs_readers().merge_final_snapshots(sorted(
+            os.path.join(obs_dir, f) for f in os.listdir(obs_dir))
+        ) if os.path.isdir(obs_dir) else {"series": {}}
+        # a tear can kill its worker before the next metrics export: the
+        # coordinator's crash log is the second evidence
+        fired = max(int(sum(
+            v for k, v in merged["series"].items()
+            if k.startswith("dnz_fault_injections_total")
+            and "exchange" in k and isinstance(v, (int, float)))),
+            sum(1 for why in result.get("crashes", []) if "torn" in why))
+        probes = [p for p in os.listdir(work) if p.startswith("probe.")]
+        hist = recovery_hist()
+        if hist:
+            hist["count"] = hist.get("count", 0) - count0
+        cell = {
+            "mode": mode,
+            "workers_n": n,
+            "partitions": job_args["partitions"],
+            "batches": job_args["batches"],
+            "total_rows": job_args["partitions"] * job_args["batches"]
+            * job_args["rows"],
+            "kill_delay_s": delay,
+            "oracle_windows": len(oracle),
+            "emitted_windows_kept": sum(counts.values()),
+            "clipped_uncommitted": got["clipped"],
+            "lost": sum((want - counts).values()),
+            "spurious": sum((counts - want).values()) - dupes,
+            "duplicate_emissions": dupes,
+            "status": result["status"],
+            "sigkills": result.get("killed_workers", 0),
+            "kills": result.get("kills", []),
+            "exchange_faults_fired": fired,
+            "restarts": result.get("restarts"),
+            "worker_restarts": result.get("worker_restarts"),
+            "commits": result.get("commits", []),
+            "aborted_epochs": result.get("aborted_epochs", []),
+            "recoveries": result.get("recoveries", []),
+            "recovery_ms_histogram": hist,
+            "crashes": result.get("crashes", []),
+            "partial_segments": [
+                {"worker": s["worker"], "restored": s.get("restored")}
+                for s in result.get("segments", []) if s.get("partial")],
+            "startups": result.get("startups", []),
+            "workers": {w: {k: m.get(k) for k in (
+                "device", "dense_window_launches", "merge_partials_launches",
+                "compact_slot_launches", "scatter_steps", "rows_in", "rows")}
+                for w, m in result.get("workers", {}).items()},
+            "worker_probes": len(probes),
+            "worker_foreign_modules": sorted({
+                m for p in probes
+                for m in json.loads(Path(work, p).read_text())}),
+            "ingest_wall_s_max": result.get("ingest_wall_s_max"),
+            "wall_s": round(wall, 3),
+            "host_cores": os.cpu_count(),
+        }
+        cell["gates"] = cluster_gates(cell, partial=partial, victim=victim,
+                                      n=n, device=args.device)
+        cell["pass"] = all(cell["gates"].values())
+        log(f"cluster [{mode}]: {cell['status']}, {cell['wall_s']} s, "
+            f"windows {cell['emitted_windows_kept']} of "
+            f"{cell['oracle_windows']}, lost {cell['lost']}, spurious "
+            f"{cell['spurious']}, duplicates {dupes}, clipped "
+            f"{cell['clipped_uncommitted']}; kills {cell['kills']}; restarts "
+            f"{cell['restarts']}, worker restarts {cell['worker_restarts']}, "
+            f"recoveries {cell['recoveries']}; commits "
+            f"{len(cell['commits'])}, aborted {cell['aborted_epochs']}; "
+            f"start-ups {[(s['worker'], s['s']) for s in cell['startups']]}"
+            f"; workers {cell['workers']}; failed gates "
+            f"{sorted(k for k, v in cell['gates'].items() if not v)}")
+        return cell
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run_cluster_soak(args) -> bool:
+    """``tools/soak.py::cluster_main`` on the port: the ``full_restart``
+    cell and the ``partial`` cell (``--partial``: the partial cell alone),
+    one report; the oracle runs in this process, the workers are spawned
+    processes on ``--device``.  This process imports ``torch`` and
+    ``denormalized_tpu_torch`` only."""
+    report: dict = {"pipeline": "cluster", "device": args.device,
+                    "minutes": args.minutes, "cells": {}}
+
+    def write():
+        Path(args.out).write_text(json.dumps(report, indent=1))
+
+    def log(msg):
+        print(f"torch_soak: {msg}", file=sys.stderr, flush=True)
+
+    import torch
+
+    if args.torch_threads:
+        # this process's oracle, and every worker it spawns
+        torch.set_num_threads(args.torch_threads)
+        os.environ["DENORMALIZED_WORKER_TORCH_THREADS"] = str(
+            args.torch_threads)
+    if args.device.startswith("cuda") and not torch.cuda.is_available():
+        report.update(aborted="no CUDA device (torch.cuda.is_available() "
+                      "is False)", ok=False)
+        log(report["aborted"])
+        write()
+        return False
+    if not build_kernels(args, report, log):
+        write()
+        return False
+    report["card"] = (torch.cuda.get_device_name(0)
+                      if args.device.startswith("cuda") else None)
+    oracle, report["oracle_s"] = cluster_oracle(args)
+    for partial in ([True] if args.partial else [False, True]):
+        cell = cluster_cell(args, partial, oracle, log)
+        report["cells"][cell["mode"]] = cell
+        write()
+    report["parent_foreign_modules"] = _foreign_modules()
+    report["ok"] = all(c["pass"] for c in report["cells"].values()) \
+        and not report["parent_foreign_modules"]
+    write()
+    print(json.dumps({
+        "ok": report["ok"], "pipeline": "cluster",
+        **{mode: {"wall_s": c["wall_s"], "windows": c["emitted_windows_kept"],
+                  "failed_gates": sorted(
+                      k for k, v in c["gates"].items() if not v)}
+           for mode, c in report["cells"].items()}}))
+    return report["ok"]
 
 
 def _golden_row(pipeline, k, g) -> tuple:
