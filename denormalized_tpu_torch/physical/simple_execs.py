@@ -533,7 +533,10 @@ class SourceExec(ExecOperator):
         # idleness over data already in flight.  One hint per idle
         # period; rows re-arm it.
         idle = (
-            _IdleTracker(self._idle_timeout_ms, quiet=pump.quiet)
+            _IdleTracker(
+                self._idle_timeout_ms,
+                quiet=lambda: pump.quiet(self._idle_timeout_ms / 1000.0),
+            )
             if self._idle_timeout_ms is not None
             else None
         )

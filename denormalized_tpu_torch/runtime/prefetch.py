@@ -39,6 +39,16 @@ around to processing a partition's batches:
   clock).  ``None`` (reader has no backlog knowledge) falls back to the
   wall-clock judgment.
 
+Idleness needs the reader's own evidence, which the JAX package's pump
+does not ask for: a partition counts as quiet only for as long as its
+reader has itself seen nothing, from the start of the first read after
+its last rows that came back empty to the return of its latest read.  A
+reader that has not run (a loaded host, or a consumer holding the GIL)
+keeps a stale stamp and a stale ``caught_up`` while its rows pile up at
+the broker; judging it by the consumer's clock let one partition's
+catch-up carry the watermark past the others' rows and close windows
+short (``tests/test_torch_idle_watermark.py``'s stalled-reader test).
+
 Supervision: a worker whose reader dies with a transient error
 (``SourceError``/``StateError``) does not kill the query.  The supervisor
 restarts it with exponential backoff + jitter, rebuilding the reader via
@@ -182,6 +192,10 @@ class PrefetchWorker:
         self.enq_rowful = 0
         self.deq_rowful = 0
         self.enq_wall = time.monotonic()
+        # (start of the first empty read since the last rows, or None;
+        # the latest read's return): the reader's own evidence of quiet,
+        # one tuple so a consumer never reads half an update
+        self.quiet_marks = (None, self.enq_wall)
         self.first_read_done = False
         self.caught_up: bool | None = None
         self.finished = False
@@ -239,27 +253,38 @@ class PrefetchWorker:
             self._obs_depth.set(self.enq_rowful - self.deq_rowful)
         self._slots.release()
 
+    def quiet_s(self) -> float:
+        """Seconds the reader itself has seen no rows: from the start of
+        the first empty read after its last rows to the return of its
+        latest read (0 while it has not come back empty since)."""
+        since, last = self.quiet_marks
+        return 0.0 if since is None else last - since
+
     def activity(self) -> tuple[bool, float, bool, bool]:
-        """(pending, last_rowful_enqueue_wall, first_read_done,
-        may_judge_idle) for the partition-watermark tracker."""
+        """(pending, last_activity_wall, first_read_done, may_judge_idle)
+        for the partition-watermark tracker.  The activity wall is the
+        later of the last rowful enqueue and ``now - quiet_s()``: the
+        tracker's clock can find the partition idle only once the reader
+        has seen the idle timeout's worth of nothing."""
         return (
             self.enq_rowful > self.deq_rowful,
-            self.enq_wall,
+            max(self.enq_wall, time.monotonic() - self.quiet_s()),
             self.first_read_done,
             self.caught_up is not False,
         )
 
-    def reader_quiet(self) -> bool:
+    def reader_quiet(self, min_quiet_s: float = 0.0) -> bool:
         """True when the READER side shows no sign of data in flight:
-        first read returned, nothing enqueued-but-unconsumed, and the
-        reader does not report known backlog.  A finished partition is
-        quiet permanently."""
+        first read returned, nothing enqueued-but-unconsumed, the reader
+        does not report known backlog, and it has itself seen no rows
+        for ``min_quiet_s``.  A finished partition is quiet permanently."""
         if self.finished:
             return True
         return (
             self.first_read_done
             and self.enq_rowful <= self.deq_rowful
             and self.caught_up is not False
+            and self.quiet_s() >= min_quiet_s
         )
 
     # -- worker side ------------------------------------------------------
@@ -435,7 +460,14 @@ class PrefetchWorker:
                 # watermark stalls and the pressure can never clear).
                 # Broker-side backlog absorbs what we stop fetching.
                 _backpressure_pause()
+            t_read = time.monotonic()
             b = reader.read(timeout_s=self._read_timeout_s)
+            since = self.quiet_marks[0]
+            if b is not None and b.num_rows:
+                since = None
+            elif since is None:
+                since = t_read
+            self.quiet_marks = (since, time.monotonic())
             self.first_read_done = True
             if b is None:
                 return  # partition exhausted (or reader died cleanly)
@@ -638,12 +670,14 @@ class PrefetchPump:
     def activity(self, idx: int) -> tuple[bool, float, bool, bool]:
         return self.workers[idx].activity()
 
-    def quiet(self) -> bool:
-        """True when EVERY partition is reader-side quiet — the gate for
-        the source-level idle hint, so a consumer stall (compile, GC)
+    def quiet(self, min_quiet_s: float = 0.0) -> bool:
+        """True when EVERY partition is reader-side quiet, each reader
+        having seen no rows for ``min_quiet_s`` — the gate for the
+        source-level idle hint, so a consumer stall (compile, GC)
         followed by an empty heartbeat can never declare idleness over
-        rows that are already fetched or known to be at the broker."""
-        return all(w.reader_quiet() for w in self.workers)
+        rows that are already fetched, known to be at the broker, or
+        not yet read by a reader that did not run."""
+        return all(w.reader_quiet(min_quiet_s) for w in self.workers)
 
     def drain(
         self,

@@ -181,15 +181,34 @@ class _TwoPartSource(Source):
         return True
 
 
-def _race(strip_activity: bool):
+class _StalledReader(_ScriptedReader):
+    """Returns its first batch at once, then spends ``stall_s`` inside the
+    next read before it returns the rest: a reader that did not run (a
+    loaded host, or a consumer holding the GIL) while its rows waited."""
+
+    def __init__(self, batches, stall_s):
+        super().__init__(batches)
+        self._stall_s = stall_s
+        self._reads = 0
+
+    def read(self, timeout_s=None):
+        self._reads += 1
+        if self._reads == 2:
+            time.sleep(self._stall_s)
+        return super().read(timeout_s)
+
+
+def _race(strip_activity: bool, stall_s: float | None = None):
     """Partition A bursts 20 batches over ~20 s of event time; B enqueues 5
-    batches of OLDER event time ~80 ms later; the consumer takes ~40 ms an
-    item → (violations, B's rows seen)."""
+    batches of OLDER event time ~80 ms later (or its first at once and the
+    rest after a read that takes ``stall_s``); the consumer takes ~40 ms
+    an item → (violations, B's rows seen)."""
     a = [_batch(T0 + 10_000 + i * 1000) for i in range(20)]
     b = [_batch(T0 + i * 50) for i in range(5)]
+    b_reader = (_ScriptedReader(b, initial_delay_s=0.08) if stall_s is None
+                else _StalledReader(b, stall_s))
     exec_ = tse.SourceExec(
-        _TwoPartSource(lambda: [_ScriptedReader(a),
-                                _ScriptedReader(b, initial_delay_s=0.08)]),
+        _TwoPartSource(lambda: [_ScriptedReader(a), b_reader]),
         idle_timeout_ms=300, partition_watermarks=True)
     if strip_activity:
         orig = exec_._partition_wm_tracker
@@ -219,6 +238,16 @@ def _race(strip_activity: bool):
 
 def test_enqueued_backlog_never_idle_excluded():
     violations, saw_b = _race(strip_activity=False)
+    assert saw_b == 5 * 64 and not violations
+
+
+def test_stalled_reader_never_idle_excluded():
+    """The port asks more than the JAX package here: a partition is idle
+    only once its reader has itself seen the timeout's worth of nothing.
+    B's reader spends 2 s (about 7 timeouts) inside one read after its
+    first rows; judged by its stale enqueue stamp it would leave the min,
+    A's rows would carry the watermark past B's and B's would come late."""
+    violations, saw_b = _race(strip_activity=False, stall_s=2.0)
     assert saw_b == 5 * 64 and not violations
 
 
