@@ -7137,7 +7137,10 @@ def phase_live_registration(device, seed: int, card: str):
     for key, v in union.items():
         want = oracles[key[0]].get(key[1:])
         if want != v:
-            raise AssertionError(f"phase 41: {key} = {v}, its oracle {want}")
+            raise AssertionError(
+                f"phase 41: {key} = {v}, its oracle {want} (emitted by "
+                f"child {'B' if key in rows_b else 'A'}; A committed "
+                f"{len(commits)} epochs, B restored {restored['epoch']})")
     if any(k[0] == 3 for k in rows_b) or not any(
             k[0] == 3 for k in rows_a):
         raise AssertionError("phase 41: the departed joiner emitted after "
@@ -8646,6 +8649,22 @@ def phase_bigstate_soak(card, run=None) -> dict:
             run = wait_soaks(start_soaks(
                 wd, [("bigstate", BIGSTATE_ARGS, 54)]))["bigstate"]
     r, wall = run
+    # where each segment's RSS went, printed before the gates are read
+    for sg in r["segments"]:
+        own = sg.get("owners")
+        if own:
+            log(f"phase 54 bigstate {sg['run']} segment {sg['segment']} "
+                f"RSS net max {sg['rss_net_max_kb']} kB; owners at the "
+                f"state line {own['line_after_ready_s']} s after the ready "
+                f"line (peak at {own['peak_after_ready_s']} s; "
+                f"{own['live_keys']} live keys, {own['spilled_keys']} "
+                f"spilled): kB above the ready line "
+                f"{json.dumps(own['above_ready_kb'])}; at the line "
+                f"{json.dumps(own['at_line'])} ({card})")
+    log(f"phase 54 bigstate RSS: net ratio {r.get('rss_ratio_net')} (<= "
+        f"0.9), saved {r.get('rss_saved_mb')} MB (>= "
+        f"{r.get('rss_saved_required_mb')} MB), cuts "
+        f"{r.get('budgeted', {}).get('cuts')} ({card})")
     problems = [gate for gate, ok in r["gates"].items() if not ok]
     if any(sg["device_name"] != name for sg in r["segments"]):
         problems.append("a segment off the card")

@@ -251,12 +251,13 @@ class ExchangeClient:
         with self._buf_lock:
             needed = list(self._buf)
             replay_ok = self._replay_ok
+            skipped = self._skipped
         if needed and not replay_ok:
             raise cluster_fallback_error(
                 f"exchange edge {self.edge} cannot replay to reborn "
                 "receiver: buffer was evicted past the committed barrier"
             )
-        if self._skipped:
+        if skipped:
             # rows this (reborn) sender skipped because the receiver's
             # previous incarnation held them were never sent, so no buffer
             # holds them for the new one (the JAX package replays without
@@ -295,7 +296,9 @@ class ExchangeClient:
             return 0
         s = min(have, n_rows)
         self._skip[part] = have - s
-        self._skipped = True
+        # note_commit clears the flag on the control thread
+        with self._buf_lock:
+            self._skipped = True
         return s
 
     def skip_residual(self) -> dict[int, int]:

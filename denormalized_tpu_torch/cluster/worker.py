@@ -541,7 +541,7 @@ def run_worker(args) -> int:
             rt.ingest_finished.wait()
             try:
                 client.redial_after_eos()
-            except Exception as e:  # noqa: BLE001 — reported, then fail-stop
+            except Exception as e:  # dnzlint: allow(broad-except) not swallowed — reported to the coordinator as a cluster fallback, then the worker exits nonzero (fail-stop)
                 # the edge's tail cannot reach the reborn peer: only the
                 # full cut is sound
                 ctrl.send({"ev": "error", "msg": f"redial: {e!r}",

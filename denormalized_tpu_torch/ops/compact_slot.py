@@ -249,6 +249,7 @@ def _launch(counts, planes, stream: int, blocks: int):
     with _SCRATCH_LOCK:
         scratch, call = _scratch(dev, G, stream)
         words = scratch.words.data_ptr()
+        # dnzlint: allow(blocking-under-lock) the call number and the launch must reach the stream in one order: two threads that took numbers and launched out of order corrupted the look-back words; the call only queues the kernel
         rc = lib.compact_slot_launch(
             counts.data_ptr(), G, lay.n4, lay.n8, table, int(aligned),
             base + lay.gids_off, base, words + 8, words, call,

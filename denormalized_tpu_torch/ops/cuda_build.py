@@ -107,6 +107,7 @@ def build_all() -> dict[str, str]:
     """Compile every ``csrc/*.cu`` in parallel (one nvcc each, all started
     together) → {name: nvcc output}."""
     with _BUILD_LOCK:
+        # dnzlint: allow(blocking-under-lock) the nvcc runs are why the lock exists: a second thread must wait for the libraries, not race nvcc on the same .so; one build a process, never on a launch
         started = {n: _start(n) for n in sources()}
         return {n: _finish(n, *started[n]) for n in started}
 
@@ -117,6 +118,8 @@ def load(name: str) -> ctypes.CDLL:
     misses the cache while the first builds waits on the lock, then finds
     the library current and only loads it."""
     with _BUILD_LOCK:
+        # dnzlint: allow(blocking-under-lock) build once a process: a thread that misses the cache while another builds waits here, then finds the library current; never on a launch
         out, pending = _start(name)
         _finish(name, out, pending)
+        # dnzlint: allow(blocking-under-lock) the library loads under the same lock as its build, so no thread loads a half-written .so
         return ctypes.CDLL(str(out))

@@ -106,6 +106,42 @@ class SessionTable:
             new[: self._hwm] = old[: self._hwm]
             setattr(self, name, new)
 
+    def shrink_to_fit(self, min_capacity: int = 1024) -> None:
+        """Re-pack the live slots into the smallest power-of-two capacity
+        of at least twice them (and ``min_capacity``), when that halves the
+        arrays or more (so a table shrinks at a quarter full and grows
+        when full): after the cold tier spills, the arrays follow the
+        resident sessions, not their high-water mark.  Slot ids are
+        renumbered in ascending order; chains, heads and accumulators
+        follow them, so every per-gid order is kept."""
+        n = len(self)
+        cap = len(self.start)
+        new_cap = max(int(min_capacity), 16,
+                      1 << max(2 * n - 1, 1).bit_length())
+        if new_cap * 2 > cap:
+            return
+        live = self.live_slots()
+        remap = np.full(cap, -1, dtype=np.int64)
+        remap[live] = np.arange(n)
+        for name in (
+            "start", "last", "row_count", "counts", "sums", "mins", "maxs",
+            "means", "m2s", "gid", "link", "live",
+        ):
+            old = getattr(self, name)
+            shape = (new_cap,) + old.shape[1:]
+            new = (np.full(shape, -1, dtype=old.dtype)
+                   if name in ("gid", "link")
+                   else np.zeros(shape, dtype=old.dtype))
+            new[:n] = old[live]
+            setattr(self, name, new)
+        link = self.link[:n]
+        self.link[:n] = np.where(link >= 0, remap[link], -1)
+        self.head = np.where(self.head >= 0, remap[self.head], -1).astype(
+            np.int32)
+        self.accs = {int(remap[s]): v for s, v in self.accs.items()}
+        self._free = []
+        self._hwm = n
+
     # -- slot lifecycle --------------------------------------------------
     def alloc(self, k: int) -> np.ndarray:
         """k fresh slot indices: free-listed slots first, then new ones."""

@@ -58,6 +58,8 @@ from __future__ import annotations
 
 from typing import Iterator
 
+import itertools
+import json
 import time
 
 import numpy as np
@@ -76,7 +78,7 @@ from denormalized_tpu_torch.logical.expr import (
     Expr,
     column_validity,
 )
-from denormalized_tpu_torch.obs import statewatch as swm
+from denormalized_tpu_torch.obs import statewatch
 from denormalized_tpu_torch.ops.interner import (
     RecyclingGroupInterner,
     interner_accounting,
@@ -93,7 +95,7 @@ from denormalized_tpu_torch.physical.base import (
 )
 from denormalized_tpu_torch.runtime.tracing import logger
 from denormalized_tpu_torch.state import tiering
-from denormalized_tpu_torch.state.checkpoint import get_json, jsonable, put_json
+from denormalized_tpu_torch.state.checkpoint import get_json, jsonable
 from denormalized_tpu_torch.state.serialization import (
     pack_snapshot,
     unpack_snapshot,
@@ -123,6 +125,10 @@ def _segmented_cummax(vals: np.ndarray, seg_start: np.ndarray) -> np.ndarray:
     for b0, b1 in zip(bounds, np.append(bounds[1:], n)):
         out[b0:b1] = np.maximum.accumulate(vals[b0:b1])
     return out
+
+
+#: resident sessions a checkpoint encodes at a time (``_snapshot``)
+SNAPSHOT_CHUNK = 1024
 
 
 class _SessionTier:
@@ -166,8 +172,8 @@ class _SessionTier:
         T = op._table
         return (
             len(T) * T.per_slot_nbytes()
-            + len(T.accs) * swm.ACC_EST_BYTES
-            + len(op._interner) * swm.KEY_EST_BYTES
+            + len(T.accs) * statewatch.ACC_EST_BYTES
+            + len(op._interner) * statewatch.KEY_EST_BYTES
         )
 
     def _ensure_maps(self, n: int) -> None:
@@ -182,21 +188,27 @@ class _SessionTier:
         self._block_of = new
 
     # -- hot path: membership filter + touch stamp -----------------------
-    def touch_and_reload(self, gids: np.ndarray) -> None:
-        """Stamp the batch's gids hot and reload every block any of them
-        lives in (with nothing spilled: one scatter and one attribute
-        check)."""
+    def touch(self, gids: np.ndarray) -> np.ndarray | None:
+        """Stamp the batch's gids hot and return the block ids any of
+        them live in (None when the cold set is empty: one scatter and one
+        attribute check)."""
         self._ensure_maps(self.op._interner.capacity)
         self.cold.touch(gids)
         if not self.any_spilled:
-            return
+            return None
         b = self._block_of[gids]
         hit = b[b >= 0]
         if len(hit) == 0:
-            return
-        for bid in np.unique(hit).tolist():
-            self._reload_block(int(bid))
-        self._write_manifest()
+            return None
+        return np.unique(hit)
+
+    def touch_and_reload(self, gids: np.ndarray) -> None:
+        """Reload every block the batch's gids live in."""
+        hits = self.touch(gids)
+        if hits is not None:
+            for bid in hits.tolist():
+                self._reload_block(int(bid))
+            self._write_manifest()
 
     # -- eviction ---------------------------------------------------------
     def maybe_spill(self, protect_gids: np.ndarray) -> None:
@@ -247,7 +259,9 @@ class _SessionTier:
                         start, acc = i + 1, 0
                 if spilled_any:
                     self._write_manifest()
+                    T.shrink_to_fit()
                     op._state_info_cache = None
+                    tiering.release_freed_memory()
         self.ctrl.check_pressure(self.node_id)
 
     def _spill_chunk(self, gids_chunk: np.ndarray) -> None:
@@ -459,6 +473,8 @@ class SessionWindowExec(ExecOperator):
         # longer advances the watermark (replay-skew safety)
         self._src_watermarks = False
         self._ckpt: tuple | None = None
+        #: framed bytes of this operator's last checkpoint document
+        self.last_snapshot_bytes = 0
         # cold tier (state/tiering.py): installed by enable_spill when a
         # state budget + backend are configured; None = all-resident
         self._tier: _SessionTier | None = None
@@ -473,7 +489,7 @@ class SessionWindowExec(ExecOperator):
         self.bind_obs("session")
         # state observatory: heavy-hitter/cardinality sketches fed dense
         # gids per batch (the falsy null watch with metrics off)
-        self._sw = swm.make_watch("session")
+        self._sw = statewatch.make_watch("session")
         self._obs_late = obs.counter("dnz_late_rows_total", op="session")
         self._obs_windows = obs.counter(
             "dnz_windows_emitted_total", op="session"
@@ -524,8 +540,8 @@ class SessionWindowExec(ExecOperator):
             # estimates for interned keys and accumulator objects
             "state_bytes": (
                 n_live * T.per_slot_nbytes()
-                + keys["live_keys"] * swm.KEY_EST_BYTES
-                + acc_objs * swm.ACC_EST_BYTES
+                + keys["live_keys"] * statewatch.KEY_EST_BYTES
+                + acc_objs * statewatch.ACC_EST_BYTES
             ),
             # the portion the cold tier can actually evict: slot storage
             # + accumulators.  The interned-key index stays resident by
@@ -533,7 +549,7 @@ class SessionWindowExec(ExecOperator):
             # resident floor of a budgeted run (docs/state_spill.md)
             "evictable_bytes": (
                 n_live * T.per_slot_nbytes()
-                + acc_objs * swm.ACC_EST_BYTES
+                + acc_objs * statewatch.ACC_EST_BYTES
             ),
             "capacity_bytes": T.capacity_nbytes(),
             "slot_capacity": int(len(T.start)),
@@ -1132,46 +1148,60 @@ class SessionWindowExec(ExecOperator):
                 T.accs[slot] = accs
         T.chain(gids.astype(np.int64), slots)
 
+    def _snapshot_entries(self, slots: np.ndarray) -> list:
+        """The checkpoint document's ``sessions`` entries of ``slots``:
+        ``[key values, start, last, aggregates, accumulator states]``."""
+        T = self._table
+        key_cols = self._interner.keys_of(T.gid[slots])
+        keys = (zip(*(c.tolist() for c in key_cols)) if key_cols
+                else itertools.repeat(()))
+        cols = zip(
+            T.start[slots].tolist(), T.last[slots].tolist(),
+            T.row_count[slots].tolist(), T.counts[slots].tolist(),
+            T.sums[slots].tolist(), T.mins[slots].tolist(),
+            T.maxs[slots].tolist(), T.means[slots].tolist(),
+            T.m2s[slots].tolist(), slots.tolist(),
+        )
+        return [
+            [list(key), start, last,
+             {"count": count, "counts": counts, "sums": sums, "mins": mins,
+              "maxs": maxs, "means": means, "m2s": m2s},
+             [acc.state() for acc in T.accs[s]] if s in T.accs else None]
+            for key, (start, last, count, counts, sums, mins, maxs, means,
+                      m2s, s) in zip(keys, cols)
+        ]
+
     def _snapshot(self, epoch: int) -> None:
+        """One JSON document: the epoch, the watermark, every resident
+        session (ordered by start, then gid) and the spilled blocks' ids.
+        The sessions are encoded ``SNAPSHOT_CHUNK`` at a time, so the
+        Python objects alive at once are one chunk's, not ~2.5 KB for
+        every resident session; the bytes are ``json.dumps`` of the whole
+        document's."""
         coord, key = self._ckpt
         T = self._table
         live = T.live_slots()
-        order = np.lexsort((T.gid[live], T.start[live]))
-        live = live[order]
-        key_cols = self._interner.keys_of(T.gid[live])
-        sessions = []
-        for i, s in enumerate(live.tolist()):
-            sessions.append(
-                [
-                    [key_cols[c][i] for c in range(len(key_cols))],
-                    int(T.start[s]),
-                    int(T.last[s]),
-                    {
-                        "count": int(T.row_count[s]),
-                        "counts": [int(x) for x in T.counts[s]],
-                        "sums": [float(x) for x in T.sums[s]],
-                        "mins": [float(x) for x in T.mins[s]],
-                        "maxs": [float(x) for x in T.maxs[s]],
-                        "means": [float(x) for x in T.means[s]],
-                        "m2s": [float(x) for x in T.m2s[s]],
-                    },
-                    [acc.state() for acc in T.accs[s]]
-                    if s in T.accs
-                    else None,
-                ]
-            )
-        snap = {
-            "epoch": epoch, "watermark": self._watermark,
-            "sessions": sessions,
-        }
+        live = live[np.lexsort((T.gid[live], T.start[live]))]
+        head = json.dumps(
+            jsonable({"epoch": epoch, "watermark": self._watermark}))
+        parts = [head[:-1].encode(), b', "sessions": [']
+        for lo in range(0, len(live), SNAPSHOT_CHUNK):
+            chunk = json.dumps(jsonable(
+                self._snapshot_entries(live[lo:lo + SNAPSHOT_CHUNK])))
+            parts += [b", "] * (lo > 0) + [chunk[1:-1].encode()]
+        parts.append(b"]")
         if self._tier is not None and self._tier.any_spilled:
             # spilled + resident state commit under ONE epoch: block
             # payloads re-put (CRC-framed, manifest-listed) under
             # epoch-suffixed keys, referenced here by id
-            snap["spill_blocks"] = self._tier.snapshot_refs(
-                coord, key, epoch
-            )
-        put_json(coord, key, epoch, snap)
+            refs = self._tier.snapshot_refs(coord, key, epoch)
+            parts.append(
+                b', "spill_blocks": ' + json.dumps(jsonable(refs)).encode())
+        parts.append(b"}")
+        self.last_snapshot_bytes = coord.put_snapshot(key, epoch, parts)
+        del parts  # freed before the tier hands the pages back
+        if self._tier is not None:
+            tiering.release_freed_memory()
 
     def run(self) -> Iterator[StreamItem]:
         for item in self._doctor_input():

@@ -41,7 +41,7 @@ from denormalized_tpu_torch.logical.expr import (
     Expr,
     column_validity,
 )
-from denormalized_tpu_torch.obs import statewatch as swm
+from denormalized_tpu_torch.obs import statewatch
 from denormalized_tpu_torch.ops.segment_agg import chan_merge, variance_from_m2
 from denormalized_tpu_torch.physical.base import (
     EOS,
@@ -147,7 +147,7 @@ class ReferenceSessionWindowExec(ExecOperator):
         # state observatory: the oracle operator has no interner, so it
         # assigns its own sequential key ids for the sketches (per-row
         # Python is this operator's nature — it is the slow reference)
-        self._sw = swm.make_watch("session_ref")
+        self._sw = statewatch.make_watch("session_ref")
         self._sw_ids: dict = {}
         self._sw_keys: list = []
         self._obs_late = obs.counter("dnz_late_rows_total", op="session_ref")
@@ -214,8 +214,8 @@ class ReferenceSessionWindowExec(ExecOperator):
             "op": "session_ref",
             "state_bytes": (
                 n_sessions * per_session
-                + live_keys * swm.KEY_EST_BYTES
-                + acc_objs * swm.ACC_EST_BYTES
+                + live_keys * statewatch.KEY_EST_BYTES
+                + acc_objs * statewatch.ACC_EST_BYTES
             ),
             "live_keys": live_keys,
             "key_capacity": live_keys,

@@ -557,9 +557,7 @@ class SliceWindowExec(ExecOperator):
         if self._upstream_cost_fn is not None:
             try:
                 up = float(self._upstream_cost_fn())
-            except Exception:
-                # attribution is best effort: a torn upstream metrics read
-                # mid-teardown degrades to measured-only shares
+            except Exception:  # dnzlint: allow(broad-except) doctor attribution is best-effort: a torn upstream metrics read mid-teardown degrades to measured-only shares, it never fails the pipeline
                 up = 0.0
         if total <= 0.0 and up <= 0.0:
             return {sub.tag: 1.0 / n for sub in self._subs}
@@ -1501,9 +1499,7 @@ class SliceWindowExec(ExecOperator):
 
         for item in self._doctor_input():
             if isinstance(item, RecordBatch):
-                # boundary fast-path peek: the truthiness load is atomic and
-                # _drain_ops re-checks _pending_ops under _ops_lock; a stale
-                # miss defers the op to the next batch boundary
+                # dnzlint: allow(unguarded) boundary fast-path peek: truthiness load is atomic and _drain_ops re-checks _pending_ops under _ops_lock; a stale miss just defers the op to the next batch boundary
                 if self._pending_ops and item.num_rows:
                     # live attach/detach lands at batch boundaries; ops
                     # carrying an event-time threshold fire exactly when

@@ -45,7 +45,7 @@ from denormalized_tpu_torch.logical.expr import (
     column_validity,
 )
 from denormalized_tpu_torch.logical.plan import WindowType
-from denormalized_tpu_torch.obs import statewatch as swm
+from denormalized_tpu_torch.obs import statewatch
 from denormalized_tpu_torch.ops.interner import GroupInterner
 from denormalized_tpu_torch.ops.segment_agg import chan_merge, variance_from_m2
 from denormalized_tpu_torch.physical.base import (
@@ -182,17 +182,18 @@ class _UdafTier:
                     if accs is SPILLED:
                         continue
                     for acc in accs:
-                        acc_bytes += swm.acc_nbytes(acc)
+                        acc_bytes += statewatch.acc_nbytes(acc)
         except RuntimeError:
             # torn read mid-mutation: the flat estimate for this sample
             groups = sum(len(f) for f in list(op._frames.values()))
             acc_bytes = (
                 (groups - self.spilled_groups)
                 * max(len(op.aggr_exprs), 1)
-                * swm.ACC_EST_BYTES
+                * statewatch.ACC_EST_BYTES
             )
         keys = len(op._interner) if op._interner is not None else 0
-        return acc_bytes + keys * swm.KEY_EST_BYTES + len(op._frames) * 64
+        return (acc_bytes + keys * statewatch.KEY_EST_BYTES
+                + len(op._frames) * 64)
 
     def _ensure_maps(self, n: int) -> None:
         self.cold.ensure(n)
@@ -258,7 +259,7 @@ class _UdafTier:
                 if accs is not SPILLED:
                     per_gid[g] = per_gid.get(g, 0) + 1
                     per_gid_bytes[g] = per_gid_bytes.get(g, 0) + sum(
-                        swm.acc_nbytes(a) for a in accs
+                        statewatch.acc_nbytes(a) for a in accs
                     )
         self._ensure_maps(self._capacity())
         protect = np.zeros(len(self._block_of), dtype=bool)
@@ -293,6 +294,7 @@ class _UdafTier:
         if spilled_any:
             self._write_manifest()
             self.op._state_info_cache = None
+            tiering.release_freed_memory()
         self.ctrl.check_pressure(self.node_id)
 
     def _spill_chunk(self, gids_chunk: np.ndarray) -> None:
@@ -480,7 +482,7 @@ class UdafWindowExec(ExecOperator):
 
         self.bind_obs("udaf")
         # state observatory sketches, fed dense gids per batch
-        self._sw = swm.make_watch("udaf")
+        self._sw = statewatch.make_watch("udaf")
         self._obs_late = obs.counter("dnz_late_rows_total", op="udaf")
         self._obs_windows = obs.counter(
             "dnz_windows_emitted_total", op="udaf"
@@ -524,7 +526,7 @@ class UdafWindowExec(ExecOperator):
                 groups_total += 1
                 live_gids.add(g)
                 for acc in accs:
-                    acc_bytes += swm.acc_nbytes(acc)
+                    acc_bytes += statewatch.acc_nbytes(acc)
         live_keys = len(live_gids)
         oldest = (
             self._first_open * self.slide_ms
@@ -535,7 +537,8 @@ class UdafWindowExec(ExecOperator):
         info = {
             "op": "udaf",
             "state_bytes": (
-                acc_bytes + live_keys * swm.KEY_EST_BYTES + len(frames) * 64
+                acc_bytes + live_keys * statewatch.KEY_EST_BYTES
+                + len(frames) * 64
             ),
             "live_keys": live_keys,
             "slot_capacity": groups_total,

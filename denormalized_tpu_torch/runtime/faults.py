@@ -107,6 +107,69 @@ SITES = {
     "cluster.replay": SourceError,
 }
 
+#: where each site's ``inject`` call lives (module relative to this
+#: package) and what the boundary is.  Machine-checked both ways by
+#: the lint (DNZ-F002): a site registered here with no inject call in its
+#: declared module — or renamed at the call site — fails the lint gate
+#: instead of arming vacuous chaos plans.  The fault-site table in
+#: ``docs/port.md`` is generated from this registry
+#: (``python -m tools.torch_lint --fault-site-table``).
+SITE_MODULES = {
+    "kafka.fetch": ("sources/kafka.py", "`KafkaClient` fetch (every wire fetch)"),
+    "kafka.produce": ("sources/kafka.py", "`KafkaClient.produce`"),
+    "decode": ("sources/kafka.py", "decoder output, once per rowful batch, both decode paths"),
+    "sink.write": ("sources/kafka.py", "`KafkaSinkWriter.write`"),
+    "lsm.put": ("state/lsm.py", "`LsmStore.put` (supports torn values)"),
+    "lsm.get": ("state/lsm.py", "`LsmStore.get`"),
+    "lsm.flush": ("state/lsm.py", "`LsmStore.flush`"),
+    "checkpoint.commit": ("state/checkpoint.py", "`CheckpointCoordinator.commit`"),
+    "lsm.spill_put": (
+        "state/tiering.py",
+        "`SpillController.put_block` — cold-state block eviction to the "
+        "LSM tier (supports torn values)",
+    ),
+    "lsm.spill_get": (
+        "state/tiering.py",
+        "`SpillController.get_block` — reload-on-touch of a spilled block",
+    ),
+    "spill.manifest": (
+        "state/tiering.py",
+        "`SpillController.write_manifest` — per-node live-block manifest "
+        "write (supports torn values)",
+    ),
+    "exchange.connect": (
+        "cluster/exchange.py",
+        "`ExchangeClient.connect` — worker-to-worker exchange socket "
+        "establishment (cluster runtime)",
+    ),
+    "exchange.send": (
+        "cluster/exchange.py",
+        "`ExchangeClient.send` — one framed exchange message on the "
+        "wire (supports torn frames: the truncated frame is written, "
+        "the receiver's CRC/length check detects the tear)",
+    ),
+    "exchange.recv": (
+        "cluster/exchange.py",
+        "exchange server receive loop, once per inbound frame",
+    ),
+    "exchange.reconnect": (
+        "cluster/exchange.py",
+        "`ExchangeClient` redial of a down edge during partial "
+        "recovery, once per backoff attempt",
+    ),
+    "cluster.rejoin": (
+        "cluster/worker.py",
+        "respawned worker's rejoin handshake (generation > 0), before "
+        "it reports ready to the coordinator",
+    ),
+    "cluster.replay": (
+        "cluster/exchange.py",
+        "replay of sender-buffered frames on a freshly resumed "
+        "exchange connection (supports torn frames: the receiver's "
+        "CRC check detects the tear and the edge redials)",
+    ),
+}
+
 _KINDS = ("error", "latency", "torn")
 
 

@@ -53,7 +53,7 @@ def spawn_pump(
                 for item in items():
                     if not checked_put(q, done, wrap(item)):
                         return
-        except BaseException as e:  # enqueued as data: the consumer re-raises it
+        except BaseException as e:  # dnzlint: allow(broad-except) not swallowed — the exception is enqueued as data and the consumer re-raises it (see module docstring)
             checked_put(q, done, wrap(e))
         finally:
             checked_put(q, done, sentinel)

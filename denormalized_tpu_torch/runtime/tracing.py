@@ -50,7 +50,7 @@ def span(name: str, **fields):
     if not _TRACING and rec is None:
         yield
         return
-    t0 = time.perf_counter()
+    t0 = time.perf_counter()  # dnzlint: allow(replay-impure) span timing is observability only; a span never feeds the bytes it brackets
     if _TRACING:
         logger.info("enter %s %s", name, fields or "")
     err: str | None = None
@@ -60,7 +60,7 @@ def span(name: str, **fields):
         err = type(e).__name__
         raise
     finally:
-        dur = time.perf_counter() - t0
+        dur = time.perf_counter() - t0  # dnzlint: allow(replay-impure) span timing is observability only
         if _TRACING:
             logger.info(
                 "close %s time.busy=%.3fms status=%s %s",

@@ -97,11 +97,15 @@ def epoch_of_key(kb: bytes) -> int | None:
         return None
 
 
-def frame_snapshot(blob: bytes) -> bytes:
-    """Wrap a snapshot payload in the integrity header."""
-    return _SNAP_HDR.pack(
-        _SNAP_MAGIC, _SNAP_VERSION, zlib.crc32(blob), len(blob)
-    ) + blob
+def frame_snapshot(blob: bytes | list[bytes]) -> bytes:
+    """Wrap a snapshot payload, whole or as its pieces in order, in the
+    integrity header (pieces are joined once, behind the header)."""
+    parts = blob if isinstance(blob, list) else [blob]
+    crc = 0
+    for p in parts:
+        crc = zlib.crc32(p, crc)
+    return b"".join([_SNAP_HDR.pack(
+        _SNAP_MAGIC, _SNAP_VERSION, crc, sum(map(len, parts))), *parts])
 
 
 def unframe_snapshot(raw: bytes) -> tuple[bool, bytes | None]:
@@ -264,7 +268,7 @@ class CheckpointCoordinator:
             except StateError as e:
                 last = e
                 if attempt < _COMMIT_ATTEMPTS - 1:
-                    time.sleep(0.01 * (attempt + 1))
+                    time.sleep(0.01 * (attempt + 1))  # dnzlint: allow(replay-impure) transient-error backoff — timing never feeds stored bytes
         raise last
 
     def _read_history(self, committed: int | None) -> list[int]:
@@ -421,7 +425,10 @@ class CheckpointCoordinator:
         return True, None
 
     # -- write side ------------------------------------------------------
-    def put_snapshot(self, key: str, epoch: int, blob: bytes) -> None:
+    def put_snapshot(self, key: str, epoch: int, blob: bytes | list[bytes]
+                     ) -> int:
+        """Frame and store one snapshot blob (or its pieces, in order) →
+        the framed byte count."""
         framed = frame_snapshot(blob)
         self._obs_snap_bytes.observe(len(framed))
         # per-state-key last-snapshot size: the aggregate histogram says
@@ -434,6 +441,7 @@ class CheckpointCoordinator:
         ).set(len(framed))
         self.backend.put(f"{key}@{epoch}", framed)
         self._epoch_keys.setdefault(epoch, []).append(key)
+        return len(framed)
 
     def commit(self, epoch: int) -> None:
         """Marker drained at the root: make epoch E durable (manifest →
@@ -446,7 +454,7 @@ class CheckpointCoordinator:
         new_history = sorted(
             set(h for h in self.committed_history if h < epoch) | {epoch}
         )[-RETAINED_EPOCHS:]
-        t0_commit = time.perf_counter()
+        t0_commit = time.perf_counter()  # dnzlint: allow(replay-impure) commit-latency metric — observability only, not manifest bytes
         last_err = None
         for attempt in range(1, _COMMIT_ATTEMPTS + 1):
             try:
@@ -469,10 +477,10 @@ class CheckpointCoordinator:
                     epoch, e, attempt, _COMMIT_ATTEMPTS,
                 )
                 if attempt < _COMMIT_ATTEMPTS:
-                    time.sleep(0.01 * attempt)
+                    time.sleep(0.01 * attempt)  # dnzlint: allow(replay-impure) commit-retry backoff — timing never feeds stored bytes
         if last_err is not None:
             raise last_err
-        self._obs_commit_ms.observe((time.perf_counter() - t0_commit) * 1e3)
+        self._obs_commit_ms.observe((time.perf_counter() - t0_commit) * 1e3)  # dnzlint: allow(replay-impure) commit-latency metric — observability only
         self._obs_epoch.set(epoch)
         retained = set(new_history)
         self.committed_epoch = epoch

@@ -92,6 +92,27 @@ THRASH_WINDOW_S = 60.0
 _RELOAD_ATTEMPTS = 3
 
 
+def release_freed_memory() -> None:
+    """Hand the pages the allocator freed but holds back to the system
+    (glibc's ``malloc_trim(0)``; nothing elsewhere).  A tier calls it
+    after a spill round, where the slots, blocks and copies it just
+    dropped would otherwise stay in the process's RSS as free-but-held
+    heap, so a budgeted job's RSS follows its resident state."""
+    global _MALLOC_TRIM
+    if _MALLOC_TRIM is None:
+        import ctypes
+
+        try:
+            _MALLOC_TRIM = ctypes.CDLL(None).malloc_trim
+        except (OSError, AttributeError):
+            _MALLOC_TRIM = False
+    if _MALLOC_TRIM:
+        _MALLOC_TRIM(0)
+
+
+_MALLOC_TRIM = None
+
+
 # -- end-of-line backpressure gate ----------------------------------------
 # Module-level so the prefetch workers can poll it with one global read;
 # engaged/released under a lock, keyed by (controller, node) so two
@@ -407,7 +428,7 @@ class SpillController:
             except StateError as e:
                 last = e
                 if attempt < _RELOAD_ATTEMPTS - 1:
-                    time.sleep(0.01 * (attempt + 1))
+                    time.sleep(0.01 * (attempt + 1))  # dnzlint: allow(replay-impure) reload-retry backoff — timing never feeds block bytes
         if last is not None:
             raise last
         if raw is None:

@@ -32,6 +32,9 @@ def test_torch_soak_bigstate_smoke(tmp_path):
     and bounded, the RSS saving and the net ratio, every fault rule fired,
     a kill after a commit with spilled state at the cut."""
     r = run_soak(tmp_path, "bigstate", BIGSTATE_SMOKE)
+    print(json.dumps({k: r[k] for k in (
+        "rss_ratio_net", "rss_saved_mb", "rss_saved_required_mb")}
+        | {"cuts": r["budgeted"]["cuts"]}))
     assert r["gates"] and all(r["gates"].values()), r["gates"]
     bud = r["budgeted"]
     assert r["reference"]["sessions"] == r["sessions_expected"] == (
@@ -182,3 +185,102 @@ def test_bigstate_child_holds_no_jax(tmp_path):
     assert len(done) == 1 and done[0]["foreign_modules"] == []
     assert S.read_emissions([tmp_path / "port.jsonl"])[2]
 
+
+
+def _mem(rss, anon, arena, in_use, free, mmap, table, keys, lsm, ckpt):
+    return {"rss_kb": rss, "anon_kb": anon, "private_dirty_kb": anon,
+            "arena_kb": arena, "in_use_kb": in_use, "free_held_kb": free,
+            "mmap_kb": mmap, "table_bytes": table, "interner_keys": keys,
+            "interner_est_bytes": keys * 64, "lsm_keys": lsm,
+            "ckpt_doc_bytes": ckpt}
+
+
+def test_bigstate_owner_split_from_state_lines(tmp_path):
+    """A segment's owner split: the state line nearest its RSS peak, each
+    field's growth above the ready line's, its live and spilled keys; no
+    split without a ready record or a state line; the segments' RSS and
+    the gates read as before with the split beside them."""
+    base = {"rss_kb": 4_900_000, "anon_kb": 150_000,
+            "private_dirty_kb": 150_000, "arena_kb": 90_000,
+            "in_use_kb": 88_000, "free_held_kb": 2_000, "mmap_kb": 4_000}
+    ready = {"event": "ready", "t": 100.0, "rss_kb": 4_900_000, "mem": base}
+    lines = [ready]
+    for i, (keys, spilled, rss) in enumerate(
+            ((40_000, 30_000, 4_930_000), (160_000, 150_000, 4_990_000),
+             (120_000, 110_000, 4_985_000))):
+        st = _state(101.0 + i, 7, spilled * 80)
+        st.update(live_keys=keys, spilled_keys=spilled, mem=_mem(
+            rss, 150_000 + rss - 4_900_000, 100_000 + i, 95_000, 5_000 + i,
+            24_000, 6_000_000, keys, 40 + i, 10_000 * (i + 1)))
+        lines.append(st)
+    side = tmp_path / "seg.jsonl.state"
+    side.write_text("".join(json.dumps(o) + "\n" for o in lines))
+    own = torch_soak.bigstate_owners(side, ready, 102.3)
+    assert own["peak_after_ready_s"] == 2.3
+    assert own["line_after_ready_s"] == 2.0
+    assert (own["live_keys"], own["spilled_keys"]) == (160_000, 150_000)
+    assert set(own["at_line"]) == set(torch_soak.BIGSTATE_OWNER_FIELDS)
+    assert own["at_line"]["interner_keys"] == 160_000
+    assert own["at_line"]["ckpt_doc_bytes"] == 20_000
+    assert own["above_ready_kb"] == {
+        "rss_kb": 90_000, "anon_kb": 90_000, "private_dirty_kb": 90_000,
+        "arena_kb": 10_001, "in_use_kb": 7_000, "free_held_kb": 3_001,
+        "mmap_kb": 20_000}
+    assert torch_soak.bigstate_owners(side, None, 102.3) is None
+    assert torch_soak.bigstate_owners(
+        side, {k: v for k, v in ready.items() if k != "mem"}, 102.3) is None
+    bare = tmp_path / "bare.jsonl.state"
+    bare.write_text(json.dumps(ready) + "\n")
+    assert torch_soak.bigstate_owners(bare, ready, 102.3) is None
+
+    def seg(ready_kb, peak):
+        return {"rss_ready_kb": ready_kb, "rss_max_kb": peak,
+                "rss_net_max_kb": peak - ready_kb, "owners": own}
+
+    ref = torch_soak.bigstate_rss([seg(4_900_000, 5_010_000)])
+    bud = torch_soak.bigstate_rss([seg(4_900_000, 4_990_000)])
+    assert (ref["net_max_kb"], bud["net_max_kb"]) == (110_000, 90_000)
+    def gates(working_set):
+        return torch_soak.bigstate_gates(
+            keys=1000, waves=2, working_set=working_set, budget=6 << 20,
+            chaos_spill=True,
+            ref={"aborted": None, "done": True, "rss": ref,
+                 "sessions": 1000 + 2 * torch_soak.BIGSTATE_WAVE_ROWS},
+            bud={"aborted": None, "done": True, "rss": bud, "lost": 0,
+                 "spurious": 0, "mismatched": 0,
+                 "cuts": [_state(103.0, 7, 4000)],
+                 "spill": {"spill_blocks_total": 3},
+                 "evictable_max": 1 << 20,
+                 "fired_rules": {r: 1 for r in S.BIGSTATE_REQUIRED_RULES}})
+
+    # net 90,000 / 110,000 = 0.818 <= 0.9; 20,000 kB saved >= 35% of a
+    # 29 MiB working set (10.2 MiB), < 35% of 80 MiB (28 MiB)
+    assert all(gates(29 << 20).values())
+    assert [k for k, v in gates(80 << 20).items() if not v] == ["rss_saved"]
+
+
+def test_bigstate_child_state_lines_carry_the_owner_split(tmp_path):
+    """A budgeted bigstate child on the CPU writes the owner split into
+    its ready line (the process's pages and heap) and every state line
+    (plus the table, the interner, the LSM index and the last checkpoint
+    document)."""
+    env = _child_env(tmp_path, "port", 100_000, 10_000)
+    env.update(SOAK_BS_BUDGET="3000000", SOAK_CKPT_S="0.5")
+    proc = subprocess.run([sys.executable, str(SOAK), "--child"], env=env,
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    lines = [json.loads(line) for line in open(tmp_path / "port.jsonl.state")
+             if line.strip().endswith("}")]
+    ready = [o for o in lines if o["event"] == "ready"]
+    assert len(ready) == 1
+    assert {"rss_kb", "anon_kb", "arena_kb", "in_use_kb",
+            "free_held_kb"} <= set(ready[0]["mem"])
+    states = [o for o in lines if o["event"] == "state"]
+    assert states
+    for o in states:
+        assert set(torch_soak.BIGSTATE_OWNER_FIELDS) <= set(o["mem"]), o
+        assert o["mem"]["interner_est_bytes"] == (
+            o["mem"]["interner_keys"] * 64)
+        assert o["mem"]["table_bytes"] > 0
+        assert o["mem"]["lsm_keys"] is not None

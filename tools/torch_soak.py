@@ -63,8 +63,9 @@ The parent exits 1 when a gate fails.
 ``--pipeline bigstate`` is ``tools/soak.py::bigstate_main`` (the cold
 tier, larger-than-memory session state, under SIGKILLs and the spill-site
 fault plan): see ``run_bigstate``.  Its child writes its ready, device,
-``state`` (``state_info()`` and the committed epoch, once a second) and
-chaos lines to ``<segment>.jsonl.state``, beside the session lines.
+``state`` (``state_info()``, the committed epoch and where the RSS goes,
+``memory_owners``, once a second) and chaos lines to
+``<segment>.jsonl.state``, beside the session lines.
 
 ``--pipeline cluster`` is ``tools/soak.py::cluster_main`` (the job over
 worker processes, a torn exchange frame and a SIGKILL, in a full-restart
@@ -76,6 +77,7 @@ import ``torch`` and ``denormalized_tpu_torch`` only.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import signal
@@ -201,6 +203,65 @@ def _device_record(torch, device: str) -> dict:
     rec["rss_kb"] = S.rss_kb(os.getpid())
     rec["launches"] = _launches()
     return rec
+
+
+class _MallInfo2(ctypes.Structure):
+    """glibc's ``struct mallinfo2``: every field a ``size_t``."""
+
+    _fields_ = [(n, ctypes.c_size_t) for n in (
+        "arena", "ordblks", "smblks", "hblks", "hblkhd", "usmblks",
+        "fsmblks", "uordblks", "fordblks", "keepcost")]
+
+
+def _mallinfo() -> dict:
+    """glibc's heap over every arena: ``arena_kb`` (bytes taken from the
+    system outside mmapped chunks), ``in_use_kb``, ``free_held_kb`` (freed
+    and kept by the allocator) and ``mmap_kb``; empty off glibc."""
+    try:
+        fn = ctypes.CDLL(None).mallinfo2
+    except (OSError, AttributeError):
+        return {}
+    fn.restype = _MallInfo2
+    m = fn()
+    return {"arena_kb": m.arena >> 10, "in_use_kb": m.uordblks >> 10,
+            "free_held_kb": m.fordblks >> 10, "mmap_kb": m.hblkhd >> 10}
+
+
+def _smaps_rollup() -> dict:
+    """``Rss``, ``Anonymous`` and ``Private_Dirty`` of this process, kB."""
+    want = {"Rss": "rss_kb", "Anonymous": "anon_kb",
+            "Private_Dirty": "private_dirty_kb"}
+    out: dict = {}
+    try:
+        with open("/proc/self/smaps_rollup") as f:
+            for line in f:
+                name, _, rest = line.partition(":")
+                if name in want:
+                    out[want[name]] = int(rest.split()[0])
+    except OSError:
+        pass
+    return out
+
+
+def memory_owners(op) -> dict:
+    """Where a session job's RSS goes: the process's anonymous and dirty
+    pages, glibc's heap, the session table's arrays, the interner's keys
+    (count and the tier's estimate), the keys of the LSM store's in-memory
+    index (it buffers no values: each put is appended to its segment file)
+    and the operator's last checkpoint document."""
+    from denormalized_tpu_torch.obs import statewatch
+
+    tier = op._tier
+    store = tier.ctrl.backend if tier is not None else None
+    keys = len(op._interner)
+    return {
+        **_smaps_rollup(), **_mallinfo(),
+        "table_bytes": op._table.capacity_nbytes(),
+        "interner_keys": keys,
+        "interner_est_bytes": keys * statewatch.KEY_EST_BYTES,
+        "lsm_keys": len(store) if store is not None else None,
+        "ckpt_doc_bytes": op.last_snapshot_bytes,
+    }
 
 
 def _start_device_sampler(out: _Out, torch, device: str, extra=None):
@@ -468,6 +529,7 @@ def child_main() -> None:
                     "spill": info.get("spill"),
                     "committed_epoch": (coord.committed_epoch
                                         if coord is not None else None),
+                    "mem": memory_owners(op),
                 })
                 break
             stack.extend(op.children)
@@ -484,7 +546,9 @@ def child_main() -> None:
     # the RSS at the ready line is the process's fixed part (imports, the
     # CUDA context, the kernel libraries), taken before the first batch
     side.event({"event": "ready", "t": time.time(),
-                "rss_kb": S.rss_kb(os.getpid()), **startup})
+                "rss_kb": S.rss_kb(os.getpid()), **startup,
+                **({"mem": {**_smaps_rollup(), **_mallinfo()}}
+                   if pipeline == "bigstate" else {})})
     sampler = _start_device_sampler(
         side, torch, device,
         extra=bigstate_lines if pipeline == "bigstate" else None)
@@ -1734,6 +1798,42 @@ def bigstate_cut(side_path, t_cut: float, ready: dict | None) -> dict:
     return cut
 
 
+#: the owner split's fields a segment's report keeps, from the ``mem``
+#: record of its ``state`` line nearest its RSS peak
+BIGSTATE_OWNER_FIELDS = (
+    "rss_kb", "anon_kb", "private_dirty_kb", "arena_kb", "in_use_kb",
+    "free_held_kb", "mmap_kb", "table_bytes", "interner_keys",
+    "interner_est_bytes", "lsm_keys", "ckpt_doc_bytes")
+
+
+def bigstate_owners(side_path, ready: dict | None, t_peak: float | None
+                    ) -> dict | None:
+    """Where a segment's RSS went: the owner split at its ready line and
+    in the ``state`` line nearest its peak RSS sample (``t_peak``), each
+    field's growth above the ready line, and the state line's live and
+    spilled keys → None without a ready line or a state line."""
+    if ready is None or t_peak is None or "mem" not in ready:
+        return None
+    near = None
+    for o in _json_lines(side_path):
+        if o.get("event") == "state" and "mem" in o and (
+                near is None
+                or abs(o["t"] - t_peak) < abs(near["t"] - t_peak)):
+            near = o
+    if near is None:
+        return None
+    base, mem = ready["mem"], near["mem"]
+    return {
+        "peak_after_ready_s": round(t_peak - ready["t"], 2),
+        "line_after_ready_s": round(near["t"] - ready["t"], 2),
+        "live_keys": near.get("live_keys"),
+        "spilled_keys": near.get("spilled_keys"),
+        "at_line": {k: mem.get(k) for k in BIGSTATE_OWNER_FIELDS},
+        "above_ready_kb": {k: mem[k] - base[k] for k in base
+                           if isinstance(mem.get(k), int)},
+    }
+
+
 def bigstate_rss(segments) -> dict:
     """A run's RSS: the whole process's peak (``raw``), and the peak above
     each segment's own ready-line RSS (``net``)."""
@@ -1887,6 +1987,9 @@ def run_bigstate(args) -> bool:
                 "rss_max_kb": max((kb for _t, kb in rss), default=None),
                 "rss_net_max_kb": (max(after_ready) - ready_kb
                                    if after_ready and ready_kb else None),
+                "owners": bigstate_owners(side, ready, max(
+                    ((kb, t) for t, kb in rss if ready and t >= ready["t"]),
+                    default=(None, None))[1]),
                 **segment_device_report(
                     side, fe, [p for p in rss if fe and p[0] >= fe]),
             }
